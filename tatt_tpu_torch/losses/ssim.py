@@ -1,0 +1,60 @@
+"""Eval metrics SSIM and PSNR (counterpart of ``tatt_tpu/losses/ssim.py``).
+
+SSIM uses the reference's 11x11 Gaussian window (sigma 1.5) applied as
+two separable 1-D depthwise passes in float32.  With TF32 off
+(:func:`tatt_tpu_torch.core.device.set_cuda_flags`) the window convs stay in
+full f32 on the card: the variances E[x^2] - E[x]^2 cancel badly in any
+reduced precision (``ssim.py:41-48``).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+C1 = 0.01**2
+C2 = 0.03**2
+
+
+@lru_cache(maxsize=None)
+def _gaussian_1d(n: int, sigma: float = 1.5) -> np.ndarray:
+    x = np.arange(n, dtype=np.float64) - n // 2
+    w = np.exp(-(x**2) / (2 * sigma**2))
+    return (w / w.sum()).astype(np.float32)
+
+
+def _depthwise_filter(img: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Depthwise 'same' Gaussian filter of NCHW, zero padding, as a row
+    pass then a column pass."""
+    c = img.shape[1]
+    g = torch.as_tensor(_gaussian_1d(window_size), device=img.device)
+    pad = window_size // 2
+    row = g.reshape(1, 1, 1, window_size).expand(c, 1, 1, window_size)
+    col = g.reshape(1, 1, window_size, 1).expand(c, 1, window_size, 1)
+    y = F.conv2d(img, row, padding=(0, pad), groups=c)
+    return F.conv2d(y, col, padding=(pad, 0), groups=c)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Mean SSIM over the first 3 channels (``utils/ssim_psnr.py:76-96``)."""
+    img1 = img1[:, :3].float()
+    img2 = img2[:, :3].float()
+    mu1 = _depthwise_filter(img1, window_size)
+    mu2 = _depthwise_filter(img2, window_size)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = _depthwise_filter(img1 * img1, window_size) - mu1_sq
+    sigma2_sq = _depthwise_filter(img2 * img2, window_size) - mu2_sq
+    sigma12 = _depthwise_filter(img1 * img2, window_size) - mu1_mu2
+    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
+    )
+    return ssim_map.mean()
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """PSNR on RGB in [0, 1] scaled x255 (``utils/ssim_psnr.py:9-15``)."""
+    mse = ((img1[:, :3] * 255.0 - img2[:, :3] * 255.0) ** 2).mean()
+    return 20.0 * torch.log10(255.0 / torch.sqrt(mse))

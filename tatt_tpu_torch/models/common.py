@@ -1,0 +1,145 @@
+"""Shared building blocks (counterpart of ``tatt_tpu/models/common.py``).
+
+NCHW at module boundaries, OIHW conv weights, torch-default
+initialization drawn from an explicit ``torch.Generator``
+(:func:`init_parameters`).  Parameter names follow the reference PyTorch
+modules, so a model's ``state_dict`` has the reference layout.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x * tanh(softplus(x)) — ``tatt_tpu/models/common.py:31``."""
+    return x * torch.tanh(F.softplus(x))
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """NCHW PixelShuffle [N, C*r^2, H, W] -> [N, C, H*r, W*r] with the torch
+    channel packing order (c, py, px) — the same map as the JAX package's
+    ``pixel_shuffle_nhwc`` (``common.py:56``) in NCHW."""
+    n, c, h, w = x.shape
+    oc = c // (r * r)
+    x = x.reshape(n, oc, r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, oc, h * r, w * r)
+
+
+def max_pool(
+    x: torch.Tensor,
+    window: tuple[int, int],
+    strides: tuple[int, int],
+    padding: tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """Torch-style MaxPool2d on NCHW (``max_pool_nhwc``, ``common.py:586``):
+    padding counts as -inf."""
+    return F.max_pool2d(x, window, strides, padding)
+
+
+def _uniform(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
+    t.uniform_(-bound, bound, generator=gen)
+
+
+class Conv2d(nn.Module):
+    """Stride-1-or-more conv with explicit symmetric padding, OIHW weight.
+
+    The JAX package computes TATT's final 9x9 conv through a TPU
+    lane-packing trick (``common.py:130-188``); it is the same linear map,
+    so the port computes that conv directly from the same weights."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        out_ch: int,
+        kernel_size: tuple[int, int] = (3, 3),
+        padding: tuple[int, int] = (1, 1),
+        bias: bool = True,
+    ):
+        super().__init__()
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        fan_in = self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3]
+        bound = 1.0 / math.sqrt(fan_in)
+        _uniform(self.weight, bound, gen)
+        if self.bias is not None:
+            _uniform(self.bias, bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight, self.bias, padding=self.padding)
+
+
+class BatchNorm2d(nn.Module):
+    """Eval-mode BatchNorm over NCHW from running statistics, normalized in
+    float32 (``common.py:465-474``).  Training statistics (per-copy and
+    per-replica) come with the training slice."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+class PReLU(nn.Module):
+    """Torch PReLU with one learned slope, init 0.25."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), 0.25))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.weight.fill_(0.25)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight * x)
+
+
+class Dense(nn.Module):
+    """Linear layer on the last axis, torch layout (weight [out, in])."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform(self.weight, bound, gen)
+        _uniform(self.bias, bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, seed: int) -> nn.Module:
+    """Draw every parameter of ``model`` with torch-default ranges from one
+    ``torch.Generator`` seeded with ``seed`` (modules in registration
+    order).  Returns ``model``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for module in model.modules():
+        reset = getattr(module, "reset_parameters", None)
+        if reset is not None:
+            reset(gen)
+    return model

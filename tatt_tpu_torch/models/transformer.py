@@ -1,0 +1,132 @@
+"""Transformer pieces of the TP Interpreter
+(counterpart of ``tatt_tpu/models/transformer.py``).
+
+Batch-first [B, L, C].  Attention keeps torch ``nn.MultiheadAttention``'s
+packed ``in_proj`` [3C, C] layout and is written out in plain ops: the
+caller needs the head-averaged weights (``aux["pr_weights"]``), which a
+fused attention call does not return.  Logits and softmax run in f32.
+Dropout is eval-mode (identity) in this slice.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tatt_tpu_torch.models.common import Dense
+
+
+@lru_cache(maxsize=None)
+def positional_encoding_table(max_len: int, d_model: int) -> np.ndarray:
+    """Sin/cos table (``transformer_v2.py:22-42``): pe[:, 0::2] = sin,
+    pe[:, 1::2] = cos with the log-space frequency schedule."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div_term = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float64) * -(math.log(10000.0) / d_model)
+    )
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+class MultiheadAttention(nn.Module):
+    """Torch-parity MHA returning (output, weights averaged over heads)."""
+
+    def __init__(self, d_model: int, nhead: int):
+        super().__init__()
+        self.d_model, self.nhead = d_model, nhead
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = Dense(d_model, d_model)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = math.sqrt(6.0 / (self.d_model + 3 * self.d_model))  # xavier
+        self.in_proj_weight.uniform_(-bound, bound, generator=gen)
+        self.in_proj_bias.zero_()
+
+    def forward(self, query, key, value):
+        c = self.d_model
+        wq, wk, wv = self.in_proj_weight.split(c)
+        bq, bk, bv = self.in_proj_bias.split(c)
+        q = F.linear(query, wq, bq)
+        k = F.linear(key, wk, bk)
+        v = F.linear(value, wv, bv)
+        b, lq, _ = q.shape
+        lk = k.shape[1]
+        hd = c // self.nhead
+        q = q.reshape(b, lq, self.nhead, hd).transpose(1, 2)
+        k = k.reshape(b, lk, self.nhead, hd).transpose(1, 2)
+        v = v.reshape(b, lk, self.nhead, hd).transpose(1, 2)
+        logits = torch.matmul(q.float() * (1.0 / math.sqrt(hd)), k.float().transpose(-1, -2))
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.matmul(weights.to(v.dtype), v)
+        out = out.transpose(1, 2).reshape(b, lq, c)
+        return self.out_proj(out), weights.mean(dim=1)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with eps 1e-5 and f32 statistics."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, unbiased=False)
+        y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class EncoderLayer(nn.Module):
+    """Post-norm encoder layer (``transformer_v2.py:470-484``)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.linear1 = Dense(d_model, dim_feedforward)
+        self.linear2 = Dense(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+
+    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
+        q = src if pos is None else src + pos
+        attn, _ = self.self_attn(q, q, src)
+        src = self.norm1(src + attn)
+        ff = self.linear2(torch.relu(self.linear1(src)))
+        return self.norm2(src + ff)
+
+
+class TPDecoderLayer(nn.Module):
+    """``TransformerDecoderLayer_TP.forward_post`` (:806-833): cross-attn
+    (q = tgt + query_pos, k = memory + pos, v = memory) -> add&norm -> FFN
+    -> add&norm.  The reference's self-attention block is disabled."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+        super().__init__()
+        self.multihead_attn = MultiheadAttention(d_model, nhead)
+        self.linear1 = Dense(d_model, dim_feedforward)
+        self.linear2 = Dense(dim_feedforward, d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+
+    def forward(self, tgt, memory, pos, query_pos):
+        q = tgt if query_pos is None else tgt + query_pos
+        k = memory if pos is None else memory + pos
+        attn, weights = self.multihead_attn(q, k, memory)
+        tgt = self.norm2(tgt + attn)
+        ff = self.linear2(torch.relu(self.linear1(tgt)))
+        return self.norm3(tgt + ff), weights

@@ -29,3 +29,9 @@ jax.config.update("jax_default_matmul_precision", "highest")
 jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped (with a reason) without one"
+    )

@@ -1,0 +1,115 @@
+"""The port's recurrences (plain versions, on the CPU) against the JAX
+package's Pallas kernels in interpret mode and its lax.scan RNNs.
+
+Same inputs, made with numpy from a seed, go through both packages;
+tolerances are those of tests/test_pallas_gru.py (atol 1e-5, rtol 1e-4).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tatt_tpu.kernels import rnn as jrnn
+from tatt_tpu.kernels.pallas_gru import bigru_pallas
+from tatt_tpu.kernels.pallas_lstm import bilstm_pallas
+from tatt_tpu_torch.kernels import rnn as trnn
+
+TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _params(rng, in_f, hidden, gates):
+    g = gates * hidden
+    return [
+        rng.standard_normal(s).astype(np.float32) * sc
+        for s, sc in (((2, g, in_f), 0.2), ((2, g, hidden), 0.2), ((2, g), 0.1), ((2, g), 0.1))
+    ]
+
+
+def _load(module, w_ih, w_hh, b_ih, b_hh):
+    sd = {}
+    for name, v in (("weight_ih", w_ih), ("weight_hh", w_hh), ("bias_ih", b_ih), ("bias_hh", b_hh)):
+        sd[f"{name}_l0"] = torch.from_numpy(v[0])
+        sd[f"{name}_l0_reverse"] = torch.from_numpy(v[1])
+    module.load_state_dict(sd)
+    return module
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("length", [1, 7, 12])
+def test_bigru_matches_pallas_interpret_and_scan(fold, length):
+    rng = np.random.default_rng(length + 10 * fold)
+    rows, in_f, mid, hidden = 9, 6, 10, 8
+    x = rng.standard_normal((rows, length, in_f)).astype(np.float32)
+    pre_k = rng.standard_normal((mid, in_f)).astype(np.float32) * 0.3 if fold else None
+    pre_b = rng.standard_normal((mid,)).astype(np.float32) * 0.1 if fold else None
+    w_ih, w_hh, b_ih, b_hh = _params(rng, mid if fold else in_f, hidden, 3)
+    jx = [jnp.asarray(a) for a in (x, w_ih, w_hh, b_ih, b_hh)]
+    kw = dict(pre_kernel=jnp.asarray(pre_k), pre_bias=jnp.asarray(pre_b)) if fold else {}
+    want_pallas = np.asarray(bigru_pallas(*jx, interpret=True, **kw))
+    from tatt_tpu.kernels.pallas_gru import compose_input_projection
+
+    w_eff, b_eff = compose_input_projection(jx[1], jx[3], kw.get("pre_kernel"), kw.get("pre_bias"))
+    want_scan = np.asarray(jrnn.bigru_apply(jx[0], w_eff, jx[2], b_eff, jx[4]))
+
+    gru = _load(trnn.BiGRU(mid if fold else in_f, hidden), w_ih, w_hh, b_ih, b_hh)
+    with torch.no_grad():
+        got = gru(
+            torch.from_numpy(x),
+            None if pre_k is None else torch.from_numpy(pre_k),
+            None if pre_b is None else torch.from_numpy(pre_b),
+        ).numpy()
+        w_eff_t, b_eff_t = trnn.compose_input_projection(
+            *(torch.from_numpy(a) for a in (w_ih, b_ih)),
+            None if pre_k is None else torch.from_numpy(pre_k),
+            None if pre_b is None else torch.from_numpy(pre_b),
+        )
+        got_plain = trnn.bigru_apply(
+            torch.from_numpy(x), w_eff_t, torch.from_numpy(w_hh), b_eff_t, torch.from_numpy(b_hh)
+        ).numpy()
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+    np.testing.assert_allclose(got, want_scan, **TOL)
+    np.testing.assert_allclose(got_plain, want_scan, **TOL)
+
+
+@pytest.mark.parametrize("length", [1, 9])
+def test_bilstm_matches_pallas_interpret_and_scan(length):
+    rng = np.random.default_rng(100 + length)
+    rows, in_f, hidden = 5, 12, 8
+    x = rng.standard_normal((rows, length, in_f)).astype(np.float32)
+    params = _params(rng, in_f, hidden, 4)
+    jx = [jnp.asarray(a) for a in (x, *params)]
+    want_pallas = np.asarray(bilstm_pallas(*jx, interpret=True))
+    want_scan = np.asarray(jrnn.bilstm_apply(*jx))
+    lstm = _load(trnn.BiLSTM(in_f, hidden), *params)
+    with torch.no_grad():
+        got = lstm(torch.from_numpy(x)).numpy()
+        got_plain = trnn.bilstm_apply(*(torch.from_numpy(a) for a in (x, *params))).numpy()
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+    np.testing.assert_allclose(got, want_scan, **TOL)
+    np.testing.assert_allclose(got_plain, want_scan, **TOL)
+
+
+def test_wide_bigru_takes_the_plain_path():
+    """Hidden above the kernel's 128 (the query GRU's 512 at full width)
+    runs bigru_apply on every device, as JAX keeps it off its kernel."""
+    from tatt_tpu_torch.kernels import gru
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((1, 3, 4)).astype(np.float32)
+    params = _params(rng, 4, 130, 3)
+    gru_mod = _load(trnn.BiGRU(4, 130), *params)
+    before = gru.bigru_recurrence.launches
+    with torch.no_grad():
+        got = gru_mod(torch.from_numpy(x)).numpy()
+    want = np.asarray(jrnn.bigru_apply(*(jnp.asarray(a) for a in (x, *params))))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert gru.bigru_recurrence.launches == before
+
+
+def test_recurrences_refuse_grad():
+    from tatt_tpu_torch.kernels.lstm import bilstm_recurrence
+
+    gates = torch.zeros(2, 3, 4, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        bilstm_recurrence(gates, torch.zeros(2, 8, 2), torch.zeros(2, 8))
