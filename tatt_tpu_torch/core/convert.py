@@ -9,10 +9,10 @@ directly and the JAX package's own importers (``import_tatt``,
 :func:`from_jax` takes JAX variables as numpy arrays, either nested
 (``{"params": {...}, "batch_stats": {...}}``, as ``tree_map(np.asarray,
 variables)`` gives them) or flat (``"params/conv0/kernel"``, the form of
-``tests/assets/fixture_crnn.npz``).  The STN head of a ``TATT(stn=True)``
-runs only in training (``tsrn.py:608``) and is not converted in this
-slice; :func:`skipped_keys` names the leaves left out, and every other
-leaf must map or :func:`from_jax` raises.
+``tests/assets/fixture_crnn.npz``).  Every leaf must map, the STN head of
+a ``TATT(stn=True)`` included (to the reference's ``stn_head.stn_convnet``
+/ ``stn_fc1`` / ``stn_fc2`` names, ``torch_import.py:264-281``), or
+:func:`from_jax` raises.
 """
 
 from __future__ import annotations
@@ -23,8 +23,6 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
-
-SKIPPED_MODULES = ("stn_head",)
 
 _RNN = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
 _LEAF = {
@@ -81,6 +79,12 @@ def _tatt_prefix(mods: list[str], srb: int, n_up: int) -> str:
     }
     if head in fixed and not rest:
         return fixed[head]
+    if head == "stn_head" and len(rest) == 1:
+        m = re.fullmatch(r"(conv|bn)(\d)", rest[0])
+        if m:  # conv blocks sit at the even indices of stn_convnet
+            return f"stn_head.stn_convnet.{2 * int(m[2])}.{0 if m[1] == 'conv' else 1}"
+        if rest[0] in ("fc1", "fc1_bn"):
+            return f"stn_head.stn_fc1.{0 if rest[0] == 'fc1' else 1}"
     if head == "infoGen":
         if not rest:
             return "infoGen"
@@ -103,13 +107,6 @@ def _crnn_prefix(mods: list[str]) -> str:
     raise KeyError(f"unmapped CRNN module path {'/'.join(mods)!r}")
 
 
-def skipped_keys(variables: Mapping[str, Any]) -> list[str]:
-    """Flat names of the JAX leaves :func:`from_jax` leaves out."""
-    return sorted(
-        k for k in _flatten(variables) if k.split("/")[1] in SKIPPED_MODULES
-    )
-
-
 def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``TATT`` or ``CRNN`` variables -> the port's ``state_dict``."""
     flat = _flatten(variables)
@@ -125,11 +122,13 @@ def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         _, *mods, leaf = key.split("/")
-        if mods and mods[0] in SKIPPED_MODULES:
-            continue
         value = np.asarray(value, np.float32)
         if leaf == "init_factor" and mods == ["infoGen"]:
             entries = {"infoGen.init_factor.weight": value}
+        elif leaf == "fc2_kernel" and mods == ["stn_head"]:
+            entries = {"stn_head.stn_fc2.weight": value.T}
+        elif leaf == "fc2_bias" and mods == ["stn_head"]:
+            entries = {"stn_head.stn_fc2.bias": value}
         elif leaf in _RNN:
             base = f"{prefix_of(mods)}.{_RNN[leaf]}"
             entries = {f"{base}_l0": value[0], f"{base}_l0_reverse": value[1]}
@@ -143,7 +142,7 @@ def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         for name, arr in entries.items():
             if name in out:
                 raise KeyError(f"two JAX leaves map to {name!r}")
-            out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[name] = torch.from_numpy(np.array(arr, np.float32))  # a writable copy
     return out
 
 
@@ -175,8 +174,9 @@ def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
 
 def load_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> list[str]:
     """Copy ``state_dict`` into ``model``.  Every entry of the model must be
-    present; entries the model does not have (the STN head, the reference
-    decoder's unused self-attention, BN counters) are returned by name."""
+    present; entries the model does not have (the STN head of a model built
+    without ``stn``, the reference decoder's unused self-attention, BN
+    counters) are returned by name."""
     own = model.state_dict()
     missing = sorted(set(own) - set(state_dict))
     if missing:

@@ -145,6 +145,13 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
 
 }  // namespace
 
+// A refused call also sets the runtime's last error; clear it so that the
+// next launch's cudaGetLastError() reports only its own.
+static int clear_and_return(cudaError_t e) {
+  cudaGetLastError();
+  return (int)e;
+}
+
 extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_hh,
                          float* out, int L, int H, int R, cudaStream_t stream) {
   const int tpr = (H + JT - 1) / JT;  // threads per row
@@ -153,7 +160,7 @@ extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_h
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         bigru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return clear_and_return(e);
   }
   const dim3 grid((R + RB - 1) / RB, 2);
   const dim3 block(RB * tpr);

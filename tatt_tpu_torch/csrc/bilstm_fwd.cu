@@ -11,8 +11,10 @@
 // one matmul.  Direction 0 walks t = 0 .. L-1, direction 1 walks
 // t = L-1 .. 0 and writes each output at its forward-time slot, so no
 // time-flipped copy is made (the JAX wrapper flips outside its kernel).
-// The JAX kernel also stores every c for its backward pass; this forward
-// serves inference only and keeps c in registers, storing no c sequence.
+// c lives in registers; when `cseq` is not null every c is also stored, in
+// the `out` layout, for the backward pass (csrc/bilstm_bwd.cu), as the JAX
+// kernel stores it (pallas_lstm.py:50).  Inference passes null and writes
+// no extra bytes.
 //
 // Layouts (float32, contiguous):
 //   gates [2, R, L, 4H]   (gates minor: the matmul x @ W_ih^T writes this
@@ -20,6 +22,7 @@
 //   w_hh  [2, 4H, H],  b_hh [2, 4H]
 //   out   [R, L, 2H]      (the public BiLSTM layout; direction d at
 //                          channels d*H .. d*H+H-1)
+//   cseq  [R, L, 2H] or null
 //
 // What bounds it on an H100: the recurrence is serial in t, and at H=256
 // each step is a [4H x H] x [H x rows] product whose W_hh (1 MB f32 per
@@ -62,7 +65,7 @@ __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x))
 __global__ void __launch_bounds__(256)
 bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                   const float* __restrict__ b_hh, float* __restrict__ out,
-                  int L, int H, int R) {
+                  float* __restrict__ cseq, int L, int H, int R) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -141,7 +144,11 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = row0 + r;
-      if (row < R) out[((size_t)row * L + t) * 2 * H + (size_t)dir * H + unit] = hn[r];
+      if (row < R) {
+        const size_t o = ((size_t)row * L + t) * 2 * H + (size_t)dir * H + unit;
+        out[o] = hn[r];
+        if (cseq != nullptr) cseq[o] = c[r];
+      }
     }
     // publishes every block's slice of h_{s+1}; also, no block moves on to
     // overwrite h_cur (step s+1 writes the other buffer, step s+2 this one)
@@ -152,6 +159,13 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
 
 }  // namespace
 
+// A refused call also sets the runtime's last error; clear it so that the
+// next launch's cudaGetLastError() reports only its own.
+static int clear_and_return(cudaError_t e) {
+  cudaGetLastError();
+  return (int)e;
+}
+
 // Shared-memory bytes of one block for hidden size H and cluster size cs.
 static size_t smem_bytes(int H, int cs) {
   const int U = H / cs;
@@ -159,13 +173,13 @@ static size_t smem_bytes(int H, int cs) {
 }
 
 extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
-                          float* out, int L, int H, int R, cudaStream_t stream) {
+                          float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
   int cs = 8;
   while (H % cs) cs /= 2;
   const size_t smem = smem_bytes(H, cs);
   cudaError_t e = cudaFuncSetAttribute(
       bilstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return clear_and_return(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs * ((R + RT - 1) / RT), 2);
   cfg.blockDim = dim3((H / cs) * RG);
@@ -178,8 +192,8 @@ extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, bilstm_fwd_kernel, gates, w_hh, b_hh, out, L, H, R);
-  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, bilstm_fwd_kernel, gates, w_hh, b_hh, out, cseq, L, H, R);
+  if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
 

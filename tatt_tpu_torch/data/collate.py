@@ -1,12 +1,15 @@
-"""Eval collate: PIL samples -> stacked uint8 crops (the eval subset of
-``tatt_tpu/data/collate.py``, its ``raw=True`` form).
+"""Collate: PIL samples -> stacked uint8 crops (``tatt_tpu/data/collate.py``
+in its ``raw=True`` form, the fields the eval path and the canonical
+training recipe read).
 
 HR is resized to 128x32 and LR to 64x16 (the default geometry, scale 2)
 with PIL BICUBIC where the source size differs (``resizeNormalize``,
 ``dataset.py:1266-1319``).  The float conversion, layout and mask channel
 run on the device (:func:`.device_pipeline.device_normalize`); the host
 path's float tensors are bit-equal to them (the mask threshold is a mean
-of integer lumas over 32x128 or 16x64 pixels, exact in float32).
+of integer lumas over 32x128 or 16x64 pixels, exact in float32).  The
+label tensors of the JAX collate (spread one-hots, CTC targets) serve only
+``--use_label``, which is not ported yet.
 """
 
 from __future__ import annotations

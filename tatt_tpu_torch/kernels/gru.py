@@ -1,13 +1,16 @@
-"""Fused bidirectional-GRU forward recurrence: CUDA kernel and plain twin.
+"""Fused bidirectional-GRU recurrence, forward and backward: CUDA kernels,
+plain twins and the ``autograd.Function`` that joins them.
 
-Counterpart of ``tatt_tpu/kernels/pallas_gru.py:_gru_fwd_kernel``.  The
-kernel (``csrc/bigru_fwd.cu``) runs both directions of the recurrence in
-one launch; its source says what bounds it on the card and how the design
-answers that.  The input projection stays a matmul outside, as in JAX.
+Counterparts of ``tatt_tpu/kernels/pallas_gru.py``: ``_gru_fwd_kernel``
+(``csrc/bigru_fwd.cu``) and ``_gru_bwd_kernel`` / ``_gru_bwd_step``
+(``csrc/bigru_bwd.cu``).  Each kernel runs both directions in one launch;
+its source says what bounds it on the card and how the design answers
+that.  The input projection stays ordinary torch ops outside, as JAX keeps
+it outside its custom VJP (``pallas_gru.py:360-375``).
 
-:func:`bigru_recurrence` launches the kernel for a CUDA tensor and uses
-the plain :func:`bigru_recurrence_ref` only for a CPU tensor.  Forward
-only: the backward kernel and ``autograd.Function`` come with training.
+:func:`bigru_recurrence` and :func:`bigru_recurrence_bwd` launch the
+kernels for CUDA tensors and use the plain :func:`bigru_recurrence_ref` /
+:func:`bigru_recurrence_bwd_ref` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,14 +21,23 @@ import torch
 
 from tatt_tpu_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 MAX_HIDDEN = 128
+_RB_MIN = 16  # the backward's smallest row tile (csrc/bigru_bwd.cu)
+
+
+def _gru_cell(gx, gh, hid):
+    r = torch.sigmoid(gx[:hid] + gh[:hid])
+    z = torch.sigmoid(gx[hid : 2 * hid] + gh[hid : 2 * hid])
+    n = torch.tanh(gx[2 * hid :] + r * gh[2 * hid :])
+    return r, z, n
 
 
 def bigru_recurrence_ref(
     gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, a Python loop over time.
+    """Plain PyTorch version of the forward kernel, a Python loop over time.
 
     ``gates`` [2, L, 3H, R] (input projections in forward time for both
     directions, gate order r, z, n), ``w_hh`` [2, 3H, H], ``b_hh`` [2, 3H].
@@ -38,14 +50,67 @@ def bigru_recurrence_ref(
         h = gates.new_zeros(hid, rows)
         steps = range(length) if d == 0 else range(length - 1, -1, -1)
         for t in steps:
-            gh = w_hh[d] @ h + b_hh[d][:, None]
-            gx = gates[d, t]
-            r = torch.sigmoid(gx[:hid] + gh[:hid])
-            z = torch.sigmoid(gx[hid : 2 * hid] + gh[hid : 2 * hid])
-            n = torch.tanh(gx[2 * hid :] + r * gh[2 * hid :])
+            _, z, n = _gru_cell(gates[d, t], w_hh[d] @ h + b_hh[d][:, None], hid)
             h = (1.0 - z) * n + z * h
             out[t, d * hid : (d + 1) * hid] = h
     return out
+
+
+def bigru_recurrence_bwd_ref(gates, w_hh, b_hh, out, dout):
+    """Plain PyTorch version of the backward kernel (``_gru_bwd_kernel``
+    and ``_gru_bwd_step``, ``pallas_gru.py:109-209``): each direction walks
+    its processing order in reverse, recomputing the gates from the saved
+    hidden states.  ``out`` and ``dout`` [L, 2H, R].  Returns
+    ``(dgates [2, L, 3H, R], dw_hh [2, 3H, H], db_hh [2, 3H], dbx [2, 3H])``;
+    ``dbx`` is the gradient of a bias added to ``gates``."""
+    _, length, g3, rows = gates.shape
+    hid = g3 // 3
+    dgates = torch.empty_like(gates)
+    dw, db, dbx = gates.new_zeros(2, g3, hid), gates.new_zeros(2, g3), gates.new_zeros(2, g3)
+    zeros = gates.new_zeros(hid, rows)
+    for d in range(2):
+        own = slice(d * hid, (d + 1) * hid)
+        dh_carry = zeros
+        steps = range(length - 1, -1, -1) if d == 0 else range(length)
+        for t in steps:
+            tp = t - 1 if d == 0 else t + 1
+            h_prev = out[tp, own] if 0 <= tp < length else zeros
+            gh = w_hh[d] @ h_prev + b_hh[d][:, None]
+            r, z, n = _gru_cell(gates[d, t], gh, hid)
+            dh = dh_carry + dout[t, own]
+            dz = dh * (h_prev - n) * z * (1.0 - z)
+            dn = dh * (1.0 - z) * (1.0 - n * n)
+            dr = dn * gh[2 * hid :] * r * (1.0 - r)
+            d_gh = torch.cat([dr, dz, dn * r])
+            d_gx = torch.cat([dr, dz, dn])
+            dgates[d, t] = d_gx
+            dw[d] += d_gh @ h_prev.T
+            db[d] += d_gh.sum(1)
+            dbx[d] += d_gx.sum(1)
+            dh_carry = dh * z + w_hh[d].T @ d_gh
+    return dgates, dw, db, dbx
+
+
+def _check(name, limit, gates, w_hh, b_hh, *more):
+    two, length, g3, rows = gates.shape
+    hid = g3 // 3
+    if gates.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {gates.device}")
+    if two != 2 or g3 != 3 * hid or not 0 < hid <= limit:
+        raise ValueError(
+            f"{name}: gates {tuple(gates.shape)} must be [2, L, 3H, R] with H <= {limit}"
+        )
+    if tuple(w_hh.shape) != (2, g3, hid) or tuple(b_hh.shape) != (2, g3):
+        raise ValueError(
+            f"{name}: w_hh {tuple(w_hh.shape)} / b_hh {tuple(b_hh.shape)} do not match H={hid}"
+        )
+    for what, t in (("gates", gates), ("w_hh", w_hh), ("b_hh", b_hh), *more):
+        if t.device != gates.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} must be float32 on {gates.device}")
+    for what, t in more:
+        if tuple(t.shape) != (length, 2 * hid, rows):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} must be [L, 2H, R]")
+    return length, hid, rows
 
 
 def bigru_recurrence(
@@ -54,36 +119,14 @@ def bigru_recurrence(
     """The BiGRU forward recurrence: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor.  Shapes as :func:`bigru_recurrence_ref`.
     ``bigru_recurrence.launches`` counts kernel launches."""
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (gates, w_hh, b_hh)
-    ):
-        raise RuntimeError(
-            "bigru_recurrence is forward-only; run it under torch.no_grad()"
-        )
     if gates.device.type == "cpu":
         return bigru_recurrence_ref(gates, w_hh, b_hh)
-    two, length, g3, rows = gates.shape
-    hid = g3 // 3
-    if gates.device.type != "cuda":
-        raise ValueError(f"bigru_recurrence: unsupported device {gates.device}")
-    if two != 2 or g3 != 3 * hid or not 0 < hid <= MAX_HIDDEN:
-        raise ValueError(
-            f"bigru_recurrence: gates {tuple(gates.shape)} must be "
-            f"[2, L, 3H, R] with H <= {MAX_HIDDEN}"
-        )
-    if tuple(w_hh.shape) != (2, g3, hid) or tuple(b_hh.shape) != (2, g3):
-        raise ValueError(
-            f"bigru_recurrence: w_hh {tuple(w_hh.shape)} / b_hh "
-            f"{tuple(b_hh.shape)} do not match H={hid}"
-        )
-    for name, t in (("gates", gates), ("w_hh", w_hh), ("b_hh", b_hh)):
-        if t.device != gates.device or t.dtype != torch.float32:
-            raise ValueError(f"bigru_recurrence: {name} must be float32 on {gates.device}")
+    length, hid, rows = _check("bigru_recurrence", MAX_HIDDEN, gates, w_hh, b_hh)
     gates, w_hh, b_hh = gates.contiguous(), w_hh.contiguous(), b_hh.contiguous()
     out = torch.empty(length, 2 * hid, rows, device=gates.device, dtype=torch.float32)
     if length == 0 or rows == 0:
         return out
-    lib = _build.load("bigru_fwd", _ARGTYPES)
+    lib = _build.load("bigru_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.bigru_fwd(
@@ -96,3 +139,71 @@ def bigru_recurrence(
 
 
 bigru_recurrence.launches = 0
+
+
+def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
+    """The BiGRU backward recurrence: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor.  Arguments and results as
+    :func:`bigru_recurrence_bwd_ref`.  ``bigru_recurrence_bwd.launches``
+    counts kernel launches (one per call: the recurrence and its weight
+    reduction are one entry point)."""
+    if gates.device.type == "cpu":
+        return bigru_recurrence_bwd_ref(gates, w_hh, b_hh, out, dout)
+    length, hid, rows = _check(
+        "bigru_recurrence_bwd", MAX_HIDDEN, gates, w_hh, b_hh, ("out", out), ("dout", dout)
+    )
+    gates, w_hh, b_hh, out, dout = (
+        t.contiguous() for t in (gates, w_hh, b_hh, out, dout)
+    )
+    dev, f32 = gates.device, torch.float32
+    g3 = 3 * hid
+    dgates = torch.empty_like(gates)
+    dw = torch.zeros(2, g3, hid, device=dev, dtype=f32)
+    bias4 = torch.zeros(2, 4 * hid, device=dev, dtype=f32)
+    if length > 0 and rows > 0:
+        nblk = -(-rows // _RB_MIN)  # bias partials: room for the smaller tile
+        # K slices of the weight-gradient product: a few chunks of 32 rows
+        # of one step each, at most 64 slices
+        slices = max(1, min(64, length * -(-rows // 32) // 8))
+        dghn = torch.empty(2, length, hid, rows, device=dev, dtype=f32)
+        bias_part = torch.empty(2, nblk, 4 * hid, device=dev, dtype=f32)
+        dw_part = torch.empty(2, slices, g3, hid, device=dev, dtype=f32)
+        lib = _build.load("bigru_bwd", _BWD_ARGTYPES)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.bigru_bwd(
+                gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), dgates.data_ptr(), dghn.data_ptr(), bias_part.data_ptr(),
+                dw_part.data_ptr(), dw.data_ptr(), bias4.data_ptr(),
+                length, hid, rows, slices, stream,
+            )
+        _build.check(err, "bigru_bwd")
+        bigru_recurrence_bwd.launches += 1
+    db_hh = bias4[:, :g3]
+    dbx = torch.cat([bias4[:, : 2 * hid], bias4[:, g3:]], dim=1)
+    return dgates, dw, db_hh, dbx
+
+
+bigru_recurrence_bwd.launches = 0
+
+
+class BiGRURecurrence(torch.autograd.Function):
+    """``out = recurrence(xw + b_x, w_hh, b_hh)`` with the hand-written
+    backward: ``xw`` [2, L, 3H, R] is the bias-free input projection and
+    ``b_x`` [2, 3H] its bias, whose gradient the backward kernel sums (the
+    JAX VJP's ``dbx``).  Returns [L, 2H, R]."""
+
+    @staticmethod
+    def forward(ctx, xw, b_x, w_hh, b_hh):
+        gates = (xw + b_x[:, None, :, None]).contiguous()
+        out = bigru_recurrence(gates, w_hh, b_hh)
+        ctx.save_for_backward(gates, w_hh, b_hh, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        gates, w_hh, b_hh, out = ctx.saved_tensors
+        dgates, dw_hh, db_hh, dbx = bigru_recurrence_bwd(
+            gates, w_hh, b_hh, out, dout.contiguous()
+        )
+        return dgates, dbx, dw_hh, db_hh

@@ -1,13 +1,15 @@
-"""Fused bidirectional-LSTM forward recurrence: CUDA kernel and plain twin.
+"""Fused bidirectional-LSTM recurrence, forward and backward: CUDA kernels,
+plain twins and the ``autograd.Function`` that joins them.
 
-Counterpart of ``tatt_tpu/kernels/pallas_lstm.py:_lstm_fwd_kernel``.  The
-kernel (``csrc/bilstm_fwd.cu``) runs both directions in one launch and
-walks direction 1 backwards in time through mirrored indices; its source
-says what bounds it on the card and how the design answers that.
+Counterparts of ``tatt_tpu/kernels/pallas_lstm.py``: ``_lstm_fwd_kernel``
+(``csrc/bilstm_fwd.cu``) and ``_lstm_bwd_kernel`` (``csrc/bilstm_bwd.cu``).
+Both kernels run both directions in one launch and walk direction 1
+backwards in time through mirrored indices; each source says what bounds
+it on the card and how the design answers that.
 
-:func:`bilstm_recurrence` launches the kernel for a CUDA tensor and uses
-the plain :func:`bilstm_recurrence_ref` only for a CPU tensor.  Forward
-only: the backward kernel and ``autograd.Function`` come with training.
+:func:`bilstm_recurrence` and :func:`bilstm_recurrence_bwd` launch the
+kernels for CUDA tensors and use the plain :func:`bilstm_recurrence_ref` /
+:func:`bilstm_recurrence_bwd_ref` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,84 +20,179 @@ import torch
 
 from tatt_tpu_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 MAX_HIDDEN = 256
 
 
-def bilstm_recurrence_ref(
-    gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, a Python loop over time.
+def _lstm_cell(a, hid):
+    return (
+        torch.sigmoid(a[:, :hid]),
+        torch.sigmoid(a[:, hid : 2 * hid]),
+        torch.tanh(a[:, 2 * hid : 3 * hid]),
+        torch.sigmoid(a[:, 3 * hid :]),
+    )
+
+
+def bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs: bool = False):
+    """Plain PyTorch version of the forward kernel, a Python loop over time.
 
     ``gates`` [2, R, L, 4H] (input projections in forward time for both
     directions, torch gate order i, f, g, o), ``w_hh`` [2, 4H, H],
-    ``b_hh`` [2, 4H].  Returns [R, L, 2H] with direction 1 scanned
-    t = L-1 .. 0 and stored at its forward-time slots."""
+    ``b_hh`` [2, 4H].  Returns the hidden states [R, L, 2H] with direction 1
+    scanned t = L-1 .. 0 and stored at its forward-time slots, and with
+    ``with_cs`` also the cell states in the same layout."""
     _, rows, length, g4 = gates.shape
     hid = g4 // 4
     out = gates.new_empty(rows, length, 2 * hid)
+    cs = gates.new_empty(rows, length, 2 * hid)
     for d in range(2):
         h = gates.new_zeros(rows, hid)
         c = gates.new_zeros(rows, hid)
         steps = range(length) if d == 0 else range(length - 1, -1, -1)
         for t in steps:
-            a = gates[d, :, t] + h @ w_hh[d].T + b_hh[d]
-            i = torch.sigmoid(a[:, :hid])
-            f = torch.sigmoid(a[:, hid : 2 * hid])
-            g = torch.tanh(a[:, 2 * hid : 3 * hid])
-            o = torch.sigmoid(a[:, 3 * hid :])
+            i, f, g, o = _lstm_cell(gates[d, :, t] + h @ w_hh[d].T + b_hh[d], hid)
             c = f * c + i * g
             h = o * torch.tanh(c)
             out[:, t, d * hid : (d + 1) * hid] = h
-    return out
+            cs[:, t, d * hid : (d + 1) * hid] = c
+    return (out, cs) if with_cs else out
 
 
-def bilstm_recurrence(
-    gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
-) -> torch.Tensor:
-    """The BiLSTM forward recurrence: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor.  Shapes as
-    :func:`bilstm_recurrence_ref`.  ``bilstm_recurrence.launches`` counts
-    kernel launches."""
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (gates, w_hh, b_hh)
-    ):
-        raise RuntimeError(
-            "bilstm_recurrence is forward-only; run it under torch.no_grad()"
-        )
-    if gates.device.type == "cpu":
-        return bilstm_recurrence_ref(gates, w_hh, b_hh)
+def bilstm_recurrence_bwd_ref(gates, w_hh, b_hh, out, cs, dout):
+    """Plain PyTorch version of the backward kernel (``_lstm_bwd_kernel``,
+    ``pallas_lstm.py:53-103``): each direction walks its processing order
+    in reverse, recomputing the gates from h_prev / c_prev.  ``out``,
+    ``cs`` and ``dout`` [R, L, 2H].  Returns ``(dgates [2, R, L, 4H],
+    dw_hh [2, 4H, H], db_hh [2, 4H])``."""
+    _, rows, length, g4 = gates.shape
+    hid = g4 // 4
+    dgates = torch.empty_like(gates)
+    dw, db = gates.new_zeros(2, g4, hid), gates.new_zeros(2, g4)
+    zeros = gates.new_zeros(rows, hid)
+    for d in range(2):
+        own = slice(d * hid, (d + 1) * hid)
+        dh_carry, dc_carry = zeros, zeros
+        steps = range(length - 1, -1, -1) if d == 0 else range(length)
+        for t in steps:
+            tp = t - 1 if d == 0 else t + 1
+            first = not 0 <= tp < length
+            h_prev = zeros if first else out[:, tp, own]
+            c_prev = zeros if first else cs[:, tp, own]
+            i, f, g, o = _lstm_cell(gates[d, :, t] + h_prev @ w_hh[d].T + b_hh[d], hid)
+            tc = torch.tanh(cs[:, t, own])
+            dh = dh_carry + dout[:, t, own]
+            do = dh * tc * o * (1.0 - o)
+            dc = dc_carry + dh * o * (1.0 - tc * tc)
+            d_g = torch.cat(
+                [dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                 dc * i * (1.0 - g * g), do],
+                dim=1,
+            )
+            dgates[d, :, t] = d_g
+            dw[d] += d_g.T @ h_prev
+            db[d] += d_g.sum(0)
+            dh_carry = d_g @ w_hh[d]
+            dc_carry = dc * f
+    return dgates, dw, db
+
+
+def _check(name, gates, w_hh, b_hh, *more):
     two, rows, length, g4 = gates.shape
     hid = g4 // 4
     if gates.device.type != "cuda":
-        raise ValueError(f"bilstm_recurrence: unsupported device {gates.device}")
+        raise ValueError(f"{name}: unsupported device {gates.device}")
     if two != 2 or g4 != 4 * hid or not 0 < hid <= MAX_HIDDEN:
         raise ValueError(
-            f"bilstm_recurrence: gates {tuple(gates.shape)} must be "
-            f"[2, R, L, 4H] with H <= {MAX_HIDDEN}"
+            f"{name}: gates {tuple(gates.shape)} must be [2, R, L, 4H] with H <= {MAX_HIDDEN}"
         )
     if tuple(w_hh.shape) != (2, g4, hid) or tuple(b_hh.shape) != (2, g4):
         raise ValueError(
-            f"bilstm_recurrence: w_hh {tuple(w_hh.shape)} / b_hh "
-            f"{tuple(b_hh.shape)} do not match H={hid}"
+            f"{name}: w_hh {tuple(w_hh.shape)} / b_hh {tuple(b_hh.shape)} do not match H={hid}"
         )
-    for name, t in (("gates", gates), ("w_hh", w_hh), ("b_hh", b_hh)):
+    for what, t in (("gates", gates), ("w_hh", w_hh), ("b_hh", b_hh), *more):
         if t.device != gates.device or t.dtype != torch.float32:
-            raise ValueError(f"bilstm_recurrence: {name} must be float32 on {gates.device}")
+            raise ValueError(f"{name}: {what} must be float32 on {gates.device}")
+    for what, t in more:
+        if tuple(t.shape) != (rows, length, 2 * hid):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} must be [R, L, 2H]")
+    return length, hid, rows
+
+
+def bilstm_recurrence(gates, w_hh, b_hh, with_cs: bool = False):
+    """The BiLSTM forward recurrence: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor.  Arguments and results as
+    :func:`bilstm_recurrence_ref`; without ``with_cs`` the kernel stores no
+    cell states.  ``bilstm_recurrence.launches`` counts kernel launches."""
+    if gates.device.type == "cpu":
+        return bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs)
+    length, hid, rows = _check("bilstm_recurrence", gates, w_hh, b_hh)
     gates, w_hh, b_hh = gates.contiguous(), w_hh.contiguous(), b_hh.contiguous()
     out = torch.empty(rows, length, 2 * hid, device=gates.device, dtype=torch.float32)
-    if length == 0 or rows == 0:
-        return out
-    lib = _build.load("bilstm_fwd", _ARGTYPES)
-    with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bilstm_fwd(
-            gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            length, hid, rows, stream,
-        )
-    _build.check(err, "bilstm_fwd")
-    bilstm_recurrence.launches += 1
-    return out
+    cs = torch.empty_like(out) if with_cs else None
+    if length > 0 and rows > 0:
+        lib = _build.load("bilstm_fwd", _FWD_ARGTYPES)
+        with torch.cuda.device(gates.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.bilstm_fwd(
+                gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+                None if cs is None else cs.data_ptr(), length, hid, rows, stream,
+            )
+        _build.check(err, "bilstm_fwd")
+        bilstm_recurrence.launches += 1
+    return (out, cs) if with_cs else out
 
 
 bilstm_recurrence.launches = 0
+
+
+def bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout):
+    """The BiLSTM backward recurrence: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor.  Arguments and results as
+    :func:`bilstm_recurrence_bwd_ref`.  ``bilstm_recurrence_bwd.launches``
+    counts kernel launches (one per call: the recurrence and its weight
+    reduction are one entry point)."""
+    if gates.device.type == "cpu":
+        return bilstm_recurrence_bwd_ref(gates, w_hh, b_hh, out, cs, dout)
+    length, hid, rows = _check(
+        "bilstm_recurrence_bwd", gates, w_hh, b_hh, ("out", out), ("cs", cs), ("dout", dout)
+    )
+    gates, w_hh, b_hh, out, cs, dout = (
+        t.contiguous() for t in (gates, w_hh, b_hh, out, cs, dout)
+    )
+    dgates = torch.empty_like(gates)
+    dw = torch.zeros_like(w_hh)
+    db = torch.zeros_like(b_hh)
+    if length > 0 and rows > 0:
+        lib = _build.load("bilstm_bwd", _BWD_ARGTYPES)
+        with torch.cuda.device(gates.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.bilstm_bwd(
+                gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+                cs.data_ptr(), dout.data_ptr(), dgates.data_ptr(), dw.data_ptr(),
+                db.data_ptr(), length, hid, rows, stream,
+            )
+        _build.check(err, "bilstm_bwd")
+        bilstm_recurrence_bwd.launches += 1
+    return dgates, dw, db
+
+
+bilstm_recurrence_bwd.launches = 0
+
+
+class BiLSTMRecurrence(torch.autograd.Function):
+    """``out = recurrence(gates, w_hh, b_hh)`` with the hand-written
+    backward; the forward stores the cell states for it, as the JAX
+    forward emits them (``pallas_lstm.py:176-182``).  Returns [R, L, 2H]."""
+
+    @staticmethod
+    def forward(ctx, gates, w_hh, b_hh):
+        gates = gates.contiguous()
+        out, cs = bilstm_recurrence(gates, w_hh, b_hh, with_cs=True)
+        ctx.save_for_backward(gates, w_hh, b_hh, out, cs)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        gates, w_hh, b_hh, out, cs = ctx.saved_tensors
+        return bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout.contiguous())

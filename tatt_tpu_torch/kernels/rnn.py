@@ -6,9 +6,13 @@ r, z, n for the GRU and i, f, g, o for the LSTM), so reference checkpoints
 load as they are.  The input projection of all timesteps is one matmul;
 the recurrence goes to the hand-written kernels (:mod:`.gru`, :mod:`.lstm`)
 for every BiGRU with hidden <= 128 and every BiLSTM with hidden <= 256, at
-any row count (the JAX row thresholds are TPU padding concerns).  Wider
-recurrences — the TP-Interpreter's query GRU, hidden 512 — run
-:func:`bigru_apply`, a plain loop, as in JAX (``rnn.py:211-218``).
+any row count (the JAX row thresholds are TPU padding concerns).  When a
+gradient is wanted, the recurrence runs through the kernels'
+``autograd.Function`` (forward and backward kernels), and the projection
+stays ordinary differentiable torch ops outside it, as the JAX VJP keeps
+its projection GEMMs (``pallas_gru.py:360-375``).  Wider recurrences — the
+TP-Interpreter's query GRU, hidden 512 — run :func:`bigru_apply`, a plain
+loop under autograd, as JAX keeps it on ``lax.scan`` (``rnn.py:211-218``).
 """
 
 from __future__ import annotations
@@ -77,6 +81,10 @@ def bilstm_apply(x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     return _unstack_bidir(torch.stack(ys, dim=2))
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def compose_input_projection(w_ih, b_ih, pre_kernel=None, pre_bias=None):
     """Fold a preceding linear map ``y = x @ P^T + pb`` (a 1x1 conv with OI
     matrix ``P`` [Cmid, Cin]) into the input projections
@@ -141,8 +149,12 @@ class BiGRU(_BiRNN):
             return bigru_apply(x, w_eff, w_hh, b_eff, b_hh)
         # one matmul for all timesteps of both directions, emitted in the
         # kernel's [2, L, 3H, R] layout (rows minor)
-        gates = torch.einsum("rli,dgi->dlgr", x, w_eff) + b_eff[:, None, :, None]
-        y = gru_kernel.bigru_recurrence(gates.contiguous(), w_hh, b_hh)
+        xw = torch.einsum("rli,dgi->dlgr", x, w_eff)
+        if _wants_grad(xw, b_eff, w_hh, b_hh):
+            y = gru_kernel.BiGRURecurrence.apply(xw, b_eff, w_hh, b_hh)
+        else:
+            gates = (xw + b_eff[:, None, :, None]).contiguous()
+            y = gru_kernel.bigru_recurrence(gates, w_hh, b_hh)
         return y.permute(2, 0, 1)  # [L, 2H, R] -> [R, L, 2H]
 
 
@@ -158,4 +170,6 @@ class BiLSTM(_BiRNN):
         # one matmul for all timesteps of both directions, emitted in the
         # kernel's [2, R, L, 4H] layout (gates minor)
         gates = torch.matmul(x, w_ih.transpose(1, 2)[:, None]) + b_ih[:, None, None]
+        if _wants_grad(gates, w_hh, b_hh):
+            return lstm_kernel.BiLSTMRecurrence.apply(gates, w_hh, b_hh)
         return lstm_kernel.bilstm_recurrence(gates, w_hh, b_hh)

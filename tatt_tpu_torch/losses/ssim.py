@@ -1,4 +1,4 @@
-"""Eval metrics SSIM and PSNR (counterpart of ``tatt_tpu/losses/ssim.py``).
+"""SSIM, PSNR and the TRI-SSIM loss (counterpart of ``tatt_tpu/losses/ssim.py``).
 
 SSIM uses the reference's 11x11 Gaussian window (sigma 1.5) applied as
 two separable 1-D depthwise passes in float32.  With TF32 off
@@ -58,3 +58,19 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """PSNR on RGB in [0, 1] scaled x255 (``utils/ssim_psnr.py:9-15``)."""
     mse = ((img1[:, :3] * 255.0 - img2[:, :3] * 255.0) ** 2).mean()
     return 20.0 * torch.log10(255.0 / torch.sqrt(mse))
+
+
+def tri_ssim(
+    img1: torch.Tensor, img2: torch.Tensor, img3: torch.Tensor, window_size: int = 11
+) -> torch.Tensor:
+    """Three-way SSIM for rotation consistency (``utils/ssim_psnr.py:99-129``),
+    over ALL channels as the reference's TRI_SSIM (``ssim.py:103-133``)."""
+    imgs = [i.float() for i in (img1, img2, img3)]
+    mu = [_depthwise_filter(i, window_size) for i in imgs]
+    sq = [m * m for m in mu]
+    cross = [mu[0] * mu[1], mu[1] * mu[2], mu[2] * mu[0]]
+    var = [_depthwise_filter(i * i, window_size) - s for i, s in zip(imgs, sq)]
+    pairs = ((0, 1), (1, 2), (2, 0))
+    cov = [_depthwise_filter(imgs[a] * imgs[b], window_size) - c for (a, b), c in zip(pairs, cross)]
+    ssim_map = ((sum(cross) + C1) * (sum(cov) + C2)) / ((sum(sq) + C1) * (sum(var) + C2))
+    return ssim_map.mean()

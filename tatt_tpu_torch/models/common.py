@@ -76,10 +76,18 @@ class Conv2d(nn.Module):
         return F.conv2d(x, self.weight, self.bias, padding=self.padding)
 
 
-class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm over NCHW from running statistics, normalized in
-    float32 (``common.py:465-474``).  Training statistics (per-copy and
-    per-replica) come with the training slice."""
+class _BatchNorm(nn.Module):
+    """BatchNorm over every axis but 1, torch eps/momentum defaults
+    (``common.py:336-536``).  Eval mode normalizes with the running
+    statistics.  Training mode takes batch statistics in float32 with a
+    two-pass variance; ``copies`` > 1 says the batch packs that many
+    equal logical batches (the fused-tssim 2B forward), and the statistics
+    are then per copy, each copy normalized as its own forward would be,
+    and the running statistics folded copy by copy in concat order with the
+    unbiased variance.  Chosen per call, over one set of parameters.
+    Per-replica statistics (``set_bn_replicas``) wait for multi-GPU."""
+
+    momentum = 0.1  # torch's; the JAX package's 0.9 is 1 - this
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -95,10 +103,46 @@ class BatchNorm2d(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
+    def forward(self, x: torch.Tensor, copies: int = 1) -> torch.Tensor:
+        shape = (-1,) + (1,) * (x.dim() - 2)  # [C] -> broadcastable over x
+        red = (0, *range(2, x.dim()))
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean.view(shape)) * inv.view(shape)
+            return (y + self.bias.view(shape)).to(x.dtype)
+        parts = x.float().chunk(copies)
+        if len(parts) != copies or parts[-1].shape[0] != parts[0].shape[0]:
+            raise ValueError(f"batch {x.shape[0]} does not split into {copies} equal copies")
+        ys = []
+        for p in parts:
+            mean = p.mean(red)
+            var = (p - mean.view(shape)).square().mean(red)
+            n = p.numel() // p.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var * (n / max(n - 1, 1)))
+            inv = torch.rsqrt(var + self.eps) * self.weight
+            ys.append((p - mean.view(shape)) * inv.view(shape) + self.bias.view(shape))
+        return torch.cat(ys).to(x.dtype)
+
+
+class BatchNorm2d(_BatchNorm):
+    """BatchNorm over NCHW (statistics over N, H, W)."""
+
+
+class BatchNorm1d(_BatchNorm):
+    """BatchNorm over [N, C] (the STN head's fc, ``model/stn_head.py:51``)."""
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout drawn from ``gen`` (a generator on ``x``'s device),
+    as flax ``nn.Dropout``: keep with probability 1 - rate, scale by
+    1 / (1 - rate).  Identity when ``gen`` is None or ``rate`` is 0 (eval)."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PReLU(nn.Module):

@@ -10,7 +10,9 @@
 ``query_gru_mode``: ``width`` (default) scans the table along W, shared
 by the batch; ``reference`` reproduces the reference's batch_first quirk
 (the scan runs across the batch), needed for reference checkpoints.
-The query GRU has hidden 512 and stays on the plain path.
+The query GRU has hidden 512 and stays on the plain path.  Dropout
+(``rate`` with a generator) runs at the JAX sites, the positional encoding
+itself included (``tp_interpreter.py:76-79``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from tatt_tpu_torch.kernels.rnn import BiGRU
-from tatt_tpu_torch.models.common import Dense, PReLU
+from tatt_tpu_torch.models.common import Dense, PReLU, dropout
 from tatt_tpu_torch.models.transformer import (
     EncoderLayer,
     LayerNorm,
@@ -102,9 +104,10 @@ class TPInterpreter(nn.Module):
         q = cols.reshape(fw, fh, c).permute(1, 0, 2).reshape(1, fh * fw, c)
         return q.expand(n, fh * fw, c)
 
-    def forward(self, image_feature: torch.Tensor, tp_input: torch.Tensor):
+    def forward(self, image_feature: torch.Tensor, tp_input: torch.Tensor, rate: float = 0.0, gen=None):
         """``image_feature`` [N, C, H, W], ``tp_input`` [N, text_emb, 1, T]
-        -> (prior map [N, C, H, W], attention weights [N, H*W, T])."""
+        -> (prior map [N, C, H, W], attention weights [N, H*W, T]).
+        ``rate`` / ``gen``: dropout, identity without a generator."""
         n, c_i, h, w = image_feature.shape
         x = tp_input[:, :, 0, :].transpose(1, 2).to(image_feature.dtype)
         x = self.activation(self.fc_in(x))
@@ -112,16 +115,17 @@ class TPInterpreter(nn.Module):
         pos = torch.as_tensor(
             positional_encoding_table(t, self.d_model), device=x.device
         )[None]
+        pos = dropout(pos, rate, gen)
         memory = x
         for layer in self.transformer.encoder.layers:
-            memory = layer(memory, pos)
+            memory = layer(memory, pos, rate, gen)
         query_pos = self.query_pos(n)
         tgt = image_feature.reshape(n, c_i, h * w).transpose(1, 2)
         norm = self.transformer.decoder.norm
         out, weights, total = tgt, None, 0.0
         layers = self.transformer.decoder.layers
         for layer in layers:
-            out, weights = layer(out, memory, pos, query_pos)
+            out, weights = layer(out, memory, pos, query_pos, rate, gen)
             total = total + norm(out)
         prior = total / len(layers)  # [N, HW, C]
         return prior.transpose(1, 2).reshape(n, self.d_model, h, w), weights

@@ -5,7 +5,9 @@ Batch-first [B, L, C].  Attention keeps torch ``nn.MultiheadAttention``'s
 packed ``in_proj`` [3C, C] layout and is written out in plain ops: the
 caller needs the head-averaged weights (``aux["pr_weights"]``), which a
 fused attention call does not return.  Logits and softmax run in f32.
-Dropout is eval-mode (identity) in this slice.
+Dropout runs at the JAX sites (attention weights, ``transformer.py:107``;
+the residual branches and the FFN, ``:153,185,233``) when the caller
+passes a rate and a generator, and is the identity otherwise (eval).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tatt_tpu_torch.models.common import Dense
+from tatt_tpu_torch.models.common import Dense, dropout
 
 
 @lru_cache(maxsize=None)
@@ -51,7 +53,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight.uniform_(-bound, bound, generator=gen)
         self.in_proj_bias.zero_()
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value, rate: float = 0.0, gen=None):
         c = self.d_model
         wq, wk, wv = self.in_proj_weight.split(c)
         bq, bk, bv = self.in_proj_bias.split(c)
@@ -65,7 +67,7 @@ class MultiheadAttention(nn.Module):
         k = k.reshape(b, lk, self.nhead, hd).transpose(1, 2)
         v = v.reshape(b, lk, self.nhead, hd).transpose(1, 2)
         logits = torch.matmul(q.float() * (1.0 / math.sqrt(hd)), k.float().transpose(-1, -2))
-        weights = torch.softmax(logits, dim=-1)
+        weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
         out = torch.matmul(weights.to(v.dtype), v)
         out = out.transpose(1, 2).reshape(b, lq, c)
         return self.out_proj(out), weights.mean(dim=1)
@@ -102,12 +104,14 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(
+        self, src: torch.Tensor, pos: Optional[torch.Tensor], rate: float = 0.0, gen=None
+    ) -> torch.Tensor:
         q = src if pos is None else src + pos
-        attn, _ = self.self_attn(q, q, src)
-        src = self.norm1(src + attn)
-        ff = self.linear2(torch.relu(self.linear1(src)))
-        return self.norm2(src + ff)
+        attn, _ = self.self_attn(q, q, src, rate, gen)
+        src = self.norm1(src + dropout(attn, rate, gen))
+        ff = self.linear2(dropout(torch.relu(self.linear1(src)), rate, gen))
+        return self.norm2(src + dropout(ff, rate, gen))
 
 
 class TPDecoderLayer(nn.Module):
@@ -123,10 +127,10 @@ class TPDecoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
 
-    def forward(self, tgt, memory, pos, query_pos):
+    def forward(self, tgt, memory, pos, query_pos, rate: float = 0.0, gen=None):
         q = tgt if query_pos is None else tgt + query_pos
         k = memory if pos is None else memory + pos
-        attn, weights = self.multihead_attn(q, k, memory)
-        tgt = self.norm2(tgt + attn)
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm3(tgt + ff), weights
+        attn, weights = self.multihead_attn(q, k, memory, rate, gen)
+        tgt = self.norm2(tgt + dropout(attn, rate, gen))
+        ff = self.linear2(dropout(torch.relu(self.linear1(tgt)), rate, gen))
+        return self.norm3(tgt + dropout(ff, rate, gen)), weights

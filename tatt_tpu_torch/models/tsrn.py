@@ -1,15 +1,21 @@
-"""The TATT generator in eval mode (counterpart of ``tatt_tpu/models/tsrn.py``).
+"""The TATT generator (counterpart of ``tatt_tpu/models/tsrn.py``).
 
 Module names follow the reference ``TSRN_TL_TRANS`` (``model/tsrn.py:576-692``)
 so the ``state_dict`` has the reference layout: ``block1`` (9x9 conv +
 PReLU), ``block2 .. block{srb+1}`` (recurrent residual blocks),
 ``block{srb+2}`` (conv + BN), ``block{srb+3}`` (upsampling + final 9x9
-conv), ``infoGen`` (the TP Interpreter).
+conv), ``infoGen`` (the TP Interpreter), ``stn_head`` (with ``stn=True``).
 
 Axis conventions: inside a block, ``gru1`` scans HEIGHT, batched over
 N*W rows (its input is the H<->W transposed map, rows ordered (n, w) as
 the JAX ``reshape(n*w, h, c)`` after the swap), and ``gru2`` scans WIDTH,
 batched over N*H rows.
+
+Training mode (``module.train()``): BatchNorm takes batch statistics,
+``copies`` per forward (2 for the fused-tssim 2B batch, one set of
+parameters: JAX clones the module with ``bn_copies=2``, ``loop.py:253``),
+the STN rectifies the input (``tsrn.py:607-610``), and dropout draws from
+the generator passed to the forward.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from tatt_tpu_torch.models.common import (
     mish,
     pixel_shuffle,
 )
+from tatt_tpu_torch.models.stn import STNHead, tps_transform
 from tatt_tpu_torch.models.tp_interpreter import TPInterpreter
 
 
@@ -65,9 +72,9 @@ class RecurrentResidualBlockTL(nn.Module):
         self.gru1 = GruBlock(channels + text_channels, channels)
         self.gru2 = GruBlock(channels, channels)
 
-    def forward(self, x: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
-        r = mish(self.bn1(self.conv1(x)))
-        r = self.bn2(self.conv2(r))
+    def forward(self, x: torch.Tensor, text_emb: torch.Tensor, copies: int = 1) -> torch.Tensor:
+        r = mish(self.bn1(self.conv1(x), copies))
+        r = self.bn2(self.conv2(r), copies)
         cat = torch.cat([r, text_emb.to(r.dtype)], dim=1)
         r = self.gru1(cat.transpose(2, 3)).transpose(2, 3)
         return self.gru2(x + r)
@@ -86,12 +93,10 @@ class UpsampleBlock(nn.Module):
 
 
 class TATT(nn.Module):
-    """The TATT generator, eval mode (``tsrn.py:563-675``).
+    """The TATT generator (``tsrn.py:563-675``).
 
     Input [N, 4, 16, 64] (RGB + mask) and the text prior [N, 37, 1, 26];
-    output [N, 4, 32, 128] in tanh range plus an aux dict.  ``stn=True``
-    declares no STN parameters here: STN rectification runs only in
-    training (``tsrn.py:608``) and comes with the training slice."""
+    output [N, 4, 32, 128] in tanh range plus an aux dict."""
 
     def __init__(
         self,
@@ -104,6 +109,8 @@ class TATT(nn.Module):
         text_emb: int = 37,
         out_text_channels: int = 64,
         query_gru_mode: str = "width",
+        stn: bool = False,
+        dropout: float = 0.1,
     ):
         super().__init__()
         ch = 2 * hidden_units
@@ -115,6 +122,10 @@ class TATT(nn.Module):
         in_planes = 4 if mask else 3
         self.srb_nums = srb_nums
         self.text_emb = text_emb
+        self.dropout = dropout
+        self.lr_size = (height // scale_factor, width // scale_factor)
+        if stn:
+            self.stn_head = STNHead(in_planes)
         self.block1 = nn.Sequential(Conv2d(in_planes, ch, (9, 9), (4, 4)), PReLU())
         for i in range(srb_nums):
             setattr(self, f"block{i + 2}", RecurrentResidualBlockTL(ch, out_text_channels))
@@ -130,21 +141,32 @@ class TATT(nn.Module):
         self.infoGen = TPInterpreter(
             text_emb=text_emb,
             d_model=out_text_channels,
-            output_size=(height // scale_factor, width // scale_factor),
+            output_size=self.lr_size,
             query_gru_mode=query_gru_mode,
         )
 
     def forward(
-        self, x: torch.Tensor, text_emb: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        text_emb: Optional[torch.Tensor] = None,
+        copies: int = 1,
+        gen: Optional[torch.Generator] = None,
     ) -> tuple[torch.Tensor, dict[str, Any]]:
+        """``copies``: logical batches packed in ``x`` (per-copy BatchNorm
+        statistics in training); ``gen``: the dropout generator (training
+        only; no dropout without one)."""
+        if self.training and hasattr(self, "stn_head"):
+            x = tps_transform(x, self.stn_head(x, copies), self.lr_size)
         if text_emb is None:
             text_emb = x.new_zeros(x.shape[0], self.text_emb, 1, 26)
         b1 = self.block1(x)
-        tp_map, pr_weights = self.infoGen(b1, text_emb)
+        drop = (self.dropout, gen) if self.training else (0.0, None)
+        tp_map, pr_weights = self.infoGen(b1, text_emb, *drop)
         h = b1
         for i in range(self.srb_nums):
-            h = getattr(self, f"block{i + 2}")(h, tp_map)
-        h = b1 + getattr(self, f"block{self.srb_nums + 2}")(h)
+            h = getattr(self, f"block{i + 2}")(h, tp_map, copies)
+        conv, bn = getattr(self, f"block{self.srb_nums + 2}")
+        h = b1 + bn(conv(h), copies)
         out = torch.tanh(getattr(self, f"block{self.srb_nums + 3}")(h))
         aux = {
             "pr_weights": pr_weights,

@@ -84,12 +84,101 @@ def test_bilstm_kernel_matches_plain(cuda, length, rows, hid):
     assert (out - ref).abs().max().item() <= ATOL
 
 
-def test_wrappers_refuse_grad_on_card(cuda):
-    from tatt_tpu_torch.kernels.gru import bigru_recurrence
+def _scaled_err(got, want):
+    """max |got - want| over the scale of want (at least 1)."""
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
 
-    gates, w_hh, b_hh = _recurrence_inputs((2, 3, 96, 8), 96, 32, cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        bigru_recurrence(gates, w_hh.requires_grad_(), b_hh)
+
+# the backward kernels against their plain twins on the same card: the
+# per-step arithmetic is the same f32 maths, so d(gates) differ only in
+# summation order (1e-5 of the largest value); the weight and bias
+# gradients are sums over every (row, step) pair, up to 131,072 of them,
+# taken in another order (1e-4 of the largest value)
+DGATES_TOL, DW_TOL = 1e-5, 1e-4
+
+
+def test_modules_run_both_kernels_under_autograd(cuda):
+    """A BiGRU and a BiLSTM that want gradients run their forward and
+    backward kernels on the card, once each per call, and match autograd
+    through the plain loops (bigru_apply / bilstm_apply) on the same card."""
+    from tatt_tpu_torch.kernels import gru, lstm, rnn
+    from tatt_tpu_torch.models.common import init_parameters
+
+    torch.manual_seed(0)
+    for cls, plain, fwd, bwd, in_f, hid in (
+        (rnn.BiGRU, rnn.bigru_apply, gru.bigru_recurrence, gru.bigru_recurrence_bwd, 12, 32),
+        (rnn.BiGRU, rnn.bigru_apply, gru.bigru_recurrence, gru.bigru_recurrence_bwd, 12, 128),
+        (rnn.BiLSTM, rnn.bilstm_apply, lstm.bilstm_recurrence, lstm.bilstm_recurrence_bwd, 24, 64),
+    ):
+        module = init_parameters(cls(in_f, hid), 1).to(cuda)
+        x = torch.randn(37, 9, in_f, device=cuda, requires_grad=True)
+        w = torch.randn(37, 9, 2 * hid, device=cuda)
+        f0, b0 = fwd.launches, bwd.launches
+        (module(x) * w).sum().backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches - f0, bwd.launches - b0) == (1, 1)
+        got = [x.grad] + [p.grad for p in module.parameters()]
+        x.grad = None
+        module.zero_grad()
+        (plain(x, *module.stacked()) * w).sum().backward()
+        want = [x.grad] + [p.grad for p in module.parameters()]
+        for g, r in zip(got, want):
+            assert _scaled_err(g, r) <= DW_TOL
+
+
+# (L, R, H): gru1 and gru2 of the fused 2B=128 training batch, a ragged row
+# count, L=1, odd L, the hidden sizes at the dispatch edges, and the widest
+# hidden size of 32-row tiles (118) against the first of 16-row tiles (120,
+# whose blocks end in a half warp)
+@pytest.mark.parametrize(
+    "length,rows,hid",
+    [(16, 8192, 32), (64, 2048, 32), (16, 4099, 32), (1, 37, 32), (7, 45, 32),
+     (5, 70, 128), (6, 41, 118), (6, 41, 120), (9, 33, 4), (3, 10, 5)],
+)
+def test_bigru_bwd_kernel_matches_plain(cuda, length, rows, hid):
+    from tatt_tpu_torch.kernels.gru import (
+        bigru_recurrence_bwd, bigru_recurrence_bwd_ref, bigru_recurrence_ref,
+    )
+
+    gates, w_hh, b_hh = _recurrence_inputs((2, length, 3 * hid, rows), 3 * hid, hid, cuda, seed=1)
+    out = bigru_recurrence_ref(gates, w_hh, b_hh)
+    dout = torch.randn_like(out)
+    before = bigru_recurrence_bwd.launches
+    got = bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout)
+    want = bigru_recurrence_bwd_ref(gates, w_hh, b_hh, out, dout)
+    torch.cuda.synchronize()
+    assert bigru_recurrence_bwd.launches == before + 1
+    for g, w, tol in zip(got, want, (DGATES_TOL, DW_TOL, DW_TOL, DW_TOL)):
+        assert g.shape == w.shape
+        assert _scaled_err(g, w) <= tol
+
+
+# (L, R, H): the student CRNN's heads (R = batch 64, H = 256), ragged rows,
+# L=1, odd L, and H not a multiple of 32
+@pytest.mark.parametrize(
+    "length,rows,hid",
+    [(26, 64, 256), (26, 61, 256), (1, 9, 256), (7, 13, 64), (5, 17, 48), (4, 3, 16), (3, 5, 5)],
+)
+def test_bilstm_bwd_kernel_matches_plain(cuda, length, rows, hid):
+    from tatt_tpu_torch.kernels.lstm import (
+        bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref, bilstm_recurrence_ref,
+    )
+
+    gates, w_hh, b_hh = _recurrence_inputs((2, rows, length, 4 * hid), 4 * hid, hid, cuda, seed=2)
+    out, cs = bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs=True)
+    # the forward kernel's cell states, as the backward will read them
+    k_out, k_cs = bilstm_recurrence(gates, w_hh, b_hh, with_cs=True)
+    assert (k_out - out).abs().max().item() <= ATOL
+    assert (k_cs - cs).abs().max().item() <= ATOL
+    dout = torch.randn_like(out)
+    before = bilstm_recurrence_bwd.launches
+    got = bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout)
+    want = bilstm_recurrence_bwd_ref(gates, w_hh, b_hh, out, cs, dout)
+    torch.cuda.synchronize()
+    assert bilstm_recurrence_bwd.launches == before + 1
+    for g, w, tol in zip(got, want, (DGATES_TOL, DW_TOL, DW_TOL)):
+        assert g.shape == w.shape
+        assert _scaled_err(g, w) <= tol
 
 
 def test_small_eval_path_card_matches_cpu(cuda):
@@ -113,3 +202,74 @@ def test_small_eval_path_card_matches_cpu(cuda):
     assert bigru_recurrence.launches - g0 == 3
     assert bilstm_recurrence.launches - l0 == 2
     assert (sr_gpu.cpu() - sr_cpu).abs().max().item() <= 1e-4
+
+
+def test_small_train_step_card_matches_cpu(cuda):
+    """One train step of a small TATT(stn=True) + tiny CRNNs, fused tssim,
+    rotation pinned, dropout off: the card (all four kernels) against the
+    CPU (the plain twins), leaf by leaf: ||card - CPU|| / ||CPU||, the norm
+    floored at 1e-2 of the model's largest leaf norm (leaves whose gradient
+    vanishes analytically hold only rounding noise).  The BiGRU and BiLSTM
+    leaves within 1e-4, the rest within 1e-3 (cuDNN and oneDNN
+    convolutions and the kernels sum in other orders through ~40 layers,
+    and a max pool may route a gradient to the other of two near-equal
+    inputs)."""
+    import copy
+
+    from tatt_tpu_torch.data.collate import collate
+    from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+    from tatt_tpu_torch.kernels import gru, lstm
+    from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM
+    from tatt_tpu_torch.models.common import init_parameters
+    from tatt_tpu_torch.models.recognizers.crnn import CRNN
+    from tatt_tpu_torch.models.tsrn import TATT
+    from tatt_tpu_torch.train.loop import to_device
+    from tatt_tpu_torch.train.steps import StepConfig, train_step
+
+    tatt = TATT(srb_nums=1, hidden_units=4, out_text_channels=8, stn=True, dropout=0.0)
+    models_cpu = [init_parameters(tatt, 7)] + [
+        init_parameters(CRNN(nh=16, nm=(8, 8, 16, 16, 32, 32, 32)), s) for s in (8, 9)
+    ]
+    models_gpu = [copy.deepcopy(m).to(cuda) for m in models_cpu]
+    ds = SyntheticTextDataset(n=8, seed=5)
+    b = collate([ds[i] for i in range(8)])
+    rot = {"rot_arc": torch.linspace(-0.08, 0.08, 8), "rot_offs": torch.linspace(0.1, 0.9, 8)}
+    counters = (gru.bigru_recurrence, gru.bigru_recurrence_bwd,
+                lstm.bilstm_recurrence, lstm.bilstm_recurrence_bwd)
+    results = []
+    for dev, models in ((torch.device("cpu"), models_cpu), (cuda, models_gpu)):
+        hr, lr = to_device(b, dev, True)
+        batch = {"images_hr": hr, "images_lr": lr, **{k: v.to(dev) for k, v in rot.items()}}
+        opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1.0)
+        before = [f.launches for f in counters]
+        metrics = train_step(models[0].train(), models[1].train(), models[2].eval(), opt, batch,
+                             StepConfig(), torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        launches = [f.launches - n for f, n in zip(counters, before)]
+        results.append((metrics, [{k: p.grad.cpu() for k, p in m.named_parameters()} for m in models[:2]]))
+    # gru1 + gru2 of the one block and the query GRU (hidden 8*8/2 = 32),
+    # forward and backward; student forward with c and backward, teacher forward
+    assert launches == [3, 3, 4, 2]
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = results
+    for key, value in m_cpu.items():
+        assert abs(m_gpu[key].item() - value.item()) <= 1e-4 * max(1.0, abs(value.item())), key
+    for model, cpu_g, gpu_g in zip(models_cpu, g_cpu, g_gpu):
+        rnn = {f"{m_name}.{p_name}" for m_name, m in model.named_modules()
+               if isinstance(m, (BiGRU, BiLSTM)) for p_name, _ in m.named_parameters()}
+        floor = 1e-2 * max(g.norm().item() for g in cpu_g.values())
+        for name, g in cpu_g.items():
+            tol = 1e-4 if name in rnn else 1e-3
+            assert (gpu_g[name] - g).norm().item() <= tol * max(g.norm().item(), floor), name
+
+
+def test_cli_trains_on_the_card_by_default(cuda, capsys):
+    """The canonical recipe through the CLI at full width, without
+    --device: two steps on the card, finite losses."""
+    from tatt_tpu_torch.cli import main as cli
+
+    argv = ["--arch=tatt", "--STN", "--mask", "--use_distill", "--gradient", "--sr_share",
+            "--stu_iter=1", "--rotate_train=5.0", "--tssim_loss", "--synthetic", "128",
+            "--max_iters", "2"]
+    assert cli.main(argv) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[train] iters 2 "), line

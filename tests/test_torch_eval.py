@@ -151,8 +151,13 @@ def test_cli_go_test_on_cpu(capsys):
 
 @pytest.mark.parametrize(
     "argv",
-    [["--go_test", "--synthetic", "8", "--STN"], ["--arch=tsrn", "--go_test", "--synthetic", "8"],
-     ["--synthetic", "8"], ["--go_test"]],
+    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=tsrn", "--go_test", "--synthetic", "8"],
+     ["--synthetic", "8", "--stu_iter", "2"], ["--go_test"],
+     # training that leaves out a flag of the recipe, or rotates otherwise
+     ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
+      "--synthetic", "8"],
+     ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--tssim_loss",
+      "--rotate_train=3.0", "--synthetic", "8"]],
 )
 def test_cli_refuses_what_is_not_ported(argv):
     from tatt_tpu_torch.cli import main as cli

@@ -68,7 +68,7 @@ def tatt_pair():
     x = jnp.zeros((2, 4, 16, 64))
     t = jnp.zeros((2, 37, 1, 26))
     variables = random_variables(model, np.random.default_rng(1), x, t, train=True)
-    port = TATT(**SMALL)
+    port = TATT(stn=True, **SMALL)
     port.load_state_dict(from_jax(variables))
     return model, variables, port.eval()
 
@@ -95,7 +95,7 @@ def test_primitives_match():
                             "var": rng.uniform(0.1, 3, 6).astype(np.float32)},
         }
         want = np.asarray(jbn.apply(bv, x_nhwc, False)).transpose(0, 3, 1, 2)
-        bn = tcommon.BatchNorm2d(6)
+        bn = tcommon.BatchNorm2d(6).eval()  # modules start in training mode
         bn.load_state_dict({
             "weight": _t(bv["params"]["scale"]), "bias": _t(bv["params"]["bias"]),
             "running_mean": _t(bv["batch_stats"]["mean"]),

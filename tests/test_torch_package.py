@@ -71,14 +71,14 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
         cli.main(["--go_test", "--synthetic", "8", "--mask"])
 
 
-def _roundtrip_check(original, imported, skip=()):
+def _roundtrip_check(original, imported):
     def flat(tree):
         return {
             jax.tree_util.keystr(p): np.asarray(v)
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]
         }
 
-    want = {k: v for k, v in flat(original).items() if not any(s in k for s in skip)}
+    want = flat(original)
     got = flat(imported)
     assert sorted(got) == sorted(want)
     for k in want:
@@ -86,9 +86,12 @@ def _roundtrip_check(original, imported, skip=()):
 
 
 def test_weight_bridge_round_trips_tatt():
+    """A TATT(stn=True) in full, its STN head and BN statistics included:
+    JAX variables -> from_jax -> the port's state_dict -> the JAX package's
+    import_tatt gives the same variables back, bit for bit."""
     from tatt_tpu.core.torch_import import import_tatt
     from tatt_tpu.models.tsrn import TATT as JTATT
-    from tatt_tpu_torch.core.convert import from_jax, skipped_keys
+    from tatt_tpu_torch.core.convert import from_jax
     from tatt_tpu_torch.models.tsrn import TATT
 
     small = dict(srb_nums=2, hidden_units=4, out_text_channels=8)
@@ -97,24 +100,19 @@ def test_weight_bridge_round_trips_tatt():
         jnp.zeros((2, 4, 16, 64)), jnp.zeros((2, 37, 1, 26)), train=True,
     )
     sd = from_jax(variables)
-    port = TATT(**small)
+    port = TATT(stn=True, **small)
     assert sorted(sd) == sorted(port.state_dict())  # exactly the port's keys
     port.load_state_dict(sd)
-    stn = skipped_keys(variables)
-    assert stn and all(k.split("/")[1] == "stn_head" for k in stn)
-    n_leaves = len(jax.tree_util.tree_leaves(variables))
-    n_stn = len(jax.tree_util.tree_leaves(variables["params"]["stn_head"])) + len(
-        jax.tree_util.tree_leaves(variables["batch_stats"]["stn_head"])
-    )
-    assert len(stn) == n_stn < n_leaves
-    back = import_tatt({k: v.numpy() for k, v in sd.items()}, srb_nums=2)
-    _roundtrip_check(variables, back, skip=("'stn_head'",))
+    assert any(k.startswith("stn_head.stn_fc2.") for k in sd)
+    assert len(sd) > len(TATT(**small).state_dict())
+    back = import_tatt({k: v.numpy() for k, v in port.state_dict().items()}, srb_nums=2)
+    _roundtrip_check(variables, back)
 
 
 def test_weight_bridge_round_trips_crnn_flat_and_nested():
     from tatt_tpu.core.torch_import import import_crnn
     from tatt_tpu.models.recognizers.crnn import CRNN as JCRNN
-    from tatt_tpu_torch.core.convert import from_jax, load_npz, skipped_keys
+    from tatt_tpu_torch.core.convert import from_jax, load_npz
 
     nested = random_variables(
         JCRNN(nh=16, nm=(8, 8, 16, 16, 32, 32, 32)), np.random.default_rng(1),
@@ -122,7 +120,6 @@ def test_weight_bridge_round_trips_crnn_flat_and_nested():
     )
     back = import_crnn({k: v.numpy() for k, v in from_jax(nested).items()})
     _roundtrip_check(nested, back)
-    assert skipped_keys(nested) == []
     flat, meta = load_npz(os.path.join(os.path.dirname(__file__), "assets", "fixture_crnn.npz"))
     assert int(meta["nh"]) == 64 and "params/conv0/kernel" in flat
     sd = from_jax(flat)

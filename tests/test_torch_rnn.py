@@ -106,10 +106,3 @@ def test_wide_bigru_takes_the_plain_path():
     np.testing.assert_allclose(got, want, **TOL)
     assert gru.bigru_recurrence.launches == before
 
-
-def test_recurrences_refuse_grad():
-    from tatt_tpu_torch.kernels.lstm import bilstm_recurrence
-
-    gates = torch.zeros(2, 3, 4, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        bilstm_recurrence(gates, torch.zeros(2, 8, 2), torch.zeros(2, 8))
