@@ -3,11 +3,15 @@ training paths at full width, with all four hand-written kernels held
 against their plain PyTorch versions.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --forward-kernels-only   # phases 1-2 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
   2. each forward kernel against its plain version at the main paths'
-     shapes, with timings (CUDA events) of kernel, plain version and cuDNN
+     shapes, with timings (CUDA events) of kernel, plain version and cuDNN;
+     the LSTM kernel also without and with its cell states, by events and
+     by its own device time in a profiler window, beside the input
+     projection (cuDNN's time includes it)
   3. the full-width eval path (Evaluator over 256 synthetic images at
      batch 64), launch counts, and one batch on the card against the CPU
   4. the trained fixture judge reads HR through the LSTM kernel
@@ -25,6 +29,7 @@ The last line is the JSON object the chip check reads.  Imports no JAX.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import math
@@ -219,7 +224,40 @@ def _lstm_weights(length, rows, cin, hid, gen):
     return x, w_ih, w_hh, b_ih, b_hh, gates
 
 
+def kernel_self_ms(fn, kernel: str, iters: int):
+    """Mean self device time (ms) per call of the device kernels whose name
+    holds ``kernel``, from one profiler window over ``iters`` calls of
+    ``fn`` (after warm-up); None when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return total / 1e3 / iters if total > 0 else None
+
+
+def kernel_time(fn, kernel: str) -> dict:
+    """A kernel's time per launch two ways: CUDA events around 50
+    back-to-back calls (which, at tens of us a launch, may time the Python
+    wrapper rather than the card) and the kernel's own device time in a
+    profiler window; ``ms`` is the smaller."""
+    event_ms = timed_ms(fn, 50)
+    prof_ms = kernel_self_ms(fn, kernel, 20)
+    return {"ms": event_ms if prof_ms is None else min(event_ms, prof_ms),
+            "event_ms": event_ms, "profiler_ms": prof_ms}
+
+
 def check_lstm(name, length, rows, cin, hid, gen):
+    """The forward kernel against its plain version, timed without and
+    with the cell states (training asks for them in half its launches),
+    beside the input projection that runs before it and cuDNN's
+    ``nn.LSTM``, which includes that projection."""
     x, w_ih, w_hh, b_ih, b_hh, gates = _lstm_weights(length, rows, cin, hid, gen)
     out = bilstm_recurrence(gates, w_hh, b_hh)
     ref = bilstm_recurrence_ref(gates, w_hh, b_hh)
@@ -227,9 +265,14 @@ def check_lstm(name, length, rows, cin, hid, gen):
     err = (out - ref).abs().max().item()
     lib = _library_rnn(torch.nn.LSTM, cin, hid, w_ih, w_hh, b_ih, b_hh)
     lib_err = (lib(x)[0] - ref).abs().max().item()
+    plain = kernel_time(lambda: bilstm_recurrence(gates, w_hh, b_hh), "bilstm_fwd")
+    with_cs = kernel_time(lambda: bilstm_recurrence(gates, w_hh, b_hh, with_cs=True), "bilstm_fwd")
     row = dict(
         shape=name, L=length, R=rows, H=hid, In=cin, max_abs_err=err, tol=KERNEL_ATOL,
-        kernel_ms=timed_ms(lambda: bilstm_recurrence(gates, w_hh, b_hh), 50),
+        kernel_ms=plain["ms"], kernel_event_ms=plain["event_ms"],
+        kernel_profiler_ms=plain["profiler_ms"], kernel_cs_ms=with_cs["ms"],
+        projection_ms=timed_ms(
+            lambda: torch.matmul(x, w_ih.transpose(1, 2)[:, None]) + b_ih[:, None, None], 50),
         plain_ms=timed_ms(lambda: bilstm_recurrence_ref(gates, w_hh, b_hh), 5),
         library_ms=timed_ms(lambda: lib(x), 50), library_err=lib_err,
     )
@@ -336,7 +379,12 @@ def load_judge():
     return judge.eval()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--forward-kernels-only", action="store_true",
+                    help="stop after phase 2 (a quick look at the forward kernels' "
+                         "accuracy and times); prints no result line")
+    args = ap.parse_args(argv)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -374,6 +422,14 @@ def main() -> int:
         print("[kernel] " + json.dumps(row))
         if not row["max_abs_err"] <= KERNEL_ATOL:
             fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
+    for row in lstm_rows:
+        print(f"[lstm] {row['shape']}: kernel {row['kernel_ms']:.4f} ms "
+              f"({row['kernel_ms'] / row['L'] * 1e3:.2f} us a step; events "
+              f"{row['kernel_event_ms']:.4f}, profiler {row['kernel_profiler_ms']}), "
+              f"with c {row['kernel_cs_ms']:.4f}; + projection "
+              f"{row['kernel_ms'] + row['projection_ms']:.4f} vs nn.LSTM {row['library_ms']:.4f}")
+    if args.forward_kernels_only:
+        return 0
 
     # ---- 3. the eval path at full width
     generator = init_parameters(TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True), 1234)

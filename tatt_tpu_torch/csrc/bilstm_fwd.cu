@@ -59,16 +59,21 @@ namespace {
 constexpr int RT = 16;  // rows per cluster
 constexpr int RPT = 4;  // rows per thread
 constexpr int RG = RT / RPT;
+constexpr int kMaxThreads = 512;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__global__ void __launch_bounds__(256)
+// kCluster: a cluster of cs > 1 blocks shares the step's h through
+// distributed shared memory; otherwise one block holds all of W_hh[d] and
+// exchanges h in its own shared memory.
+template <bool kCluster>
+__global__ void __launch_bounds__(kMaxThreads)
 bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                   const float* __restrict__ b_hh, float* __restrict__ out,
                   float* __restrict__ cseq, int L, int H, int R) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
+  const int cs = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int U = H / cs;
   const int WS = 4 * U + 1;  // padded row of the transposed slice: no bank conflicts
   extern __shared__ __align__(16) float smem[];
@@ -97,7 +102,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   float c[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) c[r] = 0.0f;
-  cluster.sync();  // every block of the cluster runs and holds h_0
+  if constexpr (kCluster) cg::this_cluster().sync();  // every block runs and holds h_0
+  else __syncthreads();
 
   for (int s = 0; s < L; ++s) {
     const int t = dir == 0 ? s : L - 1 - s;
@@ -137,9 +143,13 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
       hn[r] = og * tanhf(c[r]);
     }
     const float4 h4 = make_float4(hn[0], hn[1], hn[2], hn[3]);
-    for (int dst = 0; dst < cs; ++dst) {
-      float* remote = cluster.map_shared_rank(h_nxt, dst);
-      *reinterpret_cast<float4*>(remote + unit * RT + rg * RPT) = h4;
+    if constexpr (kCluster) {
+      for (int dst = 0; dst < cs; ++dst) {
+        float* remote = cg::this_cluster().map_shared_rank(h_nxt, dst);
+        *reinterpret_cast<float4*>(remote + unit * RT + rg * RPT) = h4;
+      }
+    } else {
+      *reinterpret_cast<float4*>(h_nxt + unit * RT + rg * RPT) = h4;
     }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
@@ -153,7 +163,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
     // publishes every block's slice of h_{s+1}; also, no block moves on to
     // overwrite h_cur (step s+1 writes the other buffer, step s+2 this one)
     // before all have read it
-    cluster.sync();
+    if constexpr (kCluster) cg::this_cluster().sync();
+    else __syncthreads();
   }
 }
 
@@ -172,13 +183,25 @@ static size_t smem_bytes(int H, int cs) {
   return sizeof(float) * ((size_t)2 * H * RT + (size_t)H * (4 * U + 1));
 }
 
+// Returned, before any launch, for an H that no cluster size serves.
+constexpr int kNoFit = -1;
+
+// The smallest cluster size that divides H and whose block fits: threads
+// and shared memory.  0 when none does.
+static int cluster_size(int H) {
+  for (int cs = 1; cs <= 8; cs *= 2)
+    if (H % cs == 0 && (H / cs) * RG <= kMaxThreads && smem_bytes(H, cs) <= kMaxSmem) return cs;
+  return 0;
+}
+
 extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
                           float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
-  int cs = 8;
-  while (H % cs) cs /= 2;
+  const int cs = cluster_size(H);
+  if (cs == 0) return kNoFit;  // before any launch
   const size_t smem = smem_bytes(H, cs);
+  auto kernel = cs > 1 ? bilstm_fwd_kernel<true> : bilstm_fwd_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      bilstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return clear_and_return(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs * ((R + RT - 1) / RT), 2);
@@ -191,9 +214,8 @@ extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, bilstm_fwd_kernel, gates, w_hh, b_hh, out, cseq, L, H, R);
+  cfg.numAttrs = cs > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, L, H, R);
   if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
-

@@ -23,6 +23,9 @@ from tatt_tpu_torch.kernels import _build
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 MAX_HIDDEN = 256
+# what csrc/bilstm_fwd.cu returns, before any launch, for an H that no
+# cluster size serves
+_NO_FIT = -1
 
 
 def _lstm_cell(a, hid):
@@ -137,6 +140,11 @@ def bilstm_recurrence(gates, w_hh, b_hh, with_cs: bool = False):
             err = lib.bilstm_fwd(
                 gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
                 None if cs is None else cs.data_ptr(), length, hid, rows, stream,
+            )
+        if err == _NO_FIT:
+            raise ValueError(
+                f"bilstm_recurrence: H={hid}: no cluster of 1, 2, 4 or 8 blocks divides H "
+                "with a block whose slice of W_hh fits shared memory"
             )
         _build.check(err, "bilstm_fwd")
         bilstm_recurrence.launches += 1

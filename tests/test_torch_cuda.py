@@ -63,25 +63,47 @@ def test_bigru_kernel_matches_plain(cuda, length, rows, hid):
     assert (out - ref).abs().max().item() <= ATOL
 
 
-# (L, R, H): the CRNN head (R = batch 64, H = 256), the fixture judge
-# (H = 64), ragged rows, L=1, odd L, and H not a multiple of 32
+# (L, R, H, with_cs): the CRNN head (R = batch 64, H = 256, one 8-block
+# cluster per 8 rows), the fixture judge (H = 64, one block), ragged rows and
+# the row-tile edges (R = 8, 9, 61), L=1, odd L, one block at H not a
+# multiple of 32 (48, 100, 16), clusters of 2 (H = 128) and 4 (H = 200),
+# and the cell states of both main-path sizes
 @pytest.mark.parametrize(
-    "length,rows,hid",
-    [(26, 64, 256), (26, 64, 64), (26, 61, 256), (1, 9, 256), (7, 13, 64),
-     (5, 17, 48), (4, 3, 16)],
+    "length,rows,hid,with_cs",
+    [(26, 64, 256, False), (26, 64, 64, False), (26, 61, 256, False), (1, 9, 256, False),
+     (5, 8, 256, False), (5, 9, 256, False), (7, 13, 64, False), (1, 7, 64, False),
+     (5, 17, 48, False), (6, 11, 100, False), (4, 21, 128, False), (3, 10, 200, False),
+     (4, 3, 16, False), (26, 64, 64, True), (26, 64, 256, True)],
 )
-def test_bilstm_kernel_matches_plain(cuda, length, rows, hid):
+def test_bilstm_kernel_matches_plain(cuda, length, rows, hid, with_cs):
     from tatt_tpu_torch.kernels.lstm import bilstm_recurrence, bilstm_recurrence_ref
 
     gates, w_hh, b_hh = _recurrence_inputs((2, rows, length, 4 * hid), 4 * hid, hid, cuda)
     before = bilstm_recurrence.launches
     with torch.no_grad():
-        out = bilstm_recurrence(gates, w_hh, b_hh)
-        ref = bilstm_recurrence_ref(gates, w_hh, b_hh)
+        got = bilstm_recurrence(gates, w_hh, b_hh, with_cs=with_cs)
+        want = bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs=with_cs)
     torch.cuda.synchronize()
     assert bilstm_recurrence.launches == before + 1
-    assert out.shape == (rows, length, 2 * hid)
-    assert (out - ref).abs().max().item() <= ATOL
+    if not with_cs:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.shape == (rows, length, 2 * hid)
+        assert (g - w).abs().max().item() <= ATOL
+
+
+def test_bilstm_kernel_refuses_unfitting_hidden(cuda):
+    """H = 250 = 2 x 125: a cluster of 1 or 2 blocks would hold 1 MB or
+    500 KB of W_hh per block, and 4 and 8 do not divide H.  The wrapper
+    raises before any launch."""
+    from tatt_tpu_torch.kernels.lstm import bilstm_recurrence
+
+    gates, w_hh, b_hh = _recurrence_inputs((2, 4, 3, 1000), 1000, 250, cuda)
+    before = bilstm_recurrence.launches
+    with pytest.raises((RuntimeError, ValueError), match="H=250"):
+        bilstm_recurrence(gates, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert bilstm_recurrence.launches == before
 
 
 def _scaled_err(got, want):
