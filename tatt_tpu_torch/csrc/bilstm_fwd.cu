@@ -105,19 +105,32 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   if constexpr (kCluster) cg::this_cluster().sync();  // every block runs and holds h_0
   else __syncthreads();
 
-  for (int s = 0; s < L; ++s) {
+  // the input projection of step s, loaded during step s-1: its global
+  // latency stays off the serial chain
+  float xr[4][RPT];
+  auto load_x = [&](int s) {
     const int t = dir == 0 ? s : L - 1 - s;
-    const float* h_cur = h_s + (s & 1) * H * RT;
-    float* h_nxt = h_s + ((s + 1) & 1) * H * RT;
-    float acc[4][RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = row0 + r;
       const bool live = row < R;
       const float* gx = gates + (((size_t)dir * R + (live ? row : 0)) * L + t) * G + unit;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g][r] = bias[g] + (live ? gx[g * H] : 0.0f);
+      for (int g = 0; g < 4; ++g) xr[g][r] = live ? gx[g * H] : 0.0f;
     }
+  };
+  load_x(0);
+
+  for (int s = 0; s < L; ++s) {
+    const int t = dir == 0 ? s : L - 1 - s;
+    const float* h_cur = h_s + (s & 1) * H * RT;
+    float* h_nxt = h_s + ((s + 1) & 1) * H * RT;
+    float acc[4][RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[g][r] = bias[g] + xr[g][r];
+    if (s + 1 < L) load_x(s + 1);
 #pragma unroll 4
     for (int k = 0; k < H; ++k) {
       const float4 hv = *reinterpret_cast<const float4*>(h_cur + k * RT + rg * RPT);
