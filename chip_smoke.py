@@ -267,10 +267,15 @@ def check_lstm(name, length, rows, cin, hid, gen):
     lib_err = (lib(x)[0] - ref).abs().max().item()
     plain = kernel_time(lambda: bilstm_recurrence(gates, w_hh, b_hh), "bilstm_fwd")
     with_cs = kernel_time(lambda: bilstm_recurrence(gates, w_hh, b_hh, with_cs=True), "bilstm_fwd")
+    # one step alone: set-up (W_hh into shared memory) plus one step, so that
+    # (kernel_ms - one_step_ms) / (L - 1) is the time of a step
+    first = gates[:, :, :1].contiguous()
+    one_step = kernel_time(lambda: bilstm_recurrence(first, w_hh, b_hh), "bilstm_fwd")
     row = dict(
         shape=name, L=length, R=rows, H=hid, In=cin, max_abs_err=err, tol=KERNEL_ATOL,
         kernel_ms=plain["ms"], kernel_event_ms=plain["event_ms"],
         kernel_profiler_ms=plain["profiler_ms"], kernel_cs_ms=with_cs["ms"],
+        one_step_ms=one_step["ms"],
         projection_ms=timed_ms(
             lambda: torch.matmul(x, w_ih.transpose(1, 2)[:, None]) + b_ih[:, None, None], 50),
         plain_ms=timed_ms(lambda: bilstm_recurrence_ref(gates, w_hh, b_hh), 5),
@@ -423,9 +428,11 @@ def main(argv=None) -> int:
         if not row["max_abs_err"] <= KERNEL_ATOL:
             fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
     for row in lstm_rows:
+        step_us = (row["kernel_ms"] - row["one_step_ms"]) / (row["L"] - 1) * 1e3
         print(f"[lstm] {row['shape']}: kernel {row['kernel_ms']:.4f} ms "
-              f"({row['kernel_ms'] / row['L'] * 1e3:.2f} us a step; events "
-              f"{row['kernel_event_ms']:.4f}, profiler {row['kernel_profiler_ms']}), "
+              f"({step_us:.2f} us a step after {row['one_step_ms']:.4f} ms for set-up and "
+              f"step 1; events {row['kernel_event_ms']:.4f}, profiler "
+              f"{row['kernel_profiler_ms']}), "
               f"with c {row['kernel_cs_ms']:.4f}; + projection "
               f"{row['kernel_ms'] + row['projection_ms']:.4f} vs nn.LSTM {row['library_ms']:.4f}")
     if args.forward_kernels_only:

@@ -11,10 +11,9 @@
 // one matmul.  Direction 0 walks t = 0 .. L-1, direction 1 walks
 // t = L-1 .. 0 and writes each output at its forward-time slot, so no
 // time-flipped copy is made (the JAX wrapper flips outside its kernel).
-// c lives in registers; when `cseq` is not null every c is also stored, in
-// the `out` layout, for the backward pass (csrc/bilstm_bwd.cu), as the JAX
-// kernel stores it (pallas_lstm.py:50).  Inference passes null and writes
-// no extra bytes.
+// When `cseq` is not null every c is also stored, in the `out` layout, for
+// the backward pass (csrc/bilstm_bwd.cu), as the JAX kernel stores it
+// (pallas_lstm.py:50).  Inference passes null and writes no extra bytes.
 //
 // Layouts (float32, contiguous):
 //   gates [2, R, L, 4H]   (gates minor: the matmul x @ W_ih^T writes this
@@ -24,30 +23,25 @@
 //                          channels d*H .. d*H+H-1)
 //   cseq  [R, L, 2H] or null
 //
-// What bounds it on an H100: the recurrence is serial in t, and at H=256
-// each step is a [4H x H] x [H x rows] product whose W_hh (1 MB f32 per
-// direction) does not fit one block's 227 KB of shared memory.  A first
-// version, one block per (direction, 8 rows) re-reading W_hh from L2 every
-// step, ran at one SM's share of L2 bandwidth: ~57 us a step, 1.5 ms a
-// launch at the CRNN's R=64 (PERF.md).  The least time for the work is
-// ~26 us (the f32 operations at the card's peak).
+// Design.  W_hh stays in shared memory for the whole launch.  A cluster of
+// cs blocks serves one (direction, tile of rt rows); block `rank` owns the
+// hidden units [rank*U, rank*U+U), U = H/cs, and keeps their 4U rows of
+// W_hh as [k][U][4 gates], so that one 16-byte load gives a thread the four
+// gates of its unit.  cs is the smallest of 1, 2, 4, 8 that divides H and
+// whose block fits; cs = 1 (H <= ~100) is a plain block that exchanges h in
+// its own shared memory.  Each step:
+//   1. every thread (k group, row group, unit) forms the 4 x RPT partial
+//      sums of W_hh h over its slice of k (kg groups: 16 warps a block);
+//   2. the partials go through shared memory, one __syncthreads, and one
+//      thread per (unit, row) sums them in a fixed order, adds x and the
+//      bias, updates c (in a register) and h;
+//   3. h goes into the next-step h buffer of every block of the cluster
+//      (distributed shared memory), and one cluster barrier publishes it.
+// The h buffer is double-buffered, so that barrier is the only one across
+// blocks.  x is loaded before the step's products and used after them, so
+// its global latency stays off the serial chain.
 //
-// Design: W_hh stays in shared memory for the whole launch, split across
-// the CS=8 blocks of a thread-block cluster.  A cluster serves one
-// (direction, tile of RT=16 rows); block `rank` owns hidden units
-// [rank*U, rank*U+U), U = H/CS, and keeps their 4U rows of W_hh
-// (128 KB at H=256) transposed as [k][4U] so neighbouring threads --
-// neighbouring units -- read neighbouring words.  A thread owns one unit
-// (all four gates, so the cell update needs no exchange) for RPT=4 rows,
-// with c in registers.  Each step a block reads the full previous h of the
-// tile from its own shared memory, computes its units' new h, and stores
-// that slice into the next-step h buffer of every block of the cluster
-// (distributed shared memory); one cluster barrier per step publishes it.
-// The h buffer is double-buffered, so that barrier is the only one.
-// At R=64 this runs 2 x 4 clusters = 64 blocks, one per SM.
-// Any H up to 256 whose W_hh slice fits: CS is the largest of 8, 4, 2, 1
-// dividing H, and the launch fails (cudaFuncSetAttribute refuses) when a
-// block would need more than 227 KB of shared memory.
+// No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -56,179 +50,225 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int RT = 16;  // rows per cluster
-constexpr int RPT = 4;  // rows per thread
-constexpr int RG = RT / RPT;
 constexpr int kMaxThreads = 512;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
+constexpr int kMaxKGroups = 16;
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// kCluster: a cluster of cs > 1 blocks shares the step's h through
-// distributed shared memory; otherwise one block holds all of W_hh[d] and
-// exchanges h in its own shared memory.
-template <bool kCluster>
+// RPT rows per thread in the products; kCluster: cs > 1 blocks share h
+// through distributed shared memory.
+template <int RPT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
 bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                   const float* __restrict__ b_hh, float* __restrict__ out,
-                  float* __restrict__ cseq, int L, int H, int R) {
+                  float* __restrict__ cseq, int L, int H, int R, int rt, int kg) {
   const int cs = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
   const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int U = H / cs;
-  const int WS = 4 * U + 1;  // padded row of the transposed slice: no bank conflicts
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
   extern __shared__ __align__(16) float smem[];
-  float* h_s = smem;                 // [2][H][RT]
-  float* w_s = smem + 2 * H * RT;    // [H][WS]
+  float* w_s = smem;                        // [H][U][4]
+  float* h_s = w_s + (size_t)H * 4 * U;     // [2][H][rt]
+  float* red = h_s + 2 * H * rt;            // [kg][4][U][rt]
 
   const int dir = blockIdx.y;
   const int tile = blockIdx.x / cs;
-  const int u = threadIdx.x % U;
-  const int rg = threadIdx.x / U;
-  const int unit = rank * U + u;
-  const int row0 = tile * RT + rg * RPT;
-  const int G = 4 * H;
 
-  // this block's 4U rows of W_hh[dir], read along k (coalesced), stored [k][g*U+u]
+  // this block's 4U rows of W_hh[dir] as [k][u][g]: a thread reads 16 bytes
+  // of one row along k and writes four neighbours' words (no bank conflict)
   const float* w_d = w_hh + (size_t)dir * G * H;
-  for (int i = threadIdx.x; i < 4 * U * H; i += blockDim.x) {
-    const int gu = i / H, k = i % H;
-    const int g = gu / U, uu = gu % U;
-    w_s[k * WS + gu] = w_d[(size_t)(g * H + rank * U + uu) * H + k];
+  if ((H & 3) == 0) {
+#pragma unroll 4
+    for (int i = tid; i < U * H; i += blockDim.x) {  // (k4, u, g), g fastest
+      const int gu = i % (4 * U), k = 4 * (i / (4 * U));
+      const float4 v = *reinterpret_cast<const float4*>(
+          w_d + (size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k);
+      float* dst = w_s + (size_t)k * 4 * U + gu;
+      dst[0] = v.x;
+      dst[4 * U] = v.y;
+      dst[8 * U] = v.z;
+      dst[12 * U] = v.w;
+    }
+  } else {
+    for (int i = tid; i < 4 * U * H; i += blockDim.x) {
+      const int gu = i % (4 * U), k = i / (4 * U);
+      w_s[(size_t)k * 4 * U + gu] = w_d[(size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k];
+    }
   }
-  for (int i = threadIdx.x; i < H * RT; i += blockDim.x) h_s[i] = 0.0f;  // h_0 = 0
+  for (int i = tid; i < H * rt; i += blockDim.x) h_s[i] = 0.0f;  // h_0 = 0
+
+  // step 1's thread: unit u, rows rg*RPT .. +RPT, k in [k0, k1)
+  const int rg_n = rt / RPT;
+  const int u = tid % U;
+  const int rg = (tid / U) % rg_n;
+  const int kgi = tid / (U * rg_n);
+  const int kr = (H + kg - 1) / kg;
+  const int k0 = min(H, kgi * kr), k1 = min(H, k0 + kr);
+  // step 2's thread: one (unit fu, row frt) pair, fu-major so that a warp's
+  // h stores land on neighbouring words
+  const bool fin = tid < U * rt;
+  const int fu = tid / rt, frt = tid % rt;
+  const int funit = rank * U + fu;
+  const int row = tile * rt + frt;
+  const bool live = fin && row < R;
   float bias[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = b_hh[dir * G + g * H + unit];
-  float c[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) c[r] = 0.0f;
+  for (int g = 0; g < 4; ++g) bias[g] = fin ? b_hh[dir * G + g * H + funit] : 0.0f;
+  float c = 0.0f;
   if constexpr (kCluster) cg::this_cluster().sync();  // every block runs and holds h_0
   else __syncthreads();
 
-  // the input projection of step s, loaded during step s-1: its global
-  // latency stays off the serial chain
-  float xr[4][RPT];
-  auto load_x = [&](int s) {
-    const int t = dir == 0 ? s : L - 1 - s;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + r;
-      const bool live = row < R;
-      const float* gx = gates + (((size_t)dir * R + (live ? row : 0)) * L + t) * G + unit;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) xr[g][r] = live ? gx[g * H] : 0.0f;
-    }
-  };
-  load_x(0);
-
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
   for (int s = 0; s < L; ++s) {
     const int t = dir == 0 ? s : L - 1 - s;
-    const float* h_cur = h_s + (s & 1) * H * RT;
-    float* h_nxt = h_s + ((s + 1) & 1) * H * RT;
+    const float* h_cur = h_s + (s & 1) * H * rt;
+    float* h_nxt = h_s + ((s + 1) & 1) * H * rt;
+
+    // this step's input projection: issued now, used after the products
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live) {
+      const float* gx = gates + (((size_t)dir * R + row) * L + t) * G + funit;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x[g] = gx[g * H];
+    }
+
+    // 1. partial products over this thread's k slice
     float acc[4][RPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
+    for (int g = 0; g < 4; ++g)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g][r] = bias[g] + xr[g][r];
-    if (s + 1 < L) load_x(s + 1);
+      for (int r = 0; r < RPT; ++r) acc[g][r] = 0.0f;
 #pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(h_cur + k * RT + rg * RPT);
-      const float* wk = w_s + k * WS + u;
-      const float w0 = wk[0], w1 = wk[U], w2 = wk[2 * U], w3 = wk[3 * U];
-      const float hr[RPT] = {hv.x, hv.y, hv.z, hv.w};
+    for (int k = k0; k < k1; ++k) {
+      const float4 w = w4[k * U + u];
+      const float* hk = h_cur + k * rt + rg * RPT;
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        acc[0][r] = fmaf(w0, hr[r], acc[0][r]);
-        acc[1][r] = fmaf(w1, hr[r], acc[1][r]);
-        acc[2][r] = fmaf(w2, hr[r], acc[2][r]);
-        acc[3][r] = fmaf(w3, hr[r], acc[3][r]);
+      for (int q = 0; q < RPT / 4; ++q) {
+        const float4 hv = *reinterpret_cast<const float4*>(hk + 4 * q);
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[0][4 * q + j] = fmaf(w.x, hr[j], acc[0][4 * q + j]);
+          acc[1][4 * q + j] = fmaf(w.y, hr[j], acc[1][4 * q + j]);
+          acc[2][4 * q + j] = fmaf(w.z, hr[j], acc[2][4 * q + j]);
+          acc[3][4 * q + j] = fmaf(w.w, hr[j], acc[3][4 * q + j]);
+        }
       }
     }
-    float hn[RPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float ig = sigm(acc[0][r]);
-      const float fg = sigm(acc[1][r]);
-      const float gg = tanhf(acc[2][r]);
-      const float og = sigm(acc[3][r]);
-      c[r] = fg * c[r] + ig * gg;
-      hn[r] = og * tanhf(c[r]);
-    }
-    const float4 h4 = make_float4(hn[0], hn[1], hn[2], hn[3]);
-    if constexpr (kCluster) {
-      for (int dst = 0; dst < cs; ++dst) {
-        float* remote = cg::this_cluster().map_shared_rank(h_nxt, dst);
-        *reinterpret_cast<float4*>(remote + unit * RT + rg * RPT) = h4;
-      }
-    } else {
-      *reinterpret_cast<float4*>(h_nxt + unit * RT + rg * RPT) = h4;
-    }
+    for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + r;
-      if (row < R) {
-        const size_t o = ((size_t)row * L + t) * 2 * H + (size_t)dir * H + unit;
-        out[o] = hn[r];
-        if (cseq != nullptr) cseq[o] = c[r];
+      for (int q = 0; q < RPT / 4; ++q)
+        *reinterpret_cast<float4*>(red + ((size_t)(kgi * 4 + g) * U + u) * rt + rg * RPT + 4 * q) =
+            make_float4(acc[g][4 * q], acc[g][4 * q + 1], acc[g][4 * q + 2], acc[g][4 * q + 3]);
+    __syncthreads();
+
+    // 2. one thread per (unit, row): sum the partials in k-group order
+    float hn = 0.0f;
+    if (fin) {
+      float a[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        a[g] = x[g] + bias[g];
+        for (int j = 0; j < kg; ++j) a[g] += red[(size_t)(j * 4 + g) * U * rt + tid];
       }
+      c = sigm(a[1]) * c + sigm(a[0]) * tanhf(a[2]);
+      hn = sigm(a[3]) * tanhf(c);
+      // 3. h into every block's next-step buffer
+      if constexpr (kCluster) {
+        for (int dst = 0; dst < cs; ++dst)
+          cg::this_cluster().map_shared_rank(h_nxt, dst)[funit * rt + frt] = hn;
+      } else {
+        h_nxt[funit * rt + frt] = hn;
+      }
+    }
+    if (live) {
+      const size_t o = ((size_t)row * L + t) * 2 * H + (size_t)dir * H + funit;
+      out[o] = hn;
+      if (cseq != nullptr) cseq[o] = c;
     }
     // publishes every block's slice of h_{s+1}; also, no block moves on to
     // overwrite h_cur (step s+1 writes the other buffer, step s+2 this one)
-    // before all have read it
+    // or the partials before all have read them
     if constexpr (kCluster) cg::this_cluster().sync();
     else __syncthreads();
   }
 }
 
-}  // namespace
-
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
-static int clear_and_return(cudaError_t e) {
+int clear_and_return(cudaError_t e) {
   cudaGetLastError();
   return (int)e;
-}
-
-// Shared-memory bytes of one block for hidden size H and cluster size cs.
-static size_t smem_bytes(int H, int cs) {
-  const int U = H / cs;
-  return sizeof(float) * ((size_t)2 * H * RT + (size_t)H * (4 * U + 1));
 }
 
 // Returned, before any launch, for an H that no cluster size serves.
 constexpr int kNoFit = -1;
 
-// The smallest cluster size that divides H and whose block fits: threads
-// and shared memory.  0 when none does.
-static int cluster_size(int H) {
-  for (int cs = 1; cs <= 8; cs *= 2)
-    if (H % cs == 0 && (H / cs) * RG <= kMaxThreads && smem_bytes(H, cs) <= kMaxSmem) return cs;
-  return 0;
+struct Plan {
+  int cs, rt, kg;
+  size_t smem;
+};
+
+// Shared-memory bytes of one block: W_hh slice, two h buffers, partials.
+size_t smem_bytes(int H, int U, int rt, int kg) {
+  return sizeof(float) * ((size_t)H * 4 * U + (size_t)2 * H * rt + (size_t)kg * 4 * U * rt);
 }
+
+// The launch for hidden size H and R rows.  cs: the smallest cluster size
+// that divides H and whose block fits.  rt: the fewest rows per cluster
+// (at least 4) that keep every block on an SM of its own at once, as long
+// as one thread per (unit, row) fits a block.  kg: the most k groups (up to
+// 16) that fit the block's threads and shared memory, at least one per row
+// of a thread.  False when no cluster size fits.
+bool make_plan(int H, int R, int sms, Plan* p) {
+  for (int cs = 1; cs <= 8; cs *= 2) {
+    if (H % cs != 0) continue;
+    const int U = H / cs;
+    int rt = 4;
+    while (rt < 32 && 2 * cs * ((R + rt - 1) / rt) > sms && U * 2 * rt <= kMaxThreads) rt *= 2;
+    if (U * rt > kMaxThreads) continue;
+    const int rpt = rt >= 8 ? 8 : 4;
+    int kg = kMaxKGroups;
+    while (kg > rpt && kg * U * (rt / rpt) > kMaxThreads) kg /= 2;
+    while (kg > rpt && smem_bytes(H, U, rt, kg) > kMaxSmem) kg /= 2;
+    if (smem_bytes(H, U, rt, kg) > kMaxSmem) continue;
+    *p = Plan{cs, rt, kg, smem_bytes(H, U, rt, kg)};
+    return true;
+  }
+  return false;
+}
+
+}  // namespace
 
 extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
                           float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
-  const int cs = cluster_size(H);
-  if (cs == 0) return kNoFit;  // before any launch
-  const size_t smem = smem_bytes(H, cs);
-  auto kernel = cs > 1 ? bilstm_fwd_kernel<true> : bilstm_fwd_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return clear_and_return(e);
+  Plan p;
+  if (!make_plan(H, R, sms, &p)) return kNoFit;  // before any launch
+  const int rpt = p.rt >= 8 ? 8 : 4;
+  auto kernel = rpt == 8 ? (p.cs > 1 ? bilstm_fwd_kernel<8, true> : bilstm_fwd_kernel<8, false>)
+                         : (p.cs > 1 ? bilstm_fwd_kernel<4, true> : bilstm_fwd_kernel<4, false>);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * ((R + RT - 1) / RT), 2);
-  cfg.blockDim = dim3((H / cs) * RG);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(p.cs * ((R + p.rt - 1) / p.rt), 2);
+  cfg.blockDim = dim3(p.kg * (H / p.cs) * (p.rt / rpt));
+  cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = p.cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = cs > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, L, H, R);
+  cfg.numAttrs = p.cs > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, L, H, R, p.rt, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
