@@ -46,6 +46,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -208,57 +212,123 @@ int clear_and_return(cudaError_t e) {
 constexpr int kNoFit = -1;
 
 struct Plan {
-  int cs, rt, kg;
+  int cs, rt, rpt, kg;
   size_t smem;
 };
+
+using Kernel = void (*)(const float*, const float*, const float*, float*, float*, int, int,
+                        int, int, int);
+
+Kernel kernel_of(const Plan& p) {
+  if (p.rpt == 8) return p.cs > 1 ? bilstm_fwd_kernel<8, true> : bilstm_fwd_kernel<8, false>;
+  return p.cs > 1 ? bilstm_fwd_kernel<4, true> : bilstm_fwd_kernel<4, false>;
+}
+
+int threads_of(const Plan& p, int H) { return p.kg * (H / p.cs) * (p.rt / p.rpt); }
 
 // Shared-memory bytes of one block: W_hh slice, two h buffers, partials.
 size_t smem_bytes(int H, int U, int rt, int kg) {
   return sizeof(float) * ((size_t)H * 4 * U + (size_t)2 * H * rt + (size_t)kg * 4 * U * rt);
 }
 
+// The block for cluster size cs and rt rows: the most k groups (up to 16,
+// at least one per row of a thread) that fit its threads and shared
+// memory.  False when none fits.
+bool block_plan(int H, int cs, int rt, Plan* p) {
+  const int U = H / cs;
+  const int rpt = rt % 8 == 0 ? 8 : 4;
+  if (U * rt > kMaxThreads) return false;  // one thread per (unit, row)
+  int kg = kMaxKGroups;
+  while (kg > rpt && (kg * U * (rt / rpt) > kMaxThreads || smem_bytes(H, U, rt, kg) > kMaxSmem))
+    kg /= 2;
+  if (smem_bytes(H, U, rt, kg) > kMaxSmem) return false;
+  *p = Plan{cs, rt, rpt, kg, smem_bytes(H, U, rt, kg)};
+  return true;
+}
+
+// Clusters of plan p that the card runs at once.
+int resident_clusters(const Plan& p, int H, int device, cudaError_t* e) {
+  const Kernel kernel = kernel_of(p);
+  *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (*e != cudaSuccess) return 0;
+  int n = 0;
+  if (p.cs == 1) {
+    int sms = 0;
+    *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (*e == cudaSuccess)
+      *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads_of(p, H), p.smem);
+    return n * sms;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cs, 1);
+  cfg.blockDim = dim3(threads_of(p, H));
+  cfg.dynamicSmemBytes = p.smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  *e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  return n;
+}
+
 // The launch for hidden size H and R rows.  cs: the smallest cluster size
-// that divides H and whose block fits.  rt: the fewest rows per cluster
-// (at least 4) that keep every block on an SM of its own at once, as long
-// as one thread per (unit, row) fits a block.  kg: the most k groups (up to
-// 16) that fit the block's threads and shared memory, at least one per row
-// of a thread.  False when no cluster size fits.
-bool make_plan(int H, int R, int sms, Plan* p) {
+// that divides H and whose block fits.  rt: the fewest rows per cluster (a
+// multiple of 4) with which all 2 * ceil(R / rt) clusters run at once, or
+// else the most that fit.  False (and *e unset) when no cluster size fits.
+bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
+  *e = cudaSuccess;
   for (int cs = 1; cs <= 8; cs *= 2) {
     if (H % cs != 0) continue;
-    const int U = H / cs;
-    int rt = 4;
-    while (rt < 32 && 2 * cs * ((R + rt - 1) / rt) > sms && U * 2 * rt <= kMaxThreads) rt *= 2;
-    if (U * rt > kMaxThreads) continue;
-    const int rpt = rt >= 8 ? 8 : 4;
-    int kg = kMaxKGroups;
-    while (kg > rpt && kg * U * (rt / rpt) > kMaxThreads) kg /= 2;
-    while (kg > rpt && smem_bytes(H, U, rt, kg) > kMaxSmem) kg /= 2;
-    if (smem_bytes(H, U, rt, kg) > kMaxSmem) continue;
-    *p = Plan{cs, rt, kg, smem_bytes(H, U, rt, kg)};
-    return true;
+    bool found = false;
+    for (int rt = 4; rt <= 32; rt += 4) {
+      Plan p;
+      if (!block_plan(H, cs, rt, &p)) break;  // more rows need more threads and memory
+      *out = p;
+      found = true;
+      const int resident = resident_clusters(p, H, device, e);
+      if (*e != cudaSuccess) return false;
+      if (2 * ((R + rt - 1) / rt) <= resident) break;
+    }
+    if (found) return true;
   }
   return false;
 }
+
+// Plans already made, by (device, H, R): the occupancy queries stay off
+// every launch but the first of a shape.
+std::mutex plans_mu;
+std::map<std::tuple<int, int, int>, Plan> plans;
 
 }  // namespace
 
 extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
                           float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
-  int device = 0, sms = 0;
+  int device = 0;
   cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return clear_and_return(e);
   Plan p;
-  if (!make_plan(H, R, sms, &p)) return kNoFit;  // before any launch
-  const int rpt = p.rt >= 8 ? 8 : 4;
-  auto kernel = rpt == 8 ? (p.cs > 1 ? bilstm_fwd_kernel<8, true> : bilstm_fwd_kernel<8, false>)
-                         : (p.cs > 1 ? bilstm_fwd_kernel<4, true> : bilstm_fwd_kernel<4, false>);
+  {
+    std::lock_guard<std::mutex> lock(plans_mu);
+    const auto key = std::make_tuple(device, H, R);
+    const auto it = plans.find(key);
+    if (it != plans.end()) {
+      p = it->second;
+    } else {
+      if (!make_plan(H, R, device, &p, &e)) {
+        return e != cudaSuccess ? clear_and_return(e) : kNoFit;  // before any launch
+      }
+      plans[key] = p;
+    }
+  }
+  const Kernel kernel = kernel_of(p);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cs * ((R + p.rt - 1) / p.rt), 2);
-  cfg.blockDim = dim3(p.kg * (H / p.cs) * (p.rt / rpt));
+  cfg.blockDim = dim3(threads_of(p, H));
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
