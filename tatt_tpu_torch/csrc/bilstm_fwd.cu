@@ -60,6 +60,16 @@ constexpr int kMaxKGroups = 16;
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// The two halves of a cluster barrier (cg's cluster.sync() is both back to
+// back): arrive releases this thread's earlier stores, distributed shared
+// memory included; wait returns once every thread of the cluster arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // RPT rows per thread in the products; kCluster: cs > 1 blocks share h
 // through distributed shared memory.
 template <int RPT, bool kCluster>
@@ -188,15 +198,18 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
         h_nxt[funit * rt + frt] = hn;
       }
     }
+    // 4. the barrier that publishes every block's slice of h_{s+1}; also, no
+    // block moves on to overwrite h_cur (step s+1 writes the other buffer,
+    // step s+2 this one) or the partials before all have read them.  In a
+    // cluster it is split: the stores of out and c, which no block waits
+    // on, go between its arrive and its wait.
+    if constexpr (kCluster) cluster_arrive();
     if (live) {
       const size_t o = ((size_t)row * L + t) * 2 * H + (size_t)dir * H + funit;
       out[o] = hn;
       if (cseq != nullptr) cseq[o] = c;
     }
-    // publishes every block's slice of h_{s+1}; also, no block moves on to
-    // overwrite h_cur (step s+1 writes the other buffer, step s+2 this one)
-    // or the partials before all have read them
-    if constexpr (kCluster) cg::this_cluster().sync();
+    if constexpr (kCluster) cluster_wait();
     else __syncthreads();
   }
 }
