@@ -46,6 +46,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -57,6 +58,7 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 constexpr int kMaxKGroups = 16;
+constexpr int kMaxRows = 16;  // rows per cluster
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -70,13 +72,13 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// RPT rows per thread in the products; kCluster: cs > 1 blocks share h
-// through distributed shared memory.
-template <int RPT, bool kCluster>
+// RT rows per cluster, each thread's products cover all of them;
+// kCluster: cs > 1 blocks share h through distributed shared memory.
+template <int RT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
 bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                   const float* __restrict__ b_hh, float* __restrict__ out,
-                  float* __restrict__ cseq, int L, int H, int R, int rt, int kg) {
+                  float* __restrict__ cseq, int L, int H, int R, int kg) {
   const int cs = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
   const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int U = H / cs;
@@ -84,8 +86,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   const int tid = threadIdx.x;
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                        // [H][U][4]
-  float* h_s = w_s + (size_t)H * 4 * U;     // [2][H][rt]
-  float* red = h_s + 2 * H * rt;            // [kg][4][U][rt]
+  float* h_s = w_s + (size_t)H * 4 * U;     // [2][H][RT]
+  float* red = h_s + 2 * H * RT;            // [kg][4][U][RT]
 
   const int dir = blockIdx.y;
   const int tile = blockIdx.x / cs;
@@ -111,21 +113,19 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
       w_s[(size_t)k * 4 * U + gu] = w_d[(size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k];
     }
   }
-  for (int i = tid; i < H * rt; i += blockDim.x) h_s[i] = 0.0f;  // h_0 = 0
+  for (int i = tid; i < H * RT; i += blockDim.x) h_s[i] = 0.0f;  // h_0 = 0
 
-  // step 1's thread: unit u, rows rg*RPT .. +RPT, k in [k0, k1)
-  const int rg_n = rt / RPT;
+  // step 1's thread: unit u, all RT rows, k in [k0, k1)
   const int u = tid % U;
-  const int rg = (tid / U) % rg_n;
-  const int kgi = tid / (U * rg_n);
+  const int kgi = tid / U;
   const int kr = (H + kg - 1) / kg;
   const int k0 = min(H, kgi * kr), k1 = min(H, k0 + kr);
   // step 2's thread: one (unit fu, row frt) pair, fu-major so that a warp's
   // h stores land on neighbouring words
-  const bool fin = tid < U * rt;
-  const int fu = tid / rt, frt = tid % rt;
+  const bool fin = tid < U * RT;
+  const int fu = tid / RT, frt = tid % RT;
   const int funit = rank * U + fu;
-  const int row = tile * rt + frt;
+  const int row = tile * RT + frt;
   const bool live = fin && row < R;
   float bias[4];
 #pragma unroll
@@ -137,8 +137,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   const float4* w4 = reinterpret_cast<const float4*>(w_s);
   for (int s = 0; s < L; ++s) {
     const int t = dir == 0 ? s : L - 1 - s;
-    const float* h_cur = h_s + (s & 1) * H * rt;
-    float* h_nxt = h_s + ((s + 1) & 1) * H * rt;
+    const float* h_cur = h_s + (s & 1) * H * RT;
+    float* h_nxt = h_s + ((s + 1) & 1) * H * RT;
 
     // this step's input projection: issued now, used after the products
     float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -149,17 +149,17 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
     }
 
     // 1. partial products over this thread's k slice
-    float acc[4][RPT];
+    float acc[4][RT];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[g][r] = 0.0f;
+      for (int r = 0; r < RT; ++r) acc[g][r] = 0.0f;
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
       const float4 w = w4[k * U + u];
-      const float* hk = h_cur + k * rt + rg * RPT;
+      const float* hk = h_cur + k * RT;
 #pragma unroll
-      for (int q = 0; q < RPT / 4; ++q) {
+      for (int q = 0; q < RT / 4; ++q) {
         const float4 hv = *reinterpret_cast<const float4*>(hk + 4 * q);
         const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
@@ -174,8 +174,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
-      for (int q = 0; q < RPT / 4; ++q)
-        *reinterpret_cast<float4*>(red + ((size_t)(kgi * 4 + g) * U + u) * rt + rg * RPT + 4 * q) =
+      for (int q = 0; q < RT / 4; ++q)
+        *reinterpret_cast<float4*>(red + ((size_t)(kgi * 4 + g) * U + u) * RT + 4 * q) =
             make_float4(acc[g][4 * q], acc[g][4 * q + 1], acc[g][4 * q + 2], acc[g][4 * q + 3]);
     __syncthreads();
 
@@ -186,16 +186,16 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         a[g] = x[g] + bias[g];
-        for (int j = 0; j < kg; ++j) a[g] += red[(size_t)(j * 4 + g) * U * rt + tid];
+        for (int j = 0; j < kg; ++j) a[g] += red[(size_t)(j * 4 + g) * U * RT + tid];
       }
       c = sigm(a[1]) * c + sigm(a[0]) * tanhf(a[2]);
       hn = sigm(a[3]) * tanhf(c);
       // 3. h into every block's next-step buffer
       if constexpr (kCluster) {
         for (int dst = 0; dst < cs; ++dst)
-          cg::this_cluster().map_shared_rank(h_nxt, dst)[funit * rt + frt] = hn;
+          cg::this_cluster().map_shared_rank(h_nxt, dst)[funit * RT + frt] = hn;
       } else {
-        h_nxt[funit * rt + frt] = hn;
+        h_nxt[funit * RT + frt] = hn;
       }
     }
     // 4. the barrier that publishes every block's slice of h_{s+1}; also, no
@@ -225,37 +225,38 @@ int clear_and_return(cudaError_t e) {
 constexpr int kNoFit = -1;
 
 struct Plan {
-  int cs, rt, rpt, kg;
+  int cs, rt, kg;
   size_t smem;
 };
 
 using Kernel = void (*)(const float*, const float*, const float*, float*, float*, int, int,
-                        int, int, int);
+                        int, int);
 
 Kernel kernel_of(const Plan& p) {
-  if (p.rpt == 8) return p.cs > 1 ? bilstm_fwd_kernel<8, true> : bilstm_fwd_kernel<8, false>;
-  return p.cs > 1 ? bilstm_fwd_kernel<4, true> : bilstm_fwd_kernel<4, false>;
+  switch (p.rt) {
+    case 4: return p.cs > 1 ? bilstm_fwd_kernel<4, true> : bilstm_fwd_kernel<4, false>;
+    case 8: return p.cs > 1 ? bilstm_fwd_kernel<8, true> : bilstm_fwd_kernel<8, false>;
+    case 12: return p.cs > 1 ? bilstm_fwd_kernel<12, true> : bilstm_fwd_kernel<12, false>;
+    default: return p.cs > 1 ? bilstm_fwd_kernel<16, true> : bilstm_fwd_kernel<16, false>;
+  }
 }
 
-int threads_of(const Plan& p, int H) { return p.kg * (H / p.cs) * (p.rt / p.rpt); }
+int threads_of(const Plan& p, int H) { return p.kg * (H / p.cs); }
 
 // Shared-memory bytes of one block: W_hh slice, two h buffers, partials.
 size_t smem_bytes(int H, int U, int rt, int kg) {
   return sizeof(float) * ((size_t)H * 4 * U + (size_t)2 * H * rt + (size_t)kg * 4 * U * rt);
 }
 
-// The block for cluster size cs and rt rows: the most k groups (up to 16,
-// at least one per row of a thread) that fit its threads and shared
-// memory.  False when none fits.
+// The block for cluster size cs and rt rows: the most k groups (up to 16)
+// that fit its threads and shared memory, and at least rt, so that every
+// (unit, row) has a thread of its own to update it.  False when none fits.
 bool block_plan(int H, int cs, int rt, Plan* p) {
   const int U = H / cs;
-  const int rpt = rt % 8 == 0 ? 8 : 4;
-  if (U * rt > kMaxThreads) return false;  // one thread per (unit, row)
-  int kg = kMaxKGroups;
-  while (kg > rpt && (kg * U * (rt / rpt) > kMaxThreads || smem_bytes(H, U, rt, kg) > kMaxSmem))
-    kg /= 2;
-  if (smem_bytes(H, U, rt, kg) > kMaxSmem) return false;
-  *p = Plan{cs, rt, rpt, kg, smem_bytes(H, U, rt, kg)};
+  int kg = std::min(kMaxKGroups, kMaxThreads / U);
+  while (kg > rt && smem_bytes(H, U, rt, kg) > kMaxSmem) kg = std::max(rt, kg / 2);
+  if (kg < rt || smem_bytes(H, U, rt, kg) > kMaxSmem) return false;
+  *p = Plan{cs, rt, kg, smem_bytes(H, U, rt, kg)};
   return true;
 }
 
@@ -288,15 +289,15 @@ int resident_clusters(const Plan& p, int H, int device, cudaError_t* e) {
 }
 
 // The launch for hidden size H and R rows.  cs: the smallest cluster size
-// that divides H and whose block fits.  rt: the fewest rows per cluster (a
-// multiple of 4) with which all 2 * ceil(R / rt) clusters run at once, or
+// that divides H and whose block fits.  rt: the fewest rows per cluster (4,
+// 8, 12 or 16) with which all 2 * ceil(R / rt) clusters run at once, or
 // else the most that fit.  False (and *e unset) when no cluster size fits.
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   *e = cudaSuccess;
   for (int cs = 1; cs <= 8; cs *= 2) {
     if (H % cs != 0) continue;
     bool found = false;
-    for (int rt = 4; rt <= 32; rt += 4) {
+    for (int rt = 4; rt <= kMaxRows; rt += 4) {
       Plan p;
       if (!block_plan(H, cs, rt, &p)) break;  // more rows need more threads and memory
       *out = p;
@@ -351,7 +352,7 @@ extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.cs > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, L, H, R, p.rt, p.kg);
+  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
