@@ -55,7 +55,8 @@ from tatt_tpu_torch.kernels.gru import (  # noqa: E402
     bigru_recurrence, bigru_recurrence_bwd, bigru_recurrence_bwd_ref, bigru_recurrence_ref,
 )
 from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
-    bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref, bilstm_recurrence_ref,
+    bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref,
+    bilstm_recurrence_ref,
 )
 from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, compose_input_projection  # noqa: E402
 from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
@@ -405,6 +406,8 @@ def main(argv=None) -> int:
     for name, report in _build.ptxas_report.items():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
         print(f"[build] {name}: {' | '.join(regs)}")
+    for hid, rows in ((256, BATCH), (256, BATCH - 3), (64, BATCH)):
+        print(f"[build] bilstm_fwd plan at H={hid} R={rows}: {json.dumps(bilstm_fwd_plan(hid, rows))}")
 
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)

@@ -23,23 +23,50 @@
 //                          channels d*H .. d*H+H-1)
 //   cseq  [R, L, 2H] or null
 //
+// What bounds it.  The recurrence is serial in t: each step needs the whole
+// previous h of its rows.  Its least time by bytes or by operations (the
+// f32 products at the card's peak, ~1 us a step at H=256 over 64 rows) does
+// not count the latency of the chain each step pays: shared-memory loads,
+// a block barrier, the exchange of h between blocks and their barrier.
+// A design for this card therefore keeps W_hh on chip, spreads one step's
+// products over as many warps and SMs as can run at once, and keeps every
+// global access off that chain.
+//
 // Design.  W_hh stays in shared memory for the whole launch.  A cluster of
-// cs blocks serves one (direction, tile of rt rows); block `rank` owns the
+// cs blocks serves one (direction, tile of RT rows); block `rank` owns the
 // hidden units [rank*U, rank*U+U), U = H/cs, and keeps their 4U rows of
 // W_hh as [k][U][4 gates], so that one 16-byte load gives a thread the four
-// gates of its unit.  cs is the smallest of 1, 2, 4, 8 that divides H and
-// whose block fits; cs = 1 (H <= ~100) is a plain block that exchanges h in
-// its own shared memory.  Each step:
-//   1. every thread (k group, row group, unit) forms the 4 x RPT partial
-//      sums of W_hh h over its slice of k (kg groups: 16 warps a block);
+// gates of its unit.  Each step:
+//   1. every thread (k group, unit) forms the 4 x RT partial sums of
+//      W_hh h over its slice of k, for all rows of the tile, so each word
+//      of W_hh is read once a step;
 //   2. the partials go through shared memory, one __syncthreads, and one
-//      thread per (unit, row) sums them in a fixed order, adds x and the
-//      bias, updates c (in a register) and h;
+//      thread per (unit, row) sums them in a fixed k-group order (the
+//      result does not depend on timing), adds x and the bias, and updates
+//      c (in a register) and h;
 //   3. h goes into the next-step h buffer of every block of the cluster
 //      (distributed shared memory), and one cluster barrier publishes it.
 // The h buffer is double-buffered, so that barrier is the only one across
-// blocks.  x is loaded before the step's products and used after them, so
-// its global latency stays off the serial chain.
+// blocks.  What each part of the design does about the chain:
+//   - cs is the smallest of 1, 2, 4, 8 that divides H and whose block fits
+//     shared memory: at H <= ~100 (cs = 1) a plain block exchanges h in its
+//     own shared memory with no cluster barrier; H=256 needs cs = 8.  An H
+//     that no cs serves (H=250) is refused before any launch.
+//   - RT (4, 8, 12 or 16) is the fewest rows with which all 2 * ceil(R / RT)
+//     clusters are resident at once, by the occupancy API: at H=256 the
+//     card holds 15 clusters of 8 such blocks, so 8-row tiles (16 clusters
+//     at R=64) ran in two waves and 12-row tiles run in one.
+//   - k groups (up to 16, at least RT) give a block 12-16 warps, which hide
+//     one another's shared-memory latency, where one thread walking all of
+//     k left one or four warps on an SM.
+//   - x is loaded before the step's products and used after them.
+//   - In a cluster the barrier is split: the stores of out and c, which no
+//     block waits on, go between its arrive and its wait.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, L=26,
+// R=64): H=256 0.137 ms a launch, 4.9 us a step after 13.6 us of set-up
+// (loading W_hh) and the first step; H=64 0.043-0.045 ms, 1.5-1.6 us a step.
+// The design before this one (one thread per unit over all of k, 16-row
+// tiles, cs = 8 at any H) took 0.342 and 0.117 ms.
 //
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 
@@ -115,12 +142,12 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   }
   for (int i = tid; i < H * RT; i += blockDim.x) h_s[i] = 0.0f;  // h_0 = 0
 
-  // step 1's thread: unit u, all RT rows, k in [k0, k1)
+  // part 1's thread: unit u, all RT rows, k in [k0, k1)
   const int u = tid % U;
   const int kgi = tid / U;
   const int kr = (H + kg - 1) / kg;
   const int k0 = min(H, kgi * kr), k1 = min(H, k0 + kr);
-  // step 2's thread: one (unit fu, row frt) pair, fu-major so that a warp's
+  // part 2's thread: one (unit fu, row frt) pair, fu-major so that a warp's
   // h stores land on neighbouring words
   const bool fin = tid < U * RT;
   const int fu = tid / RT, frt = tid % RT;
@@ -260,10 +287,26 @@ bool block_plan(int H, int cs, int rt, Plan* p) {
   return true;
 }
 
+// The launch of plan p on `grid` blocks; `attr` holds the cluster
+// attribute that the config points to (none for cs = 1).
+cudaLaunchConfig_t launch_config(const Plan& p, int H, dim3 grid, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads_of(p, H));
+  cfg.dynamicSmemBytes = p.smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cs > 1 ? 1 : 0;
+  return cfg;
+}
+
 // Clusters of plan p that the card runs at once.
 int resident_clusters(const Plan& p, int H, int device, cudaError_t* e) {
   const Kernel kernel = kernel_of(p);
-  *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (*e != cudaSuccess) return 0;
   int n = 0;
   if (p.cs == 1) {
@@ -273,17 +316,8 @@ int resident_clusters(const Plan& p, int H, int device, cudaError_t* e) {
       *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads_of(p, H), p.smem);
     return n * sms;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cs, 1);
-  cfg.blockDim = dim3(threads_of(p, H));
-  cfg.dynamicSmemBytes = p.smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(p, H, dim3(p.cs), &attr);
   *e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
   return n;
 }
@@ -316,43 +350,54 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
 std::mutex plans_mu;
 std::map<std::tuple<int, int, int>, Plan> plans;
 
+// The plan for hidden size H and R rows on the current device, made once.
+int plan_of(int H, int R, Plan* p, int* device) {
+  cudaError_t e = cudaGetDevice(device);
+  if (e != cudaSuccess) return clear_and_return(e);
+  std::lock_guard<std::mutex> lock(plans_mu);
+  const auto key = std::make_tuple(*device, H, R);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    *p = it->second;
+    return 0;
+  }
+  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  plans[key] = *p;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
                           float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return clear_and_return(e);
   Plan p;
-  {
-    std::lock_guard<std::mutex> lock(plans_mu);
-    const auto key = std::make_tuple(device, H, R);
-    const auto it = plans.find(key);
-    if (it != plans.end()) {
-      p = it->second;
-    } else {
-      if (!make_plan(H, R, device, &p, &e)) {
-        return e != cudaSuccess ? clear_and_return(e) : kNoFit;  // before any launch
-      }
-      plans[key] = p;
-    }
-  }
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;  // before any launch
   const Kernel kernel = kernel_of(p);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cs * ((R + p.rt - 1) / p.rt), 2);
-  cfg.blockDim = dim3(threads_of(p, H));
-  cfg.dynamicSmemBytes = p.smem;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(p, H, dim3(p.cs * ((R + p.rt - 1) / p.rt), 2), &attr);
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.cs > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
+}
+
+// The launch for hidden size H and R rows, for logs: plan[0..5] = cluster
+// size, rows per cluster, k groups, threads and shared-memory bytes of a
+// block, clusters the card runs at once.  Launches nothing.
+extern "C" int bilstm_fwd_plan(int H, int R, int* plan) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;
+  cudaError_t e;
+  const int resident = resident_clusters(p, H, device, &e);
+  if (e != cudaSuccess) return clear_and_return(e);
+  const int values[6] = {p.cs, p.rt, p.kg, threads_of(p, H), (int)p.smem, resident};
+  for (int i = 0; i < 6; ++i) plan[i] = values[i];
+  return 0;
 }

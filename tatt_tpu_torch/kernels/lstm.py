@@ -26,6 +26,7 @@ MAX_HIDDEN = 256
 # what csrc/bilstm_fwd.cu returns, before any launch, for an H that no
 # cluster size serves
 _NO_FIT = -1
+_PLAN_KEYS = ("cluster", "rows", "k_groups", "threads", "smem_bytes", "resident_clusters")
 
 
 def _lstm_cell(a, hid):
@@ -126,7 +127,10 @@ def bilstm_recurrence(gates, w_hh, b_hh, with_cs: bool = False):
     """The BiLSTM forward recurrence: the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor.  Arguments and results as
     :func:`bilstm_recurrence_ref`; without ``with_cs`` the kernel stores no
-    cell states.  ``bilstm_recurrence.launches`` counts kernel launches."""
+    cell states.  Raises ``ValueError``, before any launch, for a hidden
+    size that no cluster of 1, 2, 4 or 8 blocks can hold (H=250; how the
+    kernel picks its launch: :func:`bilstm_fwd_plan`).
+    ``bilstm_recurrence.launches`` counts kernel launches."""
     if gates.device.type == "cpu":
         return bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs)
     length, hid, rows = _check("bilstm_recurrence", gates, w_hh, b_hh)
@@ -141,17 +145,34 @@ def bilstm_recurrence(gates, w_hh, b_hh, with_cs: bool = False):
                 gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
                 None if cs is None else cs.data_ptr(), length, hid, rows, stream,
             )
-        if err == _NO_FIT:
-            raise ValueError(
-                f"bilstm_recurrence: H={hid}: no cluster of 1, 2, 4 or 8 blocks divides H "
-                "with a block whose slice of W_hh fits shared memory"
-            )
-        _build.check(err, "bilstm_fwd")
+        _check_fwd(err, "bilstm_fwd", hid)
         bilstm_recurrence.launches += 1
     return (out, cs) if with_cs else out
 
 
 bilstm_recurrence.launches = 0
+
+
+def _check_fwd(err: int, what: str, hid: int) -> None:
+    if err == _NO_FIT:
+        raise ValueError(
+            f"{what}: H={hid}: no cluster of 1, 2, 4 or 8 blocks divides H "
+            "with a block whose slice of W_hh fits shared memory"
+        )
+    _build.check(err, what)
+
+
+def bilstm_fwd_plan(hid: int, rows: int) -> dict:
+    """How the forward kernel launches at hidden size ``hid`` over ``rows``
+    rows on the current card, for logs (launches nothing): cluster size,
+    rows per cluster, k groups, threads and shared-memory bytes of a block,
+    and the clusters the card runs at once."""
+    lib = _build.load("bilstm_fwd", _FWD_ARGTYPES)
+    fn = lib.bilstm_fwd_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    _check_fwd(fn(hid, rows, plan), "bilstm_fwd_plan", hid)
+    return dict(zip(_PLAN_KEYS, plan))
 
 
 def bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout):

@@ -63,9 +63,9 @@ def test_bigru_kernel_matches_plain(cuda, length, rows, hid):
     assert (out - ref).abs().max().item() <= ATOL
 
 
-# (L, R, H, with_cs): the CRNN head (R = batch 64, H = 256, one 8-block
-# cluster per 8 rows), the fixture judge (H = 64, one block), ragged rows and
-# the row-tile edges (R = 8, 9, 61), L=1, odd L, one block at H not a
+# (L, R, H, with_cs): the CRNN head (R = batch 64, H = 256, 8-block
+# clusters), the fixture judge (H = 64, one block), ragged rows and the
+# row-tile edges (R = 8, 9, 61), L=1, odd L, one block at H not a
 # multiple of 32 (48, 100, 16), clusters of 2 (H = 128) and 4 (H = 200),
 # and the cell states of both main-path sizes
 @pytest.mark.parametrize(
@@ -95,15 +95,21 @@ def test_bilstm_kernel_matches_plain(cuda, length, rows, hid, with_cs):
 def test_bilstm_kernel_refuses_unfitting_hidden(cuda):
     """H = 250 = 2 x 125: a cluster of 1 or 2 blocks would hold 1 MB or
     500 KB of W_hh per block, and 4 and 8 do not divide H.  The wrapper
-    raises before any launch."""
-    from tatt_tpu_torch.kernels.lstm import bilstm_recurrence
+    raises before any launch, and so does the plan query; the main path's
+    H=256 plan keeps all its clusters resident at once."""
+    from tatt_tpu_torch.kernels.lstm import bilstm_fwd_plan, bilstm_recurrence
 
     gates, w_hh, b_hh = _recurrence_inputs((2, 4, 3, 1000), 1000, 250, cuda)
     before = bilstm_recurrence.launches
     with pytest.raises((RuntimeError, ValueError), match="H=250"):
         bilstm_recurrence(gates, w_hh, b_hh)
+    with pytest.raises(ValueError, match="H=250"):
+        bilstm_fwd_plan(250, 4)
     torch.cuda.synchronize()
     assert bilstm_recurrence.launches == before
+    plan = bilstm_fwd_plan(256, 64)
+    assert plan["cluster"] == 8
+    assert 2 * math.ceil(64 / plan["rows"]) <= plan["resident_clusters"]
 
 
 def _scaled_err(got, want):
