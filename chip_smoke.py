@@ -404,7 +404,11 @@ def main(argv=None) -> int:
     _build.build()
     print(f"[build] nvcc of {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, report in _build.ptxas_report.items():
-        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+        # per entry function (its mangled name, template arguments included):
+        # registers and spills
+        regs = [ln.split("'")[1][:64] if "Compiling entry function" in ln else ln.strip()
+                for ln in report.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
         print(f"[build] {name}: {' | '.join(regs)}")
     for hid, rows in ((256, BATCH), (256, BATCH - 3), (64, BATCH)):
         print(f"[build] bilstm_fwd plan at H={hid} R={rows}: {json.dumps(bilstm_fwd_plan(hid, rows))}")
