@@ -406,7 +406,7 @@ def main(argv=None) -> int:
     for name, report in _build.ptxas_report.items():
         # per entry function (its mangled name, template arguments included):
         # registers and spills
-        regs = [ln.split("'")[1][:64] if "Compiling entry function" in ln else ln.strip()
+        regs = [ln.split("'")[1] if "Compiling entry function" in ln else ln.strip()
                 for ln in report.splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
         print(f"[build] {name}: {' | '.join(regs)}")
