@@ -4,6 +4,7 @@ against their plain PyTorch versions.
 
   python3 chip_smoke.py
   python3 chip_smoke.py --forward-kernels-only   # phases 1-2 alone
+  python3 chip_smoke.py --kernels-only           # phases 1, 2 and 6 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -18,7 +19,9 @@ Phases (any failure exits non-zero; no phase carries on after its own):
   5. a profiler window over one eval batch: device time by kernel
   6. each backward kernel against its plain twin at the training path's
      shapes (and the LSTM forward's cell states), with timings of kernel,
-     plain twin and a cuDNN forward+backward
+     plain twin and a cuDNN forward+backward; for the GRU backward also the
+     device time of each of its entries (recurrence, weight-gradient pass,
+     sums), a launch at L=1 and so the time of a step, and its launch plan
   7. the full-width training path: Trainer.train with the canonical recipe
      at batch 64, images/s, launches per step, finite and falling losses
   8. one full-width train step at batch 8 on the card (kernels) against
@@ -49,7 +52,7 @@ from tatt_tpu_torch.core.charset import ctc_greedy_decode, str_filt  # noqa: E40
 from tatt_tpu_torch.core.convert import from_jax, load_npz  # noqa: E402
 from tatt_tpu_torch.core.device import set_cuda_flags  # noqa: E402
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset  # noqa: E402
-from tatt_tpu_torch.kernels import _build  # noqa: E402
+from tatt_tpu_torch.kernels import _build, gru as gru_kernels  # noqa: E402
 from tatt_tpu_torch.data.collate import collate  # noqa: E402
 from tatt_tpu_torch.kernels.gru import (  # noqa: E402
     bigru_recurrence, bigru_recurrence_bwd, bigru_recurrence_bwd_ref, bigru_recurrence_ref,
@@ -105,6 +108,8 @@ COUNTERS = {
     "bigru_fwd": bigru_recurrence, "bigru_bwd": bigru_recurrence_bwd,
     "bilstm_fwd": bilstm_recurrence, "bilstm_bwd": bilstm_recurrence_bwd,
 }
+# the GRU backward's device entries (csrc/bigru_bwd.cu), by what each does
+GRU_BWD_ENTRIES = {"recurrence": "bigru_bwd_rec", "dw": "bigru_bwd_dw", "sums": "sum_partials"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -225,10 +230,11 @@ def _lstm_weights(length, rows, cin, hid, gen):
     return x, w_ih, w_hh, b_ih, b_hh, gates
 
 
-def kernel_self_ms(fn, kernel: str, iters: int):
-    """Mean self device time (ms) per call of the device kernels whose name
-    holds ``kernel``, from one profiler window over ``iters`` calls of
-    ``fn`` (after warm-up); None when the profiler records no device time."""
+def self_ms_by_name(fn, kernels, iters: int) -> dict:
+    """For each name in ``kernels``, the mean self device time (ms) per call
+    of the device kernels whose name holds it, from one profiler window over
+    ``iters`` calls of ``fn`` (after warm-up); None when the profiler
+    records no device time for it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,9 +244,15 @@ def kernel_self_ms(fn, kernel: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return total / 1e3 / iters if total > 0 else None
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    totals = {k: sum(e.self_device_time_total for e in events if k in e.key) for k in kernels}
+    return {k: v / 1e3 / iters if v > 0 else None for k, v in totals.items()}
+
+
+def kernel_self_ms(fn, kernel: str, iters: int):
+    """Mean self device time (ms) per call of the device kernels whose name
+    holds ``kernel`` (see :func:`self_ms_by_name`)."""
+    return self_ms_by_name(fn, (kernel,), iters)[kernel]
 
 
 def kernel_time(fn, kernel: str) -> dict:
@@ -309,7 +321,35 @@ def check_gru_bwd(name, length, rows, cin, cmid, hid, gen):
         library_ms=timed_ms(lambda: _library_fwd_bwd(lib, x, dy), 20),
     )
     row["bound_ms"], row["bound_by"] = bound("gru", length, rows, hid, backward=True)
+    # device time by entry, and of a launch at L=1 (set-up, one step, and the
+    # weight-gradient pass over one step's rows)
+    row["split_ms"] = self_ms_by_name(
+        lambda: bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout), GRU_BWD_ENTRIES.values(), 20)
+    g1, o1, d1 = gates[:, :1].contiguous(), out[:1].contiguous(), dout[:1].contiguous()
+    row["one_step_split_ms"] = self_ms_by_name(
+        lambda: bigru_recurrence_bwd(g1, w_hh, b_hh, o1, d1), GRU_BWD_ENTRIES.values(), 20)
+    # the plan query is absent from a tree of a commit before it existed,
+    # timed beside this one
+    row["plan"] = (gru_kernels.bigru_bwd_plan(hid, rows)
+                   if hasattr(gru_kernels, "bigru_bwd_plan") else None)
     return row
+
+
+def print_gru_bwd_split(row) -> None:
+    """The GRU backward's launch by entry, and its time a step: (device time
+    of the recurrence - the same at L=1) / (L - 1)."""
+    split = {k: row["split_ms"][v] for k, v in GRU_BWD_ENTRIES.items()}
+    one = {k: row["one_step_split_ms"][v] for k, v in GRU_BWD_ENTRIES.items()}
+    if None in split.values() or None in one.values():
+        print(f"[gru-bwd] {row['shape']}: the profiler recorded no device time for an entry: "
+              f"{split} / L=1 {one}")
+        return
+    step_us = (split["recurrence"] - one["recurrence"]) / (row["L"] - 1) * 1e3
+    print(f"[gru-bwd] {row['shape']}: launch {row['kernel_ms']:.4f} ms (events), device "
+          f"{sum(split.values()):.4f} ms = recurrence {split['recurrence']:.4f} + dW "
+          f"{split['dw']:.4f} + sums {split['sums']:.4f}; at L=1 device "
+          f"{sum(one.values()):.4f} ms (recurrence {one['recurrence']:.4f}); "
+          f"{step_us:.2f} us a step; plan {json.dumps(row['plan'])}")
 
 
 def check_lstm_bwd(name, length, rows, cin, hid, gen):
@@ -385,11 +425,36 @@ def load_judge():
     return judge.eval()
 
 
+def backward_kernels(gen):
+    """Phase 6: each backward kernel against its plain twin at the training
+    path's shapes; fails the run on a disagreement."""
+    gru_bwd_rows = [
+        check_gru_bwd("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
+        check_gru_bwd("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
+        check_gru_bwd("gru1 ragged rows", 16, 2 * BATCH * 64 + 3, 128, 64, 32, gen),
+    ]
+    lstm_bwd_rows = [
+        check_lstm_bwd("student rnn0", 26, BATCH, 512, 256, gen),
+        check_lstm_bwd("student rnn1", 26, BATCH, 256, 256, gen),
+        check_lstm_bwd("student rnn0 ragged rows", 26, BATCH - 3, 512, 256, gen),
+    ]
+    for row in gru_bwd_rows + lstm_bwd_rows:
+        print("[kernel-bwd] " + json.dumps(row))
+        if not row["ok"]:
+            fail(f"backward kernel {row['shape']}: {row}")
+    for row in gru_bwd_rows:
+        print_gru_bwd_split(row)
+    return gru_bwd_rows, lstm_bwd_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
                     help="stop after phase 2 (a quick look at the forward kernels' "
                          "accuracy and times); prints no result line")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1, 2 and 6 alone (every kernel against its plain "
+                         "version, with times); prints no result line")
     args = ap.parse_args(argv)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
     smi = subprocess.run(
@@ -412,6 +477,10 @@ def main(argv=None) -> int:
         print(f"[build] {name}: {' | '.join(regs)}")
     for hid, rows in ((256, BATCH), (256, BATCH - 3), (64, BATCH)):
         print(f"[build] bilstm_fwd plan at H={hid} R={rows}: {json.dumps(bilstm_fwd_plan(hid, rows))}")
+    if hasattr(gru_kernels, "bigru_bwd_plan"):
+        for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (128, 2 * BATCH * 16)):
+            print(f"[build] bigru_bwd plan at H={hid} R={rows}: "
+                  f"{json.dumps(gru_kernels.bigru_bwd_plan(hid, rows))}")
 
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
@@ -443,6 +512,9 @@ def main(argv=None) -> int:
               f"with c {row['kernel_cs_ms']:.4f}; + projection "
               f"{row['kernel_ms'] + row['projection_ms']:.4f} vs nn.LSTM {row['library_ms']:.4f}")
     if args.forward_kernels_only:
+        return 0
+    if args.kernels_only:
+        backward_kernels(gen)
         return 0
 
     # ---- 3. the eval path at full width
@@ -522,20 +594,7 @@ def main(argv=None) -> int:
     del generator, student, judge, evaluator
 
     # ---- 6. backward kernels against their plain twins at the training path's shapes
-    gru_bwd_rows = [
-        check_gru_bwd("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
-        check_gru_bwd("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
-        check_gru_bwd("gru1 ragged rows", 16, 2 * BATCH * 64 + 3, 128, 64, 32, gen),
-    ]
-    lstm_bwd_rows = [
-        check_lstm_bwd("student rnn0", 26, BATCH, 512, 256, gen),
-        check_lstm_bwd("student rnn1", 26, BATCH, 256, 256, gen),
-        check_lstm_bwd("student rnn0 ragged rows", 26, BATCH - 3, 512, 256, gen),
-    ]
-    for row in gru_bwd_rows + lstm_bwd_rows:
-        print("[kernel-bwd] " + json.dumps(row))
-        if not row["ok"]:
-            fail(f"backward kernel {row['shape']}: {row}")
+    gru_bwd_rows, lstm_bwd_rows = backward_kernels(gen)
 
     # ---- 7. the training path at full width: Trainer.train, canonical recipe
     torch.manual_seed(0)
