@@ -20,7 +20,7 @@
 // Layouts (float32, contiguous), those of csrc/bigru_fwd.cu:
 //   gates, dgates [2, L, 3H, R]   (rows minor, gate order r, z, n)
 //   w_hh [2, 3H, H], b_hh [2, 3H]; out, dy [L, 2H, R]
-//   scratch: dghn [2, L, H, R] (dn r), bias_part [2, nblk, 4H],
+//   scratch: dghn [2, L, H, R] (dn r), bias_part [2, S, 4H],
 //            dw_part [2, S, 3H, H]
 //   dw_hh [2, 3H, H]; bias4 [2, 4H] = sums of [dr, dz, dn r, dn]
 //     (db_hh = bias4[:, :3H]; dbx = bias4[:, :2H] ++ bias4[:, 3H:])
@@ -64,13 +64,15 @@ __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x))
 
 // RB rows per block (32 or 16): RB consecutive lanes of a warp span the
 // tile's rows for one group of JT hidden units
-template <int RB>
-__global__ void __launch_bounds__(512)
+// kThreads: the most threads an instantiation launches (RB rows times
+// ceil(H / JT) threads a row), so that ptxas may give each thread the
+// registers that many threads leave
+template <int RB, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                      const float* __restrict__ b_hh, const float* __restrict__ out,
                      const float* __restrict__ dy, float* __restrict__ dgates,
-                     float* __restrict__ dghn, float* __restrict__ bias_part,
-                     int L, int H, int R) {
+                     float* __restrict__ dghn, int L, int H, int R) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
   const int G = 3 * H;
@@ -105,9 +107,9 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
     jv[u] = j < H;
     jc[u] = jv[u] ? j : H - 1;
   }
-  float dhc[JT], sr[JT], sz[JT], snh[JT], snx[JT];
+  float dhc[JT];
 #pragma unroll
-  for (int u = 0; u < JT; ++u) dhc[u] = sr[u] = sz[u] = snh[u] = snx[u] = 0.0f;
+  for (int u = 0; u < JT; ++u) dhc[u] = 0.0f;
 
   for (int s = 0; s < L; ++s) {
     const int t = dir == 0 ? L - 1 - s : s;
@@ -175,10 +177,6 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
           dgo[(2 * H + j) * RS] = dn;
           dghn[((size_t)(dir * L + t) * H + j) * RS + row] = dnr;
         }
-        sr[u] += dr;
-        sz[u] += dz;
-        snh[u] += dnr;
-        snx[u] += dn;
       }
     }
     __syncthreads();  // d(gh) of the tile is complete
@@ -192,34 +190,21 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
 #pragma unroll
     for (int u = 0; u < JT; ++u) dhc[u] = dhz[u];
   }
-
-  // bias sums of the block: RB consecutive lanes are one unit group over
-  // the tile's rows (with RB = 16 a block may end in a half warp, so each
-  // half shuffles under its own mask)
-  const unsigned mask = RB == 32 ? 0xffffffffu : 0xffffu << (threadIdx.x & 16);
-  float* bp = bias_part + ((size_t)dir * gridDim.x + blockIdx.x) * 4 * H;
-#pragma unroll
-  for (int u = 0; u < JT; ++u) {
-    float v[4] = {sr[u], sz[u], snh[u], snx[u]};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int off = RB / 2; off > 0; off >>= 1) v[i] += __shfl_xor_sync(mask, v[i], off);
-    if (lane == 0 && jv[u]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bp[i * H + jc[u]] = v[i];
-    }
-  }
 }
 
-constexpr int TG = 32;  // d(gh) rows per tile
+constexpr int TG = 32;  // rows of A = [dr, dz, dn r, dn] per tile
 constexpr int TH = 32;  // hidden columns per tile
 constexpr int KR = 32;  // rows of one time step per chunk
 
+// dW_hh partials over K slice sl: A [4H rows] x h_prev^T, where the first
+// 3H rows of A are d(gh) = [dr, dz, dn r] and the last H rows dn (dgates'
+// n slot), which only the bias sums read.  The blocks of the first column
+// tile also sum each A row over the slice: the bias partials [dr, dz, dn r,
+// dn], taken in a fixed order.
 __global__ void __launch_bounds__(256)
 bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ dghn,
                     const float* __restrict__ out, float* __restrict__ dw_part,
-                    int L, int H, int R, int S) {
+                    float* __restrict__ bias_part, int L, int H, int R, int S) {
   __shared__ float a_s[TG][KR + 1];  // padded: conflict-free column reads
   __shared__ float b_s[TH][KR + 1];
   const int G = 3 * H;
@@ -229,31 +214,40 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
   const long long nch = (long long)L * nrc;  // chunk c = (t, row chunk)
   const int c0 = (int)(nch * sl / S), c1 = (int)(nch * (sl + 1) / S);
   const int gi = threadIdx.x / 8, kc = threadIdx.x % 8;
+  const bool sums = blockIdx.y == 0 && threadIdx.x < TG;
   const size_t RS = (size_t)R;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float bsum = 0.0f;
   for (int c = c0; c < c1; ++c) {
     const int t = c / nrc, r0 = (c % nrc) * KR;
     const int tp = dir == 0 ? t - 1 : t + 1;
-    if (tp < 0 || tp >= L) continue;  // h_prev = 0: nothing to add (uniform per block)
+    const bool has_prev = tp >= 0 && tp < L;  // else h_prev = 0 (uniform per block)
     for (int i = threadIdx.x; i < TG * KR; i += blockDim.x) {
       const int m = i / KR, rr = i % KR;
       const int r = r0 + rr;
       const int g = g0 + m, k = k0 + m;
       float av = 0.0f, bv = 0.0f;
-      if (r < R && g < G) {
-        av = g < 2 * H ? dgates[((size_t)(dir * L + t) * G + g) * RS + r]
-                       : dghn[((size_t)(dir * L + t) * H + (g - 2 * H)) * RS + r];
+      if (r < R && g < 4 * H) {
+        const size_t base = (size_t)(dir * L + t);
+        av = g < 2 * H   ? dgates[(base * G + g) * RS + r]
+             : g < 3 * H ? dghn[(base * H + (g - 2 * H)) * RS + r]
+                         : dgates[(base * G + (g - H)) * RS + r];
       }
-      if (r < R && k < H) bv = out[((size_t)tp * 2 * H + (size_t)dir * H + k) * RS + r];
+      if (has_prev && r < R && k < H) bv = out[((size_t)tp * 2 * H + (size_t)dir * H + k) * RS + r];
       a_s[m][rr] = av;
       b_s[m][rr] = bv;
     }
     __syncthreads();
+    if (has_prev) {
 #pragma unroll 8
-    for (int rr = 0; rr < KR; ++rr) {
-      const float a = a_s[gi][rr];
+      for (int rr = 0; rr < KR; ++rr) {
+        const float a = a_s[gi][rr];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = fmaf(a, b_s[kc * 4 + j][rr], acc[j]);
+        for (int j = 0; j < 4; ++j) acc[j] = fmaf(a, b_s[kc * 4 + j][rr], acc[j]);
+      }
+    }
+    if (sums) {
+      for (int rr = 0; rr < KR; ++rr) bsum += a_s[threadIdx.x][rr];
     }
     __syncthreads();
   }
@@ -265,6 +259,8 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
       if (k < H) dw_part[(((size_t)dir * S + sl) * G + g) * H + k] = acc[j];
     }
   }
+  if (sums && g0 + (int)threadIdx.x < 4 * H)
+    bias_part[((size_t)dir * S + sl) * 4 * H + g0 + threadIdx.x] = bsum;
 }
 
 // out[d][i] = sum over s < S of part[d][s][i], i < n, in order of s
@@ -293,23 +289,23 @@ static size_t rec_smem(int H, int rb) {
   return sizeof(float) * ((size_t)3 * H * H4 + (size_t)H4 * rb + (size_t)3 * H * rb + 3 * H);
 }
 
-template <int RB>
+template <int RB, int kThreads>
 static cudaError_t launch_rec(const float* gates, const float* w_hh, const float* b_hh,
                               const float* out, const float* dy, float* dgates, float* dghn,
-                              float* bias_part, int L, int H, int R, cudaStream_t stream) {
+                              int L, int H, int R, cudaStream_t stream) {
   const size_t smem = rec_smem(H, RB);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bigru_bwd_rec_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(bigru_bwd_rec_kernel<RB, kThreads>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int tpr = (H + JT - 1) / JT;  // threads per row
-  bigru_bwd_rec_kernel<RB><<<dim3((R + RB - 1) / RB, 2), dim3(RB * tpr), smem, stream>>>(
-      gates, w_hh, b_hh, out, dy, dgates, dghn, bias_part, L, H, R);
+  bigru_bwd_rec_kernel<RB, kThreads><<<dim3((R + RB - 1) / RB, 2), dim3(RB * tpr), smem, stream>>>(
+      gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R);
   return cudaGetLastError();
 }
 
-// bias_part holds [2, ceil(R/16), 4H] floats: room for the smaller tile
 extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
                          const float* out, const float* dy, float* dgates, float* dghn,
                          float* bias_part, float* dw_part, float* dw_hh, float* bias4,
@@ -319,18 +315,24 @@ extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_h
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return clear_and_return(e);
-  const bool wide = rec_smem(H, 32) > (size_t)smem_max;
-  e = wide ? launch_rec<16>(gates, w_hh, b_hh, out, dy, dgates, dghn, bias_part, L, H, R, stream)
-           : launch_rec<32>(gates, w_hh, b_hh, out, dy, dgates, dghn, bias_part, L, H, R, stream);
+  // the smallest of 128, 256, 512 threads that holds RB * ceil(H / JT)
+  const int tpr = (H + JT - 1) / JT;
+  if (rec_smem(H, 32) > (size_t)smem_max)
+    e = launch_rec<16, 256>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
+  else if (tpr <= 4)
+    e = launch_rec<32, 128>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
+  else if (tpr <= 8)
+    e = launch_rec<32, 256>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
+  else
+    e = launch_rec<32, 512>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
   if (e != cudaSuccess) return clear_and_return(e);
-  const int nblk = (R + (wide ? 16 : 32) - 1) / (wide ? 16 : 32);
-  const dim3 grid((3 * H + TG - 1) / TG, (H + TH - 1) / TH, 2 * S);
-  bigru_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, dghn, out, dw_part, L, H, R, S);
+  const dim3 grid((4 * H + TG - 1) / TG, (H + TH - 1) / TH, 2 * S);
+  bigru_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, dghn, out, dw_part, bias_part, L, H, R, S);
   e = cudaGetLastError();
   if (e != cudaSuccess) return clear_and_return(e);
   const int nw = 3 * H * H;
   sum_partials_kernel<<<dim3((nw + 255) / 256, 2), 256, 0, stream>>>(dw_part, dw_hh, S, nw);
   sum_partials_kernel<<<dim3((4 * H + 255) / 256, 2), 256, 0, stream>>>(
-      bias_part, bias4, nblk, 4 * H);
+      bias_part, bias4, S, 4 * H);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,6 @@ from tatt_tpu_torch.kernels import _build
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 MAX_HIDDEN = 128
-_RB_MIN = 16  # the backward's smallest row tile (csrc/bigru_bwd.cu)
 
 
 def _gru_cell(gx, gh, hid):
@@ -141,6 +140,20 @@ def bigru_recurrence(
 bigru_recurrence.launches = 0
 
 
+def _bwd_scratch(length: int, hid: int, rows: int, dev) -> dict:
+    """Scratch of the backward kernel: d(gh)'s n slot, and one partial of
+    the weight and bias gradients per K slice of the weight-gradient pass
+    (a few chunks of 32 rows of one step each, at most 64 slices)."""
+    slices = max(1, min(64, length * -(-rows // 32) // 8))
+    f32 = torch.float32
+    return {
+        "slices": slices,
+        "dghn": torch.empty(2, length, hid, rows, device=dev, dtype=f32),
+        "bias_part": torch.empty(2, slices, 4 * hid, device=dev, dtype=f32),
+        "dw_part": torch.empty(2, slices, 3 * hid, hid, device=dev, dtype=f32),
+    }
+
+
 def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
     """The BiGRU backward recurrence: the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor.  Arguments and results as
@@ -161,21 +174,15 @@ def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
     dw = torch.zeros(2, g3, hid, device=dev, dtype=f32)
     bias4 = torch.zeros(2, 4 * hid, device=dev, dtype=f32)
     if length > 0 and rows > 0:
-        nblk = -(-rows // _RB_MIN)  # bias partials: room for the smaller tile
-        # K slices of the weight-gradient product: a few chunks of 32 rows
-        # of one step each, at most 64 slices
-        slices = max(1, min(64, length * -(-rows // 32) // 8))
-        dghn = torch.empty(2, length, hid, rows, device=dev, dtype=f32)
-        bias_part = torch.empty(2, nblk, 4 * hid, device=dev, dtype=f32)
-        dw_part = torch.empty(2, slices, g3, hid, device=dev, dtype=f32)
+        scratch = _bwd_scratch(length, hid, rows, dev)
         lib = _build.load("bigru_bwd", _BWD_ARGTYPES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.bigru_bwd(
                 gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), dgates.data_ptr(), dghn.data_ptr(), bias_part.data_ptr(),
-                dw_part.data_ptr(), dw.data_ptr(), bias4.data_ptr(),
-                length, hid, rows, slices, stream,
+                dout.data_ptr(), dgates.data_ptr(), scratch["dghn"].data_ptr(),
+                scratch["bias_part"].data_ptr(), scratch["dw_part"].data_ptr(),
+                dw.data_ptr(), bias4.data_ptr(), length, hid, rows, scratch["slices"], stream,
             )
         _build.check(err, "bigru_bwd")
         bigru_recurrence_bwd.launches += 1
