@@ -62,11 +62,27 @@ constexpr int JT = 8;  // hidden units per thread
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// RB rows per block (32 or 16): RB consecutive lanes of a warp span the
-// tile's rows for one group of JT hidden units
-// kThreads: the most threads an instantiation launches (RB rows times
-// ceil(H / JT) threads a row), so that ptxas may give each thread the
-// registers that many threads leave
+// 4-byte asynchronous copy from global to shared memory, and the wait for
+// this thread's copies to land
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// RB rows per block (32, 16 or 8): RB consecutive threads span the tile's
+// rows for one group of JT hidden units.  kThreads: the most threads an
+// instantiation launches (RB rows times ceil(H / JT) threads a row), so
+// that ptxas may give each thread the registers that many threads leave.
+//
+// Step s's loads are issued a step ahead: after step s-1's barrier its
+// gx and dy go into registers and the h_prev of step s+1 into shared
+// memory (cp.async), and gh(s) = W_hh h_prev with r, z, n is formed after
+// step s-1's products.  Step s itself is then the chain alone: dh ->
+// d(gates) into shared memory, one barrier, dh_carry = dh z + W^T d(gh).
+// h_prev and d(gh) are double-buffered, so that barrier is the only one.
 template <int RB, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
@@ -76,10 +92,10 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
   const int G = 3 * H;
-  float* w_s = smem;              // [3H][H4], zero-padded along k
-  float* hp_s = w_s + G * H4;     // [H4/4][RB][4]: h_prev[k][row] packed by 4 k's
-  float* dg_s = hp_s + H4 * RB;   // [3H][RB]: d(gh) of the tile
-  float* b_s = dg_s + G * RB;     // [3H]
+  float* w_s = smem;                 // [3H][H4], zero-padded along k
+  float* hp_s = w_s + G * H4;        // [2][H4/4][RB][4]: h_prev[k][row] packed by 4 k's
+  float* dg_s = hp_s + 2 * H4 * RB;  // [2][3H][RB]: d(gh) of the tile
+  float* b_s = dg_s + 2 * G * RB;    // [3H]
 
   const int dir = blockIdx.y;
   const int lane = threadIdx.x % RB;  // row within the tile
@@ -94,8 +110,8 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
     w_s[i] = k < H ? w_d[(size_t)g * H + k] : 0.0f;
   }
   for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[dir * G + i];
-  for (int i = threadIdx.x; i < H4 * RB; i += blockDim.x) hp_s[i] = 0.0f;
-  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * H4 * RB; i += blockDim.x) hp_s[i] = 0.0f;
+  __syncthreads();  // the zeros land before any copy into hp_s
 
   // this thread's units; out-of-range units clamp to H-1 for their (unused)
   // reads so every address stays valid
@@ -107,18 +123,27 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
     jv[u] = j < H;
     jc[u] = jv[u] ? j : H - 1;
   }
-  float dhc[JT];
+  const auto t_of = [&](int s) { return dir == 0 ? L - 1 - s : s; };
+  // h_prev of step s (the step before t in d's order; zeros at d's first
+  // step) into hp_s[buf]
+  const auto copy_hp = [&](int s, int buf) {
+    const int t = t_of(s), tp = dir == 0 ? t - 1 : t + 1;
+    const bool copy = live && tp >= 0 && tp < L;
+    const float* src = out + ((size_t)(copy ? tp : 0) * 2 * H + (size_t)dir * H) * RS + row;
+    float* dst = hp_s + buf * H4 * RB + lane * 4;
 #pragma unroll
-  for (int u = 0; u < JT; ++u) dhc[u] = 0.0f;
-
-  for (int s = 0; s < L; ++s) {
-    const int t = dir == 0 ? L - 1 - s : s;
-    const int tp = dir == 0 ? t - 1 : t + 1;  // the step before t in d's order
-    const bool has_prev = tp >= 0 && tp < L;
+    for (int u = 0; u < JT; ++u) {
+      if (!jv[u]) continue;
+      float* d = dst + (jc[u] >> 2) * RB * 4 + (jc[u] & 3);
+      if (copy) cp_async4(d, src + (size_t)jc[u] * RS);
+      else *d = 0.0f;
+    }
+  };
+  float xr[JT], xz[JT], xn[JT], dyn[JT];  // step s+1's inputs, loaded during step s
+  const auto load_x = [&](int s) {
+    const int t = t_of(s);
     const float* gx = gates + (size_t)(dir * L + t) * G * RS + row;
-    const float* hg = out + ((size_t)(has_prev ? tp : 0) * 2 * H + (size_t)dir * H) * RS + row;
     const float* dyg = dy + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row;
-    float xr[JT], xz[JT], xn[JT], hp[JT], dyv[JT];
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
       const bool ok = live && jv[u];
@@ -126,11 +151,14 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
       xr[u] = ok ? gx[j * RS] : 0.0f;
       xz[u] = ok ? gx[(H + j) * RS] : 0.0f;
       xn[u] = ok ? gx[(2 * H + j) * RS] : 0.0f;
-      hp[u] = (ok && has_prev) ? hg[j * RS] : 0.0f;
-      dyv[u] = ok ? dyg[j * RS] : 0.0f;
-      if (jv[u]) hp_s[(jc[u] >> 2) * RB * 4 + lane * 4 + (jc[u] & 3)] = hp[u];
+      dyn[u] = ok ? dyg[j * RS] : 0.0f;
     }
-    __syncthreads();  // h_prev of the tile is complete
+  };
+  // a step's coefficients, so that with dh = dh_carry + dy:
+  // dz = dh cz, dn = dh cn, dr = dn cr, d(gh)_n = dn r, dh z
+  float cz[JT], cn[JT], cr[JT], rr[JT], zz[JT], dyc[JT];
+  const auto coefficients = [&](int buf) {  // gh = W_hh h_prev + b_hh from hp_s[buf]
+    const float* hb = hp_s + buf * H4 * RB;
     float ar[JT], az[JT], an[JT];
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
@@ -139,7 +167,7 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
       an[u] = b_s[2 * H + jc[u]];
     }
     for (int k4 = 0; k4 < H4; k4 += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(hp_s + k4 * RB + lane * 4);
+      const float4 hv = *reinterpret_cast<const float4*>(hb + k4 * RB + lane * 4);
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
         const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * H4 + k4);
@@ -153,42 +181,77 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
         an[u] = fmaf(wn.z, hv.z, an[u]); an[u] = fmaf(wn.w, hv.w, an[u]);
       }
     }
-    float dhz[JT];
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
+      const float hp = hb[(jc[u] >> 2) * RB * 4 + lane * 4 + (jc[u] & 3)];
       const float r = sigm(xr[u] + ar[u]);
       const float z = sigm(xz[u] + az[u]);
       const float n = tanhf(xn[u] + r * an[u]);
-      const float dh = dhc[u] + dyv[u];
-      const float dz = dh * (hp[u] - n) * z * (1.0f - z);
-      const float dn = dh * (1.0f - z) * (1.0f - n * n);
-      const float dr = dn * an[u] * r * (1.0f - r);
-      const float dnr = dn * r;
-      dhz[u] = dh * z;
+      cz[u] = (hp - n) * z * (1.0f - z);
+      cn[u] = (1.0f - z) * (1.0f - n * n);
+      cr[u] = an[u] * r * (1.0f - r);
+      rr[u] = r;
+      zz[u] = z;
+      dyc[u] = dyn[u];
+    }
+  };
+
+  copy_hp(0, 0);
+  if (L > 1) copy_hp(1, 1);
+  load_x(0);
+  cp_async_wait_all();
+  __syncthreads();
+  coefficients(0);
+  float dhc[JT];
+#pragma unroll
+  for (int u = 0; u < JT; ++u) dhc[u] = 0.0f;
+
+  for (int s = 0; s < L; ++s) {
+    float* dgb = dg_s + (s & 1) * G * RB;
+    float dr[JT], dz[JT], dn[JT], dnr[JT], acc[JT];
+#pragma unroll
+    for (int u = 0; u < JT; ++u) {
+      const float dh = dhc[u] + dyc[u];
+      dz[u] = dh * cz[u];
+      dn[u] = dh * cn[u];
+      dr[u] = dn[u] * cr[u];
+      dnr[u] = dn[u] * rr[u];
+      acc[u] = dh * zz[u];
       if (jv[u]) {
-        const size_t j = (size_t)jc[u];
-        dg_s[j * RB + lane] = dr;
-        dg_s[(H + j) * RB + lane] = dz;
-        dg_s[(2 * H + j) * RB + lane] = dnr;
-        if (live) {
-          float* dgo = dgates + (size_t)(dir * L + t) * G * RS + row;
-          dgo[j * RS] = dr;
-          dgo[(H + j) * RS] = dz;
-          dgo[(2 * H + j) * RS] = dn;
-          dghn[((size_t)(dir * L + t) * H + j) * RS + row] = dnr;
-        }
+        dgb[jc[u] * RB + lane] = dr[u];
+        dgb[(H + jc[u]) * RB + lane] = dz[u];
+        dgb[(2 * H + jc[u]) * RB + lane] = dnr[u];
       }
     }
-    __syncthreads();  // d(gh) of the tile is complete
-    // dh_carry = dh z + W_hh^T d(gh); the next step's first barrier keeps
-    // hp_s and dg_s from being overwritten before every thread is past here
-    for (int g = 0; g < G; ++g) {
-      const float dv = dg_s[g * RB + lane];
+    cp_async_wait_all();  // this thread's copies of h_prev(s+1)
+    __syncthreads();      // d(gh) of step s and h_prev of step s+1 are complete
+    if (live) {
+      const int t = t_of(s);
+      float* dgo = dgates + (size_t)(dir * L + t) * G * RS + row;
+      float* dno = dghn + (size_t)(dir * L + t) * H * RS + row;
 #pragma unroll
-      for (int u = 0; u < JT; ++u) dhz[u] = fmaf(w_s[g * H4 + jc[u]], dv, dhz[u]);
+      for (int u = 0; u < JT; ++u) {
+        if (!jv[u]) continue;
+        const size_t j = (size_t)jc[u];
+        dgo[j * RS] = dr[u];
+        dgo[(H + j) * RS] = dz[u];
+        dgo[(2 * H + j) * RS] = dn[u];
+        dno[j * RS] = dnr[u];
+      }
+    }
+    // the next step's loads: hp_s[s & 1] (h_prev of step s) was last read
+    // before this barrier
+    if (s + 1 < L) load_x(s + 1);
+    if (s + 2 < L) copy_hp(s + 2, s & 1);
+    // dh_carry = dh z + W_hh^T d(gh)
+    for (int g = 0; g < G; ++g) {
+      const float dv = dgb[g * RB + lane];
+#pragma unroll
+      for (int u = 0; u < JT; ++u) acc[u] = fmaf(w_s[g * H4 + jc[u]], dv, acc[u]);
     }
 #pragma unroll
-    for (int u = 0; u < JT; ++u) dhc[u] = dhz[u];
+    for (int u = 0; u < JT; ++u) dhc[u] = acc[u];
+    if (s + 1 < L) coefficients((s + 1) & 1);
   }
 }
 
@@ -286,7 +349,8 @@ static int clear_and_return(cudaError_t e) {
 // shared memory of the recurrence kernel for a tile of rb rows
 static size_t rec_smem(int H, int rb) {
   const int H4 = (H + 3) & ~3;
-  return sizeof(float) * ((size_t)3 * H * H4 + (size_t)H4 * rb + (size_t)3 * H * rb + 3 * H);
+  return sizeof(float) *
+         ((size_t)3 * H * H4 + (size_t)2 * H4 * rb + (size_t)2 * 3 * H * rb + 3 * H);
 }
 
 template <int RB, int kThreads>
@@ -315,9 +379,12 @@ extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_h
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return clear_and_return(e);
-  // the smallest of 128, 256, 512 threads that holds RB * ceil(H / JT)
+  // the most rows of 32, 16, 8 that fit shared memory, and the fewest of
+  // 128, 256, 512 threads that hold RB * ceil(H / JT)
   const int tpr = (H + JT - 1) / JT;
-  if (rec_smem(H, 32) > (size_t)smem_max)
+  if (rec_smem(H, 16) > (size_t)smem_max)
+    e = launch_rec<8, 128>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
+  else if (rec_smem(H, 32) > (size_t)smem_max)
     e = launch_rec<16, 256>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
   else if (tpr <= 4)
     e = launch_rec<32, 128>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
