@@ -56,9 +56,14 @@
 
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
+
 namespace {
 
-constexpr int JT = 8;  // hidden units per thread
+constexpr int kMaxThreads = 256;  // threads of a recurrence block
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -72,10 +77,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// RB rows per block (32, 16 or 8): RB consecutive threads span the tile's
-// rows for one group of JT hidden units.  kThreads: the most threads an
-// instantiation launches (RB rows times ceil(H / JT) threads a row), so
-// that ptxas may give each thread the registers that many threads leave.
+// N consecutive floats of shared memory (N = 1, 2 or 4; 4N-byte aligned)
+template <int N>
+__device__ __forceinline__ void load_n(const float* src, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = src[0];
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_n(float* dst, const float (&v)[N]) {
+  if constexpr (N == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (N == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  else dst[0] = v[0];
+}
+
+// One block per (tile of RB rows, direction).  A thread owns JT hidden
+// units (JT = 4 or 8) of RT neighbouring rows (RT = 1, 2 or 4): Q =
+// ceil(H / JT) unit groups times P row groups, RB = P * RT, thread (q, p)
+// = threadIdx.x / P, % P, so a warp's lanes walk the rows.  kp: the row
+// stride of W_hh in shared memory (a multiple of 4, at least Q * JT).
 //
 // Step s's loads are issued a step ahead: after step s-1's barrier its
 // gx and dy go into registers and the h_prev of step s+1 into shared
@@ -83,117 +109,139 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // step s-1's products.  Step s itself is then the chain alone: dh ->
 // d(gates) into shared memory, one barrier, dh_carry = dh z + W^T d(gh).
 // h_prev and d(gh) are double-buffered, so that barrier is the only one.
-template <int RB, int kThreads>
-__global__ void __launch_bounds__(kThreads)
+template <int JT, int RT>
+__global__ void __launch_bounds__(kMaxThreads)
 bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                      const float* __restrict__ b_hh, const float* __restrict__ out,
                      const float* __restrict__ dy, float* __restrict__ dgates,
-                     float* __restrict__ dghn, int L, int H, int R) {
+                     float* __restrict__ dghn, int L, int H, int R, int kp) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
   const int G = 3 * H;
-  float* w_s = smem;                 // [3H][H4], zero-padded along k
-  float* hp_s = w_s + G * H4;        // [2][H4/4][RB][4]: h_prev[k][row] packed by 4 k's
+  const int Q = (H + JT - 1) / JT;
+  const int P = blockDim.x / Q;
+  const int RB = P * RT;
+  float* w_s = smem;                 // [3H][kp]: W_hh[d] rows, zero-padded along k
+  float* hp_s = w_s + G * kp;        // [2][H4/4][RT][P][4]: h_prev[k][row] packed by 4 k's
   float* dg_s = hp_s + 2 * H4 * RB;  // [2][3H][RB]: d(gh) of the tile
   float* b_s = dg_s + 2 * G * RB;    // [3H]
 
   const int dir = blockIdx.y;
-  const int lane = threadIdx.x % RB;  // row within the tile
-  const int q = threadIdx.x / RB;     // which group of JT hidden units
-  const int row = blockIdx.x * RB + lane;
-  const bool live = row < R;
+  const int q = threadIdx.x / P, p = threadIdx.x % P;
+  const int row0 = blockIdx.x * RB + p * RT;  // this thread's rows: row0 .. row0 + RT - 1
   const size_t RS = (size_t)R;
 
   const float* w_d = w_hh + (size_t)dir * G * H;
-  for (int i = threadIdx.x; i < G * H4; i += blockDim.x) {
-    const int g = i / H4, k = i % H4;
+  for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
+    const int g = i / kp, k = i % kp;
     w_s[i] = k < H ? w_d[(size_t)g * H + k] : 0.0f;
   }
   for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[dir * G + i];
   for (int i = threadIdx.x; i < 2 * H4 * RB; i += blockDim.x) hp_s[i] = 0.0f;
   __syncthreads();  // the zeros land before any copy into hp_s
 
-  // this thread's units; out-of-range units clamp to H-1 for their (unused)
-  // reads so every address stays valid
+  // this thread's units and rows; out-of-range units clamp to H-1 for their
+  // (unused) reads so every address stays valid
   int jc[JT];
-  bool jv[JT];
+  bool jv[JT], rv[RT];
 #pragma unroll
   for (int u = 0; u < JT; ++u) {
     const int j = q * JT + u;
     jv[u] = j < H;
     jc[u] = jv[u] ? j : H - 1;
   }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) rv[i] = row0 + i < R;
+  // h_prev[k] of the thread's row i in a buffer of hp_s
+  const auto hp_at = [&](const float* hb, int k, int i) -> const float* {
+    return hb + ((k >> 2) * RT + i) * P * 4 + p * 4 + (k & 3);
+  };
   const auto t_of = [&](int s) { return dir == 0 ? L - 1 - s : s; };
   // h_prev of step s (the step before t in d's order; zeros at d's first
   // step) into hp_s[buf]
   const auto copy_hp = [&](int s, int buf) {
     const int t = t_of(s), tp = dir == 0 ? t - 1 : t + 1;
-    const bool copy = live && tp >= 0 && tp < L;
-    const float* src = out + ((size_t)(copy ? tp : 0) * 2 * H + (size_t)dir * H) * RS + row;
-    float* dst = hp_s + buf * H4 * RB + lane * 4;
+    const bool copy = tp >= 0 && tp < L;
+    const float* src = out + ((size_t)(copy ? tp : 0) * 2 * H + (size_t)dir * H) * RS + row0;
+    float* hb = hp_s + buf * H4 * RB;
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
       if (!jv[u]) continue;
-      float* d = dst + (jc[u] >> 2) * RB * 4 + (jc[u] & 3);
-      if (copy) cp_async4(d, src + (size_t)jc[u] * RS);
-      else *d = 0.0f;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        float* d = const_cast<float*>(hp_at(hb, jc[u], i));
+        if (copy && rv[i]) cp_async4(d, src + (size_t)jc[u] * RS + i);
+        else *d = 0.0f;
+      }
     }
   };
-  float xr[JT], xz[JT], xn[JT], dyn[JT];  // step s+1's inputs, loaded during step s
+  float xr[JT][RT], xz[JT][RT], xn[JT][RT], dyn[JT][RT];  // step s+1's inputs
   const auto load_x = [&](int s) {
     const int t = t_of(s);
-    const float* gx = gates + (size_t)(dir * L + t) * G * RS + row;
-    const float* dyg = dy + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row;
+    const float* gx = gates + (size_t)(dir * L + t) * G * RS + row0;
+    const float* dyg = dy + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row0;
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
-      const bool ok = live && jv[u];
       const size_t j = (size_t)jc[u];
-      xr[u] = ok ? gx[j * RS] : 0.0f;
-      xz[u] = ok ? gx[(H + j) * RS] : 0.0f;
-      xn[u] = ok ? gx[(2 * H + j) * RS] : 0.0f;
-      dyn[u] = ok ? dyg[j * RS] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const bool ok = jv[u] && rv[i];
+        xr[u][i] = ok ? gx[j * RS + i] : 0.0f;
+        xz[u][i] = ok ? gx[(H + j) * RS + i] : 0.0f;
+        xn[u][i] = ok ? gx[(2 * H + j) * RS + i] : 0.0f;
+        dyn[u][i] = ok ? dyg[j * RS + i] : 0.0f;
+      }
     }
   };
   // a step's coefficients, so that with dh = dh_carry + dy:
   // dz = dh cz, dn = dh cn, dr = dn cr, d(gh)_n = dn r, dh z
-  float cz[JT], cn[JT], cr[JT], rr[JT], zz[JT], dyc[JT];
+  float cz[JT][RT], cn[JT][RT], cr[JT][RT], rr[JT][RT], zz[JT][RT], dyc[JT][RT];
   const auto coefficients = [&](int buf) {  // gh = W_hh h_prev + b_hh from hp_s[buf]
     const float* hb = hp_s + buf * H4 * RB;
-    float ar[JT], az[JT], an[JT];
+    float ar[JT][RT], az[JT][RT], an[JT][RT];
 #pragma unroll
-    for (int u = 0; u < JT; ++u) {
-      ar[u] = b_s[jc[u]];
-      az[u] = b_s[H + jc[u]];
-      an[u] = b_s[2 * H + jc[u]];
-    }
+    for (int u = 0; u < JT; ++u)
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        ar[u][i] = b_s[jc[u]];
+        az[u][i] = b_s[H + jc[u]];
+        an[u][i] = b_s[2 * H + jc[u]];
+      }
     for (int k4 = 0; k4 < H4; k4 += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(hb + k4 * RB + lane * 4);
+      float4 hv[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(hp_at(hb, k4, i));
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
-        const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * H4 + k4);
-        const float4 wz = *reinterpret_cast<const float4*>(w_s + (H + jc[u]) * H4 + k4);
-        const float4 wn = *reinterpret_cast<const float4*>(w_s + (2 * H + jc[u]) * H4 + k4);
-        ar[u] = fmaf(wr.x, hv.x, ar[u]); ar[u] = fmaf(wr.y, hv.y, ar[u]);
-        ar[u] = fmaf(wr.z, hv.z, ar[u]); ar[u] = fmaf(wr.w, hv.w, ar[u]);
-        az[u] = fmaf(wz.x, hv.x, az[u]); az[u] = fmaf(wz.y, hv.y, az[u]);
-        az[u] = fmaf(wz.z, hv.z, az[u]); az[u] = fmaf(wz.w, hv.w, az[u]);
-        an[u] = fmaf(wn.x, hv.x, an[u]); an[u] = fmaf(wn.y, hv.y, an[u]);
-        an[u] = fmaf(wn.z, hv.z, an[u]); an[u] = fmaf(wn.w, hv.w, an[u]);
+        const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * kp + k4);
+        const float4 wz = *reinterpret_cast<const float4*>(w_s + (H + jc[u]) * kp + k4);
+        const float4 wn = *reinterpret_cast<const float4*>(w_s + (2 * H + jc[u]) * kp + k4);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          ar[u][i] = fmaf(wr.x, hv[i].x, ar[u][i]); ar[u][i] = fmaf(wr.y, hv[i].y, ar[u][i]);
+          ar[u][i] = fmaf(wr.z, hv[i].z, ar[u][i]); ar[u][i] = fmaf(wr.w, hv[i].w, ar[u][i]);
+          az[u][i] = fmaf(wz.x, hv[i].x, az[u][i]); az[u][i] = fmaf(wz.y, hv[i].y, az[u][i]);
+          az[u][i] = fmaf(wz.z, hv[i].z, az[u][i]); az[u][i] = fmaf(wz.w, hv[i].w, az[u][i]);
+          an[u][i] = fmaf(wn.x, hv[i].x, an[u][i]); an[u][i] = fmaf(wn.y, hv[i].y, an[u][i]);
+          an[u][i] = fmaf(wn.z, hv[i].z, an[u][i]); an[u][i] = fmaf(wn.w, hv[i].w, an[u][i]);
+        }
       }
     }
 #pragma unroll
-    for (int u = 0; u < JT; ++u) {
-      const float hp = hb[(jc[u] >> 2) * RB * 4 + lane * 4 + (jc[u] & 3)];
-      const float r = sigm(xr[u] + ar[u]);
-      const float z = sigm(xz[u] + az[u]);
-      const float n = tanhf(xn[u] + r * an[u]);
-      cz[u] = (hp - n) * z * (1.0f - z);
-      cn[u] = (1.0f - z) * (1.0f - n * n);
-      cr[u] = an[u] * r * (1.0f - r);
-      rr[u] = r;
-      zz[u] = z;
-      dyc[u] = dyn[u];
-    }
+    for (int u = 0; u < JT; ++u)
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float hp = *hp_at(hb, jc[u], i);
+        const float r = sigm(xr[u][i] + ar[u][i]);
+        const float z = sigm(xz[u][i] + az[u][i]);
+        const float n = tanhf(xn[u][i] + r * an[u][i]);
+        cz[u][i] = (hp - n) * z * (1.0f - z);
+        cn[u][i] = (1.0f - z) * (1.0f - n * n);
+        cr[u][i] = an[u][i] * r * (1.0f - r);
+        rr[u][i] = r;
+        zz[u][i] = z;
+        dyc[u][i] = dyn[u][i];
+      }
   };
 
   copy_hp(0, 0);
@@ -202,55 +250,77 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
   cp_async_wait_all();
   __syncthreads();
   coefficients(0);
-  float dhc[JT];
+  float dhc[JT][RT];
 #pragma unroll
-  for (int u = 0; u < JT; ++u) dhc[u] = 0.0f;
+  for (int u = 0; u < JT; ++u)
+#pragma unroll
+    for (int i = 0; i < RT; ++i) dhc[u][i] = 0.0f;
 
   for (int s = 0; s < L; ++s) {
     float* dgb = dg_s + (s & 1) * G * RB;
-    float dr[JT], dz[JT], dn[JT], dnr[JT], acc[JT];
+    float dr[JT][RT], dz[JT][RT], dn[JT][RT], dnr[JT][RT], acc[JT][RT];
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
-      const float dh = dhc[u] + dyc[u];
-      dz[u] = dh * cz[u];
-      dn[u] = dh * cn[u];
-      dr[u] = dn[u] * cr[u];
-      dnr[u] = dn[u] * rr[u];
-      acc[u] = dh * zz[u];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float dh = dhc[u][i] + dyc[u][i];
+        dz[u][i] = dh * cz[u][i];
+        dn[u][i] = dh * cn[u][i];
+        dr[u][i] = dn[u][i] * cr[u][i];
+        dnr[u][i] = dn[u][i] * rr[u][i];
+        acc[u][i] = dh * zz[u][i];
+      }
       if (jv[u]) {
-        dgb[jc[u] * RB + lane] = dr[u];
-        dgb[(H + jc[u]) * RB + lane] = dz[u];
-        dgb[(2 * H + jc[u]) * RB + lane] = dnr[u];
+        store_n<RT>(dgb + jc[u] * RB + p * RT, dr[u]);
+        store_n<RT>(dgb + (H + jc[u]) * RB + p * RT, dz[u]);
+        store_n<RT>(dgb + (2 * H + jc[u]) * RB + p * RT, dnr[u]);
       }
     }
     cp_async_wait_all();  // this thread's copies of h_prev(s+1)
     __syncthreads();      // d(gh) of step s and h_prev of step s+1 are complete
-    if (live) {
+    {
       const int t = t_of(s);
-      float* dgo = dgates + (size_t)(dir * L + t) * G * RS + row;
-      float* dno = dghn + (size_t)(dir * L + t) * H * RS + row;
+      float* dgo = dgates + (size_t)(dir * L + t) * G * RS + row0;
+      float* dno = dghn + (size_t)(dir * L + t) * H * RS + row0;
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
         if (!jv[u]) continue;
         const size_t j = (size_t)jc[u];
-        dgo[j * RS] = dr[u];
-        dgo[(H + j) * RS] = dz[u];
-        dgo[(2 * H + j) * RS] = dn[u];
-        dno[j * RS] = dnr[u];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          if (!rv[i]) continue;
+          dgo[j * RS + i] = dr[u][i];
+          dgo[(H + j) * RS + i] = dz[u][i];
+          dgo[(2 * H + j) * RS + i] = dn[u][i];
+          dno[j * RS + i] = dnr[u][i];
+        }
       }
     }
     // the next step's loads: hp_s[s & 1] (h_prev of step s) was last read
     // before this barrier
     if (s + 1 < L) load_x(s + 1);
     if (s + 2 < L) copy_hp(s + 2, s & 1);
-    // dh_carry = dh z + W_hh^T d(gh)
+    // dh_carry = dh z + W_hh^T d(gh): W_hh row g along this thread's units,
+    // 16 bytes a load
+    const float* wq = w_s + q * JT;
     for (int g = 0; g < G; ++g) {
-      const float dv = dgb[g * RB + lane];
+      float dv[RT];
+      load_n<RT>(dgb + g * RB + p * RT, dv);
+      float wv[JT];
 #pragma unroll
-      for (int u = 0; u < JT; ++u) acc[u] = fmaf(w_s[g * H4 + jc[u]], dv, acc[u]);
+      for (int u4 = 0; u4 < JT; u4 += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(wq + g * kp + u4);
+        wv[u4] = w4.x; wv[u4 + 1] = w4.y; wv[u4 + 2] = w4.z; wv[u4 + 3] = w4.w;
+      }
+#pragma unroll
+      for (int u = 0; u < JT; ++u)
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[u][i] = fmaf(wv[u], dv[i], acc[u][i]);
     }
 #pragma unroll
-    for (int u = 0; u < JT; ++u) dhc[u] = acc[u];
+    for (int u = 0; u < JT; ++u)
+#pragma unroll
+      for (int i = 0; i < RT; ++i) dhc[u][i] = acc[u][i];
     if (s + 1 < L) coefficients((s + 1) & 1);
   }
 }
@@ -337,61 +407,134 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, float* __res
   out[(size_t)d * n + i] = acc;
 }
 
-}  // namespace
+// The recurrence's launch: units and rows a thread, rows a block, threads
+// and shared memory of a block, W_hh's row stride in shared memory.
+struct Plan {
+  int jt, rt, rows, threads, kp;
+  size_t smem;
+};
+
+using RecKernel = void (*)(const float*, const float*, const float*, const float*,
+                           const float*, float*, float*, int, int, int, int);
+
+RecKernel kernel_of(const Plan& p) {
+  if (p.jt == 8) return p.rt == 2 ? bigru_bwd_rec_kernel<8, 2> : bigru_bwd_rec_kernel<8, 1>;
+  return p.rt == 2 ? bigru_bwd_rec_kernel<4, 2> : bigru_bwd_rec_kernel<4, 1>;
+}
+
+// shared memory of a recurrence block: W_hh, two h_prev and two d(gh)
+// buffers of `rows` rows, the bias
+size_t rec_smem(int H, int kp, int rows) {
+  const int H4 = (H + 3) & ~3;
+  return sizeof(float) *
+         ((size_t)3 * H * kp + (size_t)2 * H4 * rows + (size_t)2 * 3 * H * rows + 3 * H);
+}
+
+// The plan with jt units and rt rows a thread and p row groups a block;
+// W_hh's rows are padded by 4 floats where that fits (so that the rows the
+// lanes of one warp read start on other banks).  False when it does not fit.
+bool block_plan(int H, int jt, int rt, int p, int smem_max, Plan* out) {
+  const int q = (H + jt - 1) / jt;
+  if (q * p > kMaxThreads) return false;
+  for (int kp : {q * jt + 4, q * jt}) {
+    const size_t smem = rec_smem(H, kp, p * rt);
+    if (smem <= (size_t)smem_max) {
+      *out = Plan{jt, rt, p * rt, q * p, kp, smem};
+      return true;
+    }
+  }
+  return false;
+}
+
+// Blocks of plan p that the card runs at once.
+int resident_blocks(const Plan& p, int device, cudaError_t* e) {
+  const RecKernel kernel = kernel_of(p);
+  *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  int sms = 0, n = 0;
+  if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*e == cudaSuccess)
+    *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p.threads, p.smem);
+  return n * sms;
+}
+
+// The plan for H and R: the most units and rows a thread (so each word of
+// W_hh and d(gh) read from shared memory feeds the most FMAs) whose grid
+// runs in one wave with at least 4 warps an SM (one for each of its
+// schedulers); among the tiles of one such thread, the most rows a block.
+// Where none does, the fewest units and rows a thread.
+bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
+  int smem_max = 0, sms = 0;
+  *e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*e != cudaSuccess) return false;
+  bool found = false;
+  for (const auto jr : {std::make_pair(8, 2), std::make_pair(4, 2), std::make_pair(8, 1),
+                        std::make_pair(4, 1)}) {
+    for (int p = 32; p >= 1; p /= 2) {
+      Plan plan;
+      if (!block_plan(H, jr.first, jr.second, p, smem_max, &plan)) continue;
+      *out = plan;
+      found = true;
+      const int blocks = 2 * ((R + plan.rows - 1) / plan.rows);
+      const int warps = blocks * ((plan.threads + 31) / 32);
+      const int resident = resident_blocks(plan, device, e);
+      if (*e != cudaSuccess) return false;
+      if (blocks <= resident && warps >= 4 * sms) return true;
+    }
+  }
+  return found;
+}
+
+// Plans already made, by (device, H, R): the occupancy queries stay off
+// every launch but the first of a shape.
+std::mutex plans_mu;
+std::map<std::tuple<int, int, int>, Plan> plans;
 
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
-static int clear_and_return(cudaError_t e) {
+int clear_and_return(cudaError_t e) {
   cudaGetLastError();
   return (int)e;
 }
 
-// shared memory of the recurrence kernel for a tile of rb rows
-static size_t rec_smem(int H, int rb) {
-  const int H4 = (H + 3) & ~3;
-  return sizeof(float) *
-         ((size_t)3 * H * H4 + (size_t)2 * H4 * rb + (size_t)2 * 3 * H * rb + 3 * H);
+// Returned, before any launch, for an H that no plan serves.
+constexpr int kNoFit = -1;
+
+// The plan for hidden size H and R rows on the current device, made once.
+int plan_of(int H, int R, Plan* p, int* device) {
+  cudaError_t e = cudaGetDevice(device);
+  if (e != cudaSuccess) return clear_and_return(e);
+  std::lock_guard<std::mutex> lock(plans_mu);
+  const auto key = std::make_tuple(*device, H, R);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    *p = it->second;
+    return 0;
+  }
+  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  plans[key] = *p;
+  return 0;
 }
 
-template <int RB, int kThreads>
-static cudaError_t launch_rec(const float* gates, const float* w_hh, const float* b_hh,
-                              const float* out, const float* dy, float* dgates, float* dghn,
-                              int L, int H, int R, cudaStream_t stream) {
-  const size_t smem = rec_smem(H, RB);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(bigru_bwd_rec_kernel<RB, kThreads>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int tpr = (H + JT - 1) / JT;  // threads per row
-  bigru_bwd_rec_kernel<RB, kThreads><<<dim3((R + RB - 1) / RB, 2), dim3(RB * tpr), smem, stream>>>(
-      gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R);
+cudaError_t launch_rec(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
+                       const float* out, const float* dy, float* dgates, float* dghn, int L,
+                       int H, int R, cudaStream_t stream) {
+  const RecKernel kernel = kernel_of(p);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((R + p.rows - 1) / p.rows, 2), dim3(p.threads), p.smem, stream>>>(
+      gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, p.kp);
   return cudaGetLastError();
 }
 
-extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
-                         const float* out, const float* dy, float* dgates, float* dghn,
-                         float* bias_part, float* dw_part, float* dw_hh, float* bias4,
-                         int L, int H, int R, int S, cudaStream_t stream) {
-  int dev = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return clear_and_return(e);
-  // the most rows of 32, 16, 8 that fit shared memory, and the fewest of
-  // 128, 256, 512 threads that hold RB * ceil(H / JT)
-  const int tpr = (H + JT - 1) / JT;
-  if (rec_smem(H, 16) > (size_t)smem_max)
-    e = launch_rec<8, 128>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
-  else if (rec_smem(H, 32) > (size_t)smem_max)
-    e = launch_rec<16, 256>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
-  else if (tpr <= 4)
-    e = launch_rec<32, 128>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
-  else if (tpr <= 8)
-    e = launch_rec<32, 256>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
-  else
-    e = launch_rec<32, 512>(gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
+// The launch of plan p: the recurrence, the weight-gradient pass and the
+// two fixed-order sums.
+int run(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
+        const float* out, const float* dy, float* dgates, float* dghn, float* bias_part,
+        float* dw_part, float* dw_hh, float* bias4, int L, int H, int R, int S,
+        cudaStream_t stream) {
+  cudaError_t e = launch_rec(p, gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
   if (e != cudaSuccess) return clear_and_return(e);
   const dim3 grid((4 * H + TG - 1) / TG, (H + TH - 1) / TH, 2 * S);
   bigru_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, dghn, out, dw_part, bias_part, L, H, R, S);
@@ -402,4 +545,35 @@ extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_h
   sum_partials_kernel<<<dim3((4 * H + 255) / 256, 2), 256, 0, stream>>>(
       bias_part, bias4, S, 4 * H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
+                         const float* out, const float* dy, float* dgates, float* dghn,
+                         float* bias_part, float* dw_part, float* dw_hh, float* bias4,
+                         int L, int H, int R, int S, cudaStream_t stream) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;  // before any launch
+  return run(p, gates, w_hh, b_hh, out, dy, dgates, dghn, bias_part, dw_part, dw_hh, bias4, L,
+             H, R, S, stream);
+}
+
+// The recurrence's launch for hidden size H and R rows, for logs: plan[0..6]
+// = units and rows a thread, rows, threads and shared-memory bytes of a
+// block, blocks of the grid, blocks the card runs at once.  Launches nothing.
+extern "C" int bigru_bwd_plan(int H, int R, int* plan) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;
+  cudaError_t e;
+  const int resident = resident_blocks(p, device, &e);
+  if (e != cudaSuccess) return clear_and_return(e);
+  const int values[7] = {p.jt, p.rt, p.rows, p.threads, (int)p.smem,
+                         2 * ((R + p.rows - 1) / p.rows), resident};
+  for (int i = 0; i < 7; ++i) plan[i] = values[i];
+  return 0;
 }

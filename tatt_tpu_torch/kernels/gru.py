@@ -24,6 +24,9 @@ from tatt_tpu_torch.kernels import _build
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 MAX_HIDDEN = 128
+# bigru_bwd_plan's values, in the order csrc/bigru_bwd.cu writes them
+_BWD_PLAN_KEYS = ("units_per_thread", "rows_per_thread", "rows", "threads", "smem_bytes",
+                  "blocks", "resident_blocks")
 
 
 def _gru_cell(gx, gh, hid):
@@ -154,12 +157,28 @@ def _bwd_scratch(length: int, hid: int, rows: int, dev) -> dict:
     }
 
 
+def bigru_bwd_plan(hid: int, rows: int) -> dict:
+    """How the backward kernel's recurrence launches at hidden size ``hid``
+    over ``rows`` rows on the current card, for logs (launches nothing):
+    hidden units and rows a thread, rows, threads and shared-memory bytes of
+    a block, blocks of the grid and blocks the card runs at once."""
+    if not 0 < hid <= MAX_HIDDEN:
+        raise ValueError(f"bigru_bwd_plan: H={hid} must be in 1..{MAX_HIDDEN}")
+    lib = _build.load("bigru_bwd", _BWD_ARGTYPES)
+    fn = lib.bigru_bwd_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = (ctypes.c_int * len(_BWD_PLAN_KEYS))()
+    _build.check(fn(hid, rows, plan), "bigru_bwd_plan")
+    return dict(zip(_BWD_PLAN_KEYS, plan))
+
+
 def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
     """The BiGRU backward recurrence: the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor.  Arguments and results as
     :func:`bigru_recurrence_bwd_ref`.  ``bigru_recurrence_bwd.launches``
     counts kernel launches (one per call: the recurrence and its weight
-    reduction are one entry point)."""
+    reduction are one entry point; how the recurrence launches:
+    :func:`bigru_bwd_plan`)."""
     if gates.device.type == "cpu":
         return bigru_recurrence_bwd_ref(gates, w_hh, b_hh, out, dout)
     length, hid, rows = _check(
