@@ -56,6 +56,8 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -67,11 +69,22 @@ constexpr int kMaxThreads = 256;  // threads of a recurrence block
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// 4-byte asynchronous copy from global to shared memory, and the wait for
-// this thread's copies to land
+// 4- and 16-byte asynchronous copies from global to shared memory, their
+// groups, and the waits for this thread's copies to land
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one group of this thread's copies is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -325,75 +338,169 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
   }
 }
 
-constexpr int TG = 32;  // rows of A = [dr, dz, dn r, dn] per tile
-constexpr int TH = 32;  // hidden columns per tile
-constexpr int KR = 32;  // rows of one time step per chunk
+constexpr int kDwThreads = 256;
 
-// dW_hh partials over K slice sl: A [4H rows] x h_prev^T, where the first
-// 3H rows of A are d(gh) = [dr, dz, dn r] and the last H rows dn (dgates'
-// n slot), which only the bias sums read.  The blocks of the first column
-// tile also sum each A row over the slice: the bias partials [dr, dz, dn r,
-// dn], taken in a fixed order.
-__global__ void __launch_bounds__(256)
+// dW_hh partials of K slice sl, K = (t, row): A x h_prev^T with A = [dr,
+// dz, dn r, dn] (4H rows; the first 3H are d(gh), the last H dgates' n
+// slot, which only the bias sums read).  A block forms the 3H x 32 outputs
+// of one column tile k0 .. k0 + 31 over its slice, as a register tile of
+// TM x 4 a thread (rows gi + 32 m, columns k0 + ki + 8 j); chunks of KC
+// rows of one step are copied into shared memory with cp.async, two
+// stages deep, so each A and h_prev word of the slice is read once.  The
+// blocks of column tile 0 also sum each A row over the slice (the bias
+// partials [dr, dz, dn r, dn]).  Every sum runs in a fixed order.
+template <int TM>
+__global__ void __launch_bounds__(kDwThreads)
 bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ dghn,
                     const float* __restrict__ out, float* __restrict__ dw_part,
-                    float* __restrict__ bias_part, int L, int H, int R, int S) {
-  __shared__ float a_s[TG][KR + 1];  // padded: conflict-free column reads
-  __shared__ float b_s[TH][KR + 1];
+                    float* __restrict__ bias_part, int L, int H, int R, int S, int KC,
+                    bool vec) {
+  extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
-  const int g0 = blockIdx.x * TG, k0 = blockIdx.y * TH;
-  const int dir = blockIdx.z / S, sl = blockIdx.z % S;
-  const int nrc = (R + KR - 1) / KR;
+  const int MA = max(4 * H, 32 * TM);  // rows of a_s (zeros past 4H)
+  const int KS = KC + 4;               // row stride: 8 neighbouring rows on 8 bank groups
+  float* a_s = smem;                   // [2][MA][KS]
+  float* b_s = a_s + 2 * MA * KS;      // [2][32][KS]: h_prev rows k0 .. k0 + 31
+  const int k0 = blockIdx.x * 32;
+  const int dir = blockIdx.y / S, sl = blockIdx.y % S;
+  const int nrc = (R + KC - 1) / KC;
   const long long nch = (long long)L * nrc;  // chunk c = (t, row chunk)
   const int c0 = (int)(nch * sl / S), c1 = (int)(nch * (sl + 1) / S);
-  const int gi = threadIdx.x / 8, kc = threadIdx.x % 8;
-  const bool sums = blockIdx.y == 0 && threadIdx.x < TG;
+  const int lane = threadIdx.x % 32, wp = threadIdx.x / 32;
+  // a warp: 8 row groups x 4 column groups, so its A reads hit 8 rows and
+  // its h_prev reads 4 neighbouring rows (no bank conflict)
+  const int gi = lane % 8 + 8 * (wp % 4), ki = lane / 8 + 4 * (wp / 4);
+  const bool sums = blockIdx.x == 0;
+  const int rows_a = sums ? 4 * H : 3 * H;
+  const int rows_b = min(32, H - k0);
   const size_t RS = (size_t)R;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float bsum = 0.0f;
-  for (int c = c0; c < c1; ++c) {
-    const int t = c / nrc, r0 = (c % nrc) * KR;
+
+  for (int i = threadIdx.x; i < 2 * (MA + 32) * KS; i += blockDim.x) smem[i] = 0.0f;
+  __syncthreads();  // the zeros (rows past 4H and past H) land before any copy
+
+  const auto has_prev = [&](int c) {
+    const int t = c / nrc, tp = dir == 0 ? t - 1 : t + 1;
+    return tp >= 0 && tp < L;
+  };
+  // chunk c into stage st; h_prev only where the step has one (else the
+  // products are skipped)
+  const auto issue = [&](int c, int st) {
+    const int t = c / nrc, r0 = (c % nrc) * KC;
     const int tp = dir == 0 ? t - 1 : t + 1;
-    const bool has_prev = tp >= 0 && tp < L;  // else h_prev = 0 (uniform per block)
-    for (int i = threadIdx.x; i < TG * KR; i += blockDim.x) {
-      const int m = i / KR, rr = i % KR;
-      const int r = r0 + rr;
-      const int g = g0 + m, k = k0 + m;
-      float av = 0.0f, bv = 0.0f;
-      if (r < R && g < 4 * H) {
-        const size_t base = (size_t)(dir * L + t);
-        av = g < 2 * H   ? dgates[(base * G + g) * RS + r]
-             : g < 3 * H ? dghn[(base * H + (g - 2 * H)) * RS + r]
-                         : dgates[(base * G + (g - H)) * RS + r];
+    const size_t base = (size_t)(dir * L + t);
+    const auto a_row = [&](int g) {
+      return (g < 2 * H   ? dgates + (base * G + g) * RS
+              : g < 3 * H ? dghn + (base * H + (g - 2 * H)) * RS
+                          : dgates + (base * G + (g - H)) * RS) + r0;
+    };
+    const float* b_row = out + ((size_t)tp * 2 * H + (size_t)dir * H + k0) * RS + r0;
+    float* as = a_s + st * MA * KS;
+    float* bs = b_s + st * 32 * KS;
+    const int nb = has_prev(c) ? rows_b : 0;
+    if (vec) {  // R % 4 == 0 and 16-byte aligned rows: 16-byte copies
+      const int n4 = KC / 4;
+      for (int i = threadIdx.x; i < (rows_a + nb) * n4; i += blockDim.x) {
+        const int m = i / n4, c4 = (i % n4) * 4;
+        float* d = m < rows_a ? as + m * KS + c4 : bs + (m - rows_a) * KS + c4;
+        const float* src = m < rows_a ? a_row(m) : b_row + (size_t)(m - rows_a) * RS;
+        if (r0 + c4 < R) cp_async16(d, src + c4);
+        else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
-      if (has_prev && r < R && k < H) bv = out[((size_t)tp * 2 * H + (size_t)dir * H + k) * RS + r];
-      a_s[m][rr] = av;
-      b_s[m][rr] = bv;
+    } else {
+      for (int i = threadIdx.x; i < (rows_a + nb) * KC; i += blockDim.x) {
+        const int m = i / KC, cc = i % KC;
+        float* d = m < rows_a ? as + m * KS + cc : bs + (m - rows_a) * KS + cc;
+        const float* src = m < rows_a ? a_row(m) : b_row + (size_t)(m - rows_a) * RS;
+        if (r0 + cc < R) cp_async4(d, src + cc);
+        else *d = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the row sums: item (row, segment of KC / nseg columns), at most two a
+  // thread (4H * nseg <= 512)
+  int nseg = 1;
+  while (nseg * 2 * 4 * H <= kDwThreads && nseg * 2 * 4 <= KC) nseg *= 2;
+  const int seg = KC / nseg;
+  float bsum[2] = {0.0f, 0.0f};
+  float acc[TM][4];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.0f;
+
+  if (c0 < c1) issue(c0, 0);
+  for (int c = c0; c < c1; ++c) {
+    const int st = (c - c0) & 1;
+    if (c + 1 < c1) {
+      issue(c + 1, st ^ 1);
+      cp_async_wait_one();  // chunk c landed; c + 1 may be in flight
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
-    if (has_prev) {
-#pragma unroll 8
-      for (int rr = 0; rr < KR; ++rr) {
-        const float a = a_s[gi][rr];
+    const float* as = a_s + st * MA * KS;
+    const float* bs = b_s + st * 32 * KS;
+    if (has_prev(c)) {
+      for (int rr = 0; rr < KC; rr += 4) {
+        float4 bv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = fmaf(a, b_s[kc * 4 + j][rr], acc[j]);
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(bs + (ki + 8 * j) * KS + rr);
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const float4 av = *reinterpret_cast<const float4*>(as + (gi + 32 * m) * KS + rr);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[m][j] = fmaf(av.x, bv[j].x, acc[m][j]);
+            acc[m][j] = fmaf(av.y, bv[j].y, acc[m][j]);
+            acc[m][j] = fmaf(av.z, bv[j].z, acc[m][j]);
+            acc[m][j] = fmaf(av.w, bv[j].w, acc[m][j]);
+          }
+        }
       }
     }
     if (sums) {
-      for (int rr = 0; rr < KR; ++rr) bsum += a_s[threadIdx.x][rr];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int item = threadIdx.x + h * kDwThreads;
+        if (item >= 4 * H * nseg) break;
+        const float* src = as + (item / nseg) * KS + (item % nseg) * seg;
+        for (int cc = 0; cc < seg; cc += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(src + cc);
+          bsum[h] += v.x;
+          bsum[h] += v.y;
+          bsum[h] += v.z;
+          bsum[h] += v.w;
+        }
+      }
     }
-    __syncthreads();
+    __syncthreads();  // stage st is free for chunk c + 2
   }
-  const int g = g0 + gi;
-  if (g < G) {
+
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    const int g = gi + 32 * m;
+    if (g >= G) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int k = k0 + kc * 4 + j;
-      if (k < H) dw_part[(((size_t)dir * S + sl) * G + g) * H + k] = acc[j];
+      const int k = k0 + ki + 8 * j;
+      if (k < H) dw_part[(((size_t)dir * S + sl) * G + g) * H + k] = acc[m][j];
     }
   }
-  if (sums && g0 + (int)threadIdx.x < 4 * H)
-    bias_part[((size_t)dir * S + sl) * 4 * H + g0 + threadIdx.x] = bsum;
+  if (sums) {  // each row's segments, summed in order
+    for (int h = 0; h < 2; ++h) {
+      const int item = threadIdx.x + h * kDwThreads;
+      if (item < 4 * H * nseg) a_s[item] = bsum[h];
+    }
+    __syncthreads();
+    for (int g = threadIdx.x; g < 4 * H; g += blockDim.x) {
+      float v = 0.0f;
+      for (int i = 0; i < nseg; ++i) v += a_s[g * nseg + i];
+      bias_part[((size_t)dir * S + sl) * 4 * H + g] = v;
+    }
+  }
 }
 
 // out[d][i] = sum over s < S of part[d][s][i], i < n, in order of s
@@ -528,6 +635,28 @@ cudaError_t launch_rec(const Plan& p, const float* gates, const float* w_hh, con
   return cudaGetLastError();
 }
 
+// The weight-gradient pass: TM = 3 ceil(H / 32) rows a thread, KC rows of
+// a step a chunk (64 at H <= 32, fewer where A is taller), shared memory
+// for two stages (~87 KB at every H, two blocks an SM).
+cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, float* dw_part,
+                      float* bias_part, int L, int H, int R, int S, cudaStream_t stream) {
+  const int tm = 3 * ((H + 31) / 32);
+  const int kc = H <= 32 ? 64 : H <= 64 ? 32 : 16;
+  const size_t smem = sizeof(float) * 2 * (std::max(4 * H, 32 * tm) + 32) * (kc + 4);
+  const auto aligned = [](const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const bool vec = R % 4 == 0 && aligned(dgates) && aligned(dghn) && aligned(out);
+  const auto kernel = tm == 3   ? bigru_bwd_dw_kernel<3>
+                      : tm == 6 ? bigru_bwd_dw_kernel<6>
+                      : tm == 9 ? bigru_bwd_dw_kernel<9>
+                                : bigru_bwd_dw_kernel<12>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((H + 31) / 32, 2 * S), kDwThreads, smem, stream>>>(
+      dgates, dghn, out, dw_part, bias_part, L, H, R, S, kc, vec);
+  return cudaGetLastError();
+}
+
 // The launch of plan p: the recurrence, the weight-gradient pass and the
 // two fixed-order sums.
 int run(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
@@ -536,9 +665,7 @@ int run(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
         cudaStream_t stream) {
   cudaError_t e = launch_rec(p, gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
   if (e != cudaSuccess) return clear_and_return(e);
-  const dim3 grid((4 * H + TG - 1) / TG, (H + TH - 1) / TH, 2 * S);
-  bigru_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, dghn, out, dw_part, bias_part, L, H, R, S);
-  e = cudaGetLastError();
+  e = launch_dw(dgates, dghn, out, dw_part, bias_part, L, H, R, S, stream);
   if (e != cudaSuccess) return clear_and_return(e);
   const int nw = 3 * H * H;
   sum_partials_kernel<<<dim3((nw + 255) / 256, 2), 256, 0, stream>>>(dw_part, dw_hh, S, nw);

@@ -143,11 +143,12 @@ def bigru_recurrence(
 bigru_recurrence.launches = 0
 
 
-def _bwd_scratch(length: int, hid: int, rows: int, dev) -> dict:
+def _bwd_scratch(length: int, hid: int, rows: int, dev, sms: int) -> dict:
     """Scratch of the backward kernel: d(gh)'s n slot, and one partial of
-    the weight and bias gradients per K slice of the weight-gradient pass
-    (a few chunks of 32 rows of one step each, at most 64 slices)."""
-    slices = max(1, min(64, length * -(-rows // 32) // 8))
+    the weight and bias gradients per K slice of the weight-gradient pass:
+    two slices for each of the card's ``sms`` SMs (two blocks of that pass
+    fit an SM), at most one per chunk of 64 rows of a step."""
+    slices = max(1, min(2 * sms, length * -(-rows // 64)))
     f32 = torch.float32
     return {
         "slices": slices,
@@ -193,7 +194,8 @@ def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
     dw = torch.zeros(2, g3, hid, device=dev, dtype=f32)
     bias4 = torch.zeros(2, 4 * hid, device=dev, dtype=f32)
     if length > 0 and rows > 0:
-        scratch = _bwd_scratch(length, hid, rows, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        scratch = _bwd_scratch(length, hid, rows, dev, sms)
         lib = _build.load("bigru_bwd", _BWD_ARGTYPES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
