@@ -564,29 +564,36 @@ int resident_blocks(const Plan& p, int device, cudaError_t* e) {
   return n * sms;
 }
 
-// The plan for H and R: the most units and rows a thread (so each word of
-// W_hh and d(gh) read from shared memory feeds the most FMAs) whose grid
-// runs in one wave with at least 4 warps an SM (one for each of its
-// schedulers); among the tiles of one such thread, the most rows a block.
-// Where none does, the fewest units and rows a thread.
+// The plan for H and R, by the occupancy API: the fewest waves of blocks;
+// then the most warps in the first wave (at gru2 of the fused batch, 4096
+// rows, a thread of 4 units and 1 row keeps 8 warps on every SM, where one
+// of 8 units and 2 rows leaves 2); then the most units and rows a thread
+// (each word of W_hh and d(gh) read from shared memory feeds more FMAs);
+// then the most rows a block.  Tiles of at least 8 row groups, so a block
+// holds whole warps at H=32.
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
-  int smem_max = 0, sms = 0;
+  int smem_max = 0;
   *e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (*e != cudaSuccess) return false;
   bool found = false;
+  std::tuple<int, int, int, int> best;
   for (const auto jr : {std::make_pair(8, 2), std::make_pair(4, 2), std::make_pair(8, 1),
                         std::make_pair(4, 1)}) {
-    for (int p = 32; p >= 1; p /= 2) {
+    for (int p = 32; p >= 8; p /= 2) {
       Plan plan;
       if (!block_plan(H, jr.first, jr.second, p, smem_max, &plan)) continue;
-      *out = plan;
-      found = true;
-      const int blocks = 2 * ((R + plan.rows - 1) / plan.rows);
-      const int warps = blocks * ((plan.threads + 31) / 32);
       const int resident = resident_blocks(plan, device, e);
       if (*e != cudaSuccess) return false;
-      if (blocks <= resident && warps >= 4 * sms) return true;
+      if (resident == 0) continue;
+      const int blocks = 2 * ((R + plan.rows - 1) / plan.rows);
+      const int waves = (blocks + resident - 1) / resident;
+      const int warps = std::min(blocks, resident) * ((plan.threads + 31) / 32);
+      const auto key = std::make_tuple(-waves, warps, plan.jt * plan.rt, plan.rows);
+      if (!found || key > best) {
+        best = key;
+        *out = plan;
+        found = true;
+      }
     }
   }
   return found;
