@@ -90,13 +90,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// N consecutive floats of shared memory (N = 1, 2 or 4; 4N-byte aligned)
+// N consecutive floats of shared memory (N = 1 or 2; 4N-byte aligned)
 template <int N>
 __device__ __forceinline__ void load_n(const float* src, float (&v)[N]) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (N == 2) {
+  if constexpr (N == 2) {
     const float2 t = *reinterpret_cast<const float2*>(src);
     v[0] = t.x; v[1] = t.y;
   } else {
@@ -105,13 +102,12 @@ __device__ __forceinline__ void load_n(const float* src, float (&v)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void store_n(float* dst, const float (&v)[N]) {
-  if constexpr (N == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (N == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  if constexpr (N == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
   else dst[0] = v[0];
 }
 
 // One block per (tile of RB rows, direction).  A thread owns JT hidden
-// units (JT = 4 or 8) of RT neighbouring rows (RT = 1, 2 or 4): Q =
+// units (JT = 4 or 8) of RT neighbouring rows (RT = 1 or 2): Q =
 // ceil(H / JT) unit groups times P row groups, RB = P * RT, thread (q, p)
 // = threadIdx.x / P, % P, so a warp's lanes walk the rows.  kp: the row
 // stride of W_hh in shared memory (a multiple of 4, at least Q * JT).
@@ -339,6 +335,7 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
 }
 
 constexpr int kDwThreads = 256;
+constexpr int kMaxSlots = 10;  // 16-byte copies a thread issues for one chunk, at most
 
 // dW_hh partials of K slice sl, K = (t, row): A x h_prev^T with A = [dr,
 // dz, dn r, dn] (4H rows; the first 3H are d(gh), the last H dgates' n
@@ -349,18 +346,19 @@ constexpr int kDwThreads = 256;
 // stages deep, so each A and h_prev word of the slice is read once.  The
 // blocks of column tile 0 also sum each A row over the slice (the bias
 // partials [dr, dz, dn r, dn]).  Every sum runs in a fixed order.
+// TM = 3 ceil(H / 32); KC = 64, 32 or 16 at H <= 32, 64, 128, so that two
+// stages take ~87 KB at every H (two blocks an SM).
 template <int TM>
 __global__ void __launch_bounds__(kDwThreads)
 bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ dghn,
                     const float* __restrict__ out, float* __restrict__ dw_part,
-                    float* __restrict__ bias_part, int L, int H, int R, int S, int KC,
-                    bool vec) {
+                    float* __restrict__ bias_part, int L, int H, int R, int S, bool vec) {
+  constexpr int KC = TM == 3 ? 64 : TM == 6 ? 32 : 16;
+  constexpr int KS = KC + 4;  // row stride: 8 neighbouring rows on 8 bank groups
   extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
-  const int MA = max(4 * H, 32 * TM);  // rows of a_s (zeros past 4H)
-  const int KS = KC + 4;               // row stride: 8 neighbouring rows on 8 bank groups
-  float* a_s = smem;                   // [2][MA][KS]
-  float* b_s = a_s + 2 * MA * KS;      // [2][32][KS]: h_prev rows k0 .. k0 + 31
+  const int MA = max(4 * H, 32 * TM);  // A rows of a stage (zeros past 4H)
+  const int ST = (MA + 32) * KS;       // a stage: [MA A rows, then 32 h_prev rows][KS]
   const int k0 = blockIdx.x * 32;
   const int dir = blockIdx.y / S, sl = blockIdx.y % S;
   const int nrc = (R + KC - 1) / KC;
@@ -375,9 +373,46 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
   const int rows_b = min(32, H - k0);
   const size_t RS = (size_t)R;
 
-  for (int i = threadIdx.x; i < 2 * (MA + 32) * KS; i += blockDim.x) smem[i] = 0.0f;
+  for (int i = threadIdx.x; i < 2 * ST; i += blockDim.x) smem[i] = 0.0f;
   __syncthreads();  // the zeros (rows past 4H and past H) land before any copy
 
+  // A row m of a chunk: dgates' r and z rows, d(gh)_n, dgates' n row;
+  // which tensor (0: dgates, 1: dghn) and the row within its step
+  const auto a_src = [&](int m, int* kind) {
+    *kind = m >= 2 * H && m < 3 * H;
+    return m < 2 * H ? m : m < 3 * H ? m - 2 * H : m - H;
+  };
+  // 16-byte copies (R % 4 == 0, aligned rows): this thread's copies of a
+  // chunk are the same slots at every chunk, element tid + j * threads of
+  // the stage's rows_a + rows_b rows of KC / 4 float4; only the step's
+  // offset into each tensor changes
+  constexpr int n4 = KC / 4;
+  const float* src0[kMaxSlots];
+  int dst0[kMaxSlots], meta[kMaxSlots];  // meta: column | tensor << 8 (2: h_prev)
+  int nslot = 0;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < kMaxSlots; ++j) {
+      const int i = threadIdx.x + j * kDwThreads;
+      const int m = i / n4, c4 = (i % n4) * 4;
+      src0[j] = out;
+      dst0[j] = 0;
+      meta[j] = 0;
+      if (m >= rows_a + rows_b) continue;
+      nslot = j + 1;
+      if (m < rows_a) {
+        int kind;
+        const int g = a_src(m, &kind);
+        src0[j] = (kind ? dghn : dgates) + (size_t)g * RS + c4;
+        dst0[j] = m * KS + c4;
+        meta[j] = c4 | kind << 8;
+      } else {
+        src0[j] = out + ((size_t)dir * H + k0 + (m - rows_a)) * RS + c4;
+        dst0[j] = (MA + m - rows_a) * KS + c4;
+        meta[j] = c4 | 2 << 8;
+      }
+    }
+  }
   const auto has_prev = [&](int c) {
     const int t = c / nrc, tp = dir == 0 ? t - 1 : t + 1;
     return tp >= 0 && tp < L;
@@ -387,31 +422,37 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
   const auto issue = [&](int c, int st) {
     const int t = c / nrc, r0 = (c % nrc) * KC;
     const int tp = dir == 0 ? t - 1 : t + 1;
-    const size_t base = (size_t)(dir * L + t);
-    const auto a_row = [&](int g) {
-      return (g < 2 * H   ? dgates + (base * G + g) * RS
-              : g < 3 * H ? dghn + (base * H + (g - 2 * H)) * RS
-                          : dgates + (base * G + (g - H)) * RS) + r0;
-    };
-    const float* b_row = out + ((size_t)tp * 2 * H + (size_t)dir * H + k0) * RS + r0;
-    float* as = a_s + st * MA * KS;
-    float* bs = b_s + st * 32 * KS;
-    const int nb = has_prev(c) ? rows_b : 0;
-    if (vec) {  // R % 4 == 0 and 16-byte aligned rows: 16-byte copies
-      const int n4 = KC / 4;
-      for (int i = threadIdx.x; i < (rows_a + nb) * n4; i += blockDim.x) {
-        const int m = i / n4, c4 = (i % n4) * 4;
-        float* d = m < rows_a ? as + m * KS + c4 : bs + (m - rows_a) * KS + c4;
-        const float* src = m < rows_a ? a_row(m) : b_row + (size_t)(m - rows_a) * RS;
-        if (r0 + c4 < R) cp_async16(d, src + c4);
+    const bool prev = has_prev(c);
+    float* stage = smem + st * ST;
+    const size_t step = (size_t)(dir * L + t);
+    if (vec) {
+      const size_t off[3] = {step * G * RS + r0, step * H * RS + r0,
+                             (size_t)(prev ? tp : 0) * 2 * H * RS + r0};
+#pragma unroll
+      for (int j = 0; j < kMaxSlots; ++j) {
+        if (j >= nslot) break;
+        const int kind = meta[j] >> 8;
+        if (kind == 2 && !prev) continue;
+        float* d = stage + dst0[j];
+        if (r0 + (meta[j] & 255) < R) cp_async16(d, src0[j] + off[kind]);
         else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
     } else {
+      const int nb = prev ? rows_b : 0;
       for (int i = threadIdx.x; i < (rows_a + nb) * KC; i += blockDim.x) {
         const int m = i / KC, cc = i % KC;
-        float* d = m < rows_a ? as + m * KS + cc : bs + (m - rows_a) * KS + cc;
-        const float* src = m < rows_a ? a_row(m) : b_row + (size_t)(m - rows_a) * RS;
-        if (r0 + cc < R) cp_async4(d, src + cc);
+        const float* src;
+        float* d;
+        if (m < rows_a) {
+          int kind;
+          const int g = a_src(m, &kind);
+          src = kind ? dghn + (step * H + g) * RS : dgates + (step * G + g) * RS;
+          d = stage + m * KS + cc;
+        } else {
+          src = out + ((size_t)tp * 2 * H + (size_t)dir * H + k0 + (m - rows_a)) * RS;
+          d = stage + (MA + m - rows_a) * KS + cc;
+        }
+        if (r0 + cc < R) cp_async4(d, src + r0 + cc);
         else *d = 0.0f;
       }
     }
@@ -423,7 +464,7 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
   int nseg = 1;
   while (nseg * 2 * 4 * H <= kDwThreads && nseg * 2 * 4 <= KC) nseg *= 2;
   const int seg = KC / nseg;
-  float bsum[2] = {0.0f, 0.0f};
+  float bsum0 = 0.0f, bsum1 = 0.0f;
   float acc[TM][4];
 #pragma unroll
   for (int m = 0; m < TM; ++m)
@@ -440,9 +481,10 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
       cp_async_wait_all();
     }
     __syncthreads();
-    const float* as = a_s + st * MA * KS;
-    const float* bs = b_s + st * 32 * KS;
+    const float* as = smem + st * ST;
+    const float* bs = as + MA * KS;
     if (has_prev(c)) {
+#pragma unroll 4
       for (int rr = 0; rr < KC; rr += 4) {
         float4 bv[4];
 #pragma unroll
@@ -462,19 +504,18 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
       }
     }
     if (sums) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int item = threadIdx.x + h * kDwThreads;
-        if (item >= 4 * H * nseg) break;
+      const auto row_sum = [&](int item, float& v) {
         const float* src = as + (item / nseg) * KS + (item % nseg) * seg;
         for (int cc = 0; cc < seg; cc += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(src + cc);
-          bsum[h] += v.x;
-          bsum[h] += v.y;
-          bsum[h] += v.z;
-          bsum[h] += v.w;
+          const float4 x = *reinterpret_cast<const float4*>(src + cc);
+          v += x.x;
+          v += x.y;
+          v += x.z;
+          v += x.w;
         }
-      }
+      };
+      if ((int)threadIdx.x < 4 * H * nseg) row_sum(threadIdx.x, bsum0);
+      if ((int)threadIdx.x + kDwThreads < 4 * H * nseg) row_sum(threadIdx.x + kDwThreads, bsum1);
     }
     __syncthreads();  // stage st is free for chunk c + 2
   }
@@ -490,29 +531,39 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
     }
   }
   if (sums) {  // each row's segments, summed in order
-    for (int h = 0; h < 2; ++h) {
-      const int item = threadIdx.x + h * kDwThreads;
-      if (item < 4 * H * nseg) a_s[item] = bsum[h];
-    }
+    if ((int)threadIdx.x < 4 * H * nseg) smem[threadIdx.x] = bsum0;
+    if ((int)threadIdx.x + kDwThreads < 4 * H * nseg) smem[threadIdx.x + kDwThreads] = bsum1;
     __syncthreads();
     for (int g = threadIdx.x; g < 4 * H; g += blockDim.x) {
       float v = 0.0f;
-      for (int i = 0; i < nseg; ++i) v += a_s[g * nseg + i];
+      for (int i = 0; i < nseg; ++i) v += smem[g * nseg + i];
       bias_part[((size_t)dir * S + sl) * 4 * H + g] = v;
     }
   }
 }
 
-// out[d][i] = sum over s < S of part[d][s][i], i < n, in order of s
-__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int S, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int d = blockIdx.y;
-  if (i >= n) return;
+// out[d][i] = sum over s < S of part[d][s][i], i < n: each of kSumSegs
+// threads sums a run of s in order, then one adds the runs in order, so
+// every call adds in the same order
+constexpr int kSumOuts = 32, kSumSegs = 8;
+__global__ void __launch_bounds__(kSumOuts * kSumSegs)
+sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int S, int n) {
+  __shared__ float run_s[kSumSegs][kSumOuts];
+  const int o = threadIdx.x % kSumOuts, sg = threadIdx.x / kSumOuts;
+  const int i = blockIdx.x * kSumOuts + o, d = blockIdx.y;
+  const int s0 = S * sg / kSumSegs, s1 = S * (sg + 1) / kSumSegs;
   float acc = 0.0f;
-  for (int s = 0; s < S; ++s) acc += part[((size_t)d * S + s) * n + i];
-  out[(size_t)d * n + i] = acc;
+  if (i < n)
+    for (int s = s0; s < s1; ++s) acc += part[((size_t)d * S + s) * n + i];
+  run_s[sg][o] = acc;
+  __syncthreads();
+  if (sg == 0 && i < n) {
+    float v = 0.0f;
+    for (int k = 0; k < kSumSegs; ++k) v += run_s[k][o];
+    out[(size_t)d * n + i] = v;
+  }
 }
+
 
 // The recurrence's launch: units and rows a thread, rows a block, threads
 // and shared memory of a block, W_hh's row stride in shared memory.
@@ -525,7 +576,7 @@ using RecKernel = void (*)(const float*, const float*, const float*, const float
                            const float*, float*, float*, int, int, int, int);
 
 RecKernel kernel_of(const Plan& p) {
-  if (p.jt == 8) return p.rt == 2 ? bigru_bwd_rec_kernel<8, 2> : bigru_bwd_rec_kernel<8, 1>;
+  if (p.jt == 8) return bigru_bwd_rec_kernel<8, 1>;
   return p.rt == 2 ? bigru_bwd_rec_kernel<4, 2> : bigru_bwd_rec_kernel<4, 1>;
 }
 
@@ -567,18 +618,18 @@ int resident_blocks(const Plan& p, int device, cudaError_t* e) {
 // The plan for H and R, by the occupancy API: the fewest waves of blocks;
 // then the most warps in the first wave (at gru2 of the fused batch, 4096
 // rows, a thread of 4 units and 1 row keeps 8 warps on every SM, where one
-// of 8 units and 2 rows leaves 2); then the most units and rows a thread
+// of 4 units and 2 rows leaves 4); then the most units and rows a thread
 // (each word of W_hh and d(gh) read from shared memory feeds more FMAs);
 // then the most rows a block.  Tiles of at least 8 row groups, so a block
-// holds whole warps at H=32.
+// holds whole warps at H=32.  (8 units of 2 rows a thread needs 255
+// registers and spills: not a candidate.)
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   int smem_max = 0;
   *e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (*e != cudaSuccess) return false;
   bool found = false;
   std::tuple<int, int, int, int> best;
-  for (const auto jr : {std::make_pair(8, 2), std::make_pair(4, 2), std::make_pair(8, 1),
-                        std::make_pair(4, 1)}) {
+  for (const auto jr : {std::make_pair(4, 2), std::make_pair(8, 1), std::make_pair(4, 1)}) {
     for (int p = 32; p >= 8; p /= 2) {
       Plan plan;
       if (!block_plan(H, jr.first, jr.second, p, smem_max, &plan)) continue;
@@ -648,7 +699,7 @@ cudaError_t launch_rec(const Plan& p, const float* gates, const float* w_hh, con
 cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, float* dw_part,
                       float* bias_part, int L, int H, int R, int S, cudaStream_t stream) {
   const int tm = 3 * ((H + 31) / 32);
-  const int kc = H <= 32 ? 64 : H <= 64 ? 32 : 16;
+  const int kc = tm == 3 ? 64 : tm == 6 ? 32 : 16;  // as the kernel's KC
   const size_t smem = sizeof(float) * 2 * (std::max(4 * H, 32 * tm) + 32) * (kc + 4);
   const auto aligned = [](const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
   const bool vec = R % 4 == 0 && aligned(dgates) && aligned(dghn) && aligned(out);
@@ -660,7 +711,7 @@ cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3((H + 31) / 32, 2 * S), kDwThreads, smem, stream>>>(
-      dgates, dghn, out, dw_part, bias_part, L, H, R, S, kc, vec);
+      dgates, dghn, out, dw_part, bias_part, L, H, R, S, vec);
   return cudaGetLastError();
 }
 
@@ -675,8 +726,10 @@ int run(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
   e = launch_dw(dgates, dghn, out, dw_part, bias_part, L, H, R, S, stream);
   if (e != cudaSuccess) return clear_and_return(e);
   const int nw = 3 * H * H;
-  sum_partials_kernel<<<dim3((nw + 255) / 256, 2), 256, 0, stream>>>(dw_part, dw_hh, S, nw);
-  sum_partials_kernel<<<dim3((4 * H + 255) / 256, 2), 256, 0, stream>>>(
+  const int threads = kSumOuts * kSumSegs;
+  sum_partials_kernel<<<dim3((nw + kSumOuts - 1) / kSumOuts, 2), threads, 0, stream>>>(
+      dw_part, dw_hh, S, nw);
+  sum_partials_kernel<<<dim3((4 * H + kSumOuts - 1) / kSumOuts, 2), threads, 0, stream>>>(
       bias_part, bias4, S, 4 * H);
   return (int)cudaGetLastError();
 }
