@@ -154,14 +154,18 @@ def test_modules_run_both_kernels_under_autograd(cuda):
             assert _scaled_err(g, r) <= DW_TOL
 
 
-# (L, R, H): gru1 and gru2 of the fused 2B=128 training batch, a ragged row
-# count, L=1, odd L, the hidden sizes at the dispatch edges, and the widest
-# hidden size of 32-row tiles (118) against the first of 16-row tiles (120,
-# whose blocks end in a half warp)
+# (L, R, H): gru1 and gru2 of the fused 2B=128 training batch, ragged row
+# counts (a last tile cut short at both: 4099, 2049), L=1 and L=2, odd L;
+# the hidden sizes where the recurrence's unit groups stop covering H
+# exactly (33, 36, 65, 118, 120) or its tiles shrink to fit shared memory
+# (118, 120, 128), and where the weight-gradient pass takes more rows a
+# thread and shorter chunks (33, 65, 97); rows a multiple of 4 (its 16-byte
+# copies) or not, at H=128 too; H below one float4 (4, 5)
 @pytest.mark.parametrize(
     "length,rows,hid",
-    [(16, 8192, 32), (64, 2048, 32), (16, 4099, 32), (1, 37, 32), (7, 45, 32),
-     (5, 70, 128), (6, 41, 118), (6, 41, 120), (9, 33, 4), (3, 10, 5)],
+    [(16, 8192, 32), (64, 2048, 32), (16, 4099, 32), (64, 2049, 32), (1, 37, 32), (2, 64, 32),
+     (7, 45, 32), (5, 70, 128), (3, 72, 128), (6, 41, 118), (6, 41, 120), (4, 130, 33),
+     (4, 64, 36), (3, 77, 64), (3, 52, 65), (3, 40, 97), (9, 33, 4), (3, 10, 5)],
 )
 def test_bigru_bwd_kernel_matches_plain(cuda, length, rows, hid):
     from tatt_tpu_torch.kernels.gru import (
@@ -179,6 +183,39 @@ def test_bigru_bwd_kernel_matches_plain(cuda, length, rows, hid):
     for g, w, tol in zip(got, want, (DGATES_TOL, DW_TOL, DW_TOL, DW_TOL)):
         assert g.shape == w.shape
         assert _scaled_err(g, w) <= tol
+
+
+def test_bigru_bwd_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give bitwise-equal results at both
+    training shapes: every sum (the recurrence's, the weight-gradient
+    pass's partials and their sum over slices) runs in a fixed order, with
+    no atomics."""
+    from tatt_tpu_torch.kernels.gru import bigru_recurrence_bwd, bigru_recurrence_ref
+
+    for length, rows in ((16, 8192), (64, 2048)):
+        gates, w_hh, b_hh = _recurrence_inputs((2, length, 96, rows), 96, 32, cuda, seed=3)
+        out = bigru_recurrence_ref(gates, w_hh, b_hh)
+        dout = torch.randn_like(out)
+        first = bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout)
+        second = bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_bigru_bwd_plan_runs_in_one_wave(cuda):
+    """At gru1 and gru2 of the fused 2B=128 training batch (H=32) the
+    recurrence's grid is resident at once, with at least one warp for each
+    scheduler of each SM; H=128 has a plan too."""
+    from tatt_tpu_torch.kernels.gru import bigru_bwd_plan
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows in (8192, 2048):
+        plan = bigru_bwd_plan(32, rows)
+        assert plan["blocks"] == 2 * math.ceil(rows / plan["rows"])
+        assert plan["blocks"] <= plan["resident_blocks"]
+        assert plan["blocks"] * math.ceil(plan["threads"] / 32) >= 4 * sms
+    assert bigru_bwd_plan(128, 2048)["rows"] >= 1
 
 
 # (L, R, H): the student CRNN's heads (R = batch 64, H = 256), ragged rows,
