@@ -25,34 +25,46 @@
 //   dw_hh [2, 3H, H]; bias4 [2, 4H] = sums of [dr, dz, dn r, dn]
 //     (db_hh = bias4[:, :3H]; dbx = bias4[:, :2H] ++ bias4[:, 3H:])
 //
-// What bounds it on an H100: as the forward, the serial chain of L steps,
-// each a few small matrix-vector products per row (W_hh h_prev and
-// W_hh^T d(gh), 3H x H multiply-adds each) paying shared-memory and
-// barrier latency; the bytes (gates, h and dy in, dgates out) are small.
-// The weight gradient is a [3H x L*R] x [L*R x H] product (K = 131072 at
-// gru1 of the fused batch), off the serial chain.
+// What bounds it on an H100.  Not the bytes it must move (gates, h and dy
+// in, dgates out: 0.080 ms at HBM rate at gru1 and gru2 of the fused 2B=128
+// batch, H=32) nor the f32 products (three 3H x H matvec-sized products a
+// row-step): the serial chain of L steps, each of which finishes its
+// products for every row of a block before the next step starts, paying
+// shared-memory, barrier and global latency; and, where rows are few
+// (gru2: 4,096 rows over 132 SMs), too few warps to hide it.  The design
+// before this one took 22 us a step at gru1 and 14 at gru2: global loads
+// and the gh recompute on the chain, two barriers a step, 336 bytes of
+// spills at a 512-thread launch bound, and a weight-gradient pass of
+// 0.245 ms a launch (32x32x32 tiles, h_prev read three times).
 //
-// Design.  Kernel 1 (the recurrence) is the forward's: one block per
-// (tile of RB rows, direction) loops over all L steps with W_hh[d] in
-// shared memory; RB (32 or 16) neighbouring rows share a hidden-unit group
-// and a thread owns JT=8 hidden units of one row, so loads and stores
-// coalesce along the rows.
-// h_prev comes from the forward's output, so each step loads it into
-// shared memory (float4-packed along the hidden axis, as the forward keeps
-// h) and recomputes gh with the forward's loop; d(gh) of the tile goes to
-// shared memory for the W_hh^T product.  Kernel 1 stores d(gates_x) and,
-// for the n slot, d(gh) = dn r; it also keeps each thread's bias sums in
-// registers and reduces them across the tile's RB lanes at the end, one
-// partial per block.  The TPU kernel adds dW_hh into one output block
-// from every grid step in order; Hopper blocks run in no order, so
-// kernel 2 forms dW_hh as a tiled f32 product over K = (t, row), split
-// into S slices of K with one partial per slice, and kernel 3 sums the
-// partials (weights and biases) in a fixed order: no atomics, so the sums
-// are deterministic.  Kernel 1 holds W_hh, h_prev and d(gh) of the tile in
-// shared memory: with RB = 32 rows that fits a block's 227 KiB up to
-// H = 118 (257.5 KiB at H = 128), so wider BiGRUs take tiles of RB = 16
-// rows (225.5 KiB at H = 128, the forward's limit too).  Where 32 rows
-// fit they stay: 16-row tiles timed slower at both GruBlock shapes.
+// Design.
+//   Recurrence (bigru_bwd_rec_kernel): one block per (tile of rows,
+//   direction) walks all L steps with W_hh[d] in shared memory.
+//   - Off the chain: after step s's barrier the thread loads step s+1's gx
+//     and dy into registers and copies h_prev of step s+2 into a double
+//     buffer (cp.async), then forms gh(s+1) = W_hh h_prev + b_hh and the
+//     gate coefficients of step s+1 after its W^T product.  The chain of a
+//     step is dh -> d(gh) into shared memory (double-buffered), one
+//     barrier, dh_carry = dh z + W_hh^T d(gh).
+//   - A thread owns JT units (4 or 8) of RT rows (1 or 2): each W_hh word
+//     read from shared memory feeds RT rows, and W_hh^T d(gh) reads W_hh's
+//     row g 16 bytes at a time along the thread's units, so the one
+//     [3H][kp] copy serves both products (no room for W^T too at H=128).
+//   - The plan (units and rows a thread, rows a block) comes from the
+//     occupancy API, per (device, H, R), cached: the fewest waves, then the
+//     most resident warps.  At H=32 it takes 4 units x 1 row in 32-row
+//     tiles at gru2 (8 warps on 128 SMs, one wave) and 4 units x 2 rows in
+//     64-row tiles at gru1 (two waves of 132 blocks of 256 threads: the
+//     register file holds one such block an SM).
+//   Weight gradient (bigru_bwd_dw_kernel): a register-tiled f32 GEMM over K
+//   = (t, row), one block per K slice (two an SM) forming all 3H x 32
+//   outputs of a column tile; chunks of rows double-buffered with
+//   cp.async; the bias sums are row sums of its A operand.  The TPU kernel
+//   adds dW_hh into one output block from every grid step in order; Hopper
+//   blocks run in no order, so each slice writes a partial and
+//   sum_partials_kernel adds them in a fixed order: no atomics, and two
+//   launches give bitwise-equal results.
+// No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cuda_runtime.h>
 
@@ -82,9 +94,10 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// wait until at most one group of this thread's copies is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -335,25 +348,31 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
 }
 
 constexpr int kDwThreads = 256;
-constexpr int kMaxSlots = 10;  // 16-byte copies a thread issues for one chunk, at most
+// 16-byte copies a thread issues for one chunk, at most: (4H + 32) rows of
+// KC / 4 float4 over 256 threads (10 at H <= 32, 9 at H <= 128)
+constexpr int kMaxSlots = 10;
+// rows of a step a chunk, for TM rows a thread
+__host__ __device__ constexpr int dw_chunk(int tm) { return tm == 3 ? 64 : tm == 6 ? 32 : 16; }
 
 // dW_hh partials of K slice sl, K = (t, row): A x h_prev^T with A = [dr,
 // dz, dn r, dn] (4H rows; the first 3H are d(gh), the last H dgates' n
 // slot, which only the bias sums read).  A block forms the 3H x 32 outputs
 // of one column tile k0 .. k0 + 31 over its slice, as a register tile of
 // TM x 4 a thread (rows gi + 32 m, columns k0 + ki + 8 j); chunks of KC
-// rows of one step are copied into shared memory with cp.async, two
-// stages deep, so each A and h_prev word of the slice is read once.  The
+// rows of one step are copied into shared memory with cp.async, two stages
+// (the next chunk is issued before the wait for this one), so each A and
+// h_prev word of the slice is read once.  The
 // blocks of column tile 0 also sum each A row over the slice (the bias
 // partials [dr, dz, dn r, dn]).  Every sum runs in a fixed order.
-// TM = 3 ceil(H / 32); KC = 64, 32 or 16 at H <= 32, 64, 128, so that two
-// stages take ~87 KB at every H (two blocks an SM).
+// TM = 3 ceil(H / 32); KC = 64, 32 or 16 at H <= 32, 64, 128, so that the
+// two stages take ~87 KB at every H (two blocks an SM, at most 128
+// registers a thread).
 template <int TM>
-__global__ void __launch_bounds__(kDwThreads)
+__global__ void __launch_bounds__(kDwThreads, 2)
 bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ dghn,
                     const float* __restrict__ out, float* __restrict__ dw_part,
                     float* __restrict__ bias_part, int L, int H, int R, int S, bool vec) {
-  constexpr int KC = TM == 3 ? 64 : TM == 6 ? 32 : 16;
+  constexpr int KC = dw_chunk(TM);
   constexpr int KS = KC + 4;  // row stride: 8 neighbouring rows on 8 bank groups
   extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
@@ -377,42 +396,11 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
   __syncthreads();  // the zeros (rows past 4H and past H) land before any copy
 
   // A row m of a chunk: dgates' r and z rows, d(gh)_n, dgates' n row;
-  // which tensor (0: dgates, 1: dghn) and the row within its step
-  const auto a_src = [&](int m, int* kind) {
-    *kind = m >= 2 * H && m < 3 * H;
+  // whether it is dghn's, and its row within its tensor's step
+  const auto a_src = [&](int m, bool* n_slot) {
+    *n_slot = m >= 2 * H && m < 3 * H;
     return m < 2 * H ? m : m < 3 * H ? m - 2 * H : m - H;
   };
-  // 16-byte copies (R % 4 == 0, aligned rows): this thread's copies of a
-  // chunk are the same slots at every chunk, element tid + j * threads of
-  // the stage's rows_a + rows_b rows of KC / 4 float4; only the step's
-  // offset into each tensor changes
-  constexpr int n4 = KC / 4;
-  const float* src0[kMaxSlots];
-  int dst0[kMaxSlots], meta[kMaxSlots];  // meta: column | tensor << 8 (2: h_prev)
-  int nslot = 0;
-  if (vec) {
-#pragma unroll
-    for (int j = 0; j < kMaxSlots; ++j) {
-      const int i = threadIdx.x + j * kDwThreads;
-      const int m = i / n4, c4 = (i % n4) * 4;
-      src0[j] = out;
-      dst0[j] = 0;
-      meta[j] = 0;
-      if (m >= rows_a + rows_b) continue;
-      nslot = j + 1;
-      if (m < rows_a) {
-        int kind;
-        const int g = a_src(m, &kind);
-        src0[j] = (kind ? dghn : dgates) + (size_t)g * RS + c4;
-        dst0[j] = m * KS + c4;
-        meta[j] = c4 | kind << 8;
-      } else {
-        src0[j] = out + ((size_t)dir * H + k0 + (m - rows_a)) * RS + c4;
-        dst0[j] = (MA + m - rows_a) * KS + c4;
-        meta[j] = c4 | 2 << 8;
-      }
-    }
-  }
   const auto has_prev = [&](int c) {
     const int t = c / nrc, tp = dir == 0 ? t - 1 : t + 1;
     return tp >= 0 && tp < L;
@@ -426,16 +414,28 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
     float* stage = smem + st * ST;
     const size_t step = (size_t)(dir * L + t);
     if (vec) {
-      const size_t off[3] = {step * G * RS + r0, step * H * RS + r0,
-                             (size_t)(prev ? tp : 0) * 2 * H * RS + r0};
+      // 16-byte copies: element i = tid + j * threads of the stage's rows
+      // of KC / 4 float4 (32-bit offsets within one step of a tensor)
+      const float* gb = dgates + step * G * RS + r0;
+      const float* nb = dghn + step * H * RS + r0;
+      const float* hb = out + ((size_t)(prev ? tp : 0) * 2 * H + (size_t)dir * H + k0) * RS + r0;
+      constexpr int n4 = KC / 4;
 #pragma unroll
       for (int j = 0; j < kMaxSlots; ++j) {
-        if (j >= nslot) break;
-        const int kind = meta[j] >> 8;
-        if (kind == 2 && !prev) continue;
-        float* d = stage + dst0[j];
-        if (r0 + (meta[j] & 255) < R) cp_async16(d, src0[j] + off[kind]);
-        else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const int i = threadIdx.x + j * kDwThreads;
+        const int m = i / n4, c4 = (i % n4) * 4;
+        const bool in = r0 + c4 < R;
+        if (m < rows_a) {
+          bool n_slot;
+          const int g = a_src(m, &n_slot);
+          float* d = stage + m * KS + c4;
+          if (in) cp_async16(d, (n_slot ? nb : gb) + g * R + c4);
+          else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else if (prev && m < rows_a + rows_b) {
+          float* d = stage + (MA + m - rows_a) * KS + c4;
+          if (in) cp_async16(d, hb + (m - rows_a) * R + c4);
+          else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
       }
     } else {
       const int nb = prev ? rows_b : 0;
@@ -444,9 +444,9 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
         const float* src;
         float* d;
         if (m < rows_a) {
-          int kind;
-          const int g = a_src(m, &kind);
-          src = kind ? dghn + (step * H + g) * RS : dgates + (step * G + g) * RS;
+          bool n_slot;
+          const int g = a_src(m, &n_slot);
+          src = n_slot ? dghn + (step * H + g) * RS : dgates + (step * G + g) * RS;
           d = stage + m * KS + cc;
         } else {
           src = out + ((size_t)tp * 2 * H + (size_t)dir * H + k0 + (m - rows_a)) * RS;
@@ -456,7 +456,6 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
         else *d = 0.0f;
       }
     }
-    cp_async_commit();
   };
 
   // the row sums: item (row, segment of KC / nseg columns), at most two a
@@ -471,16 +470,16 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.0f;
 
+  // one commit group per chunk (empty past the slice): chunk c is the
+  // (c - c0 + 1)-th group
   if (c0 < c1) issue(c0, 0);
+  cp_async_commit();
   for (int c = c0; c < c1; ++c) {
     const int st = (c - c0) & 1;
-    if (c + 1 < c1) {
-      issue(c + 1, st ^ 1);
-      cp_async_wait_one();  // chunk c landed; c + 1 may be in flight
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
+    if (c + 1 < c1) issue(c + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c landed; c + 1 may be in flight
+    __syncthreads();     // every thread's copies of chunk c are visible
     const float* as = smem + st * ST;
     const float* bs = as + MA * KS;
     if (has_prev(c)) {
@@ -699,10 +698,13 @@ cudaError_t launch_rec(const Plan& p, const float* gates, const float* w_hh, con
 cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, float* dw_part,
                       float* bias_part, int L, int H, int R, int S, cudaStream_t stream) {
   const int tm = 3 * ((H + 31) / 32);
-  const int kc = tm == 3 ? 64 : tm == 6 ? 32 : 16;  // as the kernel's KC
-  const size_t smem = sizeof(float) * 2 * (std::max(4 * H, 32 * tm) + 32) * (kc + 4);
+  const size_t smem =
+      sizeof(float) * 2 * (std::max(4 * H, 32 * tm) + 32) * (dw_chunk(tm) + 4);
   const auto aligned = [](const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
-  const bool vec = R % 4 == 0 && aligned(dgates) && aligned(dghn) && aligned(out);
+  // 16-byte copies need R % 4 == 0 and aligned rows; their slots hold
+  // 32-bit offsets within one step of a tensor (3H * R elements)
+  const bool vec = R % 4 == 0 && aligned(dgates) && aligned(dghn) && aligned(out) &&
+                   (size_t)3 * H * R < (size_t)1 << 30;
   const auto kernel = tm == 3   ? bigru_bwd_dw_kernel<3>
                       : tm == 6 ? bigru_bwd_dw_kernel<6>
                       : tm == 9 ? bigru_bwd_dw_kernel<9>
