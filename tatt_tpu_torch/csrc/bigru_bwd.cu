@@ -361,14 +361,15 @@ __host__ __device__ constexpr int dw_chunk(int tm) { return tm == 3 ? 64 : tm ==
 // TM x 4 a thread (rows gi + 32 m, columns k0 + ki + 8 j); chunks of KC
 // rows of one step are copied into shared memory with cp.async, two stages
 // (the next chunk is issued before the wait for this one), so each A and
-// h_prev word of the slice is read once.  The
-// blocks of column tile 0 also sum each A row over the slice (the bias
-// partials [dr, dz, dn r, dn]).  Every sum runs in a fixed order.
+// h_prev word of the slice is read once.  The blocks of column tile 0 also
+// sum each A row over the slice (the bias partials [dr, dz, dn r, dn]).
+// Every sum runs in a fixed order.
 // TM = 3 ceil(H / 32); KC = 64, 32 or 16 at H <= 32, 64, 128, so that the
-// two stages take ~87 KB at every H (two blocks an SM, at most 128
-// registers a thread).
+// two stages take ~87 KB at every H.  Up to H = 64 two blocks share an SM
+// (at most 128 registers a thread); the taller register tiles of H > 64
+// would spill there, and take one.
 template <int TM>
-__global__ void __launch_bounds__(kDwThreads, 2)
+__global__ void __launch_bounds__(kDwThreads, TM <= 6 ? 2 : 1)
 bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ dghn,
                     const float* __restrict__ out, float* __restrict__ dw_part,
                     float* __restrict__ bias_part, int L, int H, int R, int S, bool vec) {
@@ -563,7 +564,6 @@ sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int
   }
 }
 
-
 // The recurrence's launch: units and rows a thread, rows a block, threads
 // and shared memory of a block, W_hh's row stride in shared memory.
 struct Plan {
@@ -661,7 +661,8 @@ int clear_and_return(cudaError_t e) {
   return (int)e;
 }
 
-// Returned, before any launch, for an H that no plan serves.
+// Returned, before any launch, for an H that no plan serves (none up to
+// H = 128, the wrapper's limit: 4 units of 1 row in 8-row tiles fit).
 constexpr int kNoFit = -1;
 
 // The plan for hidden size H and R rows on the current device, made once.
@@ -694,7 +695,7 @@ cudaError_t launch_rec(const Plan& p, const float* gates, const float* w_hh, con
 
 // The weight-gradient pass: TM = 3 ceil(H / 32) rows a thread, KC rows of
 // a step a chunk (64 at H <= 32, fewer where A is taller), shared memory
-// for two stages (~87 KB at every H, two blocks an SM).
+// for two stages (~87 KB at every H).
 cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, float* dw_part,
                       float* bias_part, int L, int H, int R, int S, cudaStream_t stream) {
   const int tm = 3 * ((H + 31) / 32);
