@@ -52,10 +52,11 @@ from tatt_tpu_torch.core.charset import ctc_greedy_decode, str_filt  # noqa: E40
 from tatt_tpu_torch.core.convert import from_jax, load_npz  # noqa: E402
 from tatt_tpu_torch.core.device import set_cuda_flags  # noqa: E402
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset  # noqa: E402
-from tatt_tpu_torch.kernels import _build, gru as gru_kernels  # noqa: E402
+from tatt_tpu_torch.kernels import _build  # noqa: E402
 from tatt_tpu_torch.data.collate import collate  # noqa: E402
 from tatt_tpu_torch.kernels.gru import (  # noqa: E402
-    bigru_recurrence, bigru_recurrence_bwd, bigru_recurrence_bwd_ref, bigru_recurrence_ref,
+    bigru_bwd_plan, bigru_recurrence, bigru_recurrence_bwd, bigru_recurrence_bwd_ref,
+    bigru_recurrence_ref,
 )
 from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
     bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref,
@@ -328,10 +329,7 @@ def check_gru_bwd(name, length, rows, cin, cmid, hid, gen):
     g1, o1, d1 = gates[:, :1].contiguous(), out[:1].contiguous(), dout[:1].contiguous()
     row["one_step_split_ms"] = self_ms_by_name(
         lambda: bigru_recurrence_bwd(g1, w_hh, b_hh, o1, d1), GRU_BWD_ENTRIES.values(), 20)
-    # the plan query is absent from a tree of a commit before it existed,
-    # timed beside this one
-    row["plan"] = (gru_kernels.bigru_bwd_plan(hid, rows)
-                   if hasattr(gru_kernels, "bigru_bwd_plan") else None)
+    row["plan"] = bigru_bwd_plan(hid, rows)
     return row
 
 
@@ -477,10 +475,8 @@ def main(argv=None) -> int:
         print(f"[build] {name}: {' | '.join(regs)}")
     for hid, rows in ((256, BATCH), (256, BATCH - 3), (64, BATCH)):
         print(f"[build] bilstm_fwd plan at H={hid} R={rows}: {json.dumps(bilstm_fwd_plan(hid, rows))}")
-    if hasattr(gru_kernels, "bigru_bwd_plan"):
-        for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (128, 2 * BATCH * 16)):
-            print(f"[build] bigru_bwd plan at H={hid} R={rows}: "
-                  f"{json.dumps(gru_kernels.bigru_bwd_plan(hid, rows))}")
+    for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (128, 2 * BATCH * 16)):
+        print(f"[build] bigru_bwd plan at H={hid} R={rows}: {json.dumps(bigru_bwd_plan(hid, rows))}")
 
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)

@@ -64,6 +64,12 @@
 //   blocks run in no order, so each slice writes a partial and
 //   sum_partials_kernel adds them in a fixed order: no atomics, and two
 //   launches give bitwise-equal results.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 6, L=16,
+// R=8192 / L=64, R=2048): 0.368 / 0.400 ms a launch, of which the
+// recurrence 0.254 / 0.285 ms (15.1 / 4.4 us a step), the weight-gradient
+// pass 0.090 ms and the sums 0.006 ms; the design before took 0.647 /
+// 1.163 ms in the same run.
+//
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cuda_runtime.h>
@@ -718,12 +724,17 @@ cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, 
   return cudaGetLastError();
 }
 
-// The launch of plan p: the recurrence, the weight-gradient pass and the
-// two fixed-order sums.
-int run(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
-        const float* out, const float* dy, float* dgates, float* dghn, float* bias_part,
-        float* dw_part, float* dw_hh, float* bias4, int L, int H, int R, int S,
-        cudaStream_t stream) {
+}  // namespace
+
+extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
+                         const float* out, const float* dy, float* dgates, float* dghn,
+                         float* bias_part, float* dw_part, float* dw_hh, float* bias4,
+                         int L, int H, int R, int S, cudaStream_t stream) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;  // before any launch
+  // the recurrence, the weight-gradient pass and the two fixed-order sums
   cudaError_t e = launch_rec(p, gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
   if (e != cudaSuccess) return clear_and_return(e);
   e = launch_dw(dgates, dghn, out, dw_part, bias_part, L, H, R, S, stream);
@@ -735,20 +746,6 @@ int run(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
   sum_partials_kernel<<<dim3((4 * H + kSumOuts - 1) / kSumOuts, 2), threads, 0, stream>>>(
       bias_part, bias4, S, 4 * H);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
-                         const float* out, const float* dy, float* dgates, float* dghn,
-                         float* bias_part, float* dw_part, float* dw_hh, float* bias4,
-                         int L, int H, int R, int S, cudaStream_t stream) {
-  Plan p;
-  int device = 0;
-  const int err = plan_of(H, R, &p, &device);
-  if (err != 0) return err;  // before any launch
-  return run(p, gates, w_hh, b_hh, out, dy, dgates, dghn, bias_part, dw_part, dw_hh, bias4, L,
-             H, R, S, stream);
 }
 
 // The recurrence's launch for hidden size H and R rows, for logs: plan[0..6]

@@ -143,21 +143,6 @@ def bigru_recurrence(
 bigru_recurrence.launches = 0
 
 
-def _bwd_scratch(length: int, hid: int, rows: int, dev, sms: int) -> dict:
-    """Scratch of the backward kernel: d(gh)'s n slot, and one partial of
-    the weight and bias gradients per K slice of the weight-gradient pass:
-    two slices for each of the card's ``sms`` SMs (two blocks of that pass
-    fit an SM), at most one per chunk of 64 rows of a step."""
-    slices = max(1, min(2 * sms, length * -(-rows // 64)))
-    f32 = torch.float32
-    return {
-        "slices": slices,
-        "dghn": torch.empty(2, length, hid, rows, device=dev, dtype=f32),
-        "bias_part": torch.empty(2, slices, 4 * hid, device=dev, dtype=f32),
-        "dw_part": torch.empty(2, slices, 3 * hid, hid, device=dev, dtype=f32),
-    }
-
-
 def bigru_bwd_plan(hid: int, rows: int) -> dict:
     """How the backward kernel's recurrence launches at hidden size ``hid``
     over ``rows`` rows on the current card, for logs (launches nothing):
@@ -194,16 +179,22 @@ def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
     dw = torch.zeros(2, g3, hid, device=dev, dtype=f32)
     bias4 = torch.zeros(2, 4 * hid, device=dev, dtype=f32)
     if length > 0 and rows > 0:
+        # K slices of the weight-gradient pass, one partial each: two for
+        # each SM (two blocks of that pass fit one), at most one per chunk
+        # of 64 rows of a step
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        scratch = _bwd_scratch(length, hid, rows, dev, sms)
+        slices = max(1, min(2 * sms, length * -(-rows // 64)))
+        dghn = torch.empty(2, length, hid, rows, device=dev, dtype=f32)
+        bias_part = torch.empty(2, slices, 4 * hid, device=dev, dtype=f32)
+        dw_part = torch.empty(2, slices, g3, hid, device=dev, dtype=f32)
         lib = _build.load("bigru_bwd", _BWD_ARGTYPES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.bigru_bwd(
                 gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), dgates.data_ptr(), scratch["dghn"].data_ptr(),
-                scratch["bias_part"].data_ptr(), scratch["dw_part"].data_ptr(),
-                dw.data_ptr(), bias4.data_ptr(), length, hid, rows, scratch["slices"], stream,
+                dout.data_ptr(), dgates.data_ptr(), dghn.data_ptr(), bias_part.data_ptr(),
+                dw_part.data_ptr(), dw.data_ptr(), bias4.data_ptr(),
+                length, hid, rows, slices, stream,
             )
         _build.check(err, "bigru_bwd")
         bigru_recurrence_bwd.launches += 1
