@@ -5,6 +5,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py
   python3 chip_smoke.py --forward-kernels-only   # phases 1-2 alone
   python3 chip_smoke.py --kernels-only           # phases 1, 2 and 6 alone
+  python3 chip_smoke.py --lstm-bwd-only          # phase 1 and the LSTM backward of phase 6
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -19,9 +20,10 @@ Phases (any failure exits non-zero; no phase carries on after its own):
   5. a profiler window over one eval batch: device time by kernel
   6. each backward kernel against its plain twin at the training path's
      shapes (and the LSTM forward's cell states), with timings of kernel,
-     plain twin and a cuDNN forward+backward; for the GRU backward also the
-     device time of each of its entries (recurrence, weight-gradient pass,
-     sums), a launch at L=1 and so the time of a step, and its launch plan
+     plain twin and a cuDNN forward+backward; for both backward kernels
+     also the device time of each of their entries (recurrence,
+     weight-gradient pass, ...), a launch at L=1 and so the time of a step,
+     and the launch plan
   7. the full-width training path: Trainer.train with the canonical recipe
      at batch 64, images/s, launches per step, finite and falling losses
   8. one full-width train step at batch 8 on the card (kernels) against
@@ -111,6 +113,8 @@ COUNTERS = {
 }
 # the GRU backward's device entries (csrc/bigru_bwd.cu), by what each does
 GRU_BWD_ENTRIES = {"recurrence": "bigru_bwd_rec", "dw": "bigru_bwd_dw", "sums": "sum_partials"}
+# the LSTM backward's device entries (csrc/bilstm_bwd.cu)
+LSTM_BWD_ENTRIES = {"recurrence": "bilstm_bwd_rec", "dw": "bilstm_bwd_dw"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -333,19 +337,19 @@ def check_gru_bwd(name, length, rows, cin, cmid, hid, gen):
     return row
 
 
-def print_gru_bwd_split(row) -> None:
-    """The GRU backward's launch by entry, and its time a step: (device time
-    of the recurrence - the same at L=1) / (L - 1)."""
-    split = {k: row["split_ms"][v] for k, v in GRU_BWD_ENTRIES.items()}
-    one = {k: row["one_step_split_ms"][v] for k, v in GRU_BWD_ENTRIES.items()}
+def print_bwd_split(tag: str, row, entries: dict) -> None:
+    """A backward kernel's launch by entry, and its time a step: (device
+    time of the recurrence - the same at L=1) / (L - 1)."""
+    split = {k: row["split_ms"][v] for k, v in entries.items()}
+    one = {k: row["one_step_split_ms"][v] for k, v in entries.items()}
     if None in split.values() or None in one.values():
-        print(f"[gru-bwd] {row['shape']}: the profiler recorded no device time for an entry: "
+        print(f"[{tag}] {row['shape']}: the profiler recorded no device time for an entry: "
               f"{split} / L=1 {one}")
         return
     step_us = (split["recurrence"] - one["recurrence"]) / (row["L"] - 1) * 1e3
-    print(f"[gru-bwd] {row['shape']}: launch {row['kernel_ms']:.4f} ms (events), device "
-          f"{sum(split.values()):.4f} ms = recurrence {split['recurrence']:.4f} + dW "
-          f"{split['dw']:.4f} + sums {split['sums']:.4f}; at L=1 device "
+    parts = " + ".join(f"{k} {v:.4f}" for k, v in split.items())
+    print(f"[{tag}] {row['shape']}: launch {row['kernel_ms']:.4f} ms (events), device "
+          f"{sum(split.values()):.4f} ms = {parts}; at L=1 device "
           f"{sum(one.values()):.4f} ms (recurrence {one['recurrence']:.4f}); "
           f"{step_us:.2f} us a step; plan {json.dumps(row['plan'])}")
 
@@ -374,6 +378,16 @@ def check_lstm_bwd(name, length, rows, cin, hid, gen):
         library_ms=timed_ms(lambda: _library_fwd_bwd(lib, x, dout), 20),
     )
     row["bound_ms"], row["bound_by"] = bound("lstm", length, rows, hid, backward=True)
+    # device time by entry, and of a launch at L=1 (set-up, one step, and the
+    # weight-gradient pass over one step's rows)
+    row["split_ms"] = self_ms_by_name(
+        lambda: bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout),
+        LSTM_BWD_ENTRIES.values(), 20)
+    g1 = gates[:, :, :1].contiguous()
+    o1, c1, d1 = (t[:, :1].contiguous() for t in (out, cs, dout))
+    row["one_step_split_ms"] = self_ms_by_name(
+        lambda: bilstm_recurrence_bwd(g1, w_hh, b_hh, o1, c1, d1), LSTM_BWD_ENTRIES.values(), 20)
+    row["plan"] = "fixed: 8-block clusters, 16-row tiles"
     return row
 
 
@@ -423,10 +437,11 @@ def load_judge():
     return judge.eval()
 
 
-def backward_kernels(gen):
+def backward_kernels(gen, lstm_only: bool = False):
     """Phase 6: each backward kernel against its plain twin at the training
-    path's shapes; fails the run on a disagreement."""
-    gru_bwd_rows = [
+    path's shapes (and the LSTM's at the judge's H=64 and an odd H); fails
+    the run on a disagreement.  ``lstm_only``: the LSTM backward alone."""
+    gru_bwd_rows = [] if lstm_only else [
         check_gru_bwd("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
         check_gru_bwd("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
         check_gru_bwd("gru1 ragged rows", 16, 2 * BATCH * 64 + 3, 128, 64, 32, gen),
@@ -435,13 +450,17 @@ def backward_kernels(gen):
         check_lstm_bwd("student rnn0", 26, BATCH, 512, 256, gen),
         check_lstm_bwd("student rnn1", 26, BATCH, 256, 256, gen),
         check_lstm_bwd("student rnn0 ragged rows", 26, BATCH - 3, 512, 256, gen),
+        check_lstm_bwd("judge rnn0 (H=64)", 26, BATCH, 128, 64, gen),
+        check_lstm_bwd("odd H=63", 26, BATCH, 128, 63, gen),
     ]
     for row in gru_bwd_rows + lstm_bwd_rows:
         print("[kernel-bwd] " + json.dumps(row))
         if not row["ok"]:
             fail(f"backward kernel {row['shape']}: {row}")
     for row in gru_bwd_rows:
-        print_gru_bwd_split(row)
+        print_bwd_split("gru-bwd", row, GRU_BWD_ENTRIES)
+    for row in lstm_bwd_rows:
+        print_bwd_split("lstm-bwd", row, LSTM_BWD_ENTRIES)
     return gru_bwd_rows, lstm_bwd_rows
 
 
@@ -453,6 +472,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1, 2 and 6 alone (every kernel against its plain "
                          "version, with times); prints no result line")
+    ap.add_argument("--lstm-bwd-only", action="store_true",
+                    help="run phase 1 and the LSTM backward of phase 6 alone (to time "
+                         "versions of that kernel in turns); prints no result line")
     args = ap.parse_args(argv)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
     smi = subprocess.run(
@@ -477,6 +499,10 @@ def main(argv=None) -> int:
         print(f"[build] bilstm_fwd plan at H={hid} R={rows}: {json.dumps(bilstm_fwd_plan(hid, rows))}")
     for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (128, 2 * BATCH * 16)):
         print(f"[build] bigru_bwd plan at H={hid} R={rows}: {json.dumps(bigru_bwd_plan(hid, rows))}")
+
+    if args.lstm_bwd_only:
+        backward_kernels(torch.Generator().manual_seed(0), lstm_only=True)
+        return 0
 
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
