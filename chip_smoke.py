@@ -61,8 +61,8 @@ from tatt_tpu_torch.kernels.gru import (  # noqa: E402
     bigru_recurrence_ref,
 )
 from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
-    bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref,
-    bilstm_recurrence_ref,
+    bilstm_bwd_plan, bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd,
+    bilstm_recurrence_bwd_ref, bilstm_recurrence_ref,
 )
 from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, compose_input_projection  # noqa: E402
 from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
@@ -387,7 +387,7 @@ def check_lstm_bwd(name, length, rows, cin, hid, gen):
     o1, c1, d1 = (t[:, :1].contiguous() for t in (out, cs, dout))
     row["one_step_split_ms"] = self_ms_by_name(
         lambda: bilstm_recurrence_bwd(g1, w_hh, b_hh, o1, c1, d1), LSTM_BWD_ENTRIES.values(), 20)
-    row["plan"] = "fixed: 8-block clusters, 16-row tiles"
+    row["plan"] = bilstm_bwd_plan(hid, rows)
     return row
 
 
@@ -452,6 +452,8 @@ def backward_kernels(gen, lstm_only: bool = False):
         check_lstm_bwd("student rnn0 ragged rows", 26, BATCH - 3, 512, 256, gen),
         check_lstm_bwd("judge rnn0 (H=64)", 26, BATCH, 128, 64, gen),
         check_lstm_bwd("odd H=63", 26, BATCH, 128, 63, gen),
+        # an H the PR 2 design refused (fault C.1): held on every run
+        check_lstm_bwd("odd H=111", 26, BATCH, 256, 111, gen),
     ]
     for row in gru_bwd_rows + lstm_bwd_rows:
         print("[kernel-bwd] " + json.dumps(row))
@@ -497,6 +499,8 @@ def main(argv=None) -> int:
         print(f"[build] {name}: {' | '.join(regs)}")
     for hid, rows in ((256, BATCH), (256, BATCH - 3), (64, BATCH)):
         print(f"[build] bilstm_fwd plan at H={hid} R={rows}: {json.dumps(bilstm_fwd_plan(hid, rows))}")
+    for hid, rows in ((256, BATCH), (256, BATCH - 3), (64, BATCH), (111, BATCH)):
+        print(f"[build] bilstm_bwd plan at H={hid} R={rows}: {json.dumps(bilstm_bwd_plan(hid, rows))}")
     for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (128, 2 * BATCH * 16)):
         print(f"[build] bigru_bwd plan at H={hid} R={rows}: {json.dumps(bigru_bwd_plan(hid, rows))}")
 

@@ -26,7 +26,8 @@
 // is a [4H x R*L] x [R*L x H] product, off the serial chain.
 //
 // Design.  Kernel 1 (the recurrence) keeps the forward's cluster split:
-// a cluster of CS=8 blocks serves one (direction, tile of RT=16 rows), and
+// a cluster of cs blocks serves one (direction, tile of RT rows), cs and
+// RT from the plan (make_plan: cs by fit, RT by residency), and
 // block `rank` keeps the 4U rows of W_hh of its hidden units
 // [rank*U, rank*U+U) in shared memory for the whole launch.  A thread owns
 // one unit (all four gates) for RPT=4 rows, with the dh and dc carries in
@@ -48,21 +49,28 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int RT = 16;  // rows per cluster
+constexpr int kMaxThreads = 256;     // threads of a recurrence block
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 constexpr int RPT = 4;  // rows per thread
-constexpr int RG = RT / RPT;
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__global__ void __launch_bounds__(256)
+// RG row groups of RPT rows: RT = 4 RG rows per cluster
+template <int RG>
+__global__ void __launch_bounds__(kMaxThreads)
 bilstm_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                       const float* __restrict__ b_hh, const float* __restrict__ out,
                       const float* __restrict__ cseq, const float* __restrict__ dy,
                       float* __restrict__ dgates, int L, int H, int R) {
+  constexpr int RT = RG * RPT;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -258,48 +266,176 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   }
 }
 
-}  // namespace
-
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
-static int clear_and_return(cudaError_t e) {
+int clear_and_return(cudaError_t e) {
   cudaGetLastError();
   return (int)e;
 }
 
-// Shared-memory bytes of one recurrence block for hidden size H and cluster size cs.
-static size_t rec_smem_bytes(int H, int cs) {
-  const int U = H / cs;
-  return sizeof(float) *
-         ((size_t)H * RT + (size_t)4 * U * RT + (size_t)2 * cs * U * RT + (size_t)H * (4 * U + 1));
+// Returned, before any launch, for an H that no plan serves: the value and
+// the rule of csrc/bilstm_fwd.cu, so that the backward serves exactly the H
+// the forward serves.
+constexpr int kNoFit = -1;
+
+// Whether csrc/bilstm_fwd.cu serves H: some cluster size cs in 1, 2, 4, 8
+// divides H with U = H / cs <= 128 units a block (512 threads, 4 k groups)
+// and a block of 4 rows and 4 k groups fits shared memory (its make_plan).
+bool forward_serves(int H) {
+  for (int cs = 1; cs <= 8; cs *= 2) {
+    const size_t U = (size_t)H / cs;
+    if (H % cs == 0 && U <= 128 &&
+        sizeof(float) * (4 * U * H + 2 * (size_t)H * 4 + 4 * 4 * U * 4) <= kMaxSmem)
+      return true;
+  }
+  return false;
 }
+
+// The recurrence's launch: cluster size, rows per cluster, threads and
+// shared memory of a block.
+struct Plan {
+  int cs, rt, threads;
+  size_t smem;
+};
+
+using RecKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, float*, int, int, int);
+
+RecKernel kernel_of(const Plan& p) {
+  switch (p.rt) {
+    case 4: return bilstm_bwd_rec_kernel<1>;
+    case 8: return bilstm_bwd_rec_kernel<2>;
+    case 12: return bilstm_bwd_rec_kernel<3>;
+    default: return bilstm_bwd_rec_kernel<4>;
+  }
+}
+
+// Shared-memory bytes of one recurrence block: h_prev and d(gates) of the
+// tile, two buffers of partials from each rank, the W_hh slice.
+size_t rec_smem_bytes(int H, int cs, int rt) {
+  const size_t U = (size_t)H / cs;
+  return sizeof(float) * ((size_t)H * rt + 4 * U * rt + 2 * cs * U * rt + (size_t)H * (4 * U + 1));
+}
+
+// The block for cluster size cs and rt rows; false when it does not fit.
+bool block_plan(int H, int cs, int rt, Plan* p) {
+  const int threads = (H / cs) * (rt / RPT);
+  const size_t smem = rec_smem_bytes(H, cs, rt);
+  if (threads > kMaxThreads || smem > kMaxSmem) return false;
+  *p = Plan{cs, rt, threads, smem};
+  return true;
+}
+
+cudaLaunchConfig_t launch_config(const Plan& p, dim3 grid, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of plan p that the card runs at once.
+int resident_clusters(const Plan& p, cudaError_t* e) {
+  const RecKernel kernel = kernel_of(p);
+  *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (*e != cudaSuccess) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs), &attr);
+  int n = 0;
+  *e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  return n;
+}
+
+// The launch for hidden size H and R rows.  cs: the smallest cluster size
+// that divides H and whose block fits the threads the kernel is compiled
+// for and shared memory.  rt: the fewest rows per cluster (4, 8, 12 or 16)
+// with which all 2 * ceil(R / rt) clusters run at once, or else the most
+// that fit.  False (and *e unset) for an H the forward does not serve.
+bool make_plan(int H, int R, Plan* out, cudaError_t* e) {
+  *e = cudaSuccess;
+  if (!forward_serves(H)) return false;
+  for (int cs = 1; cs <= 8; cs *= 2) {
+    if (H % cs != 0) continue;
+    bool found = false;
+    for (int rt = 4; rt <= 16; rt += 4) {
+      Plan p;
+      if (!block_plan(H, cs, rt, &p)) break;  // more rows need more threads and memory
+      *out = p;
+      found = true;
+      const int resident = resident_clusters(p, e);
+      if (*e != cudaSuccess) return false;
+      if (2 * ((R + rt - 1) / rt) <= resident) break;
+    }
+    if (found) return true;
+  }
+  return false;
+}
+
+// Plans already made, by (device, H, R): the occupancy queries stay off
+// every launch but the first of a shape.
+std::mutex plans_mu;
+std::map<std::tuple<int, int, int>, Plan> plans;
+
+// The plan for hidden size H and R rows on the current device, made once.
+int plan_of(int H, int R, Plan* p, int* device) {
+  cudaError_t e = cudaGetDevice(device);
+  if (e != cudaSuccess) return clear_and_return(e);
+  std::lock_guard<std::mutex> lock(plans_mu);
+  const auto key = std::make_tuple(*device, H, R);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    *p = it->second;
+    return 0;
+  }
+  if (!make_plan(H, R, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  plans[key] = *p;
+  return 0;
+}
+
+}  // namespace
 
 extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_hh,
                           const float* out, const float* cseq, const float* dy,
                           float* dgates, float* dw_hh, float* db_hh,
                           int L, int H, int R, cudaStream_t stream) {
-  int cs = 8;
-  while (H % cs) cs /= 2;
-  const size_t smem = rec_smem_bytes(H, cs);
-  cudaError_t e = cudaFuncSetAttribute(
-      bilstm_bwd_rec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;  // before any launch
+  const RecKernel kernel = kernel_of(p);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * ((R + RT - 1) / RT), 2);
-  cfg.blockDim = dim3((H / cs) * RG);
-  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs * ((R + p.rt - 1) / p.rt), 2), &attr);
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, bilstm_bwd_rec_kernel, gates, w_hh, b_hh, out, cseq, dy,
-                         dgates, L, H, R);
+  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, dy, dgates, L, H, R);
   if (e != cudaSuccess) return clear_and_return(e);
   const dim3 grid((4 * H + TM - 1) / TM, (H + 1 + TN - 1) / TN, 2);
   bilstm_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
   return (int)cudaGetLastError();
+}
+
+// The recurrence's launch for hidden size H and R rows, for logs: plan[0..6]
+// = cluster size, rows per cluster, k groups, threads and shared-memory
+// bytes of a block, clusters of the grid, clusters the card runs at once.
+// Launches nothing.
+extern "C" int bilstm_bwd_plan(int H, int R, int* plan) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;
+  cudaError_t e;
+  const int resident = resident_clusters(p, &e);
+  if (e != cudaSuccess) return clear_and_return(e);
+  const int values[7] = {p.cs, p.rt, 1, p.threads, (int)p.smem, 2 * ((R + p.rt - 1) / p.rt),
+                         resident};
+  for (int i = 0; i < 7; ++i) plan[i] = values[i];
+  return 0;
 }

@@ -23,10 +23,12 @@ from tatt_tpu_torch.kernels import _build
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 MAX_HIDDEN = 256
-# what csrc/bilstm_fwd.cu returns, before any launch, for an H that no
-# cluster size serves
+# what csrc/bilstm_fwd.cu and csrc/bilstm_bwd.cu return, before any
+# launch, for an H that no cluster size serves
 _NO_FIT = -1
 _PLAN_KEYS = ("cluster", "rows", "k_groups", "threads", "smem_bytes", "resident_clusters")
+_BWD_PLAN_KEYS = ("cluster", "rows", "k_groups", "threads", "smem_bytes", "clusters",
+                  "resident_clusters")
 
 
 def _lstm_cell(a, hid):
@@ -145,7 +147,7 @@ def bilstm_recurrence(gates, w_hh, b_hh, with_cs: bool = False):
                 gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
                 None if cs is None else cs.data_ptr(), length, hid, rows, stream,
             )
-        _check_fwd(err, "bilstm_fwd", hid)
+        _check_launch(err, "bilstm_fwd", hid)
         bilstm_recurrence.launches += 1
     return (out, cs) if with_cs else out
 
@@ -153,7 +155,7 @@ def bilstm_recurrence(gates, w_hh, b_hh, with_cs: bool = False):
 bilstm_recurrence.launches = 0
 
 
-def _check_fwd(err: int, what: str, hid: int) -> None:
+def _check_launch(err: int, what: str, hid: int) -> None:
     if err == _NO_FIT:
         raise ValueError(
             f"{what}: H={hid}: no cluster of 1, 2, 4 or 8 blocks divides H "
@@ -171,14 +173,32 @@ def bilstm_fwd_plan(hid: int, rows: int) -> dict:
     fn = lib.bilstm_fwd_plan
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
-    _check_fwd(fn(hid, rows, plan), "bilstm_fwd_plan", hid)
+    _check_launch(fn(hid, rows, plan), "bilstm_fwd_plan", hid)
     return dict(zip(_PLAN_KEYS, plan))
+
+
+def bilstm_bwd_plan(hid: int, rows: int) -> dict:
+    """How the backward kernel's recurrence launches at hidden size ``hid``
+    over ``rows`` rows on the current card, for logs (launches nothing):
+    cluster size, rows per cluster, k groups, threads and shared-memory
+    bytes of a block, clusters of the grid and clusters the card runs at
+    once.  Raises ``ValueError`` for an H the forward does not serve."""
+    if not 0 < hid <= MAX_HIDDEN:
+        raise ValueError(f"bilstm_bwd_plan: H={hid} must be in 1..{MAX_HIDDEN}")
+    lib = _build.load("bilstm_bwd", _BWD_ARGTYPES)
+    fn = lib.bilstm_bwd_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = (ctypes.c_int * len(_BWD_PLAN_KEYS))()
+    _check_launch(fn(hid, rows, plan), "bilstm_bwd_plan", hid)
+    return dict(zip(_BWD_PLAN_KEYS, plan))
 
 
 def bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout):
     """The BiLSTM backward recurrence: the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor.  Arguments and results as
-    :func:`bilstm_recurrence_bwd_ref`.  ``bilstm_recurrence_bwd.launches``
+    :func:`bilstm_recurrence_bwd_ref`.  Raises ``ValueError``, before any
+    launch, for an H the forward kernel does not serve (how the recurrence
+    launches: :func:`bilstm_bwd_plan`).  ``bilstm_recurrence_bwd.launches``
     counts kernel launches (one per call: the recurrence and its weight
     reduction are one entry point)."""
     if gates.device.type == "cpu":
@@ -201,7 +221,7 @@ def bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout):
                 cs.data_ptr(), dout.data_ptr(), dgates.data_ptr(), dw.data_ptr(),
                 db.data_ptr(), length, hid, rows, stream,
             )
-        _build.check(err, "bilstm_bwd")
+        _check_launch(err, "bilstm_bwd", hid)
         bilstm_recurrence_bwd.launches += 1
     return dgates, dw, db
 
