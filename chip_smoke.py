@@ -114,7 +114,8 @@ COUNTERS = {
 # the GRU backward's device entries (csrc/bigru_bwd.cu), by what each does
 GRU_BWD_ENTRIES = {"recurrence": "bigru_bwd_rec", "dw": "bigru_bwd_dw", "sums": "sum_partials"}
 # the LSTM backward's device entries (csrc/bilstm_bwd.cu)
-LSTM_BWD_ENTRIES = {"recurrence": "bilstm_bwd_rec", "dw": "bilstm_bwd_dw"}
+LSTM_BWD_ENTRIES = {"gates": "bilstm_bwd_gates", "recurrence": "bilstm_bwd_rec",
+                    "dw": "bilstm_bwd_dw"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 

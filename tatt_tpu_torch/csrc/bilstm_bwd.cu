@@ -9,6 +9,7 @@
 // torch gate order i, f, g, o and h_prev / c_prev the forward's h and c of
 // the step before t in d's order (zeros at d's first step):
 //   a = x + W_hh[d] h_prev + b_hh[d]        (recomputed, as the JAX kernel does)
+//   i, f, o = s(a_i), s(a_f), s(a_o);  g = tanh(a_g)
 //   dh = dh_carry + dy;  do = dh tanh(c) o(1-o);  dc = dc_carry + dh o (1-tanh(c)^2)
 //   di = dc g i(1-i);  dg = dc i (1-g^2);  df = dc c_prev f(1-f)
 //   dgates = [di, df, dg, do];  dh_carry = W_hh[d]^T dgates;  dc_carry = dc f
@@ -25,20 +26,22 @@
 // block's 227 KB of shared memory, and R is only 64.  The weight gradient
 // is a [4H x R*L] x [R*L x H] product, off the serial chain.
 //
-// Design.  Kernel 1 (the recurrence) keeps the forward's cluster split:
-// a cluster of cs blocks serves one (direction, tile of RT rows), cs and
-// RT from the plan (make_plan: cs by fit, RT by residency), and
-// block `rank` keeps the 4U rows of W_hh of its hidden units
-// [rank*U, rank*U+U) in shared memory for the whole launch.  A thread owns
-// one unit (all four gates) for RPT=4 rows, with the dh and dc carries in
-// registers.  Per step:
-//   - h_prev of the tile comes from the forward's output (not from the
-//     carry), so the gate recompute is the forward's loop over shared memory;
+// Design.  Kernel 0 (bilstm_bwd_gates_kernel) recomputes the gate
+// activations of every (direction, row, t) at once, before the walk: none
+// of them depends on the carry, since h_prev is the forward's output.  It
+// writes them into the dgates buffer.  Kernel 1 (the recurrence) keeps
+// the forward's cluster split: a cluster of cs blocks serves one
+// (direction, tile of RT rows), cs and RT from the plan (make_plan: cs by
+// fit, RT by residency), and block `rank` keeps the 4U rows of W_hh of its
+// hidden units [rank*U, rank*U+U) in shared memory for the whole launch.
+// A thread owns one unit (all four gates) for RPT=4 rows, with the dh and
+// dc carries in registers.  Per step:
+//   - it reads its activations and overwrites them with d(gates);
 //   - the block's dgates go to shared memory, and each thread forms the
-//     partial W_hh^T dgates of its block's rows for CS hidden units, one
+//     partial W_hh^T dgates of its block's rows for cs hidden units, one
 //     per rank, and stores each into that rank's shared memory (distributed
 //     shared memory): a reduce-scatter;
-//   - one cluster barrier per step; then each thread sums the CS partials
+//   - one cluster barrier per step; then each thread sums the cs partials
 //     of its own unit.  The partial buffers are double-buffered, so that
 //     barrier is the only one across blocks.
 // Kernel 2 (the weight gradient) is a tiled f32 product over K = R*L: TPU
@@ -49,6 +52,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -63,13 +67,140 @@ constexpr int RPT = 4;  // rows per thread
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// 4- and 16-byte asynchronous copies from global to shared memory, their
+// groups, and the wait for all but the newest N groups of this thread
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// GR floats (1 or 4) of shared memory copied from src, or zeros where the
+// source is cut off
+template <int GR>
+__device__ __forceinline__ void copy_or_zero(float* dst, const float* src, bool ok) {
+  if constexpr (GR == 4) {
+    if (ok) cp_async16(dst, src);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    if (ok) cp_async4(dst, src);
+    else *dst = 0.0f;
+  }
+}
+
+// The gate pre-pass: for every (direction d, row, t) at once,
+//   a = x + W_hh[d] h_prev + b_hh[d];  act = [s(a_i), s(a_f), tanh(a_g), s(a_o)]
+// into `act` ([2, R, L, 4H], the dgates buffer).  Per direction a
+// register-tiled f32 product [R*L x H] x [H x 4H]: a block forms a tile of
+// kGM (row, t) pairs m by kGN gate rows n, a thread 4 x 4 of them (m = tm
+// + 16 i, n = tn + 16 j, so a warp's lanes walk n: its W reads hit
+// neighbouring rows, its h reads two, and its stores run along n), over k
+// in chunks of kGK copied into shared memory with cp.async, two stages.
+// Row m = row * L + t of h_prev is row m -/+ 1 of `out` (direction 0 / 1),
+// zero at the direction's first step.  VEC: 16-byte copies (H % 4 == 0).
+constexpr int kGM = 64, kGN = 64, kGK = 32, kGKS = kGK + 4, kGThreads = 256;
+template <bool VEC>
+__global__ void __launch_bounds__(kGThreads)
+bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
+                        const float* __restrict__ b_hh, const float* __restrict__ out,
+                        float* __restrict__ act, int L, int H, int R) {
+  constexpr int GR = VEC ? 4 : 1;                    // floats a copy
+  constexpr int PER_ROW = kGK / GR;                  // copies a row of a chunk
+  constexpr int STRIDE = kGThreads / PER_ROW;        // rows between a thread's copies
+  constexpr int SLOTS = kGM * PER_ROW / kGThreads;   // copies a thread, each tile
+  __shared__ __align__(16) float hs[2][kGM][kGKS];
+  __shared__ __align__(16) float ws[2][kGN][kGKS];
+  const int G = 4 * H, M = R * L, dir = blockIdx.z;
+  const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM;
+  const int tn = threadIdx.x % 16, tm = threadIdx.x / 16;
+  const size_t H2 = 2 * (size_t)H;
+  // this thread's copy slots: rows crow + STRIDE j of both tiles, column ccol
+  const int crow = threadIdx.x / PER_ROW, ccol = (threadIdx.x % PER_ROW) * GR;
+  const float* hsrc[SLOTS];
+  const float* wsrc[SLOTS];
+  bool hok[SLOTS], wok[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int m = m0 + crow + STRIDE * j, n = n0 + crow + STRIDE * j;
+    const int t = m % L, tp = dir == 0 ? t - 1 : t + 1;
+    hok[j] = m < M && tp >= 0 && tp < L;
+    hsrc[j] = out + (hok[j] ? (size_t)(m + tp - t) * H2 + (size_t)dir * H : 0);
+    wok[j] = n < G;
+    wsrc[j] = w_hh + (wok[j] ? ((size_t)dir * G + n) * H : 0);
+  }
+  const auto issue = [&](int k0, int st) {
+    const int k = k0 + ccol;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      copy_or_zero<GR>(&hs[st][crow + STRIDE * j][ccol], hsrc[j] + k, hok[j] && k < H);
+      copy_or_zero<GR>(&ws[st][crow + STRIDE * j][ccol], wsrc[j] + k, wok[j] && k < H);
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  const int nch = (H + kGK - 1) / kGK;
+  issue(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    const int st = c & 1;
+    if (c + 1 < nch) issue((c + 1) * kGK, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c landed; c + 1 may be in flight
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 4) {
+      float4 hv[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hv[i] = *reinterpret_cast<const float4*>(&hs[st][tm + 16 * i][kk]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(&ws[st][tn + 16 * j][kk]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(hv[i].x, wv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(hv[i].y, wv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(hv[i].z, wv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(hv[i].w, wv[j].w, acc[i][j]);
+        }
+    }
+    __syncthreads();  // stage st is free for chunk c + 2
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + tn + 16 * j;
+    if (n >= G) continue;
+    const bool cell = n / H == 2;  // the g gate: tanh
+    const float bias = b_hh[dir * G + n];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + tm + 16 * i;
+      if (m >= M) continue;
+      const size_t o = ((size_t)dir * M + m) * G + n;
+      const float a = acc[i][j] + gates[o] + bias;
+      act[o] = cell ? tanhf(a) : sigm(a);
+    }
+  }
+}
+
 // RG row groups of RPT rows: RT = 4 RG rows per cluster
 template <int RG>
 __global__ void __launch_bounds__(kMaxThreads)
-bilstm_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
-                      const float* __restrict__ b_hh, const float* __restrict__ out,
-                      const float* __restrict__ cseq, const float* __restrict__ dy,
-                      float* __restrict__ dgates, int L, int H, int R) {
+bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ cseq,
+                      const float* __restrict__ dy, float* __restrict__ dgates, int L, int H,
+                      int R) {
   constexpr int RT = RG * RPT;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -77,8 +208,7 @@ bilstm_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__
   const int U = H / cs;
   const int WS = 4 * U + 1;  // padded row of the transposed slice: no bank conflicts
   extern __shared__ __align__(16) float smem[];
-  float* hp_s = smem;                    // [H][RT]: h_prev of the tile
-  float* dg_s = hp_s + H * RT;           // [4U][RT]: this block's dgates
+  float* dg_s = smem;                    // [4U][RT]: this block's dgates
   float* red_s = dg_s + 4 * U * RT;      // [2][cs][U][RT]: partial dh from each rank
   float* w_s = red_s + 2 * cs * U * RT;  // [H][WS]
 
@@ -98,9 +228,6 @@ bilstm_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__
     const int g = gu / U, uu = gu % U;
     w_s[k * WS + gu] = w_d[(size_t)(g * H + rank * U + uu) * H + k];
   }
-  float bias[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = b_hh[dir * G + g * H + unit];
   float dhc[RPT], dcc[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) dhc[r] = dcc[r] = 0.0f;
@@ -110,47 +237,25 @@ bilstm_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__
     const int t = dir == 0 ? L - 1 - s : s;
     const int tp = dir == 0 ? t - 1 : t + 1;  // the step before t in d's order
     const bool has_prev = tp >= 0 && tp < L;
-    for (int i = threadIdx.x; i < H * RT; i += blockDim.x) {
-      const int rr = i / H, k = i % H;  // k fastest: coalesced along the hidden axis
-      const int row = tile * RT + rr;
-      hp_s[k * RT + rr] = (has_prev && row < R)
-          ? out[((size_t)row * L + tp) * H2 + (size_t)dir * H + k] : 0.0f;
-    }
+    // the gate activations (bilstm_bwd_gates_kernel), overwritten below by
+    // d(gates) at the same places
     float acc[4][RPT], ct[RPT], cp[RPT], dyv[RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = row0 + r;
       const bool live = row < R;
       const size_t rl = (size_t)(live ? row : 0) * L;
-      const float* gx = gates + (((size_t)dir * R + (live ? row : 0)) * L + t) * G + unit;
+      const float* ax = dgates + (((size_t)dir * R + (live ? row : 0)) * L + t) * G + unit;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g][r] = bias[g] + (live ? gx[g * H] : 0.0f);
+      for (int g = 0; g < 4; ++g) acc[g][r] = live ? ax[g * H] : 0.0f;
       const size_t o = (rl + t) * H2 + (size_t)dir * H + unit;
       ct[r] = live ? cseq[o] : 0.0f;
       dyv[r] = live ? dy[o] : 0.0f;
       cp[r] = (live && has_prev) ? cseq[(rl + tp) * H2 + (size_t)dir * H + unit] : 0.0f;
     }
-    __syncthreads();  // h_prev of the tile is in shared memory
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(hp_s + k * RT + rg * RPT);
-      const float* wk = w_s + k * WS + u;
-      const float w0 = wk[0], w1 = wk[U], w2 = wk[2 * U], w3 = wk[3 * U];
-      const float hr[RPT] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        acc[0][r] = fmaf(w0, hr[r], acc[0][r]);
-        acc[1][r] = fmaf(w1, hr[r], acc[1][r]);
-        acc[2][r] = fmaf(w2, hr[r], acc[2][r]);
-        acc[3][r] = fmaf(w3, hr[r], acc[3][r]);
-      }
-    }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const float ig = sigm(acc[0][r]);
-      const float fg = sigm(acc[1][r]);
-      const float gg = tanhf(acc[2][r]);
-      const float og = sigm(acc[3][r]);
+      const float ig = acc[0][r], fg = acc[1][r], gg = acc[2][r], og = acc[3][r];
       const float tc = tanhf(ct[r]);
       const float dh = dhc[r] + dyv[r];
       const float dc = dcc[r] + dh * og * (1.0f - tc * tc);
@@ -183,7 +288,7 @@ bilstm_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__
           make_float4(p[0], p[1], p[2], p[3]);
     }
     // publishes every rank's partials; also no block moves on to overwrite
-    // hp_s / dg_s, or to store into a buffer another block still reads
+    // dg_s, or to store into a buffer another block still reads
     // (step s+1 writes the other buffer, step s+2 this one), before all
     // have passed this point
     cluster.sync();
@@ -266,6 +371,8 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   }
 }
 
+bool aligned(const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
+
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
 int clear_and_return(cudaError_t e) {
@@ -298,8 +405,7 @@ struct Plan {
   size_t smem;
 };
 
-using RecKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
-                           const float*, float*, int, int, int);
+using RecKernel = void (*)(const float*, const float*, const float*, float*, int, int, int);
 
 RecKernel kernel_of(const Plan& p) {
   switch (p.rt) {
@@ -310,11 +416,11 @@ RecKernel kernel_of(const Plan& p) {
   }
 }
 
-// Shared-memory bytes of one recurrence block: h_prev and d(gates) of the
-// tile, two buffers of partials from each rank, the W_hh slice.
+// Shared-memory bytes of one recurrence block: d(gates) of the tile, two
+// buffers of partials from each rank, the W_hh slice.
 size_t rec_smem_bytes(int H, int cs, int rt) {
   const size_t U = (size_t)H / cs;
-  return sizeof(float) * ((size_t)H * rt + 4 * U * rt + 2 * cs * U * rt + (size_t)H * (4 * U + 1));
+  return sizeof(float) * (4 * U * rt + 2 * cs * U * rt + (size_t)H * (4 * U + 1));
 }
 
 // The block for cluster size cs and rt rows; false when it does not fit.
@@ -408,14 +514,21 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   int device = 0;
   const int err = plan_of(H, R, &p, &device);
   if (err != 0) return err;  // before any launch
+  // the gate activations into dgates, then the recurrence over them, then
+  // the weight gradient
+  const bool vec = H % 4 == 0 && aligned(gates) && aligned(w_hh) && aligned(out);
+  const dim3 ggrid((4 * H + kGN - 1) / kGN, (R * L + kGM - 1) / kGM, 2);
+  if (vec) bilstm_bwd_gates_kernel<true><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, dgates, L, H, R);
+  else bilstm_bwd_gates_kernel<false><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, dgates, L, H, R);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return clear_and_return(e);
   const RecKernel kernel = kernel_of(p);
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs * ((R + p.rt - 1) / p.rt), 2), &attr);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, kernel, gates, w_hh, b_hh, out, cseq, dy, dgates, L, H, R);
+  e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R);
   if (e != cudaSuccess) return clear_and_return(e);
   const dim3 grid((4 * H + TM - 1) / TM, (H + 1 + TN - 1) / TN, 2);
   bilstm_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
