@@ -20,31 +20,44 @@
 //   w_hh [2, 4H, H], b_hh [2, 4H]; dw_hh [2, 4H, H], db_hh [2, 4H]
 //   out, cseq, dy [R, L, 2H]       (the forward's h and c, and dL/dout)
 //
-// What bounds it on an H100: the dh carry is serial in t.  Each step is
-// two [4H x H] matrix-vector products per row (the gate recompute and
-// W_hh^T dgates); at H=256 W_hh is 1 MB per direction, too large for one
-// block's 227 KB of shared memory, and R is only 64.  The weight gradient
-// is a [4H x R*L] x [R*L x H] product, off the serial chain.
+// What bounds it on an H100: the dh carry is serial in t.  Its least time
+// by operations (three [4H x H] matvec-sized products a row-step at the
+// f32 peak) or by bytes does not count the latency each step of the chain
+// pays: shared-memory loads, a block barrier, the exchange of partial sums
+// between blocks and their barrier.  At H=256 W_hh is 1 MB per direction,
+// too large for one block's 227 KB of shared memory, and R is only 64.
+// The PR 2 design recomputed the gates on the chain (half of each step's
+// FMAs, behind a global-to-shared copy of h_prev and a barrier), had three
+// barriers a step, and launched 64 blocks of 4 warps: 40+ us a step.
 //
-// Design.  Kernel 0 (bilstm_bwd_gates_kernel) recomputes the gate
-// activations of every (direction, row, t) at once, before the walk: none
-// of them depends on the carry, since h_prev is the forward's output.  It
-// writes them into the dgates buffer.  Kernel 1 (the recurrence) keeps
-// the forward's cluster split: a cluster of cs blocks serves one
-// (direction, tile of RT rows), cs and RT from the plan (make_plan: cs by
-// fit, RT by residency), and block `rank` keeps the 4U rows of W_hh of its
-// hidden units [rank*U, rank*U+U) in shared memory for the whole launch.
-// A thread owns one unit (all four gates) for RPT=4 rows, with the dh and
-// dc carries in registers.  Per step:
-//   - it reads its activations and overwrites them with d(gates);
-//   - the block's dgates go to shared memory, and each thread forms the
-//     partial W_hh^T dgates of its block's rows for cs hidden units, one
-//     per rank, and stores each into that rank's shared memory (distributed
-//     shared memory): a reduce-scatter;
-//   - one cluster barrier per step; then each thread sums the cs partials
-//     of its own unit.  The partial buffers are double-buffered, so that
-//     barrier is the only one across blocks.
-// Kernel 2 (the weight gradient) is a tiled f32 product over K = R*L: TPU
+// Design.
+//   Kernel 0 (bilstm_bwd_gates_kernel) recomputes the gate activations of
+//   every (direction, row, t) at once, before the walk: none of them
+//   depends on the carry, since h_prev is the forward's output.  It fills
+//   the card, and writes them into the dgates buffer, which kernel 1
+//   overwrites in place with d(gates).
+//   Kernel 1 (bilstm_bwd_rec_kernel) walks the chain.  A cluster of cs
+//   blocks serves one (direction, tile of RT rows); block `rank` keeps the
+//   4U rows of W_hh of its hidden units [rank*U, rank*U+U) in shared memory
+//   for the whole launch.  A step is the elementwise d(gates), one block
+//   barrier, and W_hh^T d(gates), whose partial sums are reduce-scattered
+//   through distributed shared memory to the rank that owns each unit.
+//   - Off the chain: each step's inputs (activations, c_t, c_prev, dy) are
+//     loaded during the previous step's product and turned into
+//     coefficients after it, so a step's elementwise part is 6 FMAs.
+//   - k groups split the 4U-long contraction, so a block has 12-16 warps;
+//     each unit sums its cs * kg partials in a fixed order.
+//   - cs is the smallest cluster that divides H and fits shared memory and
+//     512 threads (8 at H=256, 1 at H=64); RT (4, 8, 12 or 16) is the
+//     fewest rows with which every cluster is resident, by the occupancy
+//     API (12 at H=256, R=64: the card holds fewer than 16 clusters of 8).
+//     The plan is made once per (device, H, R).  The backward serves
+//     exactly the H that csrc/bilstm_fwd.cu serves; any other H is refused
+//     before a launch.
+//   - The cluster barrier is split: the global d(gates) stores go between
+//     its arrive and its wait.  Partials are double-buffered, so it is the
+//     only barrier across blocks.
+//   Kernel 2 (the weight gradient) is a tiled f32 product over K = R*L: TPU
 // grid steps run in order and add into one dW block, Hopper blocks do not,
 // so each block owns a 64x64 tile of [dW_hh | db_hh] (db_hh as a column of
 // ones beside h_prev) over the whole K: no atomics, deterministic sums.
@@ -52,6 +65,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -61,9 +75,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 256;     // threads of a recurrence block
+constexpr int kMaxThreads = 512;     // threads of a recurrence block
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
-constexpr int RPT = 4;  // rows per thread
+constexpr int kMaxKGroups = 16;
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -195,111 +209,171 @@ bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict
   }
 }
 
-// RG row groups of RPT rows: RT = 4 RG rows per cluster
-template <int RG>
+// The two halves of a cluster barrier (cg's cluster.sync() is both back to
+// back): arrive releases this thread's earlier stores, distributed shared
+// memory included; wait returns once every thread of the cluster arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The recurrence: RT rows per cluster (4, 8, 12 or 16); kCluster: cs > 1
+// blocks exchange partials through distributed shared memory.  kg k groups
+// split the 4U-long contraction of W_hh^T d(gates).
+//
+// Two kinds of thread (a thread may be both):
+//   - product thread (k, kgi), tid < H * kg: the partial of dh_carry[k]
+//     over its group's gate rows gu of this block, for all RT rows, stored
+//     into the shared memory of the rank that owns unit k;
+//   - unit thread (u, r), tid < U * RT: the elementwise step of unit
+//     rank*U + u of row r: carries, d(gates), the loads a step ahead.
+// A step: unit threads form d(gates) from the carries and the step's
+// coefficients (computed the step before) into dg_s; one __syncthreads;
+// unit threads issue the next step's loads; product threads form and
+// store the partials; unit threads turn the next step's loads into
+// coefficients; the cluster barrier, split around the global d(gates)
+// stores; unit threads sum their cs * kg partials in a fixed order.
+template <int RT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
 bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ cseq,
                       const float* __restrict__ dy, float* __restrict__ dgates, int L, int H,
-                      int R) {
-  constexpr int RT = RG * RPT;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
+                      int R, int kg) {
+  const int cs = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int U = H / cs;
-  const int WS = 4 * U + 1;  // padded row of the transposed slice: no bank conflicts
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
   extern __shared__ __align__(16) float smem[];
-  float* dg_s = smem;                    // [4U][RT]: this block's dgates
-  float* red_s = dg_s + 4 * U * RT;      // [2][cs][U][RT]: partial dh from each rank
-  float* w_s = red_s + 2 * cs * U * RT;  // [H][WS]
+  float* w_s = smem;                        // [4U][H]: row g*U+u is W_hh[dir] row g*H+rank*U+u
+  float* dg_s = w_s + (size_t)4 * U * H;    // [4U][RT]: the block's d(gates)
+  float* red = dg_s + 4 * U * RT;           // [2][cs][kg][RT][U]: partials from each rank
+  const int red_buf = cs * kg * RT * U;
 
   const int dir = blockIdx.y;
   const int tile = blockIdx.x / cs;
-  const int u = threadIdx.x % U;
-  const int rg = threadIdx.x / U;
-  const int unit = rank * U + u;
-  const int row0 = tile * RT + rg * RPT;
-  const int G = 4 * H;
   const size_t H2 = 2 * (size_t)H;
 
-  // this block's 4U rows of W_hh[dir], read along k (coalesced), stored [k][g*U+u]
   const float* w_d = w_hh + (size_t)dir * G * H;
-  for (int i = threadIdx.x; i < 4 * U * H; i += blockDim.x) {
-    const int gu = i / H, k = i % H;
-    const int g = gu / U, uu = gu % U;
-    w_s[k * WS + gu] = w_d[(size_t)(g * H + rank * U + uu) * H + k];
+  if ((H & 3) == 0) {
+    const int h4 = H / 4;
+    for (int i = tid; i < 4 * U * h4; i += blockDim.x) {
+      const int gu = i / h4, k = (i % h4) * 4;
+      const int src = (gu / U) * H + rank * U + gu % U;
+      *reinterpret_cast<float4*>(w_s + (size_t)gu * H + k) =
+          *reinterpret_cast<const float4*>(w_d + (size_t)src * H + k);
+    }
+  } else {
+    for (int i = tid; i < 4 * U * H; i += blockDim.x) {
+      const int gu = i / H, k = i % H;
+      w_s[i] = w_d[(size_t)((gu / U) * H + rank * U + gu % U) * H + k];
+    }
   }
-  float dhc[RPT], dcc[RPT];
+
+  // product thread: output k, gate rows [g0, g1) of the block
+  const bool prod = tid < H * kg;
+  const int k = tid % H, kgi = tid / H;
+  const int kr = (4 * U + kg - 1) / kg;
+  const int g0 = min(4 * U, kgi * kr), g1 = min(4 * U, g0 + kr);
+  const int owner = k / U;
+  const int pbase = ((rank * kg + kgi) * RT) * U + k % U;
+  // unit thread: unit eu of row er
+  const bool unit_t = tid < U * RT;
+  const int eu = tid % U, er = tid / U;
+  const int unit = rank * U + eu;
+  const int row = tile * RT + er;
+  const bool live = unit_t && row < R;
+  const auto t_of = [&](int s) { return dir == 0 ? L - 1 - s : s; };
+  // a step's inputs: the gate activations, c_t, c_prev (0 at the
+  // direction's first step) and dy
+  float xa[4] = {0.0f, 0.0f, 0.0f, 0.0f}, xc = 0.0f, xcp = 0.0f, xdy = 0.0f;
+  const auto load = [&](int s) {
+    if (!live) return;
+    const int t = t_of(s), tp = dir == 0 ? t - 1 : t + 1;
+    const float* ax = dgates + (((size_t)dir * R + row) * L + t) * G + unit;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) dhc[r] = dcc[r] = 0.0f;
-  cluster.sync();  // every block of the cluster runs before any remote store
+    for (int g = 0; g < 4; ++g) xa[g] = ax[g * H];
+    const size_t o = ((size_t)row * L + t) * H2 + (size_t)dir * H + unit;
+    xc = cseq[o];
+    xdy = dy[o];
+    xcp = tp >= 0 && tp < L ? cseq[((size_t)row * L + tp) * H2 + (size_t)dir * H + unit] : 0.0f;
+  };
+  // a step's coefficients, so that with dh = dh_carry + dy:
+  //   dc = dc_carry + dh kc;  d(gates) = [dc ci, dc cf, dc cg, dh ko];  dc_carry = dc f
+  float kc = 0.0f, ko = 0.0f, ci = 0.0f, cf = 0.0f, cgg = 0.0f, fg = 0.0f, dyc = 0.0f;
+  const auto coefficients = [&]() {
+    const float ig = xa[0], f = xa[1], gg = xa[2], og = xa[3];
+    const float tc = tanhf(xc);
+    kc = og * (1.0f - tc * tc);
+    ko = tc * og * (1.0f - og);
+    ci = gg * ig * (1.0f - ig);
+    cf = xcp * f * (1.0f - f);
+    cgg = ig * (1.0f - gg * gg);
+    fg = f;
+    dyc = xdy;
+  };
+  load(0);
+  coefficients();
+  float dhc = 0.0f, dcc = 0.0f;
+  if constexpr (kCluster) cg::this_cluster().sync();  // every block runs and holds its W_hh
+  else __syncthreads();
 
   for (int s = 0; s < L; ++s) {
-    const int t = dir == 0 ? L - 1 - s : s;
-    const int tp = dir == 0 ? t - 1 : t + 1;  // the step before t in d's order
-    const bool has_prev = tp >= 0 && tp < L;
-    // the gate activations (bilstm_bwd_gates_kernel), overwritten below by
-    // d(gates) at the same places
-    float acc[4][RPT], ct[RPT], cp[RPT], dyv[RPT];
+    float* redb = red + (s & 1) * red_buf;
+    float d[4];
+    if (unit_t) {
+      const float dh = dhc + dyc;
+      const float dc = dcc + dh * kc;
+      d[0] = dc * ci;
+      d[1] = dc * cf;
+      d[2] = dc * cgg;
+      d[3] = dh * ko;
+      dcc = dc * fg;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + r;
-      const bool live = row < R;
-      const size_t rl = (size_t)(live ? row : 0) * L;
-      const float* ax = dgates + (((size_t)dir * R + (live ? row : 0)) * L + t) * G + unit;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g][r] = live ? ax[g * H] : 0.0f;
-      const size_t o = (rl + t) * H2 + (size_t)dir * H + unit;
-      ct[r] = live ? cseq[o] : 0.0f;
-      dyv[r] = live ? dy[o] : 0.0f;
-      cp[r] = (live && has_prev) ? cseq[(rl + tp) * H2 + (size_t)dir * H + unit] : 0.0f;
+      for (int g = 0; g < 4; ++g) dg_s[(g * U + eu) * RT + er] = d[g];
     }
+    __syncthreads();  // the block's d(gates) are in dg_s
+    if (s + 1 < L) load(s + 1);  // lands during the products
+    if (prod) {
+      float p[RT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float ig = acc[0][r], fg = acc[1][r], gg = acc[2][r], og = acc[3][r];
-      const float tc = tanhf(ct[r]);
-      const float dh = dhc[r] + dyv[r];
-      const float dc = dcc[r] + dh * og * (1.0f - tc * tc);
-      const float d[4] = {dc * gg * ig * (1.0f - ig), dc * cp[r] * fg * (1.0f - fg),
-                          dc * ig * (1.0f - gg * gg), dh * tc * og * (1.0f - og)};
-      dcc[r] = dc * fg;
-      const int row = row0 + r;
-      float* dgo = dgates + (((size_t)dir * R + (row < R ? row : 0)) * L + t) * G + unit;
+      for (int r = 0; r < RT; ++r) p[r] = 0.0f;
+#pragma unroll 4
+      for (int gu = g0; gu < g1; ++gu) {
+        const float w = w_s[(size_t)gu * H + k];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        dg_s[(g * U + u) * RT + rg * RPT + r] = d[g];
-        if (row < R) dgo[g * H] = d[g];
+        for (int q = 0; q < RT / 4; ++q) {
+          const float4 dv = *reinterpret_cast<const float4*>(dg_s + gu * RT + 4 * q);
+          p[4 * q] = fmaf(w, dv.x, p[4 * q]);
+          p[4 * q + 1] = fmaf(w, dv.y, p[4 * q + 1]);
+          p[4 * q + 2] = fmaf(w, dv.z, p[4 * q + 2]);
+          p[4 * q + 3] = fmaf(w, dv.w, p[4 * q + 3]);
+        }
       }
-    }
-    __syncthreads();  // the block's dgates are in shared memory
-    float* red = red_s + (s & 1) * cs * U * RT;
-    for (int j = 0; j < cs; ++j) {  // partial dh_prev of unit j*U+u, owned by rank j
-      const float* wk = w_s + (j * U + u) * WS;
-      float p[RPT] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int gu = 0; gu < 4 * U; ++gu) {
-        const float w = wk[gu];
-        const float4 dv = *reinterpret_cast<const float4*>(dg_s + gu * RT + rg * RPT);
-        p[0] = fmaf(w, dv.x, p[0]);
-        p[1] = fmaf(w, dv.y, p[1]);
-        p[2] = fmaf(w, dv.z, p[2]);
-        p[3] = fmaf(w, dv.w, p[3]);
-      }
-      float* remote = cluster.map_shared_rank(red, j);
-      *reinterpret_cast<float4*>(remote + (rank * U + u) * RT + rg * RPT) =
-          make_float4(p[0], p[1], p[2], p[3]);
-    }
-    // publishes every rank's partials; also no block moves on to overwrite
-    // dg_s, or to store into a buffer another block still reads
-    // (step s+1 writes the other buffer, step s+2 this one), before all
-    // have passed this point
-    cluster.sync();
+      float* dst = redb;
+      if constexpr (kCluster) dst = cg::this_cluster().map_shared_rank(redb, owner);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) dhc[r] = 0.0f;
-    for (int src = 0; src < cs; ++src) {
-      const float4 v = *reinterpret_cast<const float4*>(red + (src * U + u) * RT + rg * RPT);
-      dhc[0] += v.x;
-      dhc[1] += v.y;
-      dhc[2] += v.z;
-      dhc[3] += v.w;
+      for (int r = 0; r < RT; ++r) dst[pbase + r * U] = p[r];
+    }
+    if (s + 1 < L) coefficients();
+    // the barrier that publishes every rank's partials; also, no block
+    // moves on to overwrite dg_s, or to store into a partial buffer another
+    // block still reads (step s+1 writes the other buffer, step s+2 this
+    // one), before all have passed it.  In a cluster it is split: the
+    // d(gates) stores, which no block waits on, go between arrive and wait.
+    if constexpr (kCluster) cluster_arrive();
+    if (live) {
+      float* dgo = dgates + (((size_t)dir * R + row) * L + t_of(s)) * G + unit;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dgo[g * H] = d[g];
+    }
+    if constexpr (kCluster) cluster_wait();
+    else __syncthreads();
+    if (unit_t) {  // dh_carry: the partials of every rank and k group, in order
+      float v = 0.0f;
+      for (int j = 0; j < cs * kg; ++j) v += redb[(j * RT + er) * U + eu];
+      dhc = v;
     }
   }
 }
@@ -398,37 +472,44 @@ bool forward_serves(int H) {
   return false;
 }
 
-// The recurrence's launch: cluster size, rows per cluster, threads and
-// shared memory of a block.
+// The recurrence's launch: cluster size, rows per cluster, k groups,
+// threads and shared memory of a block.
 struct Plan {
-  int cs, rt, threads;
+  int cs, rt, kg, threads;
   size_t smem;
 };
 
-using RecKernel = void (*)(const float*, const float*, const float*, float*, int, int, int);
+using RecKernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int);
 
 RecKernel kernel_of(const Plan& p) {
+  const bool c = p.cs > 1;
   switch (p.rt) {
-    case 4: return bilstm_bwd_rec_kernel<1>;
-    case 8: return bilstm_bwd_rec_kernel<2>;
-    case 12: return bilstm_bwd_rec_kernel<3>;
-    default: return bilstm_bwd_rec_kernel<4>;
+    case 4: return c ? bilstm_bwd_rec_kernel<4, true> : bilstm_bwd_rec_kernel<4, false>;
+    case 8: return c ? bilstm_bwd_rec_kernel<8, true> : bilstm_bwd_rec_kernel<8, false>;
+    case 12: return c ? bilstm_bwd_rec_kernel<12, true> : bilstm_bwd_rec_kernel<12, false>;
+    default: return c ? bilstm_bwd_rec_kernel<16, true> : bilstm_bwd_rec_kernel<16, false>;
   }
 }
 
-// Shared-memory bytes of one recurrence block: d(gates) of the tile, two
-// buffers of partials from each rank, the W_hh slice.
-size_t rec_smem_bytes(int H, int cs, int rt) {
+// Shared-memory bytes of one recurrence block: the W_hh slice, the tile's
+// d(gates), two buffers of partials from every (rank, k group).
+size_t rec_smem_bytes(int H, int cs, int rt, int kg) {
   const size_t U = (size_t)H / cs;
-  return sizeof(float) * (4 * U * rt + 2 * cs * U * rt + (size_t)H * (4 * U + 1));
+  return sizeof(float) * (4 * U * H + 4 * U * rt + (size_t)2 * kg * rt * H);
 }
 
-// The block for cluster size cs and rt rows; false when it does not fit.
+// The block for cluster size cs and rt rows: the most k groups (up to 16,
+// at most one a gate row) whose product threads fit the thread limit and
+// whose partials fit shared memory, and a unit thread for every (unit,
+// row).  False when none fits.
 bool block_plan(int H, int cs, int rt, Plan* p) {
-  const int threads = (H / cs) * (rt / RPT);
-  const size_t smem = rec_smem_bytes(H, cs, rt);
-  if (threads > kMaxThreads || smem > kMaxSmem) return false;
-  *p = Plan{cs, rt, threads, smem};
+  const int U = H / cs;
+  int kg = std::min(std::min(kMaxKGroups, kMaxThreads / H), 4 * U);
+  while (kg > 1 && rec_smem_bytes(H, cs, rt, kg) > kMaxSmem) kg /= 2;
+  const int threads = std::max(H * kg, U * rt);
+  const size_t smem = rec_smem_bytes(H, cs, rt, kg);
+  if (kg < 1 || threads > kMaxThreads || smem > kMaxSmem) return false;
+  *p = Plan{cs, rt, kg, threads, smem};
   return true;
 }
 
@@ -442,18 +523,25 @@ cudaLaunchConfig_t launch_config(const Plan& p, dim3 grid, cudaLaunchAttribute* 
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = p.cs > 1 ? 1 : 0;
   return cfg;
 }
 
-// Clusters of plan p that the card runs at once.
-int resident_clusters(const Plan& p, cudaError_t* e) {
+// Clusters (single blocks at cs = 1) of plan p that the card runs at once.
+int resident_clusters(const Plan& p, int device, cudaError_t* e) {
   const RecKernel kernel = kernel_of(p);
   *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (*e != cudaSuccess) return 0;
+  int n = 0;
+  if (p.cs == 1) {
+    int sms = 0;
+    *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (*e == cudaSuccess)
+      *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p.threads, p.smem);
+    return n * sms;
+  }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs), &attr);
-  int n = 0;
   *e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
   return n;
 }
@@ -463,7 +551,7 @@ int resident_clusters(const Plan& p, cudaError_t* e) {
 // for and shared memory.  rt: the fewest rows per cluster (4, 8, 12 or 16)
 // with which all 2 * ceil(R / rt) clusters run at once, or else the most
 // that fit.  False (and *e unset) for an H the forward does not serve.
-bool make_plan(int H, int R, Plan* out, cudaError_t* e) {
+bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   *e = cudaSuccess;
   if (!forward_serves(H)) return false;
   for (int cs = 1; cs <= 8; cs *= 2) {
@@ -474,7 +562,7 @@ bool make_plan(int H, int R, Plan* out, cudaError_t* e) {
       if (!block_plan(H, cs, rt, &p)) break;  // more rows need more threads and memory
       *out = p;
       found = true;
-      const int resident = resident_clusters(p, e);
+      const int resident = resident_clusters(p, device, e);
       if (*e != cudaSuccess) return false;
       if (2 * ((R + rt - 1) / rt) <= resident) break;
     }
@@ -499,7 +587,7 @@ int plan_of(int H, int R, Plan* p, int* device) {
     *p = it->second;
     return 0;
   }
-  if (!make_plan(H, R, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
   plans[key] = *p;
   return 0;
 }
@@ -528,7 +616,7 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs * ((R + p.rt - 1) / p.rt), 2), &attr);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R);
+  e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
   const dim3 grid((4 * H + TM - 1) / TM, (H + 1 + TN - 1) / TN, 2);
   bilstm_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
@@ -545,9 +633,9 @@ extern "C" int bilstm_bwd_plan(int H, int R, int* plan) {
   const int err = plan_of(H, R, &p, &device);
   if (err != 0) return err;
   cudaError_t e;
-  const int resident = resident_clusters(p, &e);
+  const int resident = resident_clusters(p, device, &e);
   if (e != cudaSuccess) return clear_and_return(e);
-  const int values[7] = {p.cs, p.rt, 1, p.threads, (int)p.smem, 2 * ((R + p.rt - 1) / p.rt),
+  const int values[7] = {p.cs, p.rt, p.kg, p.threads, (int)p.smem, 2 * ((R + p.rt - 1) / p.rt),
                          resident};
   for (int i = 0; i < 7; ++i) plan[i] = values[i];
   return 0;
