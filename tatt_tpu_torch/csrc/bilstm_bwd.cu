@@ -57,10 +57,12 @@
 //   - The cluster barrier is split: the global d(gates) stores go between
 //     its arrive and its wait.  Partials are double-buffered, so it is the
 //     only barrier across blocks.
-//   Kernel 2 (the weight gradient) is a tiled f32 product over K = R*L: TPU
-// grid steps run in order and add into one dW block, Hopper blocks do not,
-// so each block owns a 64x64 tile of [dW_hh | db_hh] (db_hh as a column of
-// ones beside h_prev) over the whole K: no atomics, deterministic sums.
+//   Kernel 2 (bilstm_bwd_dw_kernel) is the weight gradient, a
+//   register-tiled f32 GEMM over the R * L (row, t) pairs, cp.async
+//   double-buffered, with db_hh summed beside it by the blocks of the first
+//   column tile.  TPU grid steps run in order and add into one dW block;
+//   Hopper blocks do not, so each output is one block's, summed over all
+//   pairs in a fixed order: no atomics, two launches are bitwise equal.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -378,69 +380,117 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
   }
 }
 
-constexpr int TM = 64;  // gate rows per tile
-constexpr int TN = 64;  // hidden columns per tile (column H is the bias)
-constexpr int TK = 16;  // (row, time) pairs per chunk
-
-__global__ void __launch_bounds__(256)
+// The weight gradient: dW_hh[d] = sum_m dgates[d, m] h_prev[m]^T and
+// db_hh[d] = sum_m dgates[d, m] over the R * L pairs m = row * L + t, a
+// register-tiled f32 GEMM.  A block forms a kWM x kWN tile of dW_hh[d]
+// (gate rows n0.., hidden columns k0..) over the whole of m, a thread 4 x
+// 4 of it (rows n0 + 4 ty + i, columns k0 + 4 tx + j), in chunks of kWK
+// pairs copied into shared memory with cp.async, two stages, so the next
+// chunk's copies fly during this chunk's products.  Each copy slot walks
+// its pair's (m, t) by additions (no divide in the loop).  The blocks of
+// column tile 0 also sum their gate rows over m (db_hh): thread tid sums
+// column tid % kWM of rows tid / kWM + 4 q of every chunk, and the four
+// runs are added in order at the end.  No atomics: each output is one
+// block's, summed in a fixed order.  VEC: 16-byte copies (H % 4 == 0).
+constexpr int kWM = 64, kWN = 64, kWK = 32, kWThreads = 256;
+template <bool VEC>
+__global__ void __launch_bounds__(kWThreads)
 bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ out,
-                     float* __restrict__ dw_hh, float* __restrict__ db_hh,
-                     int L, int H, int R) {
-  __shared__ __align__(16) float a_s[TK][TM];
-  __shared__ __align__(16) float b_s[TK][TN];
-  const int dir = blockIdx.z;
-  const int G = 4 * H;
-  const int K = R * L;  // kk = row * L + t
-  const int g0 = blockIdx.x * TM, k0 = blockIdx.y * TN;
+                     float* __restrict__ dw_hh, float* __restrict__ db_hh, int L, int H, int R) {
+  constexpr int GR = VEC ? 4 : 1;                  // floats a copy
+  constexpr int PER_ROW = kWM / GR;                // copies a row of a chunk
+  constexpr int STRIDE = kWThreads / PER_ROW;      // rows between a thread's copies
+  constexpr int SLOTS = kWK * PER_ROW / kWThreads; // copies a thread, each operand
+  constexpr int BROWS = kWThreads / kWM;           // bias runs
+  __shared__ __align__(16) float as[2][kWK][kWM];  // d(gates): pairs x gate rows
+  __shared__ __align__(16) float bs[2][kWK][kWN];  // h_prev: pairs x hidden columns
+  __shared__ float bsum_s[BROWS][kWM];
+  const int G = 4 * H, M = R * L, dir = blockIdx.z;
+  const int n0 = blockIdx.x * kWM, k0 = blockIdx.y * kWN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t H2 = 2 * (size_t)H;
+  const bool sums = blockIdx.y == 0;
+  const int crow = threadIdx.x / PER_ROW, ccol = (threadIdx.x % PER_ROW) * GR;
+  const bool a_in = n0 + ccol < G, b_in = k0 + ccol < H;
+  const float* abase = dgates + (size_t)dir * M * G + n0 + ccol;
+  const float* bbase = out + (size_t)dir * H + k0 + ccol;
+  // the pair of each copy slot, and its t; a chunk moves both on by kWK
+  int pm[SLOTS], pt[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    pm[j] = crow + STRIDE * j;
+    pt[j] = pm[j] % L;
+  }
+  const int step_t = kWK % L;
+  const auto issue = [&](int st) {
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int m = pm[j], t = pt[j];
+      const int tp = dir == 0 ? t - 1 : t + 1;
+      const bool live = m < M;
+      copy_or_zero<GR>(&as[st][crow + STRIDE * j][ccol], abase + (size_t)(live ? m : 0) * G,
+                       live && a_in);
+      const bool prev = live && b_in && tp >= 0 && tp < L;
+      copy_or_zero<GR>(&bs[st][crow + STRIDE * j][ccol],
+                       bbase + (prev ? (size_t)(m + tp - t) * H2 : 0), prev);
+      pm[j] = m + kWK;
+      pt[j] = t + step_t >= L ? t + step_t - L : t + step_t;
+    }
+  };
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int kb = 0; kb < K; kb += TK) {
-    for (int i = threadIdx.x; i < TK * TM; i += blockDim.x) {
-      const int kk = i / TM, m = i % TM;
-      const int kg = kb + kk;
-      const int g = g0 + m, k = k0 + m;
-      a_s[kk][m] = (kg < K && g < G) ? dgates[((size_t)dir * K + kg) * G + g] : 0.0f;
-      float bv = 0.0f;
-      if (kg < K) {
-        const int row = kg / L, t = kg % L;
-        const int tp = dir == 0 ? t - 1 : t + 1;
-        if (k < H) {
-          if (tp >= 0 && tp < L) bv = out[((size_t)row * L + tp) * H2 + (size_t)dir * H + k];
-        } else if (k == H) {
-          bv = 1.0f;
-        }
-      }
-      b_s[kk][m] = bv;
-    }
+  float bsum = 0.0f;
+  const int nch = (M + kWK - 1) / kWK;
+  issue(0);
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    const int st = c & 1;
+    if (c + 1 < nch) issue(st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c landed; c + 1 may be in flight
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
+#pragma unroll 8
+    for (int kk = 0; kk < kWK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[st][kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&bs[st][kk][tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bw[4] = {b.x, b.y, b.z, b.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
+    if (sums) {
+#pragma unroll
+      for (int q = 0; q < kWK / BROWS; ++q)
+        bsum += as[st][threadIdx.x / kWM + BROWS * q][threadIdx.x % kWM];
+    }
+    __syncthreads();  // stage st is free for chunk c + 2
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int g = g0 + ty * 4 + i;
-    if (g >= G) continue;
+    const int n = n0 + ty * 4 + i;
+    if (n >= G) continue;
+    float* dst = dw_hh + ((size_t)dir * G + n) * H + k0 + tx * 4;
+    if (VEC && k0 + tx * 4 < H) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tx * 4 + j;
-      if (k < H) dw_hh[((size_t)dir * G + g) * H + k] = acc[i][j];
-      else if (k == H) db_hh[(size_t)dir * G + g] = acc[i][j];
+      for (int j = 0; j < 4; ++j)
+        if (k0 + tx * 4 + j < H) dst[j] = acc[i][j];
+    }
+  }
+  if (sums) {
+    bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
+    __syncthreads();
+    if ((int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
+      float v = 0.0f;
+#pragma unroll
+      for (int q = 0; q < BROWS; ++q) v += bsum_s[q][threadIdx.x];
+      db_hh[(size_t)dir * G + n0 + threadIdx.x] = v;
     }
   }
 }
@@ -604,7 +654,8 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   if (err != 0) return err;  // before any launch
   // the gate activations into dgates, then the recurrence over them, then
   // the weight gradient
-  const bool vec = H % 4 == 0 && aligned(gates) && aligned(w_hh) && aligned(out);
+  const bool vec = H % 4 == 0 && aligned(gates) && aligned(w_hh) && aligned(out) &&
+                   aligned(dgates) && aligned(dw_hh);
   const dim3 ggrid((4 * H + kGN - 1) / kGN, (R * L + kGM - 1) / kGM, 2);
   if (vec) bilstm_bwd_gates_kernel<true><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, dgates, L, H, R);
   else bilstm_bwd_gates_kernel<false><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, dgates, L, H, R);
@@ -618,8 +669,9 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
-  const dim3 grid((4 * H + TM - 1) / TM, (H + 1 + TN - 1) / TN, 2);
-  bilstm_bwd_dw_kernel<<<grid, 256, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
+  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2);
+  if (vec) bilstm_bwd_dw_kernel<true><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
+  else bilstm_bwd_dw_kernel<false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
   return (int)cudaGetLastError();
 }
 

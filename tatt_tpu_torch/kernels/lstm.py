@@ -210,9 +210,11 @@ def bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout):
         t.contiguous() for t in (gates, w_hh, b_hh, out, cs, dout)
     )
     dgates = torch.empty_like(gates)
-    dw = torch.zeros_like(w_hh)
-    db = torch.zeros_like(b_hh)
-    if length > 0 and rows > 0:
+    launch = length > 0 and rows > 0
+    # the kernel writes every weight and bias gradient; no pairs sum to 0
+    dw = torch.empty_like(w_hh) if launch else torch.zeros_like(w_hh)
+    db = torch.empty_like(b_hh) if launch else torch.zeros_like(b_hh)
+    if launch:
         lib = _build.load("bilstm_bwd", _BWD_ARGTYPES)
         with torch.cuda.device(gates.device):
             stream = torch.cuda.current_stream().cuda_stream
