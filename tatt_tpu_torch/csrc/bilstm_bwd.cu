@@ -60,9 +60,12 @@
 //   Kernel 2 (bilstm_bwd_dw_kernel) is the weight gradient, a
 //   register-tiled f32 GEMM over the R * L (row, t) pairs, cp.async
 //   double-buffered, with db_hh summed beside it by the blocks of the first
-//   column tile.  TPU grid steps run in order and add into one dW block;
-//   Hopper blocks do not, so each output is one block's, summed over all
-//   pairs in a fixed order: no atomics, two launches are bitwise equal.
+//   column tile.  The pairs of a tile are split over a cluster of up to 8
+//   blocks, so that the card holds ~4 blocks an SM (at H=256 the 128
+//   tiles alone left one block of 8 warps an SM).  TPU grid steps run in
+//   order and add into one dW block; Hopper blocks do not, so rank 0 of the
+//   cluster adds the blocks' partials in rank order through distributed
+//   shared memory: no atomics, two launches are bitwise equal.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -116,14 +119,17 @@ __device__ __forceinline__ void copy_or_zero(float* dst, const float* src, bool 
 // The gate pre-pass: for every (direction d, row, t) at once,
 //   a = x + W_hh[d] h_prev + b_hh[d];  act = [s(a_i), s(a_f), tanh(a_g), s(a_o)]
 // into `act` ([2, R, L, 4H], the dgates buffer).  Per direction a
-// register-tiled f32 product [R*L x H] x [H x 4H]: a block forms a tile of
-// kGM (row, t) pairs m by kGN gate rows n, a thread 4 x 4 of them (m = tm
-// + 16 i, n = tn + 16 j, so a warp's lanes walk n: its W reads hit
-// neighbouring rows, its h reads two, and its stores run along n), over k
-// in chunks of kGK copied into shared memory with cp.async, two stages.
+// register-tiled f32 product [R*L x H] x [H x 4H]: a block of 4 warps forms
+// a tile of kGM (row, t) pairs m by kGN gate rows n, a thread 4 x 4 of
+// them (m = tm + 16 i, n = tn + 8 j, so a warp's lanes walk n: its W reads
+// hit eight neighbouring rows, its h reads four, and its stores run along
+// n), over k in chunks of kGK copied into shared memory with cp.async, two
+// stages.  Small blocks: at H=256, R=64 the 1,664 tiles of the two
+// directions run in ~2.1 waves of 6 blocks an SM, where 832 tiles of
+// twice the size ran in three waves of three.
 // Row m = row * L + t of h_prev is row m -/+ 1 of `out` (direction 0 / 1),
 // zero at the direction's first step.  VEC: 16-byte copies (H % 4 == 0).
-constexpr int kGM = 64, kGN = 64, kGK = 32, kGKS = kGK + 4, kGThreads = 256;
+constexpr int kGM = 64, kGN = 32, kGK = 32, kGKS = kGK + 4, kGThreads = 128;
 template <bool VEC>
 __global__ void __launch_bounds__(kGThreads)
 bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
@@ -132,34 +138,40 @@ bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict
   constexpr int GR = VEC ? 4 : 1;                    // floats a copy
   constexpr int PER_ROW = kGK / GR;                  // copies a row of a chunk
   constexpr int STRIDE = kGThreads / PER_ROW;        // rows between a thread's copies
-  constexpr int SLOTS = kGM * PER_ROW / kGThreads;   // copies a thread, each tile
+  constexpr int HSLOTS = kGM * PER_ROW / kGThreads;  // copies a thread: h_prev tile
+  constexpr int WSLOTS = kGN * PER_ROW / kGThreads;  // W_hh tile
   __shared__ __align__(16) float hs[2][kGM][kGKS];
   __shared__ __align__(16) float ws[2][kGN][kGKS];
   const int G = 4 * H, M = R * L, dir = blockIdx.z;
   const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM;
-  const int tn = threadIdx.x % 16, tm = threadIdx.x / 16;
+  const int tn = threadIdx.x % 8, tm = threadIdx.x / 8;
   const size_t H2 = 2 * (size_t)H;
-  // this thread's copy slots: rows crow + STRIDE j of both tiles, column ccol
+  // this thread's copy slots: rows crow + STRIDE j of each tile, column ccol
   const int crow = threadIdx.x / PER_ROW, ccol = (threadIdx.x % PER_ROW) * GR;
-  const float* hsrc[SLOTS];
-  const float* wsrc[SLOTS];
-  bool hok[SLOTS], wok[SLOTS];
+  const float* hsrc[HSLOTS];
+  const float* wsrc[WSLOTS];
+  bool hok[HSLOTS], wok[WSLOTS];
 #pragma unroll
-  for (int j = 0; j < SLOTS; ++j) {
-    const int m = m0 + crow + STRIDE * j, n = n0 + crow + STRIDE * j;
+  for (int j = 0; j < HSLOTS; ++j) {
+    const int m = m0 + crow + STRIDE * j;
     const int t = m % L, tp = dir == 0 ? t - 1 : t + 1;
     hok[j] = m < M && tp >= 0 && tp < L;
     hsrc[j] = out + (hok[j] ? (size_t)(m + tp - t) * H2 + (size_t)dir * H : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < WSLOTS; ++j) {
+    const int n = n0 + crow + STRIDE * j;
     wok[j] = n < G;
     wsrc[j] = w_hh + (wok[j] ? ((size_t)dir * G + n) * H : 0);
   }
   const auto issue = [&](int k0, int st) {
     const int k = k0 + ccol;
 #pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
+    for (int j = 0; j < HSLOTS; ++j)
       copy_or_zero<GR>(&hs[st][crow + STRIDE * j][ccol], hsrc[j] + k, hok[j] && k < H);
+#pragma unroll
+    for (int j = 0; j < WSLOTS; ++j)
       copy_or_zero<GR>(&ws[st][crow + STRIDE * j][ccol], wsrc[j] + k, wok[j] && k < H);
-    }
   };
   float acc[4][4];
 #pragma unroll
@@ -181,7 +193,7 @@ bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict
 #pragma unroll
       for (int i = 0; i < 4; ++i) hv[i] = *reinterpret_cast<const float4*>(&hs[st][tm + 16 * i][kk]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(&ws[st][tn + 16 * j][kk]);
+      for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(&ws[st][tn + 8 * j][kk]);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -196,7 +208,7 @@ bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tn + 16 * j;
+    const int n = n0 + tn + 8 * j;
     if (n >= G) continue;
     const bool cell = n / H == 2;  // the g gate: tanh
     const float bias = b_hh[dir * G + n];
@@ -382,16 +394,19 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
 
 // The weight gradient: dW_hh[d] = sum_m dgates[d, m] h_prev[m]^T and
 // db_hh[d] = sum_m dgates[d, m] over the R * L pairs m = row * L + t, a
-// register-tiled f32 GEMM.  A block forms a kWM x kWN tile of dW_hh[d]
-// (gate rows n0.., hidden columns k0..) over the whole of m, a thread 4 x
-// 4 of it (rows n0 + 4 ty + i, columns k0 + 4 tx + j), in chunks of kWK
-// pairs copied into shared memory with cp.async, two stages, so the next
-// chunk's copies fly during this chunk's products.  Each copy slot walks
-// its pair's (m, t) by additions (no divide in the loop).  The blocks of
-// column tile 0 also sum their gate rows over m (db_hh): thread tid sums
-// column tid % kWM of rows tid / kWM + 4 q of every chunk, and the four
-// runs are added in order at the end.  No atomics: each output is one
-// block's, summed in a fixed order.  VEC: 16-byte copies (H % 4 == 0).
+// register-tiled f32 GEMM.  A cluster of S blocks forms a kWM x kWN tile
+// of dW_hh[d] (gate rows n0.., hidden columns k0..); block `rank` takes the
+// rank-th of S runs of the chunks of m, a thread 4 x 4 of the tile (rows
+// n0 + 4 ty + i, columns k0 + 4 tx + j), in chunks of kWK pairs copied
+// into shared memory with cp.async, two stages, so the next chunk's copies
+// fly during this chunk's products.  Each copy slot walks its pair's (m,
+// t) by additions (no divide in the loop).  The blocks of column tile 0
+// also sum their gate rows over m (db_hh): thread tid sums column tid %
+// kWM of rows tid / kWM + 4 q of every chunk.  At the end each block
+// leaves its partial tile in its shared memory, and rank 0 adds the S
+// partials in rank order through distributed shared memory.  No atomics:
+// every output is summed in a fixed order.  VEC: 16-byte copies (H % 4
+// == 0).
 constexpr int kWM = 64, kWN = 64, kWK = 32, kWThreads = 256;
 template <bool VEC>
 __global__ void __launch_bounds__(kWThreads)
@@ -405,7 +420,9 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   __shared__ __align__(16) float as[2][kWK][kWM];  // d(gates): pairs x gate rows
   __shared__ __align__(16) float bs[2][kWK][kWN];  // h_prev: pairs x hidden columns
   __shared__ float bsum_s[BROWS][kWM];
-  const int G = 4 * H, M = R * L, dir = blockIdx.z;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int G = 4 * H, M = R * L, dir = blockIdx.z / S;
   const int n0 = blockIdx.x * kWM, k0 = blockIdx.y * kWN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t H2 = 2 * (size_t)H;
@@ -414,11 +431,14 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   const bool a_in = n0 + ccol < G, b_in = k0 + ccol < H;
   const float* abase = dgates + (size_t)dir * M * G + n0 + ccol;
   const float* bbase = out + (size_t)dir * H + k0 + ccol;
-  // the pair of each copy slot, and its t; a chunk moves both on by kWK
+  // this block's run of chunks; the pair of each copy slot, and its t (a
+  // chunk moves both on by kWK)
+  const int nall = (M + kWK - 1) / kWK;
+  const int c0 = (int)((long long)nall * rank / S), c1 = (int)((long long)nall * (rank + 1) / S);
   int pm[SLOTS], pt[SLOTS];
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
-    pm[j] = crow + STRIDE * j;
+    pm[j] = c0 * kWK + crow + STRIDE * j;
     pt[j] = pm[j] % L;
   }
   const int step_t = kWK % L;
@@ -443,8 +463,8 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
   float bsum = 0.0f;
-  const int nch = (M + kWK - 1) / kWK;
-  issue(0);
+  const int nch = c1 - c0;
+  if (nch > 0) issue(0);
   cp_async_commit();
   for (int c = 0; c < nch; ++c) {
     const int st = c & 1;
@@ -470,29 +490,50 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
     }
     __syncthreads();  // stage st is free for chunk c + 2
   }
+  // this block's partials into its own shared memory (the copy stages are
+  // free: the loop ended on a barrier), then rank 0 adds all S in order
+  float* part = &as[0][0][0];  // [kWM][kWN]
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
-    if (n >= G) continue;
-    float* dst = dw_hh + ((size_t)dir * G + n) * H + k0 + tx * 4;
-    if (VEC && k0 + tx * 4 < H) {
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(part + (ty * 4 + i) * kWN + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  if (sums) bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
+  cluster.sync();  // every block's partials are in its shared memory
+  if (rank == 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tx * 4 + j < H) dst[j] = acc[i][j];
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + ty * 4 + i;
+      float4 v = *reinterpret_cast<const float4*>(part + (ty * 4 + i) * kWN + tx * 4);
+      for (int r = 1; r < S; ++r) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, r) + (ty * 4 + i) * kWN + tx * 4);
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
+      }
+      if (n >= G) continue;
+      float* dst = dw_hh + ((size_t)dir * G + n) * H + k0 + tx * 4;
+      if (VEC && k0 + tx * 4 < H) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + tx * 4 + j < H) dst[j] = vv[j];
+      }
     }
-  }
-  if (sums) {
-    bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
-    __syncthreads();
-    if ((int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
+    if (sums && (int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
       float v = 0.0f;
+      for (int r = 0; r < S; ++r) {
+        const float* bs_r = cluster.map_shared_rank(&bsum_s[0][0], r);
 #pragma unroll
-      for (int q = 0; q < BROWS; ++q) v += bsum_s[q][threadIdx.x];
+        for (int q = 0; q < BROWS; ++q) v += bs_r[q * kWM + threadIdx.x];
+      }
       db_hh[(size_t)dir * G + n0 + threadIdx.x] = v;
     }
   }
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 bool aligned(const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
@@ -527,6 +568,7 @@ bool forward_serves(int H) {
 struct Plan {
   int cs, rt, kg, threads;
   size_t smem;
+  int sms;  // the card's SMs
 };
 
 using RecKernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int);
@@ -559,7 +601,7 @@ bool block_plan(int H, int cs, int rt, Plan* p) {
   const int threads = std::max(H * kg, U * rt);
   const size_t smem = rec_smem_bytes(H, cs, rt, kg);
   if (kg < 1 || threads > kMaxThreads || smem > kMaxSmem) return false;
-  *p = Plan{cs, rt, kg, threads, smem};
+  *p = Plan{cs, rt, kg, threads, smem, 0};
   return true;
 }
 
@@ -596,6 +638,18 @@ int resident_clusters(const Plan& p, int device, cudaError_t* e) {
   return n;
 }
 
+// Blocks of a weight-gradient cluster for hidden size H over M pairs: the
+// most of 1, 2, 4, 8 with which the grid stays within four blocks an SM
+// and each block keeps at least 4 chunks of pairs (4 at H=256, R=64, L=26:
+// 512 blocks of 8 warps; 8 at H=64).
+int dw_split(int H, int M, int sms) {
+  const int tiles = 2 * ((4 * H + kWM - 1) / kWM) * ((H + kWN - 1) / kWN);
+  const int chunks = (M + kWK - 1) / kWK;
+  int s = 1;
+  while (s < 8 && tiles * 2 * s <= 4 * sms && chunks >= 4 * 2 * s) s *= 2;
+  return s;
+}
+
 // The launch for hidden size H and R rows.  cs: the smallest cluster size
 // that divides H and whose block fits the threads the kernel is compiled
 // for and shared memory.  rt: the fewest rows per cluster (4, 8, 12 or 16)
@@ -616,7 +670,10 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
       if (*e != cudaSuccess) return false;
       if (2 * ((R + rt - 1) / rt) <= resident) break;
     }
-    if (found) return true;
+    if (found) {
+      *e = cudaDeviceGetAttribute(&out->sms, cudaDevAttrMultiProcessorCount, device);
+      return *e == cudaSuccess;
+    }
   }
   return false;
 }
@@ -669,9 +726,24 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
-  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2);
-  if (vec) bilstm_bwd_dw_kernel<true><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
-  else bilstm_bwd_dw_kernel<false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
+  // the weight gradient: each tile's pairs split over a cluster of `split`
+  const int split = dw_split(H, R * L, p.sms);
+  cudaLaunchConfig_t wcfg = {};
+  wcfg.gridDim = dim3((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2 * split);
+  wcfg.blockDim = dim3(kWThreads);
+  wcfg.stream = stream;
+  cudaLaunchAttribute wattr;
+  wattr.id = cudaLaunchAttributeClusterDimension;
+  wattr.val.clusterDim.x = 1;
+  wattr.val.clusterDim.y = 1;
+  wattr.val.clusterDim.z = split;
+  wcfg.attrs = &wattr;
+  wcfg.numAttrs = 1;
+  e = vec ? cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<true>, (const float*)dgates, out, dw_hh,
+                               db_hh, L, H, R)
+          : cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<false>, (const float*)dgates, out,
+                               dw_hh, db_hh, L, H, R);
+  if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
 
