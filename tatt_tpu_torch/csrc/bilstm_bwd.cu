@@ -60,12 +60,12 @@
 //   Kernel 2 (bilstm_bwd_dw_kernel) is the weight gradient, a
 //   register-tiled f32 GEMM over the R * L (row, t) pairs, cp.async
 //   double-buffered, with db_hh summed beside it by the blocks of the first
-//   column tile.  The pairs of a tile are split over a cluster of up to 8
-//   blocks, so that the card holds ~4 blocks an SM (at H=256 the 128
-//   tiles alone left one block of 8 warps an SM).  TPU grid steps run in
-//   order and add into one dW block; Hopper blocks do not, so rank 0 of the
-//   cluster adds the blocks' partials in rank order through distributed
-//   shared memory: no atomics, two launches are bitwise equal.
+//   column tile.  Where the tiles alone leave SMs idle (8 tiles at H=64),
+//   the pairs of a tile are split over a cluster of up to 8 blocks.  TPU
+//   grid steps run in order and add into one dW block; Hopper blocks do
+//   not, so rank 0 of the cluster adds the blocks' partials in rank order
+//   through distributed shared memory: no atomics, two launches are
+//   bitwise equal.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -639,14 +639,16 @@ int resident_clusters(const Plan& p, int device, cudaError_t* e) {
 }
 
 // Blocks of a weight-gradient cluster for hidden size H over M pairs: the
-// most of 1, 2, 4, 8 with which the grid stays within four blocks an SM
-// and each block keeps at least 4 chunks of pairs (4 at H=256, R=64, L=26:
-// 512 blocks of 8 warps; 8 at H=64).
+// most of 1, 2, 4, 8 with which the grid stays within one block an SM and
+// each block keeps at least 4 chunks of pairs.  The split fills SMs that
+// the tiles alone leave idle (H=64: 8 tiles, split 8), and no more: at
+// H=256 (128 tiles) a split of 4, four blocks an SM, was slower than none
+// (0.076 against 0.064 ms a pass, H100).
 int dw_split(int H, int M, int sms) {
   const int tiles = 2 * ((4 * H + kWM - 1) / kWM) * ((H + kWN - 1) / kWN);
   const int chunks = (M + kWK - 1) / kWK;
   int s = 1;
-  while (s < 8 && tiles * 2 * s <= 4 * sms && chunks >= 4 * 2 * s) s *= 2;
+  while (s < 8 && tiles * 2 * s <= sms && chunks >= 4 * 2 * s) s *= 2;
   return s;
 }
 
