@@ -124,9 +124,9 @@ __device__ __forceinline__ void copy_or_zero(float* dst, const float* src, bool 
 // them (m = tm + 16 i, n = tn + 8 j, so a warp's lanes walk n: its W reads
 // hit eight neighbouring rows, its h reads four, and its stores run along
 // n), over k in chunks of kGK copied into shared memory with cp.async, two
-// stages.  Small blocks: at H=256, R=64 the 1,664 tiles of the two
-// directions run in ~2.1 waves of 6 blocks an SM, where 832 tiles of
-// twice the size ran in three waves of three.
+// stages.  Small blocks, so that the last wave of the grid is short: at
+// H=256, R=64 (1,664 tiles) 0.073 ms a pass against 0.079 for 64 x 64
+// tiles on 8 warps (H100 80GB HBM3, 700 W).
 // Row m = row * L + t of h_prev is row m -/+ 1 of `out` (direction 0 / 1),
 // zero at the direction's first step.  VEC: 16-byte copies (H % 4 == 0).
 constexpr int kGM = 64, kGN = 32, kGK = 32, kGKS = kGK + 4, kGThreads = 128;
@@ -641,9 +641,10 @@ int resident_clusters(const Plan& p, int device, cudaError_t* e) {
 // Blocks of a weight-gradient cluster for hidden size H over M pairs: the
 // most of 1, 2, 4, 8 with which the grid stays within one block an SM and
 // each block keeps at least 4 chunks of pairs.  The split fills SMs that
-// the tiles alone leave idle (H=64: 8 tiles, split 8), and no more: at
-// H=256 (128 tiles) a split of 4, four blocks an SM, was slower than none
-// (0.076 against 0.064 ms a pass, H100).
+// the tiles alone leave idle (H=64: 8 tiles, split 8: 0.017 against 0.063
+// ms a pass), and no more: at H=256 (128 tiles) a split of 4, four blocks
+// an SM, was slower than none (0.076 against 0.064 ms; H100 80GB HBM3,
+// 700 W).
 int dw_split(int H, int M, int sms) {
   const int tiles = 2 * ((4 * H + kWM - 1) / kWM) * ((H + kWN - 1) / kWN);
   const int chunks = (M + kWK - 1) / kWK;

@@ -273,6 +273,23 @@ def test_bilstm_bwd_refuses_what_the_forward_refuses(cuda):
         assert bilstm_recurrence_bwd.launches == before
 
 
+def test_bilstm_bwd_serves_every_hidden_the_forward_serves(cuda):
+    """For every H up to 256 the backward has a launch plan exactly when
+    the forward has one, so a BiLSTM that runs its forward on the card
+    also runs its backward (fault C.1: 35 of them did not)."""
+    from tatt_tpu_torch.kernels.lstm import bilstm_bwd_plan, bilstm_fwd_plan
+
+    def serves(plan, hid):
+        try:
+            plan(hid, 64)
+        except ValueError:
+            return False
+        return True
+
+    for hid in range(1, 257):
+        assert serves(bilstm_bwd_plan, hid) == serves(bilstm_fwd_plan, hid), hid
+
+
 def test_bilstm_bwd_kernel_is_deterministic(cuda):
     """Two launches on the same inputs give bitwise-equal results at the
     student's shape and the judge's H: every sum (the dh partials of the
