@@ -61,7 +61,9 @@
 //   register-tiled f32 GEMM over the R * L (row, t) pairs, cp.async
 //   double-buffered, with db_hh summed beside it by the blocks of the first
 //   column tile.  Where the tiles alone leave SMs idle (8 tiles at H=64),
-//   the pairs of a tile are split over a cluster of up to 8 blocks.  TPU
+//   the pairs of a tile are split over a cluster of up to 8 blocks (a
+//   launch with clusters cost ~0.02 ms at H=256 even with one block a
+//   cluster, so a split of 1 is a plain launch).  TPU
 //   grid steps run in order and add into one dW block; Hopper blocks do
 //   not, so rank 0 of the cluster adds the blocks' partials in rank order
 //   through distributed shared memory: no atomics, two launches are
@@ -408,7 +410,7 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
 // every output is summed in a fixed order.  VEC: 16-byte copies (H % 4
 // == 0).
 constexpr int kWM = 64, kWN = 64, kWK = 32, kWThreads = 256;
-template <bool VEC>
+template <bool VEC, bool kSplit>
 __global__ void __launch_bounds__(kWThreads)
 bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ out,
                      float* __restrict__ dw_hh, float* __restrict__ db_hh, int L, int H, int R) {
@@ -420,8 +422,8 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   __shared__ __align__(16) float as[2][kWK][kWM];  // d(gates): pairs x gate rows
   __shared__ __align__(16) float bs[2][kWK][kWN];  // h_prev: pairs x hidden columns
   __shared__ float bsum_s[BROWS][kWM];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int S = kSplit ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = kSplit ? (int)cg::this_cluster().block_rank() : 0;
   const int G = 4 * H, M = R * L, dir = blockIdx.z / S;
   const int n0 = blockIdx.x * kWM, k0 = blockIdx.y * kWN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -490,19 +492,48 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
     }
     __syncthreads();  // stage st is free for chunk c + 2
   }
-  // this block's partials into its own shared memory (the copy stages are
-  // free: the loop ended on a barrier), then rank 0 adds all S in order
+  // row i of this thread's part of the tile into dW_hh
+  const auto put = [&](int i, float4 v) {
+    const int n = n0 + ty * 4 + i;
+    if (n >= G) return;
+    float* dst = dw_hh + ((size_t)dir * G + n) * H + k0 + tx * 4;
+    if (VEC && k0 + tx * 4 < H) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + tx * 4 + j < H) dst[j] = vv[j];
+    }
+  };
+  if (sums) bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
+  if constexpr (!kSplit) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) put(i, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    if (sums) {
+      __syncthreads();
+      if ((int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
+        float v = 0.0f;
+#pragma unroll
+        for (int q = 0; q < BROWS; ++q) v += bsum_s[q][threadIdx.x];
+        db_hh[(size_t)dir * G + n0 + threadIdx.x] = v;
+      }
+    }
+    return;
+  }
+  // a split: this block's partials into its own shared memory (the copy
+  // stages are free: the loop ended on a barrier), then rank 0 adds all S
+  // in rank order
+  cg::cluster_group cluster = cg::this_cluster();
   float* part = &as[0][0][0];  // [kWM][kWN]
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     *reinterpret_cast<float4*>(part + (ty * 4 + i) * kWN + tx * 4) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  if (sums) bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
   cluster.sync();  // every block's partials are in its shared memory
   if (rank == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int n = n0 + ty * 4 + i;
       float4 v = *reinterpret_cast<const float4*>(part + (ty * 4 + i) * kWN + tx * 4);
       for (int r = 1; r < S; ++r) {
         const float4 w = *reinterpret_cast<const float4*>(
@@ -512,16 +543,7 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
         v.z += w.z;
         v.w += w.w;
       }
-      if (n >= G) continue;
-      float* dst = dw_hh + ((size_t)dir * G + n) * H + k0 + tx * 4;
-      if (VEC && k0 + tx * 4 < H) {
-        *reinterpret_cast<float4*>(dst) = v;
-      } else {
-        const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + tx * 4 + j < H) dst[j] = vv[j];
-      }
+      put(i, v);
     }
     if (sums && (int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
       float v = 0.0f;
@@ -729,23 +751,31 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
-  // the weight gradient: each tile's pairs split over a cluster of `split`
+  // the weight gradient; where a split pays, each tile's pairs are split
+  // over a cluster of `split` blocks
   const int split = dw_split(H, R * L, p.sms);
-  cudaLaunchConfig_t wcfg = {};
-  wcfg.gridDim = dim3((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2 * split);
-  wcfg.blockDim = dim3(kWThreads);
-  wcfg.stream = stream;
-  cudaLaunchAttribute wattr;
-  wattr.id = cudaLaunchAttributeClusterDimension;
-  wattr.val.clusterDim.x = 1;
-  wattr.val.clusterDim.y = 1;
-  wattr.val.clusterDim.z = split;
-  wcfg.attrs = &wattr;
-  wcfg.numAttrs = 1;
-  e = vec ? cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<true>, (const float*)dgates, out, dw_hh,
-                               db_hh, L, H, R)
-          : cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<false>, (const float*)dgates, out,
-                               dw_hh, db_hh, L, H, R);
+  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2 * split);
+  if (split == 1) {
+    if (vec) bilstm_bwd_dw_kernel<true, false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
+    else bilstm_bwd_dw_kernel<false, false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
+    e = cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t wcfg = {};
+    wcfg.gridDim = wgrid;
+    wcfg.blockDim = dim3(kWThreads);
+    wcfg.stream = stream;
+    cudaLaunchAttribute wattr;
+    wattr.id = cudaLaunchAttributeClusterDimension;
+    wattr.val.clusterDim.x = 1;
+    wattr.val.clusterDim.y = 1;
+    wattr.val.clusterDim.z = split;
+    wcfg.attrs = &wattr;
+    wcfg.numAttrs = 1;
+    e = vec ? cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<true, true>, (const float*)dgates,
+                                 out, dw_hh, db_hh, L, H, R)
+            : cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<false, true>, (const float*)dgates,
+                                 out, dw_hh, db_hh, L, H, R);
+  }
   if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
