@@ -28,7 +28,7 @@
 // too large for one block's 227 KB of shared memory, and R is only 64.
 // The PR 2 design recomputed the gates on the chain (half of each step's
 // FMAs, behind a global-to-shared copy of h_prev and a barrier), had three
-// barriers a step, and launched 64 blocks of 4 warps: 40+ us a step.
+// barriers a step, and launched 64 blocks of 4 warps: 29-30 us a step.
 //
 // Design.
 //   Kernel 0 (bilstm_bwd_gates_kernel) recomputes the gate activations of
@@ -60,14 +60,16 @@
 //   Kernel 2 (bilstm_bwd_dw_kernel) is the weight gradient, a
 //   register-tiled f32 GEMM over the R * L (row, t) pairs, cp.async
 //   double-buffered, with db_hh summed beside it by the blocks of the first
-//   column tile.  Where the tiles alone leave SMs idle (8 tiles at H=64),
-//   the pairs of a tile are split over a cluster of up to 8 blocks (a
-//   launch with clusters cost ~0.02 ms at H=256 even with one block a
-//   cluster, so a split of 1 is a plain launch).  TPU
-//   grid steps run in order and add into one dW block; Hopper blocks do
-//   not, so rank 0 of the cluster adds the blocks' partials in rank order
-//   through distributed shared memory: no atomics, two launches are
-//   bitwise equal.
+//   column tile.  TPU grid steps run in order and add into one dW block;
+//   Hopper blocks do not, so each output is one block's, summed over all
+//   pairs in a fixed order: no atomics, two launches are bitwise equal.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 6, L=26,
+// R=64, H=256, 15 clusters of the plan resident): ~0.29 ms a launch, of
+// which the pre-pass 0.073 ms, the recurrence 0.149 ms (5.4 us a step) and
+// the weight gradient 0.064 ms; the PR 2 design took 1.16-1.20 ms in the
+// same runs.
+//
+// No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -396,21 +398,18 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
 
 // The weight gradient: dW_hh[d] = sum_m dgates[d, m] h_prev[m]^T and
 // db_hh[d] = sum_m dgates[d, m] over the R * L pairs m = row * L + t, a
-// register-tiled f32 GEMM.  A cluster of S blocks forms a kWM x kWN tile
-// of dW_hh[d] (gate rows n0.., hidden columns k0..); block `rank` takes the
-// rank-th of S runs of the chunks of m, a thread 4 x 4 of the tile (rows
-// n0 + 4 ty + i, columns k0 + 4 tx + j), in chunks of kWK pairs copied
-// into shared memory with cp.async, two stages, so the next chunk's copies
-// fly during this chunk's products.  Each copy slot walks its pair's (m,
-// t) by additions (no divide in the loop).  The blocks of column tile 0
-// also sum their gate rows over m (db_hh): thread tid sums column tid %
-// kWM of rows tid / kWM + 4 q of every chunk.  At the end each block
-// leaves its partial tile in its shared memory, and rank 0 adds the S
-// partials in rank order through distributed shared memory.  No atomics:
-// every output is summed in a fixed order.  VEC: 16-byte copies (H % 4
-// == 0).
+// register-tiled f32 GEMM.  A block forms a kWM x kWN tile of dW_hh[d]
+// (gate rows n0.., hidden columns k0..) over the whole of m, a thread 4 x
+// 4 of it (rows n0 + 4 ty + i, columns k0 + 4 tx + j), in chunks of kWK
+// pairs copied into shared memory with cp.async, two stages, so the next
+// chunk's copies fly during this chunk's products.  Each copy slot walks
+// its pair's (m, t) by additions (no divide in the loop).  The blocks of
+// column tile 0 also sum their gate rows over m (db_hh): thread tid sums
+// column tid % kWM of rows tid / kWM + 4 q of every chunk, and the four
+// runs are added in order at the end.  No atomics: each output is one
+// block's, summed in a fixed order.  VEC: 16-byte copies (H % 4 == 0).
 constexpr int kWM = 64, kWN = 64, kWK = 32, kWThreads = 256;
-template <bool VEC, bool kSplit>
+template <bool VEC>
 __global__ void __launch_bounds__(kWThreads)
 bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ out,
                      float* __restrict__ dw_hh, float* __restrict__ db_hh, int L, int H, int R) {
@@ -422,9 +421,7 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   __shared__ __align__(16) float as[2][kWK][kWM];  // d(gates): pairs x gate rows
   __shared__ __align__(16) float bs[2][kWK][kWN];  // h_prev: pairs x hidden columns
   __shared__ float bsum_s[BROWS][kWM];
-  const int S = kSplit ? (int)cg::this_cluster().num_blocks() : 1;
-  const int rank = kSplit ? (int)cg::this_cluster().block_rank() : 0;
-  const int G = 4 * H, M = R * L, dir = blockIdx.z / S;
+  const int G = 4 * H, M = R * L, dir = blockIdx.z;
   const int n0 = blockIdx.x * kWM, k0 = blockIdx.y * kWN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t H2 = 2 * (size_t)H;
@@ -433,14 +430,11 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   const bool a_in = n0 + ccol < G, b_in = k0 + ccol < H;
   const float* abase = dgates + (size_t)dir * M * G + n0 + ccol;
   const float* bbase = out + (size_t)dir * H + k0 + ccol;
-  // this block's run of chunks; the pair of each copy slot, and its t (a
-  // chunk moves both on by kWK)
-  const int nall = (M + kWK - 1) / kWK;
-  const int c0 = (int)((long long)nall * rank / S), c1 = (int)((long long)nall * (rank + 1) / S);
+  // the pair of each copy slot, and its t; a chunk moves both on by kWK
   int pm[SLOTS], pt[SLOTS];
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
-    pm[j] = c0 * kWK + crow + STRIDE * j;
+    pm[j] = crow + STRIDE * j;
     pt[j] = pm[j] % L;
   }
   const int step_t = kWK % L;
@@ -465,8 +459,8 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
   float bsum = 0.0f;
-  const int nch = c1 - c0;
-  if (nch > 0) issue(0);
+  const int nch = (M + kWK - 1) / kWK;
+  issue(0);
   cp_async_commit();
   for (int c = 0; c < nch; ++c) {
     const int st = c & 1;
@@ -492,70 +486,29 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
     }
     __syncthreads();  // stage st is free for chunk c + 2
   }
-  // row i of this thread's part of the tile into dW_hh
-  const auto put = [&](int i, float4 v) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
     const int n = n0 + ty * 4 + i;
-    if (n >= G) return;
+    if (n >= G) continue;
     float* dst = dw_hh + ((size_t)dir * G + n) * H + k0 + tx * 4;
     if (VEC && k0 + tx * 4 < H) {
-      *reinterpret_cast<float4*>(dst) = v;
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     } else {
-      const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (k0 + tx * 4 + j < H) dst[j] = vv[j];
+        if (k0 + tx * 4 + j < H) dst[j] = acc[i][j];
     }
-  };
-  if (sums) bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
-  if constexpr (!kSplit) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) put(i, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    if (sums) {
-      __syncthreads();
-      if ((int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
-        float v = 0.0f;
-#pragma unroll
-        for (int q = 0; q < BROWS; ++q) v += bsum_s[q][threadIdx.x];
-        db_hh[(size_t)dir * G + n0 + threadIdx.x] = v;
-      }
-    }
-    return;
   }
-  // a split: this block's partials into its own shared memory (the copy
-  // stages are free: the loop ended on a barrier), then rank 0 adds all S
-  // in rank order
-  cg::cluster_group cluster = cg::this_cluster();
-  float* part = &as[0][0][0];  // [kWM][kWN]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(part + (ty * 4 + i) * kWN + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  cluster.sync();  // every block's partials are in its shared memory
-  if (rank == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 v = *reinterpret_cast<const float4*>(part + (ty * 4 + i) * kWN + tx * 4);
-      for (int r = 1; r < S; ++r) {
-        const float4 w = *reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(part, r) + (ty * 4 + i) * kWN + tx * 4);
-        v.x += w.x;
-        v.y += w.y;
-        v.z += w.z;
-        v.w += w.w;
-      }
-      put(i, v);
-    }
-    if (sums && (int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
+  if (sums) {
+    bsum_s[threadIdx.x / kWM][threadIdx.x % kWM] = bsum;
+    __syncthreads();
+    if ((int)threadIdx.x < kWM && n0 + (int)threadIdx.x < G) {
       float v = 0.0f;
-      for (int r = 0; r < S; ++r) {
-        const float* bs_r = cluster.map_shared_rank(&bsum_s[0][0], r);
 #pragma unroll
-        for (int q = 0; q < BROWS; ++q) v += bs_r[q * kWM + threadIdx.x];
-      }
+      for (int q = 0; q < BROWS; ++q) v += bsum_s[q][threadIdx.x];
       db_hh[(size_t)dir * G + n0 + threadIdx.x] = v;
     }
   }
-  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 bool aligned(const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
@@ -590,7 +543,6 @@ bool forward_serves(int H) {
 struct Plan {
   int cs, rt, kg, threads;
   size_t smem;
-  int sms;  // the card's SMs
 };
 
 using RecKernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int);
@@ -623,7 +575,7 @@ bool block_plan(int H, int cs, int rt, Plan* p) {
   const int threads = std::max(H * kg, U * rt);
   const size_t smem = rec_smem_bytes(H, cs, rt, kg);
   if (kg < 1 || threads > kMaxThreads || smem > kMaxSmem) return false;
-  *p = Plan{cs, rt, kg, threads, smem, 0};
+  *p = Plan{cs, rt, kg, threads, smem};
   return true;
 }
 
@@ -660,21 +612,6 @@ int resident_clusters(const Plan& p, int device, cudaError_t* e) {
   return n;
 }
 
-// Blocks of a weight-gradient cluster for hidden size H over M pairs: the
-// most of 1, 2, 4, 8 with which the grid stays within one block an SM and
-// each block keeps at least 4 chunks of pairs.  The split fills SMs that
-// the tiles alone leave idle (H=64: 8 tiles, split 8: 0.017 against 0.063
-// ms a pass), and no more: at H=256 (128 tiles) a split of 4, four blocks
-// an SM, was slower than none (0.076 against 0.064 ms; H100 80GB HBM3,
-// 700 W).
-int dw_split(int H, int M, int sms) {
-  const int tiles = 2 * ((4 * H + kWM - 1) / kWM) * ((H + kWN - 1) / kWN);
-  const int chunks = (M + kWK - 1) / kWK;
-  int s = 1;
-  while (s < 8 && tiles * 2 * s <= sms && chunks >= 4 * 2 * s) s *= 2;
-  return s;
-}
-
 // The launch for hidden size H and R rows.  cs: the smallest cluster size
 // that divides H and whose block fits the threads the kernel is compiled
 // for and shared memory.  rt: the fewest rows per cluster (4, 8, 12 or 16)
@@ -695,10 +632,7 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
       if (*e != cudaSuccess) return false;
       if (2 * ((R + rt - 1) / rt) <= resident) break;
     }
-    if (found) {
-      *e = cudaDeviceGetAttribute(&out->sms, cudaDevAttrMultiProcessorCount, device);
-      return *e == cudaSuccess;
-    }
+    if (found) return true;
   }
   return false;
 }
@@ -751,32 +685,9 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
   cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R, p.kg);
   if (e != cudaSuccess) return clear_and_return(e);
-  // the weight gradient; where a split pays, each tile's pairs are split
-  // over a cluster of `split` blocks
-  const int split = dw_split(H, R * L, p.sms);
-  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2 * split);
-  if (split == 1) {
-    if (vec) bilstm_bwd_dw_kernel<true, false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
-    else bilstm_bwd_dw_kernel<false, false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
-    e = cudaGetLastError();
-  } else {
-    cudaLaunchConfig_t wcfg = {};
-    wcfg.gridDim = wgrid;
-    wcfg.blockDim = dim3(kWThreads);
-    wcfg.stream = stream;
-    cudaLaunchAttribute wattr;
-    wattr.id = cudaLaunchAttributeClusterDimension;
-    wattr.val.clusterDim.x = 1;
-    wattr.val.clusterDim.y = 1;
-    wattr.val.clusterDim.z = split;
-    wcfg.attrs = &wattr;
-    wcfg.numAttrs = 1;
-    e = vec ? cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<true, true>, (const float*)dgates,
-                                 out, dw_hh, db_hh, L, H, R)
-            : cudaLaunchKernelEx(&wcfg, bilstm_bwd_dw_kernel<false, true>, (const float*)dgates,
-                                 out, dw_hh, db_hh, L, H, R);
-  }
-  if (e != cudaSuccess) return clear_and_return(e);
+  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2);
+  if (vec) bilstm_bwd_dw_kernel<true><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
+  else bilstm_bwd_dw_kernel<false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
   return (int)cudaGetLastError();
 }
 
