@@ -453,7 +453,8 @@ def backward_kernels(gen, lstm_only: bool = False):
         check_lstm_bwd("student rnn0 ragged rows", 26, BATCH - 3, 512, 256, gen),
         check_lstm_bwd("judge rnn0 (H=64)", 26, BATCH, 128, 64, gen),
         check_lstm_bwd("odd H=63", 26, BATCH, 128, 63, gen),
-        # an H the PR 2 design refused (fault C.1): held on every run
+        # an odd H that an earlier design of the backward refused, though the
+        # forward served it: held on every run
         check_lstm_bwd("odd H=111", 26, BATCH, 256, 111, gen),
     ]
     for row in gru_bwd_rows + lstm_bwd_rows:

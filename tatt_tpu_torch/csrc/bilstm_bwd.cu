@@ -26,7 +26,7 @@
 // pays: shared-memory loads, a block barrier, the exchange of partial sums
 // between blocks and their barrier.  At H=256 W_hh is 1 MB per direction,
 // too large for one block's 227 KB of shared memory, and R is only 64.
-// The PR 2 design recomputed the gates on the chain (half of each step's
+// The design before this one recomputed the gates on the chain (half of each step's
 // FMAs, behind a global-to-shared copy of h_prev and a barrier), had three
 // barriers a step, and launched 64 blocks of 4 warps: 29-30 us a step.
 //
@@ -66,8 +66,8 @@
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 6, L=26,
 // R=64, H=256, 15 clusters of the plan resident): ~0.29 ms a launch, of
 // which the pre-pass 0.073 ms, the recurrence 0.149 ms (5.4 us a step) and
-// the weight gradient 0.064 ms; the PR 2 design took 1.16-1.20 ms in the
-// same runs.
+// the weight gradient 0.064 ms; the design before took 1.16-1.20 ms in
+// the same runs.
 //
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 

@@ -224,7 +224,7 @@ def test_bigru_bwd_plan_fills_the_card(cuda):
 
 # (L, R, H): the student CRNN's heads (R = batch 64, H = 256), ragged rows,
 # L=1, odd L, and H not a multiple of 32; and hidden sizes the forward
-# serves that the PR 2 design of the backward refused (fault C.1): odd H
+# serves that an earlier design of the backward refused: odd H
 # (65, 111), H = 2 mod 4 (130, 158) and H that need a cluster of 4 (212,
 # 220, 228)
 @pytest.mark.parametrize(
@@ -276,7 +276,7 @@ def test_bilstm_bwd_refuses_what_the_forward_refuses(cuda):
 def test_bilstm_bwd_serves_every_hidden_the_forward_serves(cuda):
     """For every H up to 256 the backward has a launch plan exactly when
     the forward has one, so a BiLSTM that runs its forward on the card
-    also runs its backward (fault C.1: 35 of them did not)."""
+    also runs its backward (35 of them once did not)."""
     from tatt_tpu_torch.kernels.lstm import bilstm_bwd_plan, bilstm_fwd_plan
 
     def serves(plan, hid):
