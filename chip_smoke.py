@@ -6,14 +6,16 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --forward-kernels-only   # phases 1-2 alone
   python3 chip_smoke.py --kernels-only           # phases 1, 2 and 6 alone
   python3 chip_smoke.py --lstm-bwd-only          # phase 1 and the LSTM backward of phase 6
+  python3 chip_smoke.py --gru-fwd-only           # phase 1 and the BiGRU forward of phase 2
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
   2. each forward kernel against its plain version at the main paths'
-     shapes, with timings (CUDA events) of kernel, plain version and cuDNN;
-     the LSTM kernel also without and with its cell states, by events and
-     by its own device time in a profiler window, beside the input
-     projection (cuDNN's time includes it)
+     shapes, with timings of kernel (the smaller of CUDA events and its own
+     device time in a profiler window), plain version and cuDNN, a launch at
+     L=1 and so the time of a step, and the launch plan; the LSTM kernel
+     also with its cell states, beside the input projection (cuDNN's time
+     includes it)
   3. the full-width eval path (Evaluator over 256 synthetic images at
      batch 64), launch counts, and one batch on the card against the CPU
   4. the trained fixture judge reads HR through the LSTM kernel
@@ -57,8 +59,8 @@ from tatt_tpu_torch.data.synthetic import SyntheticTextDataset  # noqa: E402
 from tatt_tpu_torch.kernels import _build  # noqa: E402
 from tatt_tpu_torch.data.collate import collate  # noqa: E402
 from tatt_tpu_torch.kernels.gru import (  # noqa: E402
-    bigru_bwd_plan, bigru_recurrence, bigru_recurrence_bwd, bigru_recurrence_bwd_ref,
-    bigru_recurrence_ref,
+    bigru_bwd_plan, bigru_fwd_plan, bigru_recurrence, bigru_recurrence_bwd,
+    bigru_recurrence_bwd_ref, bigru_recurrence_ref,
 )
 from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
     bilstm_bwd_plan, bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd,
@@ -216,14 +218,45 @@ def check_gru(name, length, rows, cin, cmid, hid, gen):
     err = (out - ref).abs().max().item()
     lib = _library_rnn(torch.nn.GRU, cin, hid, w_eff, w_hh, b_eff, b_hh)
     lib_err = (lib(x)[0] - ref.permute(2, 0, 1)).abs().max().item()
+    kernel = kernel_time(lambda: bigru_recurrence(gates, w_hh, b_hh), "bigru_fwd")
+    # one step alone: set-up (W_hh into shared memory) plus one step
+    first = gates[:, :1].contiguous()
+    one_step = kernel_time(lambda: bigru_recurrence(first, w_hh, b_hh), "bigru_fwd")
     row = dict(
         shape=name, L=length, R=rows, H=hid, In=cin, max_abs_err=err, tol=KERNEL_ATOL,
-        kernel_ms=timed_ms(lambda: bigru_recurrence(gates, w_hh, b_hh), 50),
+        kernel_ms=kernel["ms"], kernel_event_ms=kernel["event_ms"],
+        kernel_profiler_ms=kernel["profiler_ms"], one_step_ms=one_step["ms"],
         plain_ms=timed_ms(lambda: bigru_recurrence_ref(gates, w_hh, b_hh), 5),
         library_ms=timed_ms(lambda: lib(x), 50), library_err=lib_err,
+        plan=bigru_fwd_plan(hid, rows),
     )
     row["bound_ms"], row["bound_by"] = bound("gru", length, rows, hid)
     return row
+
+
+def forward_gru_rows(gen):
+    """Phase 2's BiGRU forward shapes: the eval and training batches' gru1
+    and gru2 (the kernels line reads the training pair, rows 2 and 3), then
+    ragged rows, an odd H and the largest H."""
+    return [
+        check_gru("gru1 (height scan), eval batch", 16, BATCH * 64, 128, 64, 32, gen),
+        check_gru("gru2 (width scan), eval batch", 64, BATCH * 16, 64, 64, 32, gen),
+        check_gru("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
+        check_gru("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
+        check_gru("gru1 ragged rows", 16, BATCH * 64 + 3, 128, 64, 32, gen),
+        check_gru("gru2 odd H=45, ragged rows", 64, BATCH * 16 + 5, 64, 64, 45, gen),
+        check_gru("gru2 H=128", 64, BATCH * 16, 64, 64, 128, gen),
+    ]
+
+
+def print_gru(row) -> None:
+    """A forward BiGRU shape's launch, its time a step ((launch - launch at
+    L=1) / (L - 1)) and its plan."""
+    step_us = (row["kernel_ms"] - row["one_step_ms"]) / (row["L"] - 1) * 1e3
+    print(f"[gru] {row['shape']}: kernel {row['kernel_ms']:.4f} ms (events "
+          f"{row['kernel_event_ms']:.4f}, profiler {row['kernel_profiler_ms']}); at L=1 "
+          f"{row['one_step_ms']:.4f} ms; {step_us:.2f} us a step; bound {row['bound_ms']:.4f} ms; "
+          f"nn.GRU {row['library_ms']:.4f} ms; plan {json.dumps(row['plan'])}")
 
 
 def _lstm_weights(length, rows, cin, hid, gen):
@@ -479,6 +512,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lstm-bwd-only", action="store_true",
                     help="run phase 1 and the LSTM backward of phase 6 alone (to time "
                          "versions of that kernel in turns); prints no result line")
+    ap.add_argument("--gru-fwd-only", action="store_true",
+                    help="run phase 1 and the BiGRU forward rows of phase 2 alone (to time "
+                         "versions of that kernel in turns); prints no result line")
     args = ap.parse_args(argv)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
     smi = subprocess.run(
@@ -505,6 +541,9 @@ def main(argv=None) -> int:
         print(f"[build] bilstm_bwd plan at H={hid} R={rows}: {json.dumps(bilstm_bwd_plan(hid, rows))}")
     for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (128, 2 * BATCH * 16)):
         print(f"[build] bigru_bwd plan at H={hid} R={rows}: {json.dumps(bigru_bwd_plan(hid, rows))}")
+    for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (32, BATCH * 64),
+                      (32, BATCH * 16), (128, BATCH * 16)):
+        print(f"[build] bigru_fwd plan at H={hid} R={rows}: {json.dumps(bigru_fwd_plan(hid, rows))}")
 
     if args.lstm_bwd_only:
         backward_kernels(torch.Generator().manual_seed(0), lstm_only=True)
@@ -513,14 +552,8 @@ def main(argv=None) -> int:
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        gru_rows = [
-            check_gru("gru1 (height scan), eval batch", 16, BATCH * 64, 128, 64, 32, gen),
-            check_gru("gru2 (width scan), eval batch", 64, BATCH * 16, 64, 64, 32, gen),
-            check_gru("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
-            check_gru("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
-            check_gru("gru1 ragged rows", 16, BATCH * 64 + 3, 128, 64, 32, gen),
-        ]
-        lstm_rows = [
+        gru_rows = forward_gru_rows(gen)
+        lstm_rows = [] if args.gru_fwd_only else [
             check_lstm("student/teacher rnn0", 26, BATCH, 512, 256, gen),
             check_lstm("student/teacher rnn1", 26, BATCH, 256, 256, gen),
             check_lstm("judge rnn0 (H=64)", 26, BATCH, 128, 64, gen),
@@ -531,6 +564,8 @@ def main(argv=None) -> int:
         print("[kernel] " + json.dumps(row))
         if not row["max_abs_err"] <= KERNEL_ATOL:
             fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
+    for row in gru_rows:
+        print_gru(row)
     for row in lstm_rows:
         step_us = (row["kernel_ms"] - row["one_step_ms"]) / (row["L"] - 1) * 1e3
         print(f"[lstm] {row['shape']}: kernel {row['kernel_ms']:.4f} ms "
@@ -539,7 +574,7 @@ def main(argv=None) -> int:
               f"{row['kernel_profiler_ms']}), "
               f"with c {row['kernel_cs_ms']:.4f}; + projection "
               f"{row['kernel_ms'] + row['projection_ms']:.4f} vs nn.LSTM {row['library_ms']:.4f}")
-    if args.forward_kernels_only:
+    if args.forward_kernels_only or args.gru_fwd_only:
         return 0
     if args.kernels_only:
         backward_kernels(gen)

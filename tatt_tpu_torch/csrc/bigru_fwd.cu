@@ -167,3 +167,23 @@ extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_h
   bigru_fwd_kernel<<<grid, block, smem, stream>>>(gates, w_hh, b_hh, out, L, H, R);
   return (int)cudaGetLastError();
 }
+
+// The launch for hidden size H and R rows, for logs: plan[0..6] = units and
+// rows a thread, rows, threads and shared-memory bytes of a block, blocks of
+// the grid, blocks the card runs at once.  Launches nothing.
+extern "C" int bigru_fwd_plan(int H, int R, int* plan) {
+  const int H4 = (H + 3) & ~3;
+  const int threads = RB * ((H + JT - 1) / JT);
+  const size_t smem = sizeof(float) * ((size_t)3 * H * H4 + (size_t)H4 * RB + 3 * H);
+  cudaError_t e = cudaFuncSetAttribute(bigru_fwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0, sms = 0, n = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bigru_fwd_kernel, threads, smem);
+  if (e != cudaSuccess) return clear_and_return(e);
+  const int values[7] = {JT, 1, RB, threads, (int)smem, 2 * ((R + RB - 1) / RB), n * sms};
+  for (int i = 0; i < 7; ++i) plan[i] = values[i];
+  return 0;
+}

@@ -24,9 +24,9 @@ from tatt_tpu_torch.kernels import _build
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 MAX_HIDDEN = 128
-# bigru_bwd_plan's values, in the order csrc/bigru_bwd.cu writes them
-_BWD_PLAN_KEYS = ("units_per_thread", "rows_per_thread", "rows", "threads", "smem_bytes",
-                  "blocks", "resident_blocks")
+# a launch plan's values, in the order csrc/bigru_fwd.cu and bigru_bwd.cu write them
+_PLAN_KEYS = ("units_per_thread", "rows_per_thread", "rows", "threads", "smem_bytes",
+              "blocks", "resident_blocks")
 
 
 def _gru_cell(gx, gh, hid):
@@ -143,19 +143,29 @@ def bigru_recurrence(
 bigru_recurrence.launches = 0
 
 
+def _plan(kernel: str, argtypes: list, hid: int, rows: int) -> dict:
+    if not 0 < hid <= MAX_HIDDEN:
+        raise ValueError(f"{kernel}_plan: H={hid} must be in 1..{MAX_HIDDEN}")
+    fn = getattr(_build.load(kernel, argtypes), f"{kernel}_plan")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    _build.check(fn(hid, rows, plan), f"{kernel}_plan")
+    return dict(zip(_PLAN_KEYS, plan))
+
+
+def bigru_fwd_plan(hid: int, rows: int) -> dict:
+    """How the forward kernel launches at hidden size ``hid`` over ``rows``
+    rows on the current card, for logs (launches nothing); the keys of
+    :func:`bigru_bwd_plan`."""
+    return _plan("bigru_fwd", _FWD_ARGTYPES, hid, rows)
+
+
 def bigru_bwd_plan(hid: int, rows: int) -> dict:
     """How the backward kernel's recurrence launches at hidden size ``hid``
     over ``rows`` rows on the current card, for logs (launches nothing):
     hidden units and rows a thread, rows, threads and shared-memory bytes of
     a block, blocks of the grid and blocks the card runs at once."""
-    if not 0 < hid <= MAX_HIDDEN:
-        raise ValueError(f"bigru_bwd_plan: H={hid} must be in 1..{MAX_HIDDEN}")
-    lib = _build.load("bigru_bwd", _BWD_ARGTYPES)
-    fn = lib.bigru_bwd_plan
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    plan = (ctypes.c_int * len(_BWD_PLAN_KEYS))()
-    _build.check(fn(hid, rows, plan), "bigru_bwd_plan")
-    return dict(zip(_BWD_PLAN_KEYS, plan))
+    return _plan("bigru_bwd", _BWD_ARGTYPES, hid, rows)
 
 
 def bigru_recurrence_bwd(gates, w_hh, b_hh, out, dout):
