@@ -22,12 +22,14 @@
 // out once) are small.  So the bound is the serial chain of L steps, each
 // paying shared-memory and synchronisation latency, plus the bytes.
 //
-// Design: one block per (tile of RB=32 rows, direction), looping over all
-// L steps inside the block (Hopper's blocks run in no order, so the carry
-// cannot live across blocks the way the TPU grid carries it in VMEM).
+// Design: one block per (tile of rows, direction), looping over all L
+// steps inside the block (Hopper's blocks run in no order, so the carry
+// cannot live across blocks the way the TPU grid carries it in VMEM).  The
+// plan (units a thread, rows a block) comes from the occupancy API, per
+// (device, H, R), cached.
 //   - W_hh[d] and b_hh[d] are staged once in shared memory (96x32 f32 =
 //     12 KB at H=32); every warp reads the same weight word, a broadcast.
-//   - A warp spans 32 neighbouring rows and a thread owns JT=8 hidden
+//   - A warp's lanes walk neighbouring rows and a thread owns JT hidden
 //     units of one row, so gate loads and output stores are coalesced
 //     along the rows (the [.., 3H, R] layout of the JAX kernel).
 //   - The previous h of the tile lives in shared memory, float4-packed
@@ -36,26 +38,35 @@
 //   - The step's gate inputs are loaded before the matvec so their
 //     latency hides behind it.
 //   - The ragged last tile is masked (rows >= R load zeros, store nothing).
-// Hidden sizes up to 128 are supported (smem 210 KB at H=128, opted in).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
-constexpr int RB = 32;  // rows per block: one warp spans 32 neighbouring rows
-constexpr int JT = 8;   // hidden units per thread
+constexpr int kMaxThreads = 256;  // threads of a block
+constexpr int kWarpsPerSm = 8;    // warps an SM that the plan still counts
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__global__ void __launch_bounds__(512)
+// A thread owns JT hidden units of one row: Q = ceil(H / JT) unit groups
+// times RB row groups, thread (q, lane) = threadIdx.x / RB, % RB.  kp: the
+// row stride of W_hh in shared memory.
+template <int JT>
+__global__ void __launch_bounds__(kMaxThreads)
 bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                  const float* __restrict__ b_hh, float* __restrict__ out,
-                 int L, int H, int R) {
+                 int L, int H, int R, int kp) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
   const int G = 3 * H;
-  float* w_s = smem;              // [3H][H4], zero-padded along k
-  float* h_s = w_s + G * H4;      // [H4/4][RB][4]: h[k][row] packed by 4 k's
+  const int RB = blockDim.x / ((H + JT - 1) / JT);
+  float* w_s = smem;              // [3H][kp], zero-padded along k
+  float* h_s = w_s + G * kp;      // [H4/4][RB][4]: h[k][row] packed by 4 k's
   float* b_s = h_s + H4 * RB;     // [3H]
 
   const int dir = blockIdx.y;
@@ -66,8 +77,8 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
   const size_t RS = (size_t)R;
 
   const float* w_d = w_hh + (size_t)dir * G * H;
-  for (int i = threadIdx.x; i < G * H4; i += blockDim.x) {
-    const int g = i / H4, k = i % H4;
+  for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
+    const int g = i / kp, k = i % kp;
     w_s[i] = k < H ? w_d[(size_t)g * H + k] : 0.0f;
   }
   for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[dir * G + i];
@@ -110,9 +121,9 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
       const float4 hv = *reinterpret_cast<const float4*>(h_s + k4 * RB + lane * 4);
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
-        const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * H4 + k4);
-        const float4 wz = *reinterpret_cast<const float4*>(w_s + (H + jc[u]) * H4 + k4);
-        const float4 wn = *reinterpret_cast<const float4*>(w_s + (2 * H + jc[u]) * H4 + k4);
+        const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * kp + k4);
+        const float4 wz = *reinterpret_cast<const float4*>(w_s + (H + jc[u]) * kp + k4);
+        const float4 wn = *reinterpret_cast<const float4*>(w_s + (2 * H + jc[u]) * kp + k4);
         ar[u] = fmaf(wr.x, hv.x, ar[u]); ar[u] = fmaf(wr.y, hv.y, ar[u]);
         ar[u] = fmaf(wr.z, hv.z, ar[u]); ar[u] = fmaf(wr.w, hv.w, ar[u]);
         az[u] = fmaf(wz.x, hv.x, az[u]); az[u] = fmaf(wz.y, hv.y, az[u]);
@@ -143,28 +154,143 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
   }
 }
 
-}  // namespace
+// The launch: units and rows a thread, rows, threads and shared memory of a
+// block, W_hh's row stride in shared memory.
+struct Plan {
+  int jt, rt, rows, threads, kp;
+  size_t smem;
+};
+
+using FwdKernel = void (*)(const float*, const float*, const float*, float*, int, int, int,
+                           int);
+
+// (units, rows) a thread that a plan may take
+constexpr int kShapes[3][2] = {{2, 1}, {4, 1}, {8, 1}};
+
+FwdKernel kernel_of(const Plan& p) {
+  return p.jt == 2 ? bigru_fwd_kernel<2> : p.jt == 4 ? bigru_fwd_kernel<4> : bigru_fwd_kernel<8>;
+}
+
+// shared memory of a block: W_hh, the h of `rows` rows, the bias
+size_t fwd_smem(int H, int kp, int rows) {
+  const int H4 = (H + 3) & ~3;
+  return sizeof(float) * ((size_t)3 * H * kp + (size_t)H4 * rows + 3 * H);
+}
+
+// The plan with jt units and rt rows a thread and p row groups a block;
+// W_hh's rows are padded by 4 floats where that fits (so that the rows two
+// unit groups of one warp read start on other banks).  False when it does
+// not fit.
+bool block_plan(int H, int jt, int rt, int p, int smem_max, Plan* out) {
+  const int q = (H + jt - 1) / jt;
+  if (q * p > kMaxThreads) return false;
+  const int H4 = (H + 3) & ~3;
+  for (int kp : {H4 + 4, H4}) {
+    const size_t smem = fwd_smem(H, kp, p * rt);
+    if (smem <= (size_t)smem_max) {
+      *out = Plan{jt, rt, p * rt, q * p, kp, smem};
+      return true;
+    }
+  }
+  return false;
+}
+
+// Blocks of plan p that the card runs at once.
+int resident_blocks(const Plan& p, int device, cudaError_t* e) {
+  const FwdKernel kernel = kernel_of(p);
+  *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  int sms = 0, n = 0;
+  if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*e == cudaSuccess)
+    *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p.threads, p.smem);
+  return n * sms;
+}
+
+// The plan for H and R, by the occupancy API: the fewest waves of blocks;
+// then the most SMs with a block in the first wave; then the most warps in
+// it, up to kWarpsPerSm an SM; then the fewest 16-byte shared-memory loads
+// an FMA (3 JT + RT loads for 12 JT RT FMAs a thread and k4); then the most
+// rows a block.  Tiles of at least 8 row groups.  The products wait on how
+// fast shared memory hands words to the lanes: a warp-wide 16-byte load
+// takes four cycles of the SM's, broadcast or not, so past two warps a
+// scheduler more warps add nothing and fewer loads an FMA do.
+bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
+  int smem_max = 0, sms = 0;
+  *e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*e != cudaSuccess) return false;
+  bool found = false;
+  std::tuple<int, int, int, float, int> best;
+  for (const auto& jr : kShapes) {
+    for (int p = 32; p >= 8; p /= 2) {
+      Plan plan;
+      if (!block_plan(H, jr[0], jr[1], p, smem_max, &plan)) continue;
+      const int resident = resident_blocks(plan, device, e);
+      if (*e != cudaSuccess) return false;
+      if (resident == 0) continue;
+      const int blocks = 2 * ((R + plan.rows - 1) / plan.rows);
+      const int waves = (blocks + resident - 1) / resident;
+      const int first = std::min(blocks, resident);
+      const int warps = std::min(first * ((plan.threads + 31) / 32), kWarpsPerSm * sms);
+      const float loads = (3.0f * plan.jt + plan.rt) / (plan.jt * plan.rt);
+      const auto key =
+          std::make_tuple(-waves, std::min(first, sms), warps, -loads, plan.rows);
+      if (!found || key > best) {
+        best = key;
+        *out = plan;
+        found = true;
+      }
+    }
+  }
+  return found;
+}
+
+// Plans already made, by (device, H, R): the occupancy queries stay off
+// every launch but the first of a shape.
+std::mutex plans_mu;
+std::map<std::tuple<int, int, int>, Plan> plans;
 
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
-static int clear_and_return(cudaError_t e) {
+int clear_and_return(cudaError_t e) {
   cudaGetLastError();
   return (int)e;
 }
 
+// Returned, before any launch, for an H that no plan serves (none up to
+// H = 128, the wrapper's limit: 4 units of 1 row in 8-row tiles fit).
+constexpr int kNoFit = -1;
+
+// The plan for hidden size H and R rows on the current device, made once.
+int plan_of(int H, int R, Plan* p, int* device) {
+  cudaError_t e = cudaGetDevice(device);
+  if (e != cudaSuccess) return clear_and_return(e);
+  std::lock_guard<std::mutex> lock(plans_mu);
+  const auto key = std::make_tuple(*device, H, R);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    *p = it->second;
+    return 0;
+  }
+  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  plans[key] = *p;
+  return 0;
+}
+
+}  // namespace
+
 extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_hh,
                          float* out, int L, int H, int R, cudaStream_t stream) {
-  const int tpr = (H + JT - 1) / JT;  // threads per row
-  const int H4 = (H + 3) & ~3;
-  const size_t smem = sizeof(float) * ((size_t)3 * H * H4 + (size_t)H4 * RB + 3 * H);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bigru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return clear_and_return(e);
-  }
-  const dim3 grid((R + RB - 1) / RB, 2);
-  const dim3 block(RB * tpr);
-  bigru_fwd_kernel<<<grid, block, smem, stream>>>(gates, w_hh, b_hh, out, L, H, R);
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;  // before any launch
+  const FwdKernel kernel = kernel_of(p);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return clear_and_return(e);
+  kernel<<<dim3((R + p.rows - 1) / p.rows, 2), dim3(p.threads), p.smem, stream>>>(
+      gates, w_hh, b_hh, out, L, H, R, p.kp);
   return (int)cudaGetLastError();
 }
 
@@ -172,18 +298,15 @@ extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_h
 // rows a thread, rows, threads and shared-memory bytes of a block, blocks of
 // the grid, blocks the card runs at once.  Launches nothing.
 extern "C" int bigru_fwd_plan(int H, int R, int* plan) {
-  const int H4 = (H + 3) & ~3;
-  const int threads = RB * ((H + JT - 1) / JT);
-  const size_t smem = sizeof(float) * ((size_t)3 * H * H4 + (size_t)H4 * RB + 3 * H);
-  cudaError_t e = cudaFuncSetAttribute(bigru_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int device = 0, sms = 0, n = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bigru_fwd_kernel, threads, smem);
+  Plan p;
+  int device = 0;
+  const int err = plan_of(H, R, &p, &device);
+  if (err != 0) return err;
+  cudaError_t e;
+  const int resident = resident_blocks(p, device, &e);
   if (e != cudaSuccess) return clear_and_return(e);
-  const int values[7] = {JT, 1, RB, threads, (int)smem, 2 * ((R + RB - 1) / RB), n * sms};
+  const int values[7] = {p.jt, p.rt, p.rows, p.threads, (int)p.smem,
+                         2 * ((R + p.rows - 1) / p.rows), resident};
   for (int i = 0; i < 7; ++i) plan[i] = values[i];
   return 0;
 }

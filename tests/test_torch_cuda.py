@@ -42,12 +42,14 @@ def _recurrence_inputs(shape_gates, gdim, hid, dev, seed=0):
     )
 
 
-# (L, R, H): gru1 and gru2 of the full-width generator at batch 64, a
-# ragged row count, L=1, odd L, and the hidden sizes at the dispatch edges
+# (L, R, H): gru1 and gru2 of the full-width generator at batch 64 and of
+# the fused 2B=128 training batch, ragged row counts, L=1, L=2 (both h
+# buffers once), odd L, and the hidden sizes at the dispatch edges
 @pytest.mark.parametrize(
     "length,rows,hid",
     [(16, 4096, 32), (64, 1024, 32), (16, 4099, 32), (1, 37, 32), (7, 45, 32),
-     (5, 70, 128), (9, 33, 4), (3, 10, 5)],
+     (5, 70, 128), (9, 33, 4), (3, 10, 5), (16, 8192, 32), (64, 2048, 32),
+     (64, 2049, 32), (2, 64, 32), (4, 130, 33), (3, 77, 6)],
 )
 def test_bigru_kernel_matches_plain(cuda, length, rows, hid):
     from tatt_tpu_torch.kernels.gru import bigru_recurrence, bigru_recurrence_ref
@@ -61,6 +63,58 @@ def test_bigru_kernel_matches_plain(cuda, length, rows, hid):
     assert bigru_recurrence.launches == before + 1
     assert out.shape == (length, 2 * hid, rows)
     assert (out - ref).abs().max().item() <= ATOL
+
+
+def test_bigru_fwd_serves_every_hidden(cuda):
+    """Every H from 1 to 128 (what ``rnn.BiGRU`` sends to the kernel, and
+    what the backward serves) runs on the card and matches the plain
+    version, at a row count inside one tile and at a ragged one over many
+    tiles: the plan shrinks the rows of a block where W_hh fills shared
+    memory, and never refuses."""
+    from tatt_tpu_torch.kernels.gru import bigru_recurrence, bigru_recurrence_ref
+
+    for hid in range(1, 129):
+        for rows in (37, 1029):
+            gates, w_hh, b_hh = _recurrence_inputs(
+                (2, 3, 3 * hid, rows), 3 * hid, hid, cuda, seed=hid)
+            with torch.no_grad():
+                out = bigru_recurrence(gates, w_hh, b_hh)
+                ref = bigru_recurrence_ref(gates, w_hh, b_hh)
+            torch.cuda.synchronize()
+            assert (out - ref).abs().max().item() <= ATOL, (hid, rows)
+
+
+def test_bigru_fwd_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give bitwise-equal results at both
+    training shapes: each row's sums run in one fixed order."""
+    from tatt_tpu_torch.kernels.gru import bigru_recurrence
+
+    for length, rows in ((16, 8192), (64, 2048)):
+        gates, w_hh, b_hh = _recurrence_inputs((2, length, 96, rows), 96, 32, cuda, seed=5)
+        with torch.no_grad():
+            first = bigru_recurrence(gates, w_hh, b_hh)
+            second = bigru_recurrence(gates, w_hh, b_hh)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_bigru_fwd_plan_fills_the_card(cuda):
+    """At gru2 of the fused 2B=128 training batch (R=2048) and of the eval
+    batch (R=1024), H=32, the first wave gives each of the four schedulers
+    of every SM a warp: at least one block an SM, of at least four warps,
+    and the grid in one wave.  H=128 has a plan too, within the card's
+    shared memory a block."""
+    from tatt_tpu_torch.kernels.gru import bigru_fwd_plan
+
+    props = torch.cuda.get_device_properties(cuda)
+    for rows in (2048, 1024):
+        plan = bigru_fwd_plan(32, rows)
+        assert plan["blocks"] == 2 * math.ceil(rows / plan["rows"])
+        assert plan["blocks"] <= plan["resident_blocks"]
+        assert plan["blocks"] >= props.multi_processor_count
+        assert math.ceil(plan["threads"] / 32) >= 4
+    big = bigru_fwd_plan(128, 1024)
+    assert big["rows"] >= 1 and big["smem_bytes"] <= 232448
 
 
 # (L, R, H, with_cs): the CRNN head (R = batch 64, H = 256, 8-block
