@@ -16,27 +16,18 @@
 //   w_hh  [2, 3H, H],  b_hh [2, 3H]
 //   out   [L, 2H, R]      (direction d at channels d*H .. d*H+H-1)
 //
-// What bounds it on an H100: the recurrence is serial in t, and each step
-// is a small matrix-vector product per row (3H x H multiply-adds) -- far
-// below the card's float32 rate per byte, and the bytes (gates in once,
-// out once) are small.  So the bound is the serial chain of L steps, each
-// paying shared-memory and synchronisation latency, plus the bytes.
-//
-// Design: one block per (tile of rows, direction), looping over all L
-// steps inside the block (Hopper's blocks run in no order, so the carry
-// cannot live across blocks the way the TPU grid carries it in VMEM).  The
-// plan (units a thread, rows a block) comes from the occupancy API, per
-// (device, H, R), cached.
-//   - W_hh[d] and b_hh[d] are staged once in shared memory (96x32 f32 =
-//     12 KB at H=32); every warp reads the same weight word, a broadcast.
-//   - A warp's lanes walk neighbouring rows and a thread owns JT hidden
-//     units of one row, so gate loads and output stores are coalesced
-//     along the rows (the [.., 3H, R] layout of the JAX kernel).
-//   - The previous h of the tile lives in shared memory, float4-packed
-//     along the hidden axis so each k-step of the matvec is one 16-byte
-//     load of h and three 16-byte broadcast loads of W per unit.
-//   - The step's gate inputs are loaded before the matvec so their
-//     latency hides behind it.
+// Design: one block per (tile of rows, direction) walks all L steps with
+// W_hh[d] in shared memory (Hopper's blocks run in no order, so the carry
+// cannot live across blocks the way the TPU grid carries it in VMEM).
+//   - A thread owns JT hidden units of RT rows; a warp's lanes walk
+//     neighbouring rows, so gate loads and output stores are coalesced and
+//     every lane reads the same W_hh word (a broadcast), which feeds RT rows.
+//   - h is double-buffered in shared memory, float4-packed along the hidden
+//     axis; a step's gate inputs are loaded into registers a step ahead, as
+//     soon as the step before has used its own.  A step is the products,
+//     the gate nonlinearity, the stores of h, and one barrier.
+//   - The plan (units and rows a thread, rows a block) comes from the
+//     occupancy API, per (device, H, R), cached.
 //   - The ragged last tile is masked (rows >= R load zeros, store nothing).
 
 #include <cuda_runtime.h>
@@ -53,10 +44,23 @@ constexpr int kWarpsPerSm = 8;    // warps an SM that the plan still counts
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// A thread owns JT hidden units of one row: Q = ceil(H / JT) unit groups
-// times RB row groups, thread (q, lane) = threadIdx.x / RB, % RB.  kp: the
-// row stride of W_hh in shared memory.
-template <int JT>
+// a 4-byte asynchronous copy from global to shared memory, and the wait for
+// all of this thread's copies to land
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One block per (tile of RB rows, direction).  A thread owns JT hidden
+// units (JT = 2, 4 or 8) of RT rows (RT = 1): Q = ceil(H / JT) unit
+// groups times P row groups, RB = P * RT, thread (q, p) = threadIdx.x / P,
+// % P; its rows are blockIdx.x * RB + i * P + p (i < RT), so a warp's lanes
+// walk neighbouring rows.  kp: the row stride of W_hh in shared memory (a
+// multiple of 4, at least H4).
+template <int JT, int RT>
 __global__ void __launch_bounds__(kMaxThreads)
 bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
                  const float* __restrict__ b_hh, float* __restrict__ out,
@@ -64,93 +68,146 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
   const int G = 3 * H;
-  const int RB = blockDim.x / ((H + JT - 1) / JT);
-  float* w_s = smem;              // [3H][kp], zero-padded along k
-  float* h_s = w_s + G * kp;      // [H4/4][RB][4]: h[k][row] packed by 4 k's
-  float* b_s = h_s + H4 * RB;     // [3H]
+  const int Q = (H + JT - 1) / JT;
+  const int P = blockDim.x / Q;
+  const int RB = P * RT;
+  float* w_s = smem;              // [3H][kp]: W_hh[d] rows, zero-padded along k
+  float* h_s = w_s + G * kp;      // [2][H4/4][RT][P][4]: h[k][row] packed by 4 k's
+  float* b_s = h_s + 2 * H4 * RB; // [3H]
 
   const int dir = blockIdx.y;
-  const int lane = threadIdx.x % RB;  // row within the tile
-  const int q = threadIdx.x / RB;     // which group of JT hidden units
-  const int row = blockIdx.x * RB + lane;
-  const bool live = row < R;
+  const int q = threadIdx.x / P, p = threadIdx.x % P;
+  const int row0 = blockIdx.x * RB + p;  // the thread's row i is row0 + i * P
   const size_t RS = (size_t)R;
 
+  // W_hh[d] and b_hh[d] by asynchronous copies, all in flight at once
   const float* w_d = w_hh + (size_t)dir * G * H;
   for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
     const int g = i / kp, k = i % kp;
-    w_s[i] = k < H ? w_d[(size_t)g * H + k] : 0.0f;
+    if (k < H) cp_async4(w_s + i, w_d + (size_t)g * H + k);
+    else w_s[i] = 0.0f;
   }
-  for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[dir * G + i];
-  for (int i = threadIdx.x; i < H4 * RB; i += blockDim.x) h_s[i] = 0.0f;
-  __syncthreads();
+  for (int i = threadIdx.x; i < G; i += blockDim.x) cp_async4(b_s + i, b_hh + dir * G + i);
+  // both h buffers: h before step 0, and words past H that no unit writes
+  for (int i = threadIdx.x; i < 2 * H4 * RB; i += blockDim.x) h_s[i] = 0.0f;
 
-  // this thread's units; out-of-range units clamp to H-1 for their (unused)
-  // reads so every address stays valid
+  // this thread's units and rows; out-of-range units clamp to H-1 for their
+  // (unused) reads so every address stays valid
   int jc[JT];
-  bool jv[JT];
+  bool jv[JT], rv[RT];
 #pragma unroll
   for (int u = 0; u < JT; ++u) {
     const int j = q * JT + u;
     jv[u] = j < H;
     jc[u] = jv[u] ? j : H - 1;
   }
-  float h_own[JT];
 #pragma unroll
-  for (int u = 0; u < JT; ++u) h_own[u] = 0.0f;
+  for (int i = 0; i < RT; ++i) rv[i] = row0 + i * P < R;
+
+  // the gate inputs of step s into registers
+  float xr[JT][RT], xz[JT][RT], xn[JT][RT];
+  const auto load_x = [&](int s) {
+    const int t = dir == 0 ? s : L - 1 - s;
+    const float* gx = gates + (size_t)(dir * L + t) * G * RS + row0;
+#pragma unroll
+    for (int u = 0; u < JT; ++u) {
+      const size_t j = (size_t)jc[u];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const bool ok = jv[u] && rv[i];
+        const size_t o = j * RS + (size_t)i * P;
+        xr[u][i] = ok ? gx[o] : 0.0f;
+        xz[u][i] = ok ? gx[o + (size_t)H * RS] : 0.0f;
+        xn[u][i] = ok ? gx[o + (size_t)2 * H * RS] : 0.0f;
+      }
+    }
+  };
+  float h_own[JT][RT];
+#pragma unroll
+  for (int u = 0; u < JT; ++u)
+#pragma unroll
+    for (int i = 0; i < RT; ++i) h_own[u][i] = 0.0f;
+
+  load_x(0);
+  cp_async_wait_all();
+  __syncthreads();  // W_hh, b_hh and the zero h are in place
 
   for (int s = 0; s < L; ++s) {
     const int t = dir == 0 ? s : L - 1 - s;
-    const float* gx = gates + (size_t)(dir * L + t) * G * RS + row;
-    float xr[JT], xz[JT], xn[JT];
+    const float* hb = h_s + (s & 1) * H4 * RB;  // h of the step before
+    float* hw = h_s + ((s + 1) & 1) * H4 * RB;  // this step's h
+    float ar[JT][RT], az[JT][RT], an[JT][RT];
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
-      const bool ok = live && jv[u];
-      xr[u] = ok ? gx[(size_t)jc[u] * RS] : 0.0f;
-      xz[u] = ok ? gx[(size_t)(H + jc[u]) * RS] : 0.0f;
-      xn[u] = ok ? gx[(size_t)(2 * H + jc[u]) * RS] : 0.0f;
-    }
-    float ar[JT], az[JT], an[JT];
+      const float br = b_s[jc[u]], bz = b_s[H + jc[u]], bn = b_s[2 * H + jc[u]];
 #pragma unroll
-    for (int u = 0; u < JT; ++u) {
-      ar[u] = b_s[jc[u]];
-      az[u] = b_s[H + jc[u]];
-      an[u] = b_s[2 * H + jc[u]];
+      for (int i = 0; i < RT; ++i) {
+        ar[u][i] = br;
+        az[u][i] = bz;
+        an[u][i] = bn;
+      }
     }
     for (int k4 = 0; k4 < H4; k4 += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(h_s + k4 * RB + lane * 4);
+      float4 hv[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        hv[i] = *reinterpret_cast<const float4*>(hb + ((k4 >> 2) * RT + i) * P * 4 + p * 4);
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
         const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * kp + k4);
         const float4 wz = *reinterpret_cast<const float4*>(w_s + (H + jc[u]) * kp + k4);
         const float4 wn = *reinterpret_cast<const float4*>(w_s + (2 * H + jc[u]) * kp + k4);
-        ar[u] = fmaf(wr.x, hv.x, ar[u]); ar[u] = fmaf(wr.y, hv.y, ar[u]);
-        ar[u] = fmaf(wr.z, hv.z, ar[u]); ar[u] = fmaf(wr.w, hv.w, ar[u]);
-        az[u] = fmaf(wz.x, hv.x, az[u]); az[u] = fmaf(wz.y, hv.y, az[u]);
-        az[u] = fmaf(wz.z, hv.z, az[u]); az[u] = fmaf(wz.w, hv.w, az[u]);
-        an[u] = fmaf(wn.x, hv.x, an[u]); an[u] = fmaf(wn.y, hv.y, an[u]);
-        an[u] = fmaf(wn.z, hv.z, an[u]); an[u] = fmaf(wn.w, hv.w, an[u]);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          ar[u][i] = fmaf(wr.x, hv[i].x, ar[u][i]); ar[u][i] = fmaf(wr.y, hv[i].y, ar[u][i]);
+          ar[u][i] = fmaf(wr.z, hv[i].z, ar[u][i]); ar[u][i] = fmaf(wr.w, hv[i].w, ar[u][i]);
+          az[u][i] = fmaf(wz.x, hv[i].x, az[u][i]); az[u][i] = fmaf(wz.y, hv[i].y, az[u][i]);
+          az[u][i] = fmaf(wz.z, hv[i].z, az[u][i]); az[u][i] = fmaf(wz.w, hv[i].w, az[u][i]);
+          an[u][i] = fmaf(wn.x, hv[i].x, an[u][i]); an[u][i] = fmaf(wn.y, hv[i].y, an[u][i]);
+          an[u][i] = fmaf(wn.z, hv[i].z, an[u][i]); an[u][i] = fmaf(wn.w, hv[i].w, an[u][i]);
+        }
       }
     }
-    float hn[JT];
+    // the new h; units past H hold zeros, so the padded words of h_s stay 0
 #pragma unroll
-    for (int u = 0; u < JT; ++u) {
-      const float r = sigm(xr[u] + ar[u]);
-      const float z = sigm(xz[u] + az[u]);
-      const float n = tanhf(xn[u] + r * an[u]);
-      hn[u] = (1.0f - z) * n + z * h_own[u];
-    }
-    __syncthreads();  // every thread has read the previous h
+    for (int u = 0; u < JT; ++u)
 #pragma unroll
-    for (int u = 0; u < JT; ++u) {
-      if (jv[u]) {
-        const int j = jc[u];
-        h_own[u] = hn[u];
-        h_s[(j >> 2) * RB * 4 + lane * 4 + (j & 3)] = hn[u];
-        if (live) out[((size_t)t * 2 * H + (size_t)dir * H + j) * RS + row] = hn[u];
+      for (int i = 0; i < RT; ++i) {
+        const float r = sigm(xr[u][i] + ar[u][i]);
+        const float z = sigm(xz[u][i] + az[u][i]);
+        const float n = tanhf(xn[u][i] + r * an[u][i]);
+        h_own[u][i] = jv[u] ? (1.0f - z) * n + z * h_own[u][i] : 0.0f;
+      }
+    // the next step's gate inputs: they land during the stores, the barrier
+    // and the next step's products
+    if (s + 1 < L) load_x(s + 1);
+    // h into the other buffer, 16 (JT >= 4) or 8 bytes a store; only words
+    // below H4 exist
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float* hrow = hw + i * P * 4 + p * 4;
+      if constexpr (JT % 4 == 0) {
+#pragma unroll
+        for (int v = 0; v < JT; v += 4) {
+          const int j4 = q * JT + v;
+          if (j4 < H4)
+            *reinterpret_cast<float4*>(hrow + (j4 >> 2) * RT * P * 4) =
+                make_float4(h_own[v][i], h_own[v + 1][i], h_own[v + 2][i], h_own[v + 3][i]);
+        }
+      } else {
+        const int j2 = q * JT;
+        if (j2 < H4)
+          *reinterpret_cast<float2*>(hrow + (j2 >> 2) * RT * P * 4 + (j2 & 3)) =
+              make_float2(h_own[0][i], h_own[1][i]);
       }
     }
-    __syncthreads();  // the new h is complete before the next step reads it
+    float* o = out + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row0;
+#pragma unroll
+    for (int u = 0; u < JT; ++u)
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        if (jv[u] && rv[i]) o[(size_t)jc[u] * RS + (size_t)i * P] = h_own[u][i];
+    __syncthreads();  // this step's h is complete; the step before's buffer is free
   }
 }
 
@@ -168,13 +225,14 @@ using FwdKernel = void (*)(const float*, const float*, const float*, float*, int
 constexpr int kShapes[3][2] = {{2, 1}, {4, 1}, {8, 1}};
 
 FwdKernel kernel_of(const Plan& p) {
-  return p.jt == 2 ? bigru_fwd_kernel<2> : p.jt == 4 ? bigru_fwd_kernel<4> : bigru_fwd_kernel<8>;
+  return p.jt == 2 ? bigru_fwd_kernel<2, 1> : p.jt == 4 ? bigru_fwd_kernel<4, 1>
+                                                        : bigru_fwd_kernel<8, 1>;
 }
 
-// shared memory of a block: W_hh, the h of `rows` rows, the bias
+// shared memory of a block: W_hh, two h buffers of `rows` rows, the bias
 size_t fwd_smem(int H, int kp, int rows) {
   const int H4 = (H + 3) & ~3;
-  return sizeof(float) * ((size_t)3 * H * kp + (size_t)H4 * rows + 3 * H);
+  return sizeof(float) * ((size_t)3 * H * kp + (size_t)2 * H4 * rows + 3 * H);
 }
 
 // The plan with jt units and rt rows a thread and p row groups a block;
