@@ -55,7 +55,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // One block per (tile of RB rows, direction).  A thread owns JT hidden
-// units (JT = 2, 4 or 8) of RT rows (RT = 1): Q = ceil(H / JT) unit
+// units (JT = 2 or 4) of RT rows (RT = 1, 2 or 4): Q = ceil(H / JT) unit
 // groups times P row groups, RB = P * RT, thread (q, p) = threadIdx.x / P,
 // % P; its rows are blockIdx.x * RB + i * P + p (i < RT), so a warp's lanes
 // walk neighbouring rows.  kp: the row stride of W_hh in shared memory (a
@@ -222,11 +222,12 @@ using FwdKernel = void (*)(const float*, const float*, const float*, float*, int
                            int);
 
 // (units, rows) a thread that a plan may take
-constexpr int kShapes[3][2] = {{2, 1}, {4, 1}, {8, 1}};
+constexpr int kShapes[4][2] = {{2, 4}, {4, 2}, {2, 2}, {2, 1}};
 
 FwdKernel kernel_of(const Plan& p) {
-  return p.jt == 2 ? bigru_fwd_kernel<2, 1> : p.jt == 4 ? bigru_fwd_kernel<4, 1>
-                                                        : bigru_fwd_kernel<8, 1>;
+  if (p.jt == 4) return bigru_fwd_kernel<4, 2>;
+  return p.rt == 4 ? bigru_fwd_kernel<2, 4> : p.rt == 2 ? bigru_fwd_kernel<2, 2>
+                                                        : bigru_fwd_kernel<2, 1>;
 }
 
 // shared memory of a block: W_hh, two h buffers of `rows` rows, the bias
@@ -316,7 +317,7 @@ int clear_and_return(cudaError_t e) {
 }
 
 // Returned, before any launch, for an H that no plan serves (none up to
-// H = 128, the wrapper's limit: 4 units of 1 row in 8-row tiles fit).
+// H = 128, the wrapper's limit: 4 units of 2 rows in 16-row tiles fit).
 constexpr int kNoFit = -1;
 
 // The plan for hidden size H and R rows on the current device, made once.
