@@ -71,25 +71,34 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
   const int Q = (H + JT - 1) / JT;
   const int P = blockDim.x / Q;
   const int RB = P * RT;
-  float* w_s = smem;              // [3H][kp]: W_hh[d] rows, zero-padded along k
-  float* h_s = w_s + G * kp;      // [2][H4/4][RT][P][4]: h[k][row] packed by 4 k's
-  float* b_s = h_s + 2 * H4 * RB; // [3H]
+  float* w_s = smem;           // [3H][kp]: W_hh[d] rows, zero-padded along k
+  float* h_s = w_s + G * kp;   // [H4/4][RT][P][4]: h[k][row] packed by 4 k's
+  float* b_s = h_s + H4 * RB;  // [3H]
 
   const int dir = blockIdx.y;
   const int q = threadIdx.x / P, p = threadIdx.x % P;
   const int row0 = blockIdx.x * RB + p;  // the thread's row i is row0 + i * P
   const size_t RS = (size_t)R;
 
-  // W_hh[d] and b_hh[d] by asynchronous copies, all in flight at once
+  // W_hh[d] and b_hh[d] by asynchronous copies, all in flight at once;
+  // element i = g * kp + k of w_s, (g, k) advanced without a division
   const float* w_d = w_hh + (size_t)dir * G * H;
-  for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
-    const int g = i / kp, k = i % kp;
-    if (k < H) cp_async4(w_s + i, w_d + (size_t)g * H + k);
-    else w_s[i] = 0.0f;
+  {
+    int g = threadIdx.x / kp, k = threadIdx.x - g * kp;
+    const int sg = blockDim.x / kp, sk = blockDim.x - sg * kp;
+    for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
+      if (k < H) cp_async4(w_s + i, w_d + g * H + k);
+      else w_s[i] = 0.0f;
+      g += sg;
+      k += sk;
+      if (k >= kp) {
+        k -= kp;
+        ++g;
+      }
+    }
   }
   for (int i = threadIdx.x; i < G; i += blockDim.x) cp_async4(b_s + i, b_hh + dir * G + i);
-  // both h buffers: h before step 0, and words past H that no unit writes
-  for (int i = threadIdx.x; i < 2 * H4 * RB; i += blockDim.x) h_s[i] = 0.0f;
+  for (int i = threadIdx.x; i < H4 * RB; i += blockDim.x) h_s[i] = 0.0f;  // h before step 0
 
   // this thread's units and rows; out-of-range units clamp to H-1 for their
   // (unused) reads so every address stays valid
@@ -134,8 +143,6 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
 
   for (int s = 0; s < L; ++s) {
     const int t = dir == 0 ? s : L - 1 - s;
-    const float* hb = h_s + (s & 1) * H4 * RB;  // h of the step before
-    float* hw = h_s + ((s + 1) & 1) * H4 * RB;  // this step's h
     float ar[JT][RT], az[JT][RT], an[JT][RT];
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
@@ -151,7 +158,7 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
       float4 hv[RT];
 #pragma unroll
       for (int i = 0; i < RT; ++i)
-        hv[i] = *reinterpret_cast<const float4*>(hb + ((k4 >> 2) * RT + i) * P * 4 + p * 4);
+        hv[i] = *reinterpret_cast<const float4*>(h_s + ((k4 >> 2) * RT + i) * P * 4 + p * 4);
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
         const float4 wr = *reinterpret_cast<const float4*>(w_s + jc[u] * kp + k4);
@@ -178,15 +185,15 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
         const float n = tanhf(xn[u][i] + r * an[u][i]);
         h_own[u][i] = jv[u] ? (1.0f - z) * n + z * h_own[u][i] : 0.0f;
       }
-    // the next step's gate inputs: they land during the stores, the barrier
-    // and the next step's products
+    // the next step's gate inputs: they land during the stores, the
+    // barriers and the next step's products
     if (s + 1 < L) load_x(s + 1);
-    // h into the other buffer, 16 (JT >= 4) or 8 bytes a store; only words
-    // below H4 exist
+    __syncthreads();  // every thread has read the h of the step before
+    // h, 16 (JT = 4) or 8 bytes a store; only words below H4 exist
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      float* hrow = hw + i * P * 4 + p * 4;
-      if constexpr (JT % 4 == 0) {
+      float* hrow = h_s + i * P * 4 + p * 4;
+      if constexpr (JT == 4) {
 #pragma unroll
         for (int v = 0; v < JT; v += 4) {
           const int j4 = q * JT + v;
@@ -207,7 +214,7 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
 #pragma unroll
       for (int i = 0; i < RT; ++i)
         if (jv[u] && rv[i]) o[(size_t)jc[u] * RS + (size_t)i * P] = h_own[u][i];
-    __syncthreads();  // this step's h is complete; the step before's buffer is free
+    __syncthreads();  // this step's h is complete
   }
 }
 
@@ -230,10 +237,10 @@ FwdKernel kernel_of(const Plan& p) {
                                                         : bigru_fwd_kernel<2, 1>;
 }
 
-// shared memory of a block: W_hh, two h buffers of `rows` rows, the bias
+// shared memory of a block: W_hh, the h of `rows` rows, the bias
 size_t fwd_smem(int H, int kp, int rows) {
   const int H4 = (H + 3) & ~3;
-  return sizeof(float) * ((size_t)3 * H * kp + (size_t)2 * H4 * rows + 3 * H);
+  return sizeof(float) * ((size_t)3 * H * kp + (size_t)H4 * rows + 3 * H);
 }
 
 // The plan with jt units and rt rows a thread and p row groups a block;

@@ -35,11 +35,14 @@ def _load(module, w_ih, w_hh, b_ih, b_hh):
     return module
 
 
+# hidden 8; 32, the width every GruBlock runs on the main path; 5, not a
+# multiple of 4 (the CUDA kernel pads the hidden axis to a float4 multiple)
+@pytest.mark.parametrize("hidden", [8, 32, 5])
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("length", [1, 7, 12])
-def test_bigru_matches_pallas_interpret_and_scan(fold, length):
+def test_bigru_matches_pallas_interpret_and_scan(fold, length, hidden):
     rng = np.random.default_rng(length + 10 * fold)
-    rows, in_f, mid, hidden = 9, 6, 10, 8
+    rows, in_f, mid = 9, 6, 10
     x = rng.standard_normal((rows, length, in_f)).astype(np.float32)
     pre_k = rng.standard_normal((mid, in_f)).astype(np.float32) * 0.3 if fold else None
     pre_b = rng.standard_normal((mid,)).astype(np.float32) * 0.1 if fold else None
