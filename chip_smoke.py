@@ -222,10 +222,15 @@ def check_gru(name, length, rows, cin, cmid, hid, gen):
     # one step alone: set-up (W_hh into shared memory) plus one step
     first = gates[:, :1].contiguous()
     one_step = kernel_time(lambda: bigru_recurrence(first, w_hh, b_hh), "bigru_fwd")
+    # the two passes before the kernel on the module's path (rnn.BiGRU): the
+    # input projection, then its bias into a contiguous gates tensor
+    xw = torch.einsum("rli,dgi->dlgr", x, w_eff)
     row = dict(
         shape=name, L=length, R=rows, H=hid, In=cin, max_abs_err=err, tol=KERNEL_ATOL,
         kernel_ms=kernel["ms"], kernel_event_ms=kernel["event_ms"],
         kernel_profiler_ms=kernel["profiler_ms"], one_step_ms=one_step["ms"],
+        projection_ms=timed_ms(lambda: torch.einsum("rli,dgi->dlgr", x, w_eff), 50),
+        bias_ms=timed_ms(lambda: (xw + b_eff[:, None, :, None]).contiguous(), 50),
         plain_ms=timed_ms(lambda: bigru_recurrence_ref(gates, w_hh, b_hh), 5),
         library_ms=timed_ms(lambda: lib(x), 50), library_err=lib_err,
         plan=bigru_fwd_plan(hid, rows),
@@ -251,11 +256,12 @@ def forward_gru_rows(gen):
 
 def print_gru(row) -> None:
     """A forward BiGRU shape's launch, its time a step ((launch - launch at
-    L=1) / (L - 1)) and its plan."""
+    L=1) / (L - 1)), the passes before it, and its plan."""
     step_us = (row["kernel_ms"] - row["one_step_ms"]) / (row["L"] - 1) * 1e3
     print(f"[gru] {row['shape']}: kernel {row['kernel_ms']:.4f} ms (events "
           f"{row['kernel_event_ms']:.4f}, profiler {row['kernel_profiler_ms']}); at L=1 "
           f"{row['one_step_ms']:.4f} ms; {step_us:.2f} us a step; bound {row['bound_ms']:.4f} ms; "
+          f"before it: projection {row['projection_ms']:.4f} + bias {row['bias_ms']:.4f} ms; "
           f"nn.GRU {row['library_ms']:.4f} ms; plan {json.dumps(row['plan'])}")
 
 

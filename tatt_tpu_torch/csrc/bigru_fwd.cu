@@ -16,19 +16,41 @@
 //   w_hh  [2, 3H, H],  b_hh [2, 3H]
 //   out   [L, 2H, R]      (direction d at channels d*H .. d*H+H-1)
 //
+// What bounds it on an H100.  Not the bytes (gates in, h out: 0.040 ms at
+// HBM rate at gru1 and gru2 of the fused 2B=128 batch, H=32) nor the f32
+// FMAs (3H x H a row-step, 0.026 ms at gru1): the serial chain of L steps,
+// each a matvec per row from shared memory, the gate nonlinearity (accurate
+// expf, division and tanhf: about a third of a step) and a barrier.  Where
+// rows are many (gru1) a step waits on how fast shared memory hands words
+// to the lanes: a warp-wide 16-byte load takes four cycles of the SM's,
+// broadcast or not (a clock64 probe put the products at ~4 cycles per
+// load); where rows are few (gru2) it waits on each thread's own chain.
+//
 // Design: one block per (tile of rows, direction) walks all L steps with
 // W_hh[d] in shared memory (Hopper's blocks run in no order, so the carry
 // cannot live across blocks the way the TPU grid carries it in VMEM).
 //   - A thread owns JT hidden units of RT rows; a warp's lanes walk
-//     neighbouring rows, so gate loads and output stores are coalesced and
-//     every lane reads the same W_hh word (a broadcast), which feeds RT rows.
-//   - h is double-buffered in shared memory, float4-packed along the hidden
-//     axis; a step's gate inputs are loaded into registers a step ahead, as
-//     soon as the step before has used its own.  A step is the products,
-//     the gate nonlinearity, the stores of h, and one barrier.
+//     neighbouring rows, so gate loads and output stores are coalesced, and
+//     each 16-byte W_hh load from shared memory feeds RT rows.
 //   - The plan (units and rows a thread, rows a block) comes from the
-//     occupancy API, per (device, H, R), cached.
+//     occupancy API, per (device, H, R), cached: the fewest waves, every SM
+//     busy, two warps a scheduler, then the fewest shared-memory loads an
+//     FMA.  At H=32: 2 units x 4 rows at gru1 (R=8192), 2 x 2 at the eval
+//     batch's gru1, 2 x 1 at both gru2 row counts.
+//   - A step's gate inputs are loaded into registers a step ahead, as soon
+//     as the step before has used its own; W_hh and b_hh are staged by
+//     cp.async with every copy in flight.  h lives in one shared buffer,
+//     float4-packed along the hidden axis, behind two barriers a step: a
+//     double buffer with one barrier measured no faster (the barrier waits
+//     a few cycles of a step of thousands).
 //   - The ragged last tile is masked (rows >= R load zeros, store nothing).
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, H=32):
+// 0.0958 / 0.1285 ms a launch at gru1 (L=16, R=8192) / gru2 (L=64, R=2048)
+// of the fused training batch, 0.0575 / 0.0930 ms at the eval batch's
+// (R=4096 / 1024); the design before took 0.1245 / 0.2216 / 0.0822 /
+// 0.2220 ms in the same run.
+//
+// No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cuda_runtime.h>
 
