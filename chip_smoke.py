@@ -239,21 +239,6 @@ def check_gru(name, length, rows, cin, cmid, hid, gen):
     return row
 
 
-def forward_gru_rows(gen):
-    """Phase 2's BiGRU forward shapes: the eval and training batches' gru1
-    and gru2 (the kernels line reads the training pair, rows 2 and 3), then
-    ragged rows, an odd H and the largest H."""
-    return [
-        check_gru("gru1 (height scan), eval batch", 16, BATCH * 64, 128, 64, 32, gen),
-        check_gru("gru2 (width scan), eval batch", 64, BATCH * 16, 64, 64, 32, gen),
-        check_gru("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
-        check_gru("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
-        check_gru("gru1 ragged rows", 16, BATCH * 64 + 3, 128, 64, 32, gen),
-        check_gru("gru2 odd H=45, ragged rows", 64, BATCH * 16 + 5, 64, 64, 45, gen),
-        check_gru("gru2 H=128", 64, BATCH * 16, 64, 64, 128, gen),
-    ]
-
-
 def print_gru(row) -> None:
     """A forward BiGRU shape's launch, its time a step ((launch - launch at
     L=1) / (L - 1)), the passes before it, and its plan."""
@@ -558,7 +543,16 @@ def main(argv=None) -> int:
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        gru_rows = forward_gru_rows(gen)
+        # the kernels line reads the training pair, rows 2 and 3
+        gru_rows = [
+            check_gru("gru1 (height scan), eval batch", 16, BATCH * 64, 128, 64, 32, gen),
+            check_gru("gru2 (width scan), eval batch", 64, BATCH * 16, 64, 64, 32, gen),
+            check_gru("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
+            check_gru("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
+            check_gru("gru1 ragged rows", 16, BATCH * 64 + 3, 128, 64, 32, gen),
+            check_gru("gru2 odd H=45, ragged rows", 64, BATCH * 16 + 5, 64, 64, 45, gen),
+            check_gru("gru2 H=128", 64, BATCH * 16, 64, 64, 128, gen),
+        ]
         lstm_rows = [] if args.gru_fwd_only else [
             check_lstm("student/teacher rnn0", 26, BATCH, 512, 256, gen),
             check_lstm("student/teacher rnn1", 26, BATCH, 256, 256, gen),

@@ -22,9 +22,9 @@
 // each a matvec per row from shared memory, the gate nonlinearity (accurate
 // expf, division and tanhf: about a third of a step) and a barrier.  Where
 // rows are many (gru1) a step waits on how fast shared memory hands words
-// to the lanes: a warp-wide 16-byte load takes four cycles of the SM's,
-// broadcast or not (a clock64 probe put the products at ~4 cycles per
-// load); where rows are few (gru2) it waits on each thread's own chain.
+// to the lanes: a warp-wide 16-byte load hands them 512 bytes, four cycles
+// of the SM's 128 bytes a cycle, broadcast or not; where rows are few
+// (gru2) it waits on each thread's own chain.
 //
 // Design: one block per (tile of rows, direction) walks all L steps with
 // W_hh[d] in shared memory (Hopper's blocks run in no order, so the carry
@@ -41,8 +41,8 @@
 //     as the step before has used its own; W_hh and b_hh are staged by
 //     cp.async with every copy in flight.  h lives in one shared buffer,
 //     float4-packed along the hidden axis, behind two barriers a step: a
-//     double buffer with one barrier measured no faster (the barrier waits
-//     a few cycles of a step of thousands).
+//     double buffer with one barrier measured slower at gru2 (its 2 x 1
+//     kernel spilled a register that it reloaded every step).
 //   - The ragged last tile is masked (rows >= R load zeros, store nothing).
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 2, H=32):
 // 0.0958 / 0.1285 ms a launch at gru1 (L=16, R=8192) / gru2 (L=64, R=2048)
