@@ -7,6 +7,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --kernels-only           # phases 1, 2 and 6 alone
   python3 chip_smoke.py --lstm-bwd-only          # phase 1 and the LSTM backward of phase 6
   python3 chip_smoke.py --gru-fwd-only           # phase 1 and the BiGRU forward of phase 2
+  python3 chip_smoke.py --data-only              # phases 1 and 10 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -31,18 +32,30 @@ Phases (any failure exits non-zero; no phase carries on after its own):
   8. one full-width train step at batch 8 on the card (kernels) against
      the same step on the CPU (plain twins): each parameter's gradient
   9. a profiler window over a few train steps: device time by kernel
+ 10. the real-data path through the CLI: TextZoom-layout LMDBs (PNG and
+     JPEG, odd sizes, a corrupt record, a missing label) and a YAML;
+     ``cli.run`` trains the recipe 8 steps (checkpoints at 4 and 8, launches
+     per step), a resume with a new lr restores everything bitwise and its
+     steps match the uninterrupted run's, ``--go_test`` of the best
+     checkpoint gives the summary recorded when it was saved; LMDB train
+     images/s beside phase 7's synthetic, eval images/s with 1 and 4
+     workers, checkpoint save / restore ms and bytes
 The last line is the JSON object the chip check reads.  Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
+import contextlib
 import copy
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,9 +65,17 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     sys.exit(1)
 
+from tatt_tpu_torch.cli import main as cli  # noqa: E402
 from tatt_tpu_torch.core.charset import ctc_greedy_decode, str_filt  # noqa: E402
+from tatt_tpu_torch.core.checkpoint import (  # noqa: E402
+    load_checkpoint, restore_checkpoint, save_checkpoint,
+)
+from tatt_tpu_torch.core.config import Config, Flags  # noqa: E402
 from tatt_tpu_torch.core.convert import from_jax, load_npz  # noqa: E402
 from tatt_tpu_torch.core.device import set_cuda_flags  # noqa: E402
+from tatt_tpu_torch.data.lmdb_dataset import LmdbTextDataset  # noqa: E402
+from tatt_tpu_torch.data.loader import DataLoader  # noqa: E402
+from tatt_tpu_torch.data.lmdb_lite import write_lmdb  # noqa: E402
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset  # noqa: E402
 from tatt_tpu_torch.kernels import _build  # noqa: E402
 from tatt_tpu_torch.data.collate import collate  # noqa: E402
@@ -118,6 +139,22 @@ GRU_BWD_ENTRIES = {"recurrence": "bigru_bwd_rec", "dw": "bigru_bwd_dw", "sums": 
 # the LSTM backward's device entries (csrc/bilstm_bwd.cu)
 LSTM_BWD_ENTRIES = {"gates": "bilstm_bwd_gates", "recurrence": "bilstm_bwd_rec",
                     "dw": "bilstm_bwd_dw"}
+# phase 10, the real-data path: the recipe's flags, two train LMDBs and a
+# val LMDB (100 images: one full batch of 64 and a short one), checkpoints
+# and validation every 4 of 8 steps, a resume at the finetune stage's lr
+RECIPE = ["--arch=tatt", "--STN", "--mask", "--use_distill", "--gradient", "--sr_share",
+          "--stu_iter=1", "--rotate_train=5.0", "--tssim_loss", "--test_model=CRNN"]
+DATA_TRAIN_N, DATA_VAL_N = 160, 100
+DATA_ITERS, DATA_INTERVAL, DATA_WORKERS = 8, 4, 4
+RESUME_LR = 2e-4
+# the resumed run against the uninterrupted one: the first step's forward
+# reads only restored weights and the kernels are bitwise-repeatable; the
+# second reads Adam's update, where a cuDNN weight-gradient engine may sum
+# in another order (~1e-7 relative)
+LOSS_RTOL = 1e-6
+# --go_test of the best checkpoint against the summary saved with it: the
+# same weights and batches on the same card, metrics summed in float32
+GO_TEST_PSNR_TOL, GO_TEST_SSIM_TOL = 0.01, 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -492,6 +529,211 @@ def backward_kernels(gen, lstm_only: bool = False):
     return gru_bwd_rows, lstm_bwd_rows
 
 
+def _encoded(img, fmt: str) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, format=fmt)
+    return buf.getvalue()
+
+
+def write_textzoom(root: str, n: int, seed: int, corrupt=(), unlabeled=()) -> str:
+    """A TextZoom-layout LMDB of ``n`` synthetic samples: every fourth JPEG
+    (the rest PNG), every seventh HR and LR at another size than 128x32 /
+    64x16 (collate resizes them), a corrupt HR image at the indices in
+    ``corrupt`` and no label at those in ``unlabeled``."""
+    ds = SyntheticTextDataset(n=n, seed=seed)
+    records = {b"num-samples": str(n).encode()}
+    for i in range(n):
+        hr, lr, label = ds[i]
+        if i % 7 == 3:
+            hr, lr = hr.resize((120, 30)), lr.resize((72, 18))
+        fmt = "JPEG" if i % 4 == 0 else "PNG"
+        if i not in unlabeled:
+            records[b"label-%09d" % (i + 1)] = label.encode()
+        records[b"image_hr-%09d" % (i + 1)] = b"\x89PNG corrupt" if i in corrupt else _encoded(hr, fmt)
+        records[b"image_lr-%09d" % (i + 1)] = _encoded(lr, fmt)
+    write_lmdb(root, records)
+    return root
+
+
+def state_equal(model, saved: dict) -> bool:
+    own = model.state_dict()
+    return all(torch.equal(v.cpu(), saved[k]) for k, v in own.items())
+
+
+def adam_equal(optimizer, saved: dict) -> bool:
+    state = optimizer.state_dict()["state"]
+    return sorted(state) == sorted(saved["state"]) and all(
+        torch.equal(v.cpu(), saved["state"][i][k]) for i, st in state.items() for k, v in st.items()
+    )
+
+
+def data_phase(synthetic_ips) -> None:
+    """Phase 10: the real-data path through the CLI (checks and numbers in
+    the module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        roots = [write_textzoom(os.path.join(tmp, "train1"), DATA_TRAIN_N, 11, corrupt=(10,)),
+                 write_textzoom(os.path.join(tmp, "train2"), DATA_TRAIN_N, 12),
+                 write_textzoom(os.path.join(tmp, "val"), DATA_VAL_N, 13, unlabeled=(5,))]
+        yaml = os.path.join(tmp, "smoke.yaml")
+        with open(yaml, "w") as fh:
+            fh.write(
+                "TRAIN:\n"
+                f"  train_data_dir: ['{roots[0]}', '{roots[1]}']\n"
+                f"  batch_size: {BATCH}\n  workers: {DATA_WORKERS}\n"
+                f"  saveInterval: {DATA_INTERVAL}\n  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n"
+                "  VAL:\n"
+                f"    val_data_dir: ['{roots[2]}']\n    valInterval: {DATA_INTERVAL}\n"
+                "    crnn_pretrained: ''\n"
+            )
+        run_dir = os.path.join(tmp, "ckpt", "vis_smoke")
+        rolling, best_path = (os.path.join(run_dir, f) for f in ("checkpoint.ckpt", "model_best_acc_0.ckpt"))
+        argv = RECIPE + ["--config", yaml, "--vis_dir", "vis_smoke"]
+        print(f"[data] wrote 2 x {DATA_TRAIN_N} train and {DATA_VAL_N} val samples "
+              f"({sum(os.path.getsize(os.path.join(r, 'data.mdb')) for r in roots)} bytes) in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # ---- train through the CLI, 8 steps: validation and a save at 4 and 8
+        reset_counts()
+        t0 = time.perf_counter()
+        code, trainer = cli.run(argv + ["--max_iters", str(DATA_ITERS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        val_batches = 2 * math.ceil(DATA_VAL_N / BATCH)  # two validations
+        want = {"bigru_fwd": DATA_ITERS * 10 + val_batches * 10, "bigru_bwd": DATA_ITERS * 10,
+                "bilstm_fwd": DATA_ITERS * 4 + val_batches * 8, "bilstm_bwd": DATA_ITERS * 2}
+        print(f"[data] cli.run {DATA_ITERS} steps and 2 validations in {wall:.2f} s, launches "
+              f"{json.dumps(counts)} (want {DATA_ITERS} steps x "
+              f"{json.dumps(STEP_LAUNCHES)} + {val_batches} eval batches x 10 / 8)")
+        if code != 0 or counts != want:
+            fail(f"cli training: exit {code}, launches {counts} (want {want})")
+        if not (os.path.exists(rolling) and os.path.exists(best_path)):
+            fail(f"checkpoints missing: {sorted(os.listdir(run_dir))}")
+        saved = load_checkpoint(rolling)
+        iterators = [c["iterator"] for c in saved["converge"]]
+        n_params = len(list(trainer.optimizer.param_groups[0]["params"]))
+        moments = [bool(s["exp_avg"].any() and s["exp_avg_sq"].any())
+                   for s in saved["optimizer"]["state"].values()]
+        print(f"[data] checkpoint.ckpt: iters {saved['iters']}, converge {iterators}, "
+              f"Adam state for {len(moments)} of {n_params} parameters, {sum(moments)} "
+              f"with nonzero moments; best at iter {load_checkpoint(best_path)['iters']}")
+        if saved["iters"] != DATA_ITERS or iterators != [DATA_INTERVAL, DATA_ITERS]:
+            fail(f"checkpoint iters {saved['iters']} converge {iterators}")
+        if len(moments) != n_params or not all(moments):
+            fail("a parameter without Adam moments in the checkpoint")
+
+        # ---- resume at the finetune lr: bitwise state, then the same steps
+        code, resumed = cli.run(argv + ["--max_iters", str(DATA_ITERS), "--resume", rolling,
+                                        "--lr", str(RESUME_LR)])
+        lrs = [g["lr"] for g in resumed.optimizer.param_groups]
+        same = {"generator": state_equal(resumed.generator, saved["generator"]),
+                "student": state_equal(resumed.student, saved["student"]),
+                "adam": adam_equal(resumed.optimizer, saved["optimizer"])}
+        print(f"[data] resumed: iters {resumed.iters}, lr {lrs}, bitwise equal to the file "
+              f"{json.dumps(same)}")
+        if code != 0 or resumed.iters != DATA_ITERS or lrs != [RESUME_LR] or not all(same.values()):
+            fail("resume did not restore the checkpoint")
+        for group in trainer.optimizer.param_groups:  # the uninterrupted run at the same lr
+            group["lr"] = RESUME_LR
+        sds = SyntheticTextDataset(n=BATCH, seed=14)
+        hr, lr = to_device(collate([sds[i] for i in range(BATCH)]), DEV, True)
+        losses = {"uninterrupted": [], "resumed": []}
+        for step in range(2):
+            for name, t in (("uninterrupted", trainer), ("resumed", resumed)):
+                m = train_step(t.generator.train(), t.student.train(), t.teacher.eval(), t.optimizer,
+                               {"images_hr": hr, "images_lr": lr}, StepConfig(),
+                               torch.Generator(device=DEV).manual_seed(100 + step))
+                losses[name].append(m["loss_total"].item())
+        rel = [abs(a - b) / abs(a) for a, b in zip(losses["uninterrupted"], losses["resumed"])]
+        print(f"[data] two steps on a fixed batch: loss_total {json.dumps(losses)}, relative "
+              f"differences {rel} (tol {LOSS_RTOL})")
+        if not all(r <= LOSS_RTOL for r in rel):
+            fail(f"resumed steps differ from the uninterrupted run: {rel}")
+        done = resumed.train(max_iters=DATA_ITERS + 1)["iters"]
+        print(f"[data] the resumed trainer counts on: iters {done}")
+        if done != DATA_ITERS + 1:
+            fail(f"resumed trainer at iters {done}")
+
+        # ---- --go_test of the best checkpoint against the summary saved with it
+        best = load_checkpoint(best_path)["best_history_res"]["val"]
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(["--arch=tatt", "--mask", "--go_test", "--vis_dir", "vis_smoke",
+                             "--config", yaml, "--resume", best_path])
+        counts = read_counts()
+        lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[val] ")]
+        got = ast.literal_eval(lines[-1][len("[val] "):]) if lines else {}
+        eval_batches = math.ceil(DATA_VAL_N / BATCH)
+        print(f"[data] --go_test of model_best_acc_0.ckpt: psnr {got.get('psnr_avg')} ssim "
+              f"{got.get('ssim_avg')} acc {got.get('accuracy')} images {got.get('images')}; saved "
+              f"with it: psnr {best['psnr_avg']} ssim {best['ssim_avg']} acc {best['accuracy']}; "
+              f"launches {json.dumps(counts)}")
+        if code != 0 or not got or got["images"] != DATA_VAL_N:
+            fail(f"--go_test exit {code}, output {out.getvalue()[-500:]}")
+        if not (abs(got["psnr_avg"] - best["psnr_avg"]) <= GO_TEST_PSNR_TOL
+                and abs(got["ssim_avg"] - best["ssim_avg"]) <= GO_TEST_SSIM_TOL
+                and got["accuracy"] == best["accuracy"]):
+            fail(f"--go_test summary {got} differs from the saved {best}")
+        if counts != {"bigru_fwd": 10 * eval_batches, "bigru_bwd": 0,
+                      "bilstm_fwd": 8 * eval_batches, "bilstm_bwd": 0}:
+            fail(f"--go_test launches {counts}")
+
+        # ---- numbers: LMDB train images/s, eval images/s by workers, checkpoint I/O
+        trainer.cfg.TRAIN.VAL.valInterval = trainer.cfg.TRAIN.saveInterval = 0
+        trainer.train(max_iters=trainer.iters + 2)  # the loader's threads up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(max_iters=trainer.iters + TRAIN_STEPS)
+        torch.cuda.synchronize()
+        lmdb_ips = TRAIN_STEPS * BATCH / (time.perf_counter() - t0)
+        print(f"[data] train images/s: LMDB {lmdb_ips:.1f} ({DATA_WORKERS} workers, {TRAIN_STEPS} "
+              f"steps at batch {BATCH}), synthetic (phase 7, this call) "
+              + (f"{synthetic_ips:.1f}" if synthetic_ips else "not run"))
+        # the host's side alone: batches of the train LMDBs (decode, resize,
+        # stack) against cached synthetic crops (stack only), no device work
+        train_ds, cached = trainer.loader.dataset, SyntheticTextDataset(n=4 * BATCH, seed=15)
+        for i in range(len(cached)):
+            cached[i]
+        loader_ms = {}
+        for name, ds, workers in (("lmdb", train_ds, 1), ("lmdb", train_ds, DATA_WORKERS),
+                                  ("synthetic, cached", cached, 1)):
+            loader = DataLoader(ds, BATCH, num_workers=workers)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            loader_ms[f"{name}, {workers} workers"] = (time.perf_counter() - t0) * 1e3 / n
+        print(f"[data] host ms a batch of the loader alone (an epoch, {BATCH} a batch): "
+              + json.dumps({k: round(v, 2) for k, v in loader_ms.items()}))
+        val_ds = LmdbTextDataset(roots[2])
+        rates = {1: [], 4: []}
+        for workers in (1, 4, 4, 1, 1, 4):
+            ev = Evaluator([trainer.generator.eval()], [trainer.student.eval()], trainer.teacher, DEV,
+                           BATCH, True, workers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.evaluate(val_ds)
+            torch.cuda.synchronize()
+            rates[workers].append(DATA_VAL_N / (time.perf_counter() - t0))
+        print("[data] val-LMDB eval images/s by workers (3 passes each, in turns 1,4,4,1,1,4): "
+              + json.dumps({w: [round(r, 1) for r in v] for w, v in rates.items()}))
+        path = os.path.join(tmp, "timed.ckpt")
+        save_ms, restore_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(path, trainer.generator, trainer.student, trainer.optimizer, trainer.iters)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            restore_checkpoint(load_checkpoint(path), resumed.generator, resumed.student,
+                               resumed.optimizer)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[data] full-width checkpoint: {os.path.getsize(path)} bytes, save ms "
+              f"{[round(v, 1) for v in save_ms]}, restore ms (read and copy to the card) "
+              f"{[round(v, 1) for v in restore_ms]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -506,6 +748,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gru-fwd-only", action="store_true",
                     help="run phase 1 and the BiGRU forward rows of phase 2 alone (to time "
                          "versions of that kernel in turns); prints no result line")
+    ap.add_argument("--data-only", action="store_true",
+                    help="run phases 1 and 10 alone (the real-data path through the CLI: LMDB "
+                         "data, checkpoints, resume, --go_test); prints no result line")
     args = ap.parse_args(argv)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
     smi = subprocess.run(
@@ -538,6 +783,9 @@ def main(argv=None) -> int:
 
     if args.lstm_bwd_only:
         backward_kernels(torch.Generator().manual_seed(0), lstm_only=True)
+        return 0
+    if args.data_only:
+        data_phase(None)
         return 0
 
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
@@ -669,10 +917,10 @@ def main(argv=None) -> int:
     train_ds = SyntheticTextDataset(n=8 * BATCH, seed=1)
     for i in range(len(train_ds)):  # render (and cache) every sample up front
         train_ds[i]
-    trainer = Trainer(
-        generator, student, teacher, train_ds, DEV, StepConfig(),
-        batch_size=BATCH, val_interval=0, display_interval=10**9,
-    )
+    cfg = Config(args=Flags(mask=True, batch_size=BATCH))
+    cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+    cfg.TRAIN.displayInterval = 10**9
+    trainer = Trainer(cfg, generator, student, teacher, train_ds, DEV)
     t0 = time.perf_counter()
     first = trainer.train(max_iters=TRAIN_WARM)  # builds, cuDNN autotuning
     torch.cuda.synchronize()
@@ -685,9 +933,9 @@ def main(argv=None) -> int:
     train_launches = read_counts()
     per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items()}
     losses = first["metrics"]["loss_total"] + timed["metrics"]["loss_total"]
+    synthetic_ips = TRAIN_STEPS * BATCH / wall
     print(f"[train] {TRAIN_STEPS} steps at batch {BATCH}: {wall:.3f} s, "
-          f"{wall / TRAIN_STEPS * 1e3:.2f} ms per step, "
-          f"images/s {TRAIN_STEPS * BATCH / wall:.1f}")
+          f"{wall / TRAIN_STEPS * 1e3:.2f} ms per step, images/s {synthetic_ips:.1f}")
     print(f"[train] launches per step {json.dumps(per_step)}")
     print(f"[train] loss_total by step {json.dumps([round(v, 4) for v in losses])}")
     last = {k: v[-1] for k, v in timed["metrics"].items()}
@@ -748,6 +996,9 @@ def main(argv=None) -> int:
     profile_window(lambda: trainer.train(max_iters=trainer.iters + PROFILE_STEPS),
                    f"{PROFILE_STEPS} train steps")
     del trainer, generator, student, teacher
+
+    # ---- 10. the real-data path through the CLI
+    data_phase(synthetic_ips)
 
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the

@@ -1,48 +1,60 @@
 """CLI of the port (the ported subset of ``tatt_tpu/cli/main.py``).
 
-Training, the canonical recipe of ``scripts/train_TATT.sh`` on synthetic
-data:
+Training, the canonical recipe of ``scripts/train_TATT.sh``, on the
+TextZoom LMDBs that a YAML names (``TRAIN.train_data_dir``, and
+``TRAIN.VAL.val_data_dir`` for validation, each set keyed by its
+directory's basename):
 
   python -m tatt_tpu_torch.cli.main --arch=tatt --STN --mask --use_distill \\
       --gradient --sr_share --stu_iter=1 --rotate_train=5.0 --tssim_loss \\
-      --synthetic 256 --max_iters 20
+      --test_model=CRNN --vis_dir=vis_TATT --config=config/super_resolution.yaml
 
-Evaluation: ``--arch=tatt --go_test --synthetic 256 --mask``.
+It writes ``<TRAIN.ckpt_dir>/<vis_dir>/checkpoint.ckpt`` every
+``saveInterval`` and ``model_best_acc_0.ckpt`` on a new best sum-accuracy.
+The finetune stage adds ``--resume ckpt/vis_TATT --lr 2e-4``.  Evaluation
+of the best checkpoint on each val set:
 
-Flags and defaults follow the JAX package.  Ported besides those:
-``--test_model=CRNN``, ``--batch_size``, ``--lr``, ``--epochs``,
+  python -m tatt_tpu_torch.cli.main --arch=tatt --mask --go_test \\
+      --vis_dir=vis_TATT --resume=ckpt/vis_TATT/model_best_acc_0.ckpt \\
+      --config=config/super_resolution.yaml
+
+``--synthetic N`` takes synthetic crops in place of the YAML's data; with
+neither, the CLI exits with code 2 ("no data").  Flags and defaults follow
+the JAX package.  Ported besides the recipe's flags: ``--config``,
+``--vis_dir``, ``--batch_size``, ``--val_batch_size``, ``--lr``,
+``--epochs``, ``--max_iters``, ``--resume`` (a port checkpoint, a run
+directory or a reference ``.pth``; else the YAML's ``TRAIN.resume``),
+``--crnn_pretrained`` (a ``.pth``; else ``TRAIN.VAL.crnn_pretrained``; a
+missing file exits with code 2), ``--test_model=CRNN``,
 ``--no-fused_tssim``, the shrink flags ``--srb``, ``--hd_u`` and
-``--tiny_tpg``, ``--resume <reference .pth>``, ``--crnn_pretrained
-<.pth>`` and ``--device`` (default ``cuda``).  Training requires every
-flag of the recipe.  Any other flag or value raises "not ported yet"; none
-is silently ignored.  Without weights the
-generator and the CRNN student / teacher start from seeded initial
-weights; the teacher is also the judge.
+``--tiny_tpg``, and ``--device`` (default ``cuda``).  Training requires
+every flag of the recipe.  Any other flag or value, or a YAML the port
+does not serve, raises "not ported yet"; none is silently ignored.
+Without weights the generator and the CRNN student / teacher start from
+initial weights seeded by ``TRAIN.manualSeed``; the teacher is also the
+judge.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import sys
+from typing import Optional
 
+from tatt_tpu_torch.core.checkpoint import resume_models
+from tatt_tpu_torch.core.config import Config, Flags, load_config
 from tatt_tpu_torch.core.convert import load_reference_pth, load_weights
 from tatt_tpu_torch.core.device import resolve_device, set_cuda_flags
+from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.recognizers.crnn import CRNN
 from tatt_tpu_torch.models.tsrn import TATT
 from tatt_tpu_torch.train.loop import Evaluator, Trainer
-from tatt_tpu_torch.train.steps import StepConfig
 
-# TRAIN defaults of tatt_tpu/core/config.py:35-55
-MANUAL_SEED = 1234
-BATCH_SIZE = 64
-LR = 1e-3
-EPOCHS = 500
-DISPLAY_INTERVAL = 50
-VAL_INTERVAL = 400
 TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))  # --tiny_tpg
 # the flags of scripts/train_TATT.sh that training requires
 RECIPE_FLAGS = ("STN", "mask", "use_distill", "gradient", "sr_share", "tssim_loss")
@@ -53,6 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="tatt_tpu_torch — TATT on CUDA")
     p.add_argument("--arch", default="tatt")
     p.add_argument("--test_model", default="CRNN")
+    p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--go_test", action="store_true")
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     p.add_argument("--max_iters", type=int, default=None)
@@ -66,9 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stu_iter", type=int, default=1)
     p.add_argument("--rotate_train", type=float, default=0.0)
     p.add_argument("--dtype", default="float32")
-    p.add_argument("--batch_size", type=int, default=BATCH_SIZE)
-    p.add_argument("--learning_rate", "--lr", dest="lr", type=float, default=LR)
-    p.add_argument("--epochs", type=int, default=EPOCHS)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--val_batch_size", type=int, default=None)
+    p.add_argument("--learning_rate", "--lr", dest="lr", type=float, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--vis_dir", type=str, default=None)
     p.add_argument("--srb", type=int, default=5)
     p.add_argument("--hd_u", type=int, default=32)
     p.add_argument("--tiny_tpg", action="store_true")
@@ -78,7 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
+    """(the config tree, the parsed namespace with the extras that are
+    not ``Flags``: ``synthetic``, ``max_iters``, ``crnn_pretrained``,
+    ``device``).  Raises SystemExit("not ported yet: ...")."""
     args, unknown = build_parser().parse_known_args(argv)
     refused = [
         (bool(unknown), " ".join(unknown)),
@@ -86,9 +104,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         (args.test_model != "CRNN", f"--test_model={args.test_model} (only CRNN)"),
         (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
         (args.stu_iter != 1, f"--stu_iter={args.stu_iter} (only 1)"),
-        (args.synthetic <= 0, "LMDB data (pass --synthetic N)"),
-        (bool(args.resume) and not args.resume.endswith(".pth"),
-         f"--resume {args.resume} (only a reference .pth)"),
     ]
     if not args.go_test:  # training runs the canonical recipe and nothing else
         missing = [f"--{k}" for k in RECIPE_FLAGS if not getattr(args, k)]
@@ -100,63 +115,99 @@ def parse_args(argv=None) -> argparse.Namespace:
     for bad, what in refused:
         if bad:
             raise SystemExit(f"not ported yet: {what}")
-    return args
+    names = {f.name for f in dataclasses.fields(Flags)}
+    flags = Flags(**{k: v for k, v in vars(args).items() if k in names})
+    try:
+        cfg = load_config(args.config, flags)
+    except ValueError as exc:  # a YAML the port does not serve
+        raise SystemExit(str(exc)) from exc
+    return cfg, args
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    device = resolve_device(args.device)
-    set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
+def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
+    """(train set, {name: val set}) from ``--synthetic N`` or the YAML's
+    LMDB directories, or None when there are neither."""
+    if synthetic > 0:
+        return (SyntheticTextDataset(n=synthetic, seed=1),
+                {"easy": SyntheticTextDataset(n=max(synthetic // 4, 8), seed=2)})
+    if not cfg.TRAIN.train_data_dir:
+        return None
+    voc = cfg.TRAIN.voc_type
+    train = ConcatDataset([LmdbTextDataset(d, voc_type=voc) for d in cfg.TRAIN.train_data_dir])
+    vals = {os.path.basename(d.rstrip("/")): LmdbTextDataset(d, voc_type=voc)
+            for d in cfg.TRAIN.VAL.val_data_dir}
+    return train, vals
 
+
+def build_models(cfg: Config, crnn_path: str):
+    """Generator, student and teacher, seeded by ``TRAIN.manualSeed``; the
+    teacher's weights (and the student's start) from ``crnn_path``."""
+    a, seed = cfg.args, cfg.TRAIN.manualSeed
     generator = init_parameters(
-        TATT(srb_nums=args.srb, hidden_units=args.hd_u, out_text_channels=2 * args.hd_u,
-             mask=args.mask, stn=args.STN),
-        MANUAL_SEED,
+        TATT(srb_nums=a.srb, hidden_units=a.hd_u, out_text_channels=2 * a.hd_u,
+             mask=a.mask, stn=a.STN),
+        seed,
     )
-    crnn = TINY_CRNN if args.tiny_tpg else {}
-    student = init_parameters(CRNN(**crnn), MANUAL_SEED + 1)
-    teacher = init_parameters(CRNN(**crnn), MANUAL_SEED + 2)  # also the judge
-    if args.crnn_pretrained:  # teacher weights: the teacher/judge and the student
-        if not os.path.exists(args.crnn_pretrained):
-            print(f"teacher CRNN weights not found: {args.crnn_pretrained}", file=sys.stderr)
-            return 2
-        sd = load_reference_pth(args.crnn_pretrained)
+    crnn = TINY_CRNN if a.tiny_tpg else {}
+    student = init_parameters(CRNN(**crnn), seed + 1)
+    teacher = init_parameters(CRNN(**crnn), seed + 2)  # also the judge
+    if crnn_path:
+        sd = load_reference_pth(crnn_path)
         load_weights(teacher, sd)
         load_weights(student, sd)
-    if args.resume:
-        unused = load_weights(generator, load_reference_pth(args.resume))
+    return generator, student, teacher
+
+
+def run(argv=None) -> tuple[int, Optional[Trainer]]:
+    """:func:`main`, also returning the trainer of a training run."""
+    cfg, cli = parse_config(argv)
+    device = resolve_device(cli.device)
+    set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
+
+    data = datasets(cfg, cli.synthetic)
+    if data is None:
+        print("no data: pass --synthetic N or a --config with train_data_dir", file=sys.stderr)
+        return 2, None
+    train_ds, val_sets = data
+    # the teacher: the flag, else the YAML's path (cli/main.py:236-262)
+    crnn_path = cli.crnn_pretrained or cfg.TRAIN.VAL.crnn_pretrained
+    if crnn_path and not os.path.exists(crnn_path):
+        print(f"teacher CRNN weights not found: {crnn_path}", file=sys.stderr)
+        return 2, None
+    if not crnn_path and cfg.args.use_distill and not cli.synthetic:
         print(
-            f"generator from {args.resume} ({len(unused)} checkpoint entries unused); "
-            "note: reference TATT checkpoints were trained under the batch_first "
-            "query-GRU quirk (TATT(query_gru_mode='reference') reproduces it)",
+            "WARNING: --use_distill with a RANDOMLY-INITIALIZED teacher CRNN "
+            "(no --crnn_pretrained / TRAIN.VAL.crnn_pretrained). The distill "
+            "loss will pull the student toward random logits and the CRNN "
+            "judge makes best-acc selection noise. Supply crnn.pth weights "
+            "for meaningful training.",
             file=sys.stderr,
         )
-        rec = os.path.join(os.path.dirname(args.resume), "recognizer_best_acc_0.pth")
-        if os.path.exists(rec):
-            load_weights(student, load_reference_pth(rec))
+    generator, student, teacher = (m.to(device) for m in build_models(cfg, crnn_path))
 
-    generator, student, teacher = (m.to(device) for m in (generator, student, teacher))
-    val_sets = {"easy": SyntheticTextDataset(n=max(args.synthetic // 4, 8), seed=2)}
-    if args.go_test:
+    if cfg.args.go_test:
+        if cfg.resume:
+            resume_models(cfg.resume, generator, student)
         evaluator = Evaluator(
             [generator.eval()], [student.eval()], teacher.eval(), device,
-            batch_size=args.batch_size, mask=args.mask,
+            batch_size=cfg.args.val_batch_size or cfg.batch_size, mask=cfg.args.mask,
+            workers=max(cfg.TRAIN.workers, 1),
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")
-        return 0
+        return 0, None
 
-    trainer = Trainer(
-        generator, student, teacher, SyntheticTextDataset(n=args.synthetic, seed=1), device,
-        StepConfig(fused_tssim=args.fused_tssim),
-        batch_size=args.batch_size, lr=args.lr, epochs=args.epochs, seed=MANUAL_SEED,
-        display_interval=DISPLAY_INTERVAL, val_interval=VAL_INTERVAL, val_datasets=val_sets,
-        mask=args.mask,
-    )
-    result = trainer.train(max_iters=args.max_iters)
+    trainer = Trainer(cfg, generator, student, teacher, train_ds, device, val_sets)
+    if cfg.resume:
+        trainer.resume(cfg.resume)
+    result = trainer.train(max_iters=cli.max_iters)
     last = {k: v[-1] for k, v in result["metrics"].items()}
     print(f"[train] iters {result['iters']} " + " ".join(f"{k} {v:.6g}" for k, v in last.items()))
-    return 0 if all(math.isfinite(v) for v in last.values()) else 1
+    return (0 if all(math.isfinite(v) for v in last.values()) else 1), trainer
+
+
+def main(argv=None) -> int:
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

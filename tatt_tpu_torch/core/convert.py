@@ -24,6 +24,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from tatt_tpu_torch.train.state import make_optimizer
+
+# marker of the port's own checkpoints (core/checkpoint.py)
+CHECKPOINT_FORMAT = "tatt_tpu_torch.checkpoint.v1"
 _RNN = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
 _LEAF = {
     "bias": "bias",
@@ -146,6 +150,29 @@ def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
+def adam_from_jax(mu, nu, count: int, params_order, lr: float) -> dict:
+    """An optax ``adam`` state -> the ``state_dict`` of the port's Adam
+    (``train/state.py:make_optimizer`` at ``lr``), so that a JAX run's
+    optimizer state carries across with its weights.
+
+    ``mu`` and ``nu`` (first and second moments) are sequences of JAX
+    parameter trees as numpy arrays, one per model in the optimizer's
+    order (the generator's, then the student's); ``count`` is Adam's step
+    count; ``params_order`` gives, for each model, the port's parameter
+    names in ``named_parameters()`` order."""
+    state, index = {}, 0
+    for m_tree, v_tree, names in zip(mu, nu, params_order, strict=True):
+        m_sd, v_sd = from_jax({"params": m_tree}), from_jax({"params": v_tree})
+        if sorted(m_sd) != sorted(names):
+            raise KeyError(f"moments and parameters differ: {sorted(set(m_sd) ^ set(names))[:5]}")
+        for name in names:
+            state[index] = {"step": torch.tensor(float(count)), "exp_avg": m_sd[name],
+                            "exp_avg_sq": v_sd[name]}
+            index += 1
+    group = make_optimizer([nn.Parameter(torch.zeros(1))], lr).state_dict()["param_groups"][0]
+    return {"state": state, "param_groups": [dict(group, params=list(range(index)))]}
+
+
 def load_npz(path: str) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
     """A JAX-package ``save_variables_npz`` file -> (flat variables,
     metadata)."""
@@ -159,13 +186,29 @@ def load_npz(path: str) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
     return variables, meta
 
 
+def is_jax_checkpoint(path: str) -> bool:
+    """A JAX-package ``.ckpt``: a msgpack map (fixmap 0x81-0x8f, map16
+    0xde, map32 0xdf).  A torch zip starts with ``PK``, a legacy torch
+    pickle with 0x80."""
+    with open(path, "rb") as fh:
+        head = fh.read(1)
+    return bool(head) and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF))
+
+
 def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
     """A reference ``.pth`` (a ``state_dict_G`` generator checkpoint, a
     ``state_dict`` wrapper, or a bare ``crnn.pth``) -> its state dict with
     ``DataParallel``'s ``module.`` prefixes removed.  Mirrors the JAX
     package's ``--resume`` / ``--crnn_pretrained`` loading
-    (``cli/main.py:242-250``, ``loop.py:454``)."""
+    (``cli/main.py:242-250``, ``loop.py:454``).  A JAX-package checkpoint
+    or one of the port's own raises ``ValueError`` naming what it is."""
+    if is_jax_checkpoint(path):
+        raise ValueError(f"{path} is a checkpoint of the JAX package tatt_tpu (msgpack), "
+                         "not a reference .pth")
     blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and blob.get("format") == CHECKPOINT_FORMAT:
+        raise ValueError(f"{path} is a checkpoint of the port (core/checkpoint.py), "
+                         "not a reference .pth: resume it with --resume")
     for key in ("state_dict", "state_dict_G"):
         if isinstance(blob, dict) and key in blob:
             blob = blob[key]

@@ -6,15 +6,25 @@ against HR, and the judge CRNN's greedy CTC decode of SR, LR and HR.
 Visualisation and LPIPS are not ported yet.
 
 :class:`Trainer` is ``Trainer.train`` (``loop.py:546-673``) for the
-canonical recipe: seeded shuffled batches, one :func:`train_step` each with
-a generator seeded from the run's seed and the step number, a log line
-every ``display_interval`` steps and validation every ``val_interval``.
-Checkpoints (``saveInterval``, the best model) are not ported yet.
+canonical recipe, configured by a :class:`~tatt_tpu_torch.core.config.Config`:
+seeded shuffled batches (``TRAIN.workers`` threads), one :func:`train_step`
+each with a generator seeded from the run's seed and the step number, a
+log line every ``displayInterval`` steps.  When ``iters`` reaches a
+multiple of ``valInterval`` it evaluates the val sets, appends
+``{"iterator", "results"}`` to ``converge_list`` and, on a new best sum of
+the sets' accuracies, saves ``model_best_acc_0.ckpt``; at a multiple of
+``saveInterval`` it saves ``checkpoint.ckpt``, both under
+``<TRAIN.ckpt_dir>/<vis_dir>/`` (``core/checkpoint.py``).  The rolling
+checkpoint also carries ``best_history_res``, which the JAX package leaves
+empty there, so that a resume from it keeps the best sum-accuracy.
+:meth:`Trainer.resume` restores models, BN buffers, Adam state, ``iters``,
+``converge_list`` and the best history, then sets the configured ``lr``.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Optional, Sequence
 
@@ -22,6 +32,8 @@ import torch
 from torch import nn
 
 from tatt_tpu_torch.core.charset import CRNN_ALPHABET, ctc_greedy_decode
+from tatt_tpu_torch.core.checkpoint import resume_models, save_checkpoint
+from tatt_tpu_torch.core.config import Config
 from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
@@ -42,7 +54,9 @@ def to_device(batch, device: torch.device, mask: bool) -> tuple[torch.Tensor, to
 class Evaluator:
     """The ``--go_test`` protocol over a dataset of (HR, LR, label)
     samples at the default geometry (HR 128x32, LR 64x16), one
-    ``stu_iter``.  Models must already sit on ``device`` in eval mode."""
+    ``stu_iter``.  Models must already sit on ``device`` in eval mode.
+    ``workers`` threads build the batches (the same batches for any
+    count)."""
 
     def __init__(
         self,
@@ -52,6 +66,7 @@ class Evaluator:
         device: torch.device,
         batch_size: int = 64,
         mask: bool = True,
+        workers: int = 1,
     ):
         self.generators = list(generators)
         self.students = list(students)
@@ -59,6 +74,7 @@ class Evaluator:
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.mask = mask
+        self.workers = workers
 
     @torch.no_grad()
     def decode(self, images: torch.Tensor) -> list[str]:
@@ -68,7 +84,8 @@ class Evaluator:
 
     def batches(self, dataset):
         """(HR, LR, labels) per batch, images normalized on the device."""
-        for b in DataLoader(dataset, self.batch_size, shuffle=False, drop_last=False):
+        for b in DataLoader(dataset, self.batch_size, shuffle=False, drop_last=False,
+                            num_workers=self.workers):
             yield (*to_device(b, self.device, self.mask), b.label_strs)
 
     @torch.no_grad()
@@ -101,37 +118,58 @@ class Trainer:
 
     def __init__(
         self,
+        cfg: Config,
         generator: nn.Module,
         student: nn.Module,
         teacher: nn.Module,
         train_dataset,
         device: torch.device,
-        cfg: StepConfig = StepConfig(),
-        *,
-        batch_size: int = 64,
-        lr: float = 1e-3,
-        epochs: int = 500,
-        seed: int = 1234,
-        display_interval: int = 50,
-        val_interval: int = 400,
         val_datasets: Optional[dict] = None,
-        mask: bool = True,
     ):
+        self.cfg = cfg
         self.generator, self.student, self.teacher = generator, student, teacher
         self.device = torch.device(device)
-        self.cfg = cfg
-        self.optimizer = make_optimizer(itertools.chain(generator.parameters(), student.parameters()), lr)
-        self.loader = DataLoader(train_dataset, batch_size, shuffle=True, drop_last=True, seed=seed)
-        self.evaluator = Evaluator([generator], [student], teacher, device, batch_size, mask)
-        self.epochs, self.seed, self.mask = epochs, seed, mask
-        self.display_interval, self.val_interval = display_interval, val_interval
+        self.step_cfg = StepConfig(fused_tssim=cfg.args.fused_tssim)
+        self.optimizer = make_optimizer(
+            itertools.chain(generator.parameters(), student.parameters()), cfg.lr, cfg.TRAIN.beta1
+        )
+        workers = max(cfg.TRAIN.workers, 1)
+        self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
+                                 seed=cfg.TRAIN.manualSeed, num_workers=workers)
+        self.evaluator = Evaluator([generator], [student], teacher, device,
+                                   cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers)
         self.val_datasets = val_datasets or {}
+        self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)
         self.iters = 0
+        self.converge_list: list = []
+        self.best_history: dict = {}
+        self.best_sum_acc = -1.0
 
-    def validate(self) -> dict:
+    def resume(self, path: str) -> None:
+        """``--resume`` of a port checkpoint, a run directory or a
+        reference ``.pth`` (``loop.py:421-452``).  The saved Adam
+        ``param_groups`` hold the old ``lr``; the finetune stage resumes
+        with a new one (``--lr 2e-4``), so the configured ``lr`` is set
+        again after the restore, the moments and step counts kept."""
+        payload = resume_models(path, self.generator, self.student, self.optimizer)
+        if payload is None:  # a reference .pth: weights only
+            return
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.cfg.lr
+        self.iters = payload["iters"]
+        self.converge_list = list(payload["converge"])
+        self.best_history = dict(payload["best_history_res"])
+        if self.best_history:
+            self.best_sum_acc = sum(r.get("accuracy", 0.0) for r in self.best_history.values())
+        print(f"resumed from {path} at step {self.iters}: {payload['info']}")
+
+    def evaluate(self, dataset) -> dict:
         self.generator.eval()
         self.student.eval()
-        results = {name: self.evaluator.evaluate(ds) for name, ds in self.val_datasets.items()}
+        return self.evaluator.evaluate(dataset)
+
+    def validate(self) -> dict:
+        results = {name: self.evaluate(ds) for name, ds in self.val_datasets.items()}
         for name, s in results.items():
             print(
                 f"eval[{name}] psnr {s['psnr_avg']:.3f} ssim {s['ssim_avg']:.4f} "
@@ -139,39 +177,73 @@ class Trainer:
             )
         return results
 
+    def _info(self, epoch: int) -> dict:
+        return {
+            "arch": self.cfg.args.arch,
+            "iters": self.iters,
+            "epochs": epoch,
+            "batch_size": self.cfg.batch_size,
+            "voc_type": self.cfg.TRAIN.voc_type,
+            "up_scale_factor": self.cfg.scale_factor,
+        }
+
+    def _save(self, name: str, epoch: int) -> None:
+        save_checkpoint(
+            os.path.join(self.ckpt_dir, name), self.generator, self.student, self.optimizer,
+            self.iters, info=self._info(epoch), best_history=self.best_history,
+            converge=self.converge_list,
+        )
+
+    def _validate_and_checkpoint(self, epoch: int) -> None:
+        """``loop.py:685-711``."""
+        results = self.validate()
+        self.converge_list.append({"iterator": self.iters, "results": results})
+        sum_acc = sum(r["accuracy"] for r in results.values())
+        if results and sum_acc > self.best_sum_acc:
+            self.best_sum_acc = sum_acc
+            self.best_history = results
+            self._save("model_best_acc_0.ckpt", epoch)
+            print(f"new best sum-acc {sum_acc:.4f} @ iter {self.iters}")
+
     def train(self, max_iters: Optional[int] = None) -> dict:
         """Steps until ``max_iters`` (counted over every call) or the last
         epoch.  Returns ``iters`` and the per-step metrics of this call,
         as lists of floats (read from the device once, at the end)."""
+        cfg = self.cfg.TRAIN
         history = []
         self.teacher.eval()
         t0 = time.perf_counter()
         done = max_iters is not None and self.iters >= max_iters
-        for epoch in range(self.epochs):
+        for epoch in range(self.cfg.epochs):
             if done:
                 break
             for batch in self.loader:
                 self.generator.train()
                 self.student.train()
-                hr, lr = to_device(batch, self.device, self.mask)
+                hr, lr = to_device(batch, self.device, self.cfg.args.mask)
                 # seeded from the run's seed and the step number, as the JAX
                 # loop keys each step with PRNGKey(iters) (loop.py:599)
-                gen = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + self.iters)
+                gen = torch.Generator(device=self.device).manual_seed(
+                    cfg.manualSeed * 1_000_003 + self.iters
+                )
                 metrics = train_step(
                     self.generator, self.student, self.teacher, self.optimizer,
-                    {"images_hr": hr, "images_lr": lr}, self.cfg, gen,
+                    {"images_hr": hr, "images_lr": lr}, self.step_cfg, gen,
                 )
                 history.append(metrics)
                 self.iters += 1
-                if self.iters % self.display_interval == 0:
+                if self.iters % cfg.displayInterval == 0:
                     ips = len(history) * lr.shape[0] / (time.perf_counter() - t0)
                     print(
                         f"[epoch {epoch}] iter {self.iters} "
                         + " ".join(f"{k} {v.item():.3f}" for k, v in metrics.items())
                         + f" ({ips:.1f} img/s)"
                     )
-                if self.val_interval > 0 and self.iters % self.val_interval == 0:
-                    self.validate()
+                # validation, then the rolling save (_boundary, loop.py:575-591)
+                if cfg.VAL.valInterval > 0 and self.iters % cfg.VAL.valInterval == 0:
+                    self._validate_and_checkpoint(epoch)
+                if cfg.saveInterval > 0 and self.iters % cfg.saveInterval == 0:
+                    self._save("checkpoint.ckpt", epoch)
                 if max_iters is not None and self.iters >= max_iters:
                     done = True
                     break

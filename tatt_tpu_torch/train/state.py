@@ -16,9 +16,9 @@ import torch
 BETA1 = 0.5  # TRAIN.beta1 (tatt_tpu/core/config.py:50)
 
 
-def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float):
-    """``torch.optim.Adam(params, lr, betas=(BETA1, 0.999), eps=1e-8)``."""
-    return torch.optim.Adam(list(params), lr=lr, betas=(BETA1, 0.999), eps=1e-8)
+def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, beta1: float = BETA1):
+    """``torch.optim.Adam(params, lr, betas=(beta1, 0.999), eps=1e-8)``."""
+    return torch.optim.Adam(list(params), lr=lr, betas=(beta1, 0.999), eps=1e-8)
 
 
 @torch.no_grad()

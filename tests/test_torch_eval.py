@@ -152,7 +152,7 @@ def test_cli_go_test_on_cpu(capsys):
 @pytest.mark.parametrize(
     "argv",
     [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=tsrn", "--go_test", "--synthetic", "8"],
-     ["--synthetic", "8", "--stu_iter", "2"], ["--go_test"],
+     ["--synthetic", "8", "--stu_iter", "2"], ["--go_test", "--mixed"],
      # training that leaves out a flag of the recipe, or rotates otherwise
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
       "--synthetic", "8"],
