@@ -38,8 +38,9 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      per step), a resume with a new lr restores everything bitwise and its
      steps match the uninterrupted run's, ``--go_test`` of the best
      checkpoint gives the summary recorded when it was saved; LMDB train
-     images/s beside phase 7's synthetic, eval images/s with 1 and 4
-     workers, checkpoint save / restore ms and bytes
+     images/s with 4 and 1 loader threads beside phase 7's synthetic, the
+     loader's host ms a batch alone, eval images/s with 1 and 4 workers,
+     checkpoint save / restore ms and bytes
 The last line is the JSON object the chip check reads.  Imports no JAX.
 """
 
@@ -683,13 +684,18 @@ def data_phase(synthetic_ips) -> None:
         # ---- numbers: LMDB train images/s, eval images/s by workers, checkpoint I/O
         trainer.cfg.TRAIN.VAL.valInterval = trainer.cfg.TRAIN.saveInterval = 0
         trainer.train(max_iters=trainer.iters + 2)  # the loader's threads up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train(max_iters=trainer.iters + TRAIN_STEPS)
-        torch.cuda.synchronize()
-        lmdb_ips = TRAIN_STEPS * BATCH / (time.perf_counter() - t0)
-        print(f"[data] train images/s: LMDB {lmdb_ips:.1f} ({DATA_WORKERS} workers, {TRAIN_STEPS} "
-              f"steps at batch {BATCH}), synthetic (phase 7, this call) "
+        lmdb_ips = {DATA_WORKERS: [], 1: []}
+        for workers in (DATA_WORKERS, 1, 1, DATA_WORKERS):  # in turns
+            trainer.loader.num_workers = workers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train(max_iters=trainer.iters + TRAIN_STEPS)
+            torch.cuda.synchronize()
+            lmdb_ips[workers].append(TRAIN_STEPS * BATCH / (time.perf_counter() - t0))
+        print(f"[data] train images/s on the LMDBs by loader threads ({TRAIN_STEPS} steps at batch "
+              f"{BATCH} each, in turns {DATA_WORKERS},1,1,{DATA_WORKERS}): "
+              + json.dumps({w: [round(v, 1) for v in r] for w, r in lmdb_ips.items()})
+              + "; synthetic (phase 7, this call) "
               + (f"{synthetic_ips:.1f}" if synthetic_ips else "not run"))
         # the host's side alone: batches of the train LMDBs (decode, resize,
         # stack) against cached synthetic crops (stack only), no device work
