@@ -1,7 +1,7 @@
 """CLI of the port (the ported subset of ``tatt_tpu/cli/main.py``).
 
-Training, the canonical recipe of ``scripts/train_TATT.sh``, on the
-TextZoom LMDBs that a YAML names (``TRAIN.train_data_dir``, and
+Training of the TATT step with any of its flags (the canonical recipe of
+``scripts/train_TATT.sh`` below), on the TextZoom LMDBs that a YAML names (``TRAIN.train_data_dir``, and
 ``TRAIN.VAL.val_data_dir`` for validation, each set keyed by its
 directory's basename):
 
@@ -20,19 +20,26 @@ of the best checkpoint on each val set:
 
 ``--synthetic N`` takes synthetic crops in place of the YAML's data; with
 neither, the CLI exits with code 2 ("no data").  Flags and defaults follow
-the JAX package.  Ported besides the recipe's flags: ``--config``,
-``--vis_dir``, ``--batch_size``, ``--val_batch_size``, ``--lr``,
-``--epochs``, ``--max_iters``, ``--resume`` (a port checkpoint, a run
-directory or a reference ``.pth``; else the YAML's ``TRAIN.resume``),
-``--crnn_pretrained`` (a ``.pth``; else ``TRAIN.VAL.crnn_pretrained``; a
-missing file exits with code 2), ``--test_model=CRNN``,
-``--no-fused_tssim``, the shrink flags ``--srb``, ``--hd_u`` and
-``--tiny_tpg``, and ``--device`` (default ``cuda``).  Training requires
-every flag of the recipe.  Any other flag or value, or a YAML the port
-does not serve, raises "not ported yet"; none is silently ignored.
-Without weights the generator and the CRNN student / teacher start from
-initial weights seeded by ``TRAIN.manualSeed``; the teacher is also the
-judge.
+the JAX package.  Ported: the step's flags ``--STN``, ``--mask``,
+``--gradient``, ``--use_distill``, ``--use_label``, ``--ssim_loss``,
+``--tssim_loss`` (``--no-fused_tssim``), ``--sr_share``, ``--tpg_share``,
+``--stu_iter``, ``--for_cascading``, ``--y_domain``, ``--learning_STN``,
+``--training_stablize`` and ``--rotate_train`` (any angle, 0 for none);
+``--config``, ``--vis_dir``, ``--batch_size``, ``--val_batch_size``,
+``--lr``, ``--epochs``, ``--max_iters``, ``--resume`` (a port checkpoint,
+a run directory or a reference ``.pth``; else the YAML's
+``TRAIN.resume``), ``--crnn_pretrained`` (a ``.pth``, such as one that
+``python -m tatt_tpu_torch.train.pretrain`` writes; else
+``TRAIN.VAL.crnn_pretrained``; a missing file exits with code 2; the
+CRNNs take the file's widths),
+``--test_model=CRNN``, the shrink flags ``--srb``, ``--hd_u`` and
+``--tiny_tpg``, and ``--device`` (default ``cuda``).  Refused with "not
+ported yet": ``--color_loss`` and ``--mse_fuse`` (flags of the plain
+step, which serves the other architectures), ``--dtype bfloat16``,
+another ``--arch`` or ``--test_model``, any other flag, and a YAML the
+port does not serve; nothing is silently ignored.  Without weights the
+generators and the CRNN students / teacher start from initial weights
+seeded by ``TRAIN.manualSeed``; the teacher is also the judge.
 """
 
 from __future__ import annotations
@@ -51,14 +58,14 @@ from tatt_tpu_torch.core.device import resolve_device, set_cuda_flags
 from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.models.common import init_parameters
-from tatt_tpu_torch.models.recognizers.crnn import CRNN
+from tatt_tpu_torch.models.recognizers.crnn import CRNN, crnn_widths
 from tatt_tpu_torch.models.tsrn import TATT
-from tatt_tpu_torch.train.loop import Evaluator, Trainer
+from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies
 
 TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))  # --tiny_tpg
-# the flags of scripts/train_TATT.sh that training requires
-RECIPE_FLAGS = ("STN", "mask", "use_distill", "gradient", "sr_share", "tssim_loss")
-RECIPE_ROTATE = 5.0
+STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss", "tssim_loss",
+              "sr_share", "tpg_share", "for_cascading", "y_domain", "learning_STN",
+              "training_stablize")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,12 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--go_test", action="store_true")
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     p.add_argument("--max_iters", type=int, default=None)
-    p.add_argument("--mask", action="store_true")
-    p.add_argument("--STN", action="store_true")
-    p.add_argument("--use_distill", action="store_true")
-    p.add_argument("--gradient", action="store_true")
-    p.add_argument("--sr_share", action="store_true")
-    p.add_argument("--tssim_loss", action="store_true")
+    for flag in STEP_FLAGS + ("color_loss", "mse_fuse"):
+        p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--fused_tssim", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--stu_iter", type=int, default=1)
     p.add_argument("--rotate_train", type=float, default=0.0)
@@ -103,15 +106,9 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
         (args.arch != "tatt", f"--arch={args.arch} (only tatt)"),
         (args.test_model != "CRNN", f"--test_model={args.test_model} (only CRNN)"),
         (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
-        (args.stu_iter != 1, f"--stu_iter={args.stu_iter} (only 1)"),
+        (args.color_loss, "--color_loss (a flag of the plain step)"),
+        (args.mse_fuse, "--mse_fuse (a flag of the plain step)"),
     ]
-    if not args.go_test:  # training runs the canonical recipe and nothing else
-        missing = [f"--{k}" for k in RECIPE_FLAGS if not getattr(args, k)]
-        refused += [
-            (bool(missing), f"training without {' '.join(missing)} (the recipe sets them)"),
-            (args.rotate_train != RECIPE_ROTATE,
-             f"--rotate_train={args.rotate_train} (only {RECIPE_ROTATE})"),
-        ]
     for bad, what in refused:
         if bad:
             raise SystemExit(f"not ported yet: {what}")
@@ -140,22 +137,27 @@ def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
 
 
 def build_models(cfg: Config, crnn_path: str):
-    """Generator, student and teacher, seeded by ``TRAIN.manualSeed``; the
-    teacher's weights (and the student's start) from ``crnn_path``."""
+    """(generators, students, teacher): the :func:`~tatt_tpu_torch.train.
+    loop.copies` of the generator and of the student, each copy seeded
+    from ``TRAIN.manualSeed`` and its index; the teacher's weights, and
+    every student's start, from ``crnn_path`` (``loop.py:176-186``), whose
+    shapes also give the CRNN's widths (a CRNN that
+    ``tatt_tpu_torch.train.pretrain`` trained at any width)."""
     a, seed = cfg.args, cfg.TRAIN.manualSeed
-    generator = init_parameters(
-        TATT(srb_nums=a.srb, hidden_units=a.hd_u, out_text_channels=2 * a.hd_u,
-             mask=a.mask, stn=a.STN),
-        seed,
-    )
-    crnn = TINY_CRNN if a.tiny_tpg else {}
-    student = init_parameters(CRNN(**crnn), seed + 1)
+    n_sr, n_stu = copies(a)
+    generators = [
+        init_parameters(TATT(srb_nums=a.srb, hidden_units=a.hd_u, out_text_channels=2 * a.hd_u,
+                             mask=a.mask, stn=a.STN), seed + 3 * i)
+        for i in range(n_sr)
+    ]
+    sd = load_reference_pth(crnn_path) if crnn_path else None
+    crnn = crnn_widths(sd) if sd else TINY_CRNN if a.tiny_tpg else {}
+    students = [init_parameters(CRNN(**crnn), seed + 1 + 3 * i) for i in range(n_stu)]
     teacher = init_parameters(CRNN(**crnn), seed + 2)  # also the judge
-    if crnn_path:
-        sd = load_reference_pth(crnn_path)
-        load_weights(teacher, sd)
-        load_weights(student, sd)
-    return generator, student, teacher
+    if sd:
+        for model in (teacher, *students):
+            load_weights(model, sd)
+    return generators, students, teacher
 
 
 def run(argv=None) -> tuple[int, Optional[Trainer]]:
@@ -183,21 +185,25 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
             "for meaningful training.",
             file=sys.stderr,
         )
-    generator, student, teacher = (m.to(device) for m in build_models(cfg, crnn_path))
+    generators, students, teacher = build_models(cfg, crnn_path)
+    generators = [m.to(device) for m in generators]
+    students = [m.to(device) for m in students]
+    teacher = teacher.to(device)
 
     if cfg.args.go_test:
         if cfg.resume:
-            resume_models(cfg.resume, generator, student)
+            resume_models(cfg.resume, generators, students)
         evaluator = Evaluator(
-            [generator.eval()], [student.eval()], teacher.eval(), device,
+            [m.eval() for m in generators], [m.eval() for m in students], teacher.eval(), device,
             batch_size=cfg.args.val_batch_size or cfg.batch_size, mask=cfg.args.mask,
-            workers=max(cfg.TRAIN.workers, 1),
+            workers=max(cfg.TRAIN.workers, 1), stu_iter=cfg.args.stu_iter,
+            for_cascading=cfg.args.for_cascading,
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")
         return 0, None
 
-    trainer = Trainer(cfg, generator, student, teacher, train_ds, device, val_sets)
+    trainer = Trainer(cfg, generators, students, teacher, train_ds, device, val_sets)
     if cfg.resume:
         trainer.resume(cfg.resume)
     result = trainer.train(max_iters=cli.max_iters)

@@ -1,10 +1,11 @@
-"""Character set, vocabulary filter and CTC greedy decode (copied from
-``tatt_tpu/core/charset.py``; the port imports nothing from the JAX
-package)."""
+"""Character set, vocabulary filter, CTC greedy decode and the collate's
+label spreading (copied from ``tatt_tpu/core/charset.py``; the port
+imports nothing from the JAX package)."""
 
 from __future__ import annotations
 
 import string
+from typing import Sequence
 
 import numpy as np
 
@@ -63,3 +64,50 @@ def levenshtein(a: str, b: str) -> int:
             cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
         prev = cur
     return prev[-1]
+
+
+def spread_label(word: str, max_len: int = 26) -> str:
+    """Interleave '-' padding between characters so a short word spans the
+    26 CTC time slots (``dataset/dataset.py:2026-2036``)."""
+    word = word.lower()
+    if len(word) <= 1:
+        return word
+    if len(word) >= max_len:
+        return word[:max_len]
+    padding = (max_len - len(word)) // (len(word) - 1)
+    return word[0] + "".join("-" * padding + ch for ch in word[1:])
+
+
+def encode_label_vecs(
+    labels: Sequence[str],
+    alphabet: str,
+    max_len: int = 26,
+    eval_perturb: bool = False,
+    spread: bool = True,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The collate's label tensors (``alignCollate_realWTLAMask``,
+    ``dataset/dataset.py:1979-2076``): ``(label_vecs [B, C, 1, T]`` one-hots
+    of the spread words, ``ctc_ids`` the flat ids (the '-' padding is id
+    0, the blank), ``weighted_tics [B]`` 1 for a word with any character
+    of the alphabet, else 0).  ``eval_perturb`` is the eval collate's
+    ``word[2]='e'`` (``dataset.py:1928-1931``)."""
+    if not alphabet.startswith("-"):
+        alphabet = "-" + alphabet
+    a2d = {ch: i for i, ch in enumerate(alphabet)}
+    batch = np.zeros((len(labels), max_len, len(a2d)), dtype=np.float32)
+    ctc_ids: list[int] = []
+    tics = np.zeros((len(labels),), dtype=np.int32)
+    for b, word in enumerate(labels):
+        word = word.lower()
+        if eval_perturb and len(word) > 4:
+            word = word[:2] + "e" + word[3:]
+        word = spread_label(word, max_len) if spread else word[:max_len]
+        ids = [a2d[ch] for ch in word if ch in a2d]
+        if ids:
+            ctc_ids.extend(ids)
+            batch[b, np.arange(len(ids)), ids] = 1.0
+            tics[b] = 1
+        else:
+            ctc_ids.append(0)
+            batch[b, 0, 0] = 1.0
+    return batch.transpose(0, 2, 1)[:, :, None, :], np.asarray(ctc_ids, dtype=np.int32), tics

@@ -2,13 +2,17 @@
 
 A checkpoint is one ``torch.save`` file, written to ``path + ".tmp"`` and
 then renamed over ``path``.  It holds the format marker :data:`FORMAT`,
-the generator's and the student's ``state_dict`` (parameters and BN
-buffers), the Adam ``state_dict``, ``iters``, the ``info`` dict,
-``best_history_res`` and ``converge`` (plain types only), and is read with
-``torch.load(..., weights_only=True)``.  The trainer keeps the JAX
-package's file names under ``<TRAIN.ckpt_dir>/<vis_dir>/``:
-``checkpoint.ckpt`` every ``saveInterval`` and ``model_best_acc_0.ckpt``
-on a new best sum-accuracy.
+the ``state_dict`` (parameters and BN buffers) of every generator copy and
+of every student copy (one each, or ``stu_iter`` where ``--sr_share`` /
+``--tpg_share`` is off), the Adam ``state_dict`` over all of them,
+``iters``, the ``info`` dict, ``best_history_res`` and ``converge`` (plain
+types only), and is read with ``torch.load(..., weights_only=True)``.  As
+the JAX package's one ``TrainState`` file, it holds every copy; the
+trainer keeps that package's file names under
+``<TRAIN.ckpt_dir>/<vis_dir>/``: ``checkpoint.ckpt`` every
+``saveInterval`` and ``model_best_acc_0.ckpt`` on a new best
+sum-accuracy.  A file of the earlier format (one ``state_dict`` per model)
+still loads.
 
 Three kinds of file reach ``--resume``: a port checkpoint (a torch zip
 with the marker), a reference ``.pth`` (a torch zip or a legacy pickle
@@ -25,10 +29,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from tatt_tpu_torch.core.convert import CHECKPOINT_FORMAT as FORMAT
-from tatt_tpu_torch.core.convert import is_jax_checkpoint, load_reference_pth, load_weights
+from tatt_tpu_torch.core.convert import (
+    CHECKPOINT_FORMATS, is_jax_checkpoint, load_reference_pth, load_weights,
+)
+from tatt_tpu_torch.models.common import Models, module_list
 
 
 def _plain(x: Any) -> Any:
@@ -45,18 +51,19 @@ def _plain(x: Any) -> Any:
 
 def save_checkpoint(
     path: str,
-    generator: nn.Module,
-    student: nn.Module,
+    generators: Models,
+    students: Models,
     optimizer: torch.optim.Optimizer,
     iters: int,
     info: Optional[dict] = None,
     best_history: Optional[dict] = None,
     converge: Optional[list] = None,
 ) -> None:
+    """``generators`` / ``students``: one module or the list of copies."""
     payload = {
         "format": FORMAT,
-        "generator": generator.state_dict(),
-        "student": student.state_dict(),
+        "generator": [m.state_dict() for m in module_list(generators)],
+        "student": [m.state_dict() for m in module_list(students)],
         "optimizer": optimizer.state_dict(),
         "iters": int(iters),
         "info": _plain(info or {}),
@@ -70,61 +77,80 @@ def save_checkpoint(
 
 
 def load_checkpoint(path: str) -> Optional[dict]:
-    """The payload of a port checkpoint, or None for a reference ``.pth``.
-    Raises ``ValueError`` for a JAX-package checkpoint."""
+    """The payload of a port checkpoint (``generator`` / ``student``: a
+    list of ``state_dict``, one per copy), or None for a reference
+    ``.pth``.  Raises ``ValueError`` for a JAX-package checkpoint."""
     if is_jax_checkpoint(path):
         raise ValueError(f"{path} is a checkpoint of the JAX package tatt_tpu (msgpack); "
                          "the port reads its own checkpoints and reference .pth files")
     if not zipfile.is_zipfile(path):
         return None  # a legacy-pickle reference .pth
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    return blob if isinstance(blob, dict) and blob.get("format") == FORMAT else None
+    if not (isinstance(blob, dict) and blob.get("format") in CHECKPOINT_FORMATS):
+        return None
+    for key in ("generator", "student"):  # the earlier format: one state_dict
+        if isinstance(blob[key], dict):
+            blob[key] = [blob[key]]
+    return blob
 
 
 def restore_checkpoint(
     payload: dict,
-    generator: nn.Module,
-    student: nn.Module,
+    generators: Models,
+    students: Models,
     optimizer: Optional[torch.optim.Optimizer] = None,
 ) -> None:
-    """Load a :func:`load_checkpoint` payload into the models (every entry
-    of each model must be present; entries it lacks, such as the STN head
-    of a training checkpoint in an eval model without ``--STN``, are left
-    out) and, when given, the optimizer, whose parameters must be those it
-    was saved with, in the same order."""
-    load_weights(generator, payload["generator"])
-    load_weights(student, payload["student"])
+    """Load a :func:`load_checkpoint` payload into the models, as many
+    copies of each as the payload holds (every entry of each model must be
+    present; entries it lacks, such as the STN head of a training
+    checkpoint in an eval model without ``--STN``, are left out) and, when
+    given, the optimizer, whose parameters must be those it was saved
+    with, in the same order."""
+    for what, models in (("generator", generators), ("student", students)):
+        models, saved = module_list(models), payload[what]
+        if len(models) != len(saved):
+            raise ValueError(f"the checkpoint holds {len(saved)} {what} copies, "
+                             f"the run has {len(models)}")
+        for model, sd in zip(models, saved):
+            load_weights(model, sd)
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
 
 
 def resume_models(
     path: str,
-    generator: nn.Module,
-    student: nn.Module,
+    generators: Models,
+    students: Models,
     optimizer: Optional[torch.optim.Optimizer] = None,
 ) -> Optional[dict]:
     """``--resume``: resolve ``path`` (:func:`resolve_resume_path`), then
     load a port checkpoint into the models and, when given, the optimizer,
-    and return its payload; or load a reference ``.pth`` (the generator,
-    and the student from ``recognizer_best_acc_0.pth`` beside it, as
-    ``loop.py:454-535`` of the JAX package does) and return None: the
+    and return its payload; or load a reference ``.pth`` and return None:
+    generator copy i from ``model_best_acc_<i>.pth`` beside it where that
+    exists (the reference names its best files per copy), else from the
+    file itself, and student copy i from ``recognizer_best_acc_<i>.pth``
+    beside it, as ``loop.py:454-535`` of the JAX package does.  The
     reference saves no optimizer state, so Adam starts afresh."""
     path = resolve_resume_path(path)
     payload = load_checkpoint(path)
     if payload is not None:
-        restore_checkpoint(payload, generator, student, optimizer)
+        restore_checkpoint(payload, generators, students, optimizer)
         return payload
-    unused = load_weights(generator, load_reference_pth(path))
-    print(
-        f"generator from {path} ({len(unused)} checkpoint entries unused); "
-        "note: reference TATT checkpoints were trained under the batch_first "
-        "query-GRU quirk (TATT(query_gru_mode='reference') reproduces it)",
-        file=sys.stderr,
-    )
-    rec = os.path.join(os.path.dirname(path), "recognizer_best_acc_0.pth")
-    if os.path.exists(rec):
-        load_weights(student, load_reference_pth(rec))
+    here = os.path.dirname(path)
+    for i, generator in enumerate(module_list(generators)):
+        sibling = os.path.join(here, f"model_best_acc_{i}.pth")
+        src = sibling if os.path.exists(sibling) else path
+        unused = load_weights(generator, load_reference_pth(src))
+        print(
+            f"generator {i} from {src} ({len(unused)} checkpoint entries unused); "
+            "note: reference TATT checkpoints were trained under the batch_first "
+            "query-GRU quirk (TATT(query_gru_mode='reference') reproduces it)",
+            file=sys.stderr,
+        )
+    for i, student in enumerate(module_list(students)):
+        rec = os.path.join(here, f"recognizer_best_acc_{i}.pth")
+        if os.path.exists(rec):
+            load_weights(student, load_reference_pth(rec))
     return None
 
 

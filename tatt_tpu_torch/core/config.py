@@ -83,9 +83,16 @@ class Flags:
     mask: bool = False
     gradient: bool = False
     use_distill: bool = False
+    use_label: bool = False
+    ssim_loss: bool = False
     tssim_loss: bool = False
     fused_tssim: bool = True
     sr_share: bool = False
+    tpg_share: bool = False
+    for_cascading: bool = False
+    y_domain: bool = False
+    learning_STN: bool = False
+    training_stablize: bool = False
     stu_iter: int = 1
     rotate_train: float = 0.0
     go_test: bool = False

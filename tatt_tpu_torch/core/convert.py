@@ -18,7 +18,7 @@ a ``TATT(stn=True)`` included (to the reference's ``stn_head.stn_convnet``
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -26,8 +26,10 @@ from torch import nn
 
 from tatt_tpu_torch.train.state import make_optimizer
 
-# marker of the port's own checkpoints (core/checkpoint.py)
-CHECKPOINT_FORMAT = "tatt_tpu_torch.checkpoint.v1"
+# marker of the port's own checkpoints (core/checkpoint.py): v2 holds a list
+# of state_dicts per model (one per copy), v1 one state_dict
+CHECKPOINT_FORMAT = "tatt_tpu_torch.checkpoint.v2"
+CHECKPOINT_FORMATS = ("tatt_tpu_torch.checkpoint.v1", CHECKPOINT_FORMAT)
 _RNN = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
 _LEAF = {
     "bias": "bias",
@@ -150,6 +152,13 @@ def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
+def from_jax_copies(params: Sequence, batch_stats: Sequence) -> list[dict[str, torch.Tensor]]:
+    """The per-copy tuples of a JAX ``TrainState`` (``sr_params`` with
+    ``sr_batch_stats``, or ``student_params`` with ``student_batch_stats``,
+    as numpy trees) -> one port ``state_dict`` per copy, in copy order."""
+    return [from_jax({"params": p, "batch_stats": s}) for p, s in zip(params, batch_stats, strict=True)]
+
+
 def adam_from_jax(mu, nu, count: int, params_order, lr: float) -> dict:
     """An optax ``adam`` state -> the ``state_dict`` of the port's Adam
     (``train/state.py:make_optimizer`` at ``lr``), so that a JAX run's
@@ -157,9 +166,9 @@ def adam_from_jax(mu, nu, count: int, params_order, lr: float) -> dict:
 
     ``mu`` and ``nu`` (first and second moments) are sequences of JAX
     parameter trees as numpy arrays, one per model in the optimizer's
-    order (the generator's, then the student's); ``count`` is Adam's step
-    count; ``params_order`` gives, for each model, the port's parameter
-    names in ``named_parameters()`` order."""
+    order (every generator copy's, then every student copy's); ``count``
+    is Adam's step count; ``params_order`` gives, for each model, the
+    port's parameter names in ``named_parameters()`` order."""
     state, index = {}, 0
     for m_tree, v_tree, names in zip(mu, nu, params_order, strict=True):
         m_sd, v_sd = from_jax({"params": m_tree}), from_jax({"params": v_tree})
@@ -206,7 +215,7 @@ def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
         raise ValueError(f"{path} is a checkpoint of the JAX package tatt_tpu (msgpack), "
                          "not a reference .pth")
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(blob, dict) and blob.get("format") == CHECKPOINT_FORMAT:
+    if isinstance(blob, dict) and blob.get("format") in CHECKPOINT_FORMATS:
         raise ValueError(f"{path} is a checkpoint of the port (core/checkpoint.py), "
                          "not a reference .pth: resume it with --resume")
     for key in ("state_dict", "state_dict_G"):

@@ -4,7 +4,9 @@
 Batches ship as stacked [B, H, W, 3] uint8 crops (4x fewer bytes to the
 card than float32); the float conversion, the NCHW layout and the mask
 channel (PIL's exact fixed-point luma, thresholded at its per-image mean)
-run on the device.  :func:`host_normalize_u8` is the numpy twin.
+run on the device.  :func:`host_normalize_u8` is the numpy twin, and
+:func:`prep_image_batch` normalizes the image leaves of a train batch, as
+the JAX train step does first (``steps.py:116``).
 """
 
 from __future__ import annotations
@@ -37,3 +39,13 @@ def host_normalize_u8(u8_nhwc: np.ndarray, mask: bool) -> np.ndarray:
     thres = gray.mean(axis=(1, 2), keepdims=True)
     m = (gray <= thres).astype(np.float32)
     return np.concatenate([out, m[:, None]], axis=1)
+
+
+IMAGE_KEYS = ("images_hr", "images_lr", "images_hr_y", "images_lr_y")
+
+
+def prep_image_batch(batch: dict, mask: bool) -> dict:
+    """The batch with its uint8 image leaves normalized
+    (:func:`device_normalize`); float leaves pass through."""
+    return {k: device_normalize(v, mask) if k in IMAGE_KEYS and v.dtype == torch.uint8 else v
+            for k, v in batch.items()}

@@ -79,3 +79,13 @@ class CRNN(nn.Module):
         for layer in self.rnn:
             seq = layer(seq)
         return seq.transpose(0, 1)  # [T, B, nclass]
+
+
+def crnn_widths(state_dict) -> dict:
+    """The ``CRNN`` arguments (``nclass``, ``nh``, ``nm``) that a
+    reference-layout ``state_dict`` was saved from, read off its shapes."""
+    return {
+        "nclass": int(state_dict["rnn.1.embedding.weight"].shape[0]),
+        "nh": int(state_dict["rnn.0.rnn.weight_hh_l0"].shape[1]),
+        "nm": tuple(int(state_dict[f"cnn.conv{i}.weight"].shape[0]) for i in range(7)),
+    }

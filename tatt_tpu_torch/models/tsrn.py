@@ -175,3 +175,25 @@ class TATT(nn.Module):
             "trans_feat": tp_map,
         }
         return out, aux
+
+    def jax_module_params(self) -> dict[str, list[nn.Parameter]]:
+        """The parameters grouped under the JAX ``TATT``'s top-level module
+        names (``block1_conv``, ``block1_act``, ``srb2`` .., ``post_conv``,
+        ``post_bn``, ``up0`` .., ``final_conv``, ``infoGen``, ``stn_head``;
+        ``tsrn.py:563-675``): the train step's ``gnorm/<module>`` metrics."""
+        srb = self.srb_nums
+        n_up = len(getattr(self, f"block{srb + 3}")) - 1
+        indexed = {
+            "block1": ("block1_conv", "block1_act"),
+            f"block{srb + 2}": ("post_conv", "post_bn"),
+            f"block{srb + 3}": tuple(f"up{j}" for j in range(n_up)) + ("final_conv",),
+        }
+        groups: dict[str, list[nn.Parameter]] = {}
+        for name, p in self.named_parameters():
+            head, sub = name.split(".")[:2]
+            if head in indexed:
+                key = indexed[head][int(sub)]
+            else:  # block2 .. block{srb+1} are the JAX srb2 .., the rest keep their names
+                key = "srb" + head[len("block"):] if head.startswith("block") else head
+            groups.setdefault(key, []).append(p)
+        return groups

@@ -1,15 +1,18 @@
 """Evaluation and training loops (counterpart of ``tatt_tpu/train/loop.py``).
 
 :class:`Evaluator` is ``Trainer.evaluate``: for each batch the eval step
-(student prior -> TATT), PSNR/SSIM of SR and of the bicubic-upscaled LR
-against HR, and the judge CRNN's greedy CTC decode of SR, LR and HR.
-Visualisation and LPIPS are not ported yet.
+(student prior -> TATT, ``stu_iter`` times, with ``for_cascading``), PSNR/SSIM
+of SR and of the bicubic-upscaled LR against HR, and the judge CRNN's
+greedy CTC decode of SR, LR and HR.  Visualisation and LPIPS are not
+ported yet.
 
-:class:`Trainer` is ``Trainer.train`` (``loop.py:546-673``) for the
-canonical recipe, configured by a :class:`~tatt_tpu_torch.core.config.Config`:
-seeded shuffled batches (``TRAIN.workers`` threads), one :func:`train_step`
-each with a generator seeded from the run's seed and the step number, a
-log line every ``displayInterval`` steps.  When ``iters`` reaches a
+:class:`Trainer` is ``Trainer.train`` (``loop.py:546-673``) for the TATT
+step, configured by a :class:`~tatt_tpu_torch.core.config.Config`: the
+step's flags (:func:`step_config`), ``n_sr`` generators and ``n_stu``
+students (:func:`copies`, ``loop.py:168-174``) under one Adam, seeded
+shuffled batches (``TRAIN.workers`` threads), one :func:`train_step` each
+with a generator seeded from the run's seed and the step number, a log
+line every ``displayInterval`` steps.  When ``iters`` reaches a
 multiple of ``valInterval`` it evaluates the val sets, appends
 ``{"iterator", "results"}`` to ``converge_list`` and, on a new best sum of
 the sets' accuracies, saves ``model_best_acc_0.ckpt``; at a multiple of
@@ -33,11 +36,13 @@ from torch import nn
 
 from tatt_tpu_torch.core.charset import CRNN_ALPHABET, ctc_greedy_decode
 from tatt_tpu_torch.core.checkpoint import resume_models, save_checkpoint
-from tatt_tpu_torch.core.config import Config
+from tatt_tpu_torch.core.config import Config, Flags
+from tatt_tpu_torch.data.collate import Batch
 from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
+from tatt_tpu_torch.models.common import Models, module_list
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 from tatt_tpu_torch.train.metrics import EvalAccumulator
 from tatt_tpu_torch.train.state import make_optimizer
@@ -51,12 +56,46 @@ def to_device(batch, device: torch.device, mask: bool) -> tuple[torch.Tensor, to
     )
 
 
+def step_batch(batch: Batch, device: torch.device, cfg: StepConfig) -> dict:
+    """The leaves of a batch that :func:`train_step` reads under ``cfg``,
+    on the device: the uint8 crops (the step normalizes them), and the
+    ``YCbCr`` crops and CTC labels where ``y_domain`` / ``use_label`` ask."""
+    names = ["images_hr", "images_lr"]
+    if cfg.y_domain:
+        names += ["images_hr_y", "images_lr_y"]
+    if cfg.use_label:
+        names += ["ctc_targets", "ctc_lengths", "weighted_tics"]
+    out = {k: torch.from_numpy(getattr(batch, k)).to(device) for k in names}
+    if cfg.use_label:
+        out["weighted_tics"] = out["weighted_tics"].float()
+    return out
+
+
+def copies(args: Flags) -> tuple[int, int]:
+    """(n_sr, n_stu): one generator and one student, or ``stu_iter`` of
+    each where ``--sr_share`` / ``--tpg_share`` is off (``loop.py:168-174``)."""
+    n = args.stu_iter
+    return (1 if args.sr_share or n == 1 else n), (1 if args.tpg_share or n == 1 else n)
+
+
+def step_config(args: Flags) -> StepConfig:
+    """The train step's options from the flags (``loop.py:194-213``)."""
+    return StepConfig(
+        stu_iter=args.stu_iter, sr_share=args.sr_share or args.stu_iter == 1,
+        tpg_share=args.tpg_share or args.stu_iter == 1, use_distill=args.use_distill,
+        use_label=args.use_label, for_cascading=args.for_cascading, y_domain=args.y_domain,
+        learning_STN=args.learning_STN, gradient=args.gradient, ssim_loss=args.ssim_loss,
+        tssim_loss=args.tssim_loss, fused_tssim=args.fused_tssim, rotate_train=args.rotate_train,
+        training_stablize=args.training_stablize, mask=args.mask,
+    )
+
+
 class Evaluator:
     """The ``--go_test`` protocol over a dataset of (HR, LR, label)
-    samples at the default geometry (HR 128x32, LR 64x16), one
-    ``stu_iter``.  Models must already sit on ``device`` in eval mode.
-    ``workers`` threads build the batches (the same batches for any
-    count)."""
+    samples at the default geometry (HR 128x32, LR 64x16).  Models must
+    already sit on ``device`` in eval mode; ``generators`` / ``students``
+    hold one module or one per ``stu_iter`` iteration.  ``workers`` threads
+    build the batches (the same batches for any count)."""
 
     def __init__(
         self,
@@ -67,9 +106,13 @@ class Evaluator:
         batch_size: int = 64,
         mask: bool = True,
         workers: int = 1,
+        stu_iter: int = 1,
+        for_cascading: bool = False,
     ):
         self.generators = list(generators)
         self.students = list(students)
+        self.stu_iter = stu_iter
+        self.for_cascading = for_cascading
         self.judge = judge
         self.device = torch.device(device)
         self.batch_size = batch_size
@@ -93,7 +136,7 @@ class Evaluator:
         acc = EvalAccumulator()
         t0 = time.perf_counter()
         for hr, lr, labels in self.batches(dataset):
-            sr, _ = eval_step(self.generators, self.students, lr)
+            sr, _ = eval_step(self.generators, self.students, lr, self.stu_iter, self.for_cascading)
             lr_up = resize_bicubic(lr, hr.shape[-2], hr.shape[-1])
             acc.add_batch(
                 psnr(sr, hr).item(),
@@ -111,33 +154,42 @@ class Evaluator:
 
 
 class Trainer:
-    """Trains ``generator`` and ``student`` (one Adam over both) against the
-    frozen ``teacher``, which is also the validation judge (the JAX
-    package's CRNN judge without dedicated weights, ``loop.py:353-355``).
-    The models must already sit on ``device``."""
+    """Trains ``generators`` and ``students`` (one module each, or the
+    :func:`copies` of each; one Adam over all) against the frozen
+    ``teacher``, which is also the validation judge (the JAX package's CRNN
+    judge without dedicated weights, ``loop.py:353-355``).  The models
+    must already sit on ``device``."""
 
     def __init__(
         self,
         cfg: Config,
-        generator: nn.Module,
-        student: nn.Module,
+        generators: Models,
+        students: Models,
         teacher: nn.Module,
         train_dataset,
         device: torch.device,
         val_datasets: Optional[dict] = None,
     ):
         self.cfg = cfg
-        self.generator, self.student, self.teacher = generator, student, teacher
+        self.generators, self.students = module_list(generators), module_list(students)
+        want = copies(cfg.args)
+        if (len(self.generators), len(self.students)) != want:
+            raise ValueError(f"{len(self.generators)} generators and {len(self.students)} students "
+                             f"given, the flags ask for {want[0]} and {want[1]}")
+        self.teacher = teacher
         self.device = torch.device(device)
-        self.step_cfg = StepConfig(fused_tssim=cfg.args.fused_tssim)
+        self.step_cfg = step_config(cfg.args)
         self.optimizer = make_optimizer(
-            itertools.chain(generator.parameters(), student.parameters()), cfg.lr, cfg.TRAIN.beta1
+            itertools.chain(*(m.parameters() for m in self.generators + self.students)),
+            cfg.lr, cfg.TRAIN.beta1,
         )
         workers = max(cfg.TRAIN.workers, 1)
         self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
-                                 seed=cfg.TRAIN.manualSeed, num_workers=workers)
-        self.evaluator = Evaluator([generator], [student], teacher, device,
-                                   cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers)
+                                 seed=cfg.TRAIN.manualSeed, num_workers=workers,
+                                 y_domain=cfg.args.y_domain)
+        self.evaluator = Evaluator(self.generators, self.students, teacher, device,
+                                   cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers,
+                                   cfg.args.stu_iter, cfg.args.for_cascading)
         self.val_datasets = val_datasets or {}
         self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)
         self.iters = 0
@@ -145,13 +197,23 @@ class Trainer:
         self.best_history: dict = {}
         self.best_sum_acc = -1.0
 
+    @property
+    def generator(self) -> nn.Module:
+        """The first generator copy."""
+        return self.generators[0]
+
+    @property
+    def student(self) -> nn.Module:
+        """The first student copy."""
+        return self.students[0]
+
     def resume(self, path: str) -> None:
         """``--resume`` of a port checkpoint, a run directory or a
         reference ``.pth`` (``loop.py:421-452``).  The saved Adam
         ``param_groups`` hold the old ``lr``; the finetune stage resumes
         with a new one (``--lr 2e-4``), so the configured ``lr`` is set
         again after the restore, the moments and step counts kept."""
-        payload = resume_models(path, self.generator, self.student, self.optimizer)
+        payload = resume_models(path, self.generators, self.students, self.optimizer)
         if payload is None:  # a reference .pth: weights only
             return
         for group in self.optimizer.param_groups:
@@ -164,8 +226,8 @@ class Trainer:
         print(f"resumed from {path} at step {self.iters}: {payload['info']}")
 
     def evaluate(self, dataset) -> dict:
-        self.generator.eval()
-        self.student.eval()
+        for m in self.generators + self.students:
+            m.eval()
         return self.evaluator.evaluate(dataset)
 
     def validate(self) -> dict:
@@ -189,7 +251,7 @@ class Trainer:
 
     def _save(self, name: str, epoch: int) -> None:
         save_checkpoint(
-            os.path.join(self.ckpt_dir, name), self.generator, self.student, self.optimizer,
+            os.path.join(self.ckpt_dir, name), self.generators, self.students, self.optimizer,
             self.iters, info=self._info(epoch), best_history=self.best_history,
             converge=self.converge_list,
         )
@@ -218,22 +280,21 @@ class Trainer:
             if done:
                 break
             for batch in self.loader:
-                self.generator.train()
-                self.student.train()
-                hr, lr = to_device(batch, self.device, self.cfg.args.mask)
+                for m in self.generators + self.students:
+                    m.train()
                 # seeded from the run's seed and the step number, as the JAX
                 # loop keys each step with PRNGKey(iters) (loop.py:599)
                 gen = torch.Generator(device=self.device).manual_seed(
                     cfg.manualSeed * 1_000_003 + self.iters
                 )
                 metrics = train_step(
-                    self.generator, self.student, self.teacher, self.optimizer,
-                    {"images_hr": hr, "images_lr": lr}, self.step_cfg, gen,
+                    self.generators, self.students, self.teacher, self.optimizer,
+                    step_batch(batch, self.device, self.step_cfg), self.step_cfg, gen,
                 )
                 history.append(metrics)
                 self.iters += 1
                 if self.iters % cfg.displayInterval == 0:
-                    ips = len(history) * lr.shape[0] / (time.perf_counter() - t0)
+                    ips = len(history) * self.cfg.batch_size / (time.perf_counter() - t0)
                     print(
                         f"[epoch {epoch}] iter {self.iters} "
                         + " ".join(f"{k} {v.item():.3f}" for k, v in metrics.items())

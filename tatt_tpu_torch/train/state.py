@@ -1,9 +1,11 @@
 """Optimizer and gradient clipping (counterpart of ``tatt_tpu/train/state.py``).
 
-One Adam over the SR and student parameters, betas (beta1, 0.999) as the
-reference configures it (``base.py:527-528``; beta1 0.5), the same update
-as ``optax.adam`` there; the SR model's gradients are clipped per model at
-0.25 and the student's are not (``super_resolution.py:1083-1084``).
+One Adam over every copy of the SR model and of the student (``stu_iter``
+copies of each where ``--sr_share`` / ``--tpg_share`` is off,
+``state.py:23-49``), betas (beta1, 0.999) as the reference configures it
+(``base.py:527-528``; beta1 0.5), the same update as ``optax.adam`` there;
+each SR copy's gradients are clipped at 0.25 on their own and the
+students' are not (``super_resolution.py:1083-1084``, ``state.py:58-69``).
 """
 
 from __future__ import annotations

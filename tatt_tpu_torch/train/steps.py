@@ -1,18 +1,23 @@
 """The train and eval steps (counterpart of ``tatt_tpu/train/steps.py``).
 
-:func:`train_step` is ``make_train_step`` (``steps.py:93-392``) for the
-canonical recipe (``scripts/train_TATT.sh``: ``--STN --mask --use_distill
---gradient --sr_share --stu_iter=1 --rotate_train=5 --tssim_loss``):
-rotation augmentation, the frozen teacher's prior from HR, the student's
-prior from LR (its gradient stopped), the generator forward, then image,
-TRI-SSIM and distillation losses, one backward, per-model clipping of the
-SR gradients, one Adam step.  With ``fused_tssim`` the counter-rotated
-copy runs in the same 2B forward with per-copy BatchNorm statistics
-(``steps.py:230-250``).
+:func:`train_step` is ``make_train_step`` (``steps.py:93-392``) with every
+branch of the TATT step: rotation augmentation (``rotate_train`` degrees,
+none at 0), the frozen teacher's prior from HR, then ``stu_iter``
+iterations, each a student prior (its gradient stopped) and a generator
+forward; at ``i > 0`` the student reads the previous iteration's SR, its
+gradient stopped, and with ``for_cascading`` the generator reads it too,
+resized to LR and averaged with LR.  The losses: image (with
+``gradient``, ``training_stablize``'s top-70 % mask and ``learning_STN``'s
+rectification term) weighted ``1 + 0.5 i``, SSIM, TRI-SSIM, distillation
+and ``use_label``'s CTC of the teacher's HR logits against the spread
+labels; then one backward, per-copy clipping of the SR gradients and one
+Adam step over every copy.  ``y_domain`` trains the SR losses on the
+``YCbCr`` crops and reads the recognizer priors from the raw RGB.  With
+``fused_tssim`` the counter-rotated copy runs in the same 2B forward with
+per-copy BatchNorm statistics (``steps.py:230-250``).
 
 :func:`eval_step` is ``make_eval_step`` (``steps.py:553-610``) including
-the ``stu_iter`` cascade of ``model_inference``.  ``--for_cascading``
-(generator input blended with the previous SR) is not ported yet.
+the ``stu_iter`` cascade of ``model_inference`` and ``for_cascading``.
 """
 
 from __future__ import annotations
@@ -24,89 +29,196 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from tatt_tpu_torch.data.device_pipeline import prep_image_batch
+from tatt_tpu_torch.kernels.ctc import ctc_loss
 from tatt_tpu_torch.kernels.grid_sample import rotate_batch
+from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.distill import semantic_loss
 from tatt_tpu_torch.losses.image import image_loss
-from tatt_tpu_torch.losses.ssim import tri_ssim
+from tatt_tpu_torch.losses.ssim import ssim, tri_ssim
+from tatt_tpu_torch.models.common import Models, module_list
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
-from tatt_tpu_torch.train.state import clip_grads_per_model, grad_norm
-
-
-GRAD_CLIP = 0.25  # per-model SR gradient clip (super_resolution.py:1083-1084)
-ROTATE_DEGREES = 5.0  # --rotate_train of the recipe
-
+from tatt_tpu_torch.train.state import clip_grads_per_model
 
 @dataclass(frozen=True)
 class StepConfig:
-    """The recipe's one choice: the JAX ``StepConfig`` (``steps.py:30-59``)
-    with ``use_distill``, ``gradient``, ``tssim_loss``, ``rotate_train=5``,
-    ``stu_iter`` 1 and ``sr_share``, no ``use_label`` / ``for_cascading``
-    / ``y_domain`` / ``learning_STN`` / ``ssim_loss`` / ``mse_fuse`` /
-    ``training_stablize``, float32.  ``fused_tssim`` runs sr and the
-    counter-rotated sr_ret in one 2B forward (else two forwards)."""
+    """The JAX ``StepConfig`` (``steps.py:30-59``) with its defaults, the
+    canonical recipe, but for ``color_loss`` and ``mse_fuse`` (flags of the
+    plain step) and ``compute_dtype`` (the port runs float32).
+    ``fused_tssim`` runs sr and the counter-rotated sr_ret in one 2B
+    forward (else two forwards); ``mask`` is the mask channel of the
+    uint8 image leaves the step normalizes."""
 
+    stu_iter: int = 1
+    sr_share: bool = True
+    tpg_share: bool = False
+    use_distill: bool = True
+    use_label: bool = False
+    for_cascading: bool = False
+    y_domain: bool = False
+    learning_STN: bool = False
+    gradient: bool = True
+    ssim_loss: bool = False
+    tssim_loss: bool = True
     fused_tssim: bool = True
+    rotate_train: float = 5.0
+    training_stablize: bool = False
+    grad_clip: float = 0.25
+    mask: bool = True
 
 
-def _rotation(batch: dict, n: int, gen: torch.Generator):
+def loss_stablize(loss_set: torch.Tensor, keep: float = 0.7) -> torch.Tensor:
+    """Zero the per-sample losses above the ``int(keep * B)``-th smallest
+    (the intended top-k mask of ``super_resolution.py:84-93``, as
+    ``steps.py:82-90``)."""
+    k = int(keep * loss_set.shape[0])
+    if k == 0:
+        return loss_set
+    threshold = torch.sort(loss_set).values[k - 1]
+    return torch.where(loss_set <= threshold, loss_set, torch.zeros_like(loss_set))
+
+
+def _rotation(batch: dict, n: int, degrees: float, gen: torch.Generator):
     """(arc, rand_offs) [N]: the batch's ``rot_arc`` / ``rot_offs`` when it
     pins them (``steps.py:137-140``), else drawn uniformly from ``gen``."""
     if "rot_arc" in batch:
         return batch["rot_arc"], batch["rot_offs"]
     dev = batch["images_lr"].device
-    angle = (torch.rand(n, generator=gen, device=dev) * 2.0 - 1.0) * ROTATE_DEGREES
+    angle = (torch.rand(n, generator=gen, device=dev) * 2.0 - 1.0) * degrees
     return angle / 180.0 * math.pi, torch.rand(n, generator=gen, device=dev)
 
 
+@torch.no_grad()
+def _grad_metrics(generator: nn.Module) -> dict:
+    """``grad_norm_sr`` and ``gnorm/<module>`` of the first generator copy
+    (``steps.py:359-371``), before clipping."""
+    sq = {k: sum((p.grad.float() ** 2).sum() for p in ps)
+          for k, ps in generator.jax_module_params().items()}
+    out = {f"gnorm/{k}": torch.sqrt(v) for k, v in sq.items()}
+    out["grad_norm_sr"] = torch.sqrt(sum(sq.values()))
+    return out
+
+
 def train_step(
-    generator: nn.Module,
-    student: nn.Module,
+    generators: Models,
+    students: Models,
     teacher: nn.Module,
     optimizer: torch.optim.Optimizer,
     batch: dict,
     cfg: StepConfig,
     gen: torch.Generator,
 ) -> dict:
-    """One optimizer step.  ``batch``: ``images_hr`` [B, 4, 32, 128] and
-    ``images_lr`` [B, 4, 16, 64] on the device (optional ``rot_arc`` /
-    ``rot_offs``); ``gen``: a generator on the device for the rotation
-    and dropout draws.  ``generator`` and ``student`` must be in training
-    mode, ``teacher`` in eval mode.  Returns the JAX metric names as
-    device scalars: ``loss_total``, ``loss_sr``, ``loss_distill``,
-    ``loss_tssim`` and ``grad_norm_sr`` (before clipping)."""
+    """One optimizer step.
+
+    ``generators`` / ``students``: one module, or one per copy (``stu_iter``
+    copies where ``sr_share`` / ``tpg_share`` is off), all in training mode;
+    ``teacher`` in eval mode; ``optimizer`` over every copy.  ``batch`` on
+    the device: ``images_hr`` [B, 4, 32, 128] and ``images_lr`` [B, 4, 16,
+    64] (float, or uint8 NHWC crops normalized here), with ``y_domain``
+    ``images_hr_y`` / ``images_lr_y``, with ``use_label`` ``ctc_targets``,
+    ``ctc_lengths`` and ``weighted_tics``, optionally ``rot_arc`` /
+    ``rot_offs``.  ``gen``: a generator on the device for the rotation and
+    dropout draws.  Returns the JAX metric names as device scalars."""
+    gens, stus = module_list(generators), module_list(students)
+    batch = prep_image_batch(batch, cfg.mask)
     images_hr, images_lr = batch["images_hr"], batch["images_lr"]
+    hr_raw, lr_raw = images_hr, images_lr
+    if cfg.y_domain:  # luma for the SR losses, raw RGB for the priors
+        images_hr = torch.cat([batch["images_hr_y"][:, :3], hr_raw[:, 3:]], dim=1)
+        images_lr = torch.cat([batch["images_lr_y"][:, :3], lr_raw[:, 3:]], dim=1)
     nb = images_lr.shape[0]
-    arc, offs = _rotation(batch, nb, gen)
-    images_lr = rotate_batch(images_lr, arc, offs)
-    images_hr = rotate_batch(images_hr, arc, offs)
-    images_lr_ret = rotate_batch(images_lr, -arc, offs)
+    if cfg.rotate_train:
+        arc, offs = _rotation(batch, nb, cfg.rotate_train, gen)
+        images_lr = rotate_batch(images_lr, arc, offs)
+        images_hr = rotate_batch(images_hr, arc, offs)
+        images_lr_ret = rotate_batch(images_lr, -arc, offs)
+    else:
+        images_lr_ret = images_lr
+    if not cfg.y_domain:
+        hr_raw, lr_raw = images_hr, images_lr
 
     with torch.no_grad():  # the frozen teacher's prior from HR
-        label_vecs_hr = torch.softmax(teacher(parse_crnn_input(images_hr[:, :3])), dim=-1)
-    label_vecs = torch.softmax(student(parse_crnn_input(images_lr[:, :3])), dim=-1)
-    prior = label_vecs.permute(1, 2, 0)[:, :, None, :].detach()  # [B, C, 1, T]
+        teacher_logits = teacher(parse_crnn_input(hr_raw[:, :3])).float()
+        label_vecs_hr = torch.softmax(teacher_logits, dim=-1)
+    lr_luma = parse_crnn_input(lr_raw[:, :3])
+    fused = cfg.tssim_loss and cfg.fused_tssim
 
-    if cfg.fused_tssim:
-        sr_all, _ = generator(
-            torch.cat([images_lr, images_lr_ret]), torch.cat([prior, prior]), copies=2, gen=gen
-        )
-        sr, sr_ret = sr_all[:nb], sr_all[nb:]
-    else:
-        sr, _ = generator(images_lr, prior, gen=gen)
-        sr_ret, _ = generator(images_lr_ret, prior, gen=gen)
-    sr_ret = rotate_batch(sr_ret, arc, offs)
-    metrics = {
-        "loss_sr": image_loss(sr, images_hr, gradient=True).mean() * 100.0,
-        "loss_tssim": (1.0 - tri_ssim(sr_ret, sr, images_hr)) * 10.0,
-        "loss_distill": semantic_loss(label_vecs, label_vecs_hr) * 100.0,
-    }
-    total = metrics["loss_sr"] + metrics["loss_tssim"] + metrics["loss_distill"]
+    loss_img = loss_distill = 0.0
+    metrics = {}
+    cascade = images_lr
+    for i in range(cfg.stu_iter):
+        student = stus[0 if cfg.tpg_share else i]
+        generator = gens[0 if cfg.sr_share else i]
+        cascade = cascade.detach()
+        if cfg.for_cascading and i > 0:
+            prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
+            cascade = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
+        stage_luma = lr_luma if i == 0 or cfg.y_domain else parse_crnn_input(cascade[:, :3])
+        label_vecs = torch.softmax(student(stage_luma).float(), dim=-1)  # [T, B, C]
+        prior = label_vecs.permute(1, 2, 0)[:, :, None, :].detach()  # [B, C, 1, T]
+        main_input = cascade if cfg.for_cascading else images_lr
+        if fused:
+            sr_all, aux = generator(torch.cat([main_input, images_lr_ret]), torch.cat([prior, prior]),
+                                    copies=2, gen=gen)
+            sr, sr_ret = sr_all[:nb], sr_all[nb:]
+            # keep the main copy of the packed aux features (steps.py:263-270)
+            aux = {k: v[:nb] if torch.is_tensor(v) and v.dim() and v.shape[0] == 2 * nb else v
+                   for k, v in aux.items()}
+        else:
+            sr, aux = generator(main_input, prior, gen=gen)
+        cascade = sr
+
+        if cfg.use_label:  # CTC of the HR teacher logits on the spread labels
+            fsup = ctc_loss(
+                torch.log_softmax(teacher_logits, dim=-1), batch["ctc_targets"],
+                torch.full((nb,), teacher_logits.shape[0], dtype=torch.long, device=sr.device),
+                batch["ctc_lengths"],
+            )
+            loss_distill = loss_distill + (fsup * batch["weighted_tics"]).mean()
+        if cfg.use_distill:
+            d = semantic_loss(label_vecs, label_vecs_hr) * 100.0
+            loss_distill = loss_distill + d
+            metrics["loss_distill_each"] = d
+
+        imq = image_loss(sr, images_hr, gradient=cfg.gradient)
+        if cfg.training_stablize:
+            imq = loss_stablize(imq)
+        each = imq.mean() * 100.0
+        if cfg.learning_STN:  # rectification consistency (super_resolution.py:896-901)
+            each = each + image_loss(aux["in_feat"].float(), aux["trans_feat"].float(),
+                                     gradient=cfg.gradient).mean()
+        loss_img = loss_img + each * (1.0 + i * 0.5)
+        metrics["loss_sr"] = each
+        if cfg.ssim_loss:
+            s = (1.0 - ssim(sr, images_hr)) * 10.0
+            loss_img = loss_img + s
+            metrics["loss_ssim"] = s
+        if cfg.tssim_loss:
+            if not fused:
+                sr_ret, _ = generator(images_lr_ret, prior, gen=gen)
+            if cfg.rotate_train:
+                sr_ret = rotate_batch(sr_ret, arc, offs)
+            ts = (1.0 - tri_ssim(sr_ret, sr, images_hr)) * 10.0
+            loss_img = loss_img + ts
+            metrics["loss_tssim"] = ts
+
+    total = loss_img + loss_distill
+    if cfg.use_distill or cfg.use_label:
+        metrics["loss_distill"] = loss_distill
     metrics["loss_total"] = total
+    metrics["sr_mean"], metrics["sr_min"], metrics["sr_max"] = (
+        sr[:, :3].mean(), sr[:, :3].min(), sr[:, :3].max())
 
     optimizer.zero_grad(set_to_none=False)
     total.backward()
-    metrics["grad_norm_sr"] = grad_norm(generator.parameters())
-    clip_grads_per_model([generator], GRAD_CLIP)
+    # a parameter no loss reaches (the students without use_distill) steps
+    # with a zero gradient, as optax updates every leaf
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    metrics.update(_grad_metrics(gens[0]))
+    clip_grads_per_model(gens, cfg.grad_clip)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -117,22 +229,27 @@ def eval_step(
     students: Sequence[nn.Module],
     images_lr: torch.Tensor,
     stu_iter: int = 1,
+    for_cascading: bool = False,
 ):
     """``images_lr`` [N, 4, 16, 64] -> (SR of the last iteration, aux).
 
     ``generators`` / ``students`` hold one shared module (``--sr_share`` /
     ``--tpg_share``) or one per iteration.  At iteration i > 0 the student
     reads the previous SR output (``super_resolution.py:316-318,374-376``);
-    the generator always reads the LR input."""
+    the generator reads the LR input, or with ``for_cascading`` the
+    previous SR resized to LR, clamped and averaged with LR."""
     cascade = images_lr
     sr = aux = None
     for i in range(stu_iter):
         lr_luma = parse_crnn_input(cascade[:, :3])
+        sr_input = images_lr
+        if for_cascading and i > 0:
+            prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
+            sr_input = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
         student = students[i if len(students) > 1 else 0]
         generator = generators[i if len(generators) > 1 else 0]
         logits = student(lr_luma)  # [T, N, 37]
         prior = torch.softmax(logits, dim=-1).permute(1, 2, 0)[:, :, None, :]
-        sr, aux = generator(images_lr, prior)
+        sr, aux = generator(sr_input, prior)
         cascade = sr
     return sr, aux
-

@@ -7,6 +7,7 @@ not installed:
   python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import math
 
 import numpy as np
@@ -375,6 +376,69 @@ def test_bilstm_bwd_plan_fills_the_card(cuda):
     warps = math.ceil(plan["threads"] / 32)
     assert warps >= 4
     assert plan["clusters"] * plan["cluster"] * warps >= 4 * sms
+
+
+# pretraining's batch of 128 rows: the full-width CRNN's two BiLSTMs (H=256,
+# In 512 / 256) and the fixture judge's (H=64, In 128 / 64)
+@pytest.mark.parametrize("cin,hid", [(512, 256), (256, 256), (128, 64), (64, 64)])
+def test_bilstm_kernels_at_pretraining_rows(cuda, cin, hid):
+    """Forward (with and without the cell states) and backward at R=128
+    against the plain twins, through the module under autograd too."""
+    from tatt_tpu_torch.kernels.lstm import (
+        bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref, bilstm_recurrence_ref,
+    )
+    from tatt_tpu_torch.kernels.rnn import BiLSTM
+    from tatt_tpu_torch.models.common import init_parameters
+
+    gates, w_hh, b_hh = _recurrence_inputs((2, 128, 26, 4 * hid), 4 * hid, hid, cuda, seed=hid)
+    out, cs = bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs=True)
+    with torch.no_grad():
+        assert (bilstm_recurrence(gates, w_hh, b_hh) - out).abs().max().item() <= ATOL
+    k_out, k_cs = bilstm_recurrence(gates, w_hh, b_hh, with_cs=True)
+    assert (k_out - out).abs().max().item() <= ATOL and (k_cs - cs).abs().max().item() <= ATOL
+    dout = torch.randn_like(out)
+    got = bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout)
+    want = bilstm_recurrence_bwd_ref(gates, w_hh, b_hh, out, cs, dout)
+    for g, w, tol in zip(got, want, (DGATES_TOL, DW_TOL, DW_TOL)):
+        assert _scaled_err(g, w) <= tol
+    layer = init_parameters(BiLSTM(cin, hid), 1)
+    x = torch.randn(128, 26, cin, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(layer).to(dev)
+        xd = x.to(dev, copy=True).requires_grad_()
+        m(xd).square().sum().backward()
+        grads.append([xd.grad.cpu()] + [p.grad.cpu() for p in m.parameters()])
+    for c, g in zip(*grads):
+        assert (g - c).norm() <= 1e-4 * c.norm()
+
+
+def test_ctc_loss_card_matches_cpu(cuda):
+    """The CTC loss at pretraining's [26, 128, 37] on spread targets (blanks
+    inside, many at 1e30) and on plain ones: values and gradients."""
+    from tatt_tpu_torch.data.collate import collate
+    from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+    from tatt_tpu_torch.kernels.ctc import ctc_loss
+    from tatt_tpu_torch.train.pretrain import encode_ctc_targets
+
+    ds = SyntheticTextDataset(n=128, seed=3)
+    samples = [ds[i] for i in range(128)]
+    spread = collate(samples)
+    logits = torch.randn(26, 128, 37, generator=torch.Generator().manual_seed(4)) * 2
+    for tg, tl in ((spread.ctc_targets, spread.ctc_lengths),
+                   encode_ctc_targets([s[2] for s in samples])):
+        res = []
+        for dev in ("cpu", cuda):
+            x = logits.to(dev, copy=True).requires_grad_()
+            loss = ctc_loss(torch.log_softmax(x, -1), torch.from_numpy(tg), torch.full((128,), 26),
+                            torch.from_numpy(tl))
+            loss.sum().backward()
+            res.append((loss.detach().cpu(), x.grad.cpu()))
+        (v_cpu, g_cpu), (v_gpu, g_gpu) = res
+        assert torch.equal(v_cpu >= 1e29, v_gpu >= 1e29)
+        assert ((v_gpu - v_cpu).abs() / v_cpu.abs()).max().item() <= 1e-5
+        scale = g_cpu.abs().amax(dim=(0, 2), keepdim=True)
+        assert ((g_gpu - g_cpu).abs() / (g_cpu.abs() + scale)).max().item() <= 1e-4
 
 
 def test_small_eval_path_card_matches_cpu(cuda):

@@ -276,5 +276,8 @@ def test_cli_trains_on_cpu(capsys):
     assert line.startswith("[train] iters 2 "), line
     words = line.split()[3:]
     values = {k: float(v) for k, v in zip(words[::2], words[1::2])}
-    assert set(values) == {"loss_total", "loss_sr", "loss_distill", "loss_tssim", "grad_norm_sr"}
+    gnorms = {"block1_conv", "block1_act", "srb2", "post_conv", "post_bn", "up0", "final_conv",
+              "infoGen", "stn_head"}
+    assert set(values) == {"loss_total", "loss_sr", "loss_distill", "loss_distill_each", "loss_tssim",
+                           "grad_norm_sr", "sr_mean", "sr_min", "sr_max"} | {f"gnorm/{k}" for k in gnorms}
     assert all(math.isfinite(v) for v in values.values()), values
