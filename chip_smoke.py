@@ -357,7 +357,9 @@ def self_ms_by_name(fn, kernels, iters: int) -> dict:
     """For each name in ``kernels``, the mean self device time (ms) per call
     of the device kernels whose name holds it, from one profiler window over
     ``iters`` calls of ``fn`` (after warm-up); None when the profiler
-    records no device time for it."""
+    records no device time for it, or records its launches other than a
+    whole number of times a call (a window that dropped records has read a
+    forward launch at a third of its CUDA-event time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -368,8 +370,12 @@ def self_ms_by_name(fn, kernels, iters: int) -> dict:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    totals = {k: sum(e.self_device_time_total for e in events if k in e.key) for k in kernels}
-    return {k: v / 1e3 / iters if v > 0 else None for k, v in totals.items()}
+    out = {}
+    for k in kernels:
+        hits = [e for e in events if k in e.key]
+        total, count = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+        out[k] = total / 1e3 / iters if total > 0 and count % iters == 0 else None
+    return out
 
 
 def kernel_self_ms(fn, kernel: str, iters: int):
