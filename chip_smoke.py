@@ -195,7 +195,7 @@ JUDGE_STEPS, JUDGE_TRAIN_N, JUDGE_BUDGET_S, JUDGE_RENDER_S = 4000, 16384, 60.0, 
 # fused 2B forward once per stu_iter iteration (10 BiGRU forward and
 # backward each), the teacher's two BiLSTMs forward, each iteration's
 # student two forward (with c) and, where a loss reaches it, two backward
-FLAG_WARM, FLAG_STEPS = 2, 10
+FLAG_WARM, FLAG_STEPS = 2, 30
 FLAG_SETS = {
     "recipe": ({}, STEP_LAUNCHES),
     "use_label": ({"use_label": True}, STEP_LAUNCHES),
@@ -747,8 +747,8 @@ def data_phase(synthetic_ips) -> None:
         code, resumed = cli.run(argv + ["--max_iters", str(DATA_ITERS), "--resume", rolling,
                                         "--lr", str(RESUME_LR)])
         lrs = [g["lr"] for g in resumed.optimizer.param_groups]
-        same = {"generator": state_equal(resumed.generator, saved["generator"][0]),
-                "student": state_equal(resumed.student, saved["student"][0]),
+        same = {"generator": state_equal(resumed.generators[0], saved["generator"][0]),
+                "student": state_equal(resumed.students[0], saved["student"][0]),
                 "adam": adam_equal(resumed.optimizer, saved["optimizer"])}
         print(f"[data] resumed: iters {resumed.iters}, lr {lrs}, bitwise equal to the file "
               f"{json.dumps(same)}")
@@ -761,7 +761,7 @@ def data_phase(synthetic_ips) -> None:
         losses = {"uninterrupted": [], "resumed": []}
         for step in range(2):
             for name, t in (("uninterrupted", trainer), ("resumed", resumed)):
-                m = train_step(t.generator.train(), t.student.train(), t.teacher.eval(), t.optimizer,
+                m = train_step([t.generators[0].train()], [t.students[0].train()], t.teacher.eval(), t.optimizer,
                                {"images_hr": hr, "images_lr": lr}, StepConfig(),
                                torch.Generator(device=DEV).manual_seed(100 + step))
                 losses[name].append(m["loss_total"].item())
@@ -833,7 +833,7 @@ def data_phase(synthetic_ips) -> None:
         val_ds = LmdbTextDataset(roots[2])
         rates = {1: [], 4: []}
         for workers in (1, 4, 4, 1, 1, 4):
-            ev = Evaluator([trainer.generator.eval()], [trainer.student.eval()], trainer.teacher, DEV,
+            ev = Evaluator([trainer.generators[0].eval()], [trainer.students[0].eval()], trainer.teacher, DEV,
                            BATCH, True, workers)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -847,10 +847,10 @@ def data_phase(synthetic_ips) -> None:
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            save_checkpoint(path, trainer.generator, trainer.student, trainer.optimizer, trainer.iters)
+            save_checkpoint(path, trainer.generators, trainer.students, trainer.optimizer, trainer.iters)
             save_ms.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
-            restore_checkpoint(load_checkpoint(path), resumed.generator, resumed.student,
+            restore_checkpoint(load_checkpoint(path), resumed.generators, resumed.students,
                                resumed.optimizer)
             torch.cuda.synchronize()
             restore_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1131,10 +1131,11 @@ def flags_phase(smi: str, synthetic_ips) -> None:
             fail(f"{name}: launches per step {per_step} (want {want})")
         if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
             fail(f"{name}: non-finite metrics")
-        # batch to batch loss_sr varies by 2-4x at this point of training:
-        # the median of the last 5 steps against the first step
-        if not np.median(sr[-5:]) < sr[0]:
-            fail(f"{name}: loss_sr did not fall: {sr[0]} -> {sr[-5:]}")
+        # batch to batch loss_sr varies by 2-4x this early, and the first
+        # step (at the random init) reads 2-4x above the rest: the median of
+        # the last 5 steps against that of steps 2-4
+        if not np.median(sr[-5:]) < np.median(sr[1:4]):
+            fail(f"{name}: loss_sr did not fall: {sr[1:4]} -> {sr[-5:]}")
         wanted = {"sr_mean", "sr_min", "sr_max", "gnorm/srb2"}
         if not wanted <= set(metrics):
             fail(f"{name}: metrics {sorted(metrics)} lack {wanted - set(metrics)}")
@@ -1346,7 +1347,7 @@ def main(argv=None) -> int:
                             tssim_loss=True, rotate_train=5.0, batch_size=BATCH))
     cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
     cfg.TRAIN.displayInterval = 10**9
-    trainer = Trainer(cfg, generator, student, teacher, train_ds, DEV)
+    trainer = Trainer(cfg, [generator], [student], teacher, train_ds, DEV)
     t0 = time.perf_counter()
     first = trainer.train(max_iters=TRAIN_WARM)  # builds, cuDNN autotuning
     torch.cuda.synchronize()

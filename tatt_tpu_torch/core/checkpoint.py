@@ -25,16 +25,16 @@ from __future__ import annotations
 import os
 import sys
 import zipfile
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from tatt_tpu_torch.core.convert import CHECKPOINT_FORMAT as FORMAT
 from tatt_tpu_torch.core.convert import (
     CHECKPOINT_FORMATS, is_jax_checkpoint, load_reference_pth, load_weights,
 )
-from tatt_tpu_torch.models.common import Models, module_list
 
 
 def _plain(x: Any) -> Any:
@@ -51,19 +51,19 @@ def _plain(x: Any) -> Any:
 
 def save_checkpoint(
     path: str,
-    generators: Models,
-    students: Models,
+    generators: Sequence[nn.Module],
+    students: Sequence[nn.Module],
     optimizer: torch.optim.Optimizer,
     iters: int,
     info: Optional[dict] = None,
     best_history: Optional[dict] = None,
     converge: Optional[list] = None,
 ) -> None:
-    """``generators`` / ``students``: one module or the list of copies."""
+    """``generators`` / ``students``: the copies of each model."""
     payload = {
         "format": FORMAT,
-        "generator": [m.state_dict() for m in module_list(generators)],
-        "student": [m.state_dict() for m in module_list(students)],
+        "generator": [m.state_dict() for m in generators],
+        "student": [m.state_dict() for m in students],
         "optimizer": optimizer.state_dict(),
         "iters": int(iters),
         "info": _plain(info or {}),
@@ -96,8 +96,8 @@ def load_checkpoint(path: str) -> Optional[dict]:
 
 def restore_checkpoint(
     payload: dict,
-    generators: Models,
-    students: Models,
+    generators: Sequence[nn.Module],
+    students: Sequence[nn.Module],
     optimizer: Optional[torch.optim.Optimizer] = None,
 ) -> None:
     """Load a :func:`load_checkpoint` payload into the models, as many
@@ -107,7 +107,7 @@ def restore_checkpoint(
     given, the optimizer, whose parameters must be those it was saved
     with, in the same order."""
     for what, models in (("generator", generators), ("student", students)):
-        models, saved = module_list(models), payload[what]
+        saved = payload[what]
         if len(models) != len(saved):
             raise ValueError(f"the checkpoint holds {len(saved)} {what} copies, "
                              f"the run has {len(models)}")
@@ -119,8 +119,8 @@ def restore_checkpoint(
 
 def resume_models(
     path: str,
-    generators: Models,
-    students: Models,
+    generators: Sequence[nn.Module],
+    students: Sequence[nn.Module],
     optimizer: Optional[torch.optim.Optimizer] = None,
 ) -> Optional[dict]:
     """``--resume``: resolve ``path`` (:func:`resolve_resume_path`), then
@@ -137,7 +137,7 @@ def resume_models(
         restore_checkpoint(payload, generators, students, optimizer)
         return payload
     here = os.path.dirname(path)
-    for i, generator in enumerate(module_list(generators)):
+    for i, generator in enumerate(generators):
         sibling = os.path.join(here, f"model_best_acc_{i}.pth")
         src = sibling if os.path.exists(sibling) else path
         unused = load_weights(generator, load_reference_pth(src))
@@ -147,7 +147,7 @@ def resume_models(
             "query-GRU quirk (TATT(query_gru_mode='reference') reproduces it)",
             file=sys.stderr,
         )
-    for i, student in enumerate(module_list(students)):
+    for i, student in enumerate(students):
         rec = os.path.join(here, f"recognizer_best_acc_{i}.pth")
         if os.path.exists(rec):
             load_weights(student, load_reference_pth(rec))

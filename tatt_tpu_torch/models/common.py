@@ -9,19 +9,10 @@ modules, so a model's ``state_dict`` has the reference layout.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-# one model, or its copies (one per stu_iter iteration where sharing is off)
-Models = Union[nn.Module, Sequence[nn.Module]]
-
-
-def module_list(models: Models) -> list[nn.Module]:
-    """``[models]`` for one module, else the modules as a list."""
-    return [models] if isinstance(models, nn.Module) else list(models)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:

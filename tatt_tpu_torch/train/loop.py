@@ -42,7 +42,6 @@ from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
-from tatt_tpu_torch.models.common import Models, module_list
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 from tatt_tpu_torch.train.metrics import EvalAccumulator
 from tatt_tpu_torch.train.state import make_optimizer
@@ -154,8 +153,8 @@ class Evaluator:
 
 
 class Trainer:
-    """Trains ``generators`` and ``students`` (one module each, or the
-    :func:`copies` of each; one Adam over all) against the frozen
+    """Trains ``generators`` and ``students`` (the :func:`copies` of each,
+    as lists; one Adam over all) against the frozen
     ``teacher``, which is also the validation judge (the JAX package's CRNN
     judge without dedicated weights, ``loop.py:353-355``).  The models
     must already sit on ``device``."""
@@ -163,15 +162,15 @@ class Trainer:
     def __init__(
         self,
         cfg: Config,
-        generators: Models,
-        students: Models,
+        generators: Sequence[nn.Module],
+        students: Sequence[nn.Module],
         teacher: nn.Module,
         train_dataset,
         device: torch.device,
         val_datasets: Optional[dict] = None,
     ):
         self.cfg = cfg
-        self.generators, self.students = module_list(generators), module_list(students)
+        self.generators, self.students = list(generators), list(students)
         want = copies(cfg.args)
         if (len(self.generators), len(self.students)) != want:
             raise ValueError(f"{len(self.generators)} generators and {len(self.students)} students "
@@ -196,16 +195,6 @@ class Trainer:
         self.converge_list: list = []
         self.best_history: dict = {}
         self.best_sum_acc = -1.0
-
-    @property
-    def generator(self) -> nn.Module:
-        """The first generator copy."""
-        return self.generators[0]
-
-    @property
-    def student(self) -> nn.Module:
-        """The first student copy."""
-        return self.students[0]
 
     def resume(self, path: str) -> None:
         """``--resume`` of a port checkpoint, a run directory or a

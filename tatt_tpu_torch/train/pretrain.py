@@ -209,7 +209,8 @@ def pretrain_recognizer(
 
 def main(argv=None) -> int:
     """Pretrain a CRNN on synthetic crops (seed 7; word accuracy on 256
-    held-out crops of seed 991, as ``experiments/train_fixture_judge.py``)
+    held-out crops of seed 991) with the recipe of
+    ``experiments/train_fixture_judge.py`` (batch 128, lr 1e-3, seed 0)
     and write its ``state_dict`` as a ``.pth`` for ``--crnn_pretrained``."""
     from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
     from tatt_tpu_torch.models.common import init_parameters
@@ -218,19 +219,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="CTC pretraining of the CRNN (tatt_tpu_torch)")
     ap.add_argument("--out", required=True, help="the .pth to write")
     ap.add_argument("--steps", type=int, default=3000)
-    ap.add_argument("--batch_size", type=int, default=128)
-    ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nh", type=int, default=256)
     ap.add_argument("--nm", type=int, nargs=7, default=(64, 128, 256, 256, 512, 512, 512))
     ap.add_argument("--synthetic", type=int, default=16384, metavar="N", help="training crops")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     set_cuda_flags()
-    crnn = init_parameters(CRNN(nh=args.nh, nm=tuple(args.nm)), args.seed)
+    crnn = init_parameters(CRNN(nh=args.nh, nm=tuple(args.nm)), 0)
     result = pretrain_recognizer(
         crnn, SyntheticTextDataset(n=args.synthetic, seed=7), steps=args.steps,
-        batch_size=args.batch_size, lr=args.lr, seed=args.seed,
         eval_dataset=SyntheticTextDataset(n=256, seed=991), device=args.device,
     )
     torch.save({k: v.cpu() for k, v in crnn.state_dict().items()}, args.out)

@@ -36,7 +36,6 @@ from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.distill import semantic_loss
 from tatt_tpu_torch.losses.image import image_loss
 from tatt_tpu_torch.losses.ssim import ssim, tri_ssim
-from tatt_tpu_torch.models.common import Models, module_list
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 from tatt_tpu_torch.train.state import clip_grads_per_model
 
@@ -100,8 +99,8 @@ def _grad_metrics(generator: nn.Module) -> dict:
 
 
 def train_step(
-    generators: Models,
-    students: Models,
+    generators: Sequence[nn.Module],
+    students: Sequence[nn.Module],
     teacher: nn.Module,
     optimizer: torch.optim.Optimizer,
     batch: dict,
@@ -110,8 +109,9 @@ def train_step(
 ) -> dict:
     """One optimizer step.
 
-    ``generators`` / ``students``: one module, or one per copy (``stu_iter``
-    copies where ``sr_share`` / ``tpg_share`` is off), all in training mode;
+    ``generators`` / ``students``: one module each, or one per copy
+    (``stu_iter`` copies where ``sr_share`` / ``tpg_share`` is off), all in
+    training mode;
     ``teacher`` in eval mode; ``optimizer`` over every copy.  ``batch`` on
     the device: ``images_hr`` [B, 4, 32, 128] and ``images_lr`` [B, 4, 16,
     64] (float, or uint8 NHWC crops normalized here), with ``y_domain``
@@ -119,7 +119,6 @@ def train_step(
     ``ctc_lengths`` and ``weighted_tics``, optionally ``rot_arc`` /
     ``rot_offs``.  ``gen``: a generator on the device for the rotation and
     dropout draws.  Returns the JAX metric names as device scalars."""
-    gens, stus = module_list(generators), module_list(students)
     batch = prep_image_batch(batch, cfg.mask)
     images_hr, images_lr = batch["images_hr"], batch["images_lr"]
     hr_raw, lr_raw = images_hr, images_lr
@@ -147,8 +146,8 @@ def train_step(
     metrics = {}
     cascade = images_lr
     for i in range(cfg.stu_iter):
-        student = stus[0 if cfg.tpg_share else i]
-        generator = gens[0 if cfg.sr_share else i]
+        student = students[0 if cfg.tpg_share else i]
+        generator = generators[0 if cfg.sr_share else i]
         cascade = cascade.detach()
         if cfg.for_cascading and i > 0:
             prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
@@ -217,8 +216,8 @@ def train_step(
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-    metrics.update(_grad_metrics(gens[0]))
-    clip_grads_per_model(gens, cfg.grad_clip)
+    metrics.update(_grad_metrics(generators[0]))
+    clip_grads_per_model(generators, cfg.grad_clip)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 

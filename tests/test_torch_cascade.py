@@ -17,11 +17,10 @@ import pytest
 import torch
 
 from test_torch_flags import (
-    SMALL, TINY_CRNN, assert_steps_match, jax_step, make_batch, make_variables, port_step,
+    SMALL, TINY_CRNN, check_step, make_batch, make_variables,
 )
 from tatt_tpu.models.recognizers.crnn import CRNN as JCRNN
 from tatt_tpu.models.tsrn import TATT as JTATT
-from tatt_tpu.train.steps import StepConfig as JStepConfig
 from tatt_tpu.train.steps import make_eval_step
 from tatt_tpu_torch.core.checkpoint import load_checkpoint
 from tatt_tpu_torch.core.config import Config, Flags
@@ -32,7 +31,7 @@ from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.recognizers.crnn import CRNN
 from tatt_tpu_torch.models.tsrn import TATT
 from tatt_tpu_torch.train.loop import Trainer, step_batch, step_config
-from tatt_tpu_torch.train.steps import StepConfig, eval_step, train_step
+from tatt_tpu_torch.train.steps import eval_step, train_step
 
 CPU = torch.device("cpu")
 # (flags, generator copies, student copies)
@@ -49,9 +48,7 @@ def test_stu_iter_2_step_matches_make_train_step(name):
     flags, n_sr, n_stu = CASCADES[name]
     srs, stus, teacher = make_variables(21, n_sr, n_stu)
     batch = make_batch(4)
-    want = jax_step(JStepConfig(**flags), srs, stus, teacher, batch)
-    got = port_step(StepConfig(**flags), srs, stus, teacher, batch)
-    assert_steps_match(want, got)
+    got = check_step(flags, srs, stus, teacher, batch)
     if n_sr == 2:  # the second copy trains on iteration 1's loss, weighted 1.5
         assert all(float(g.abs().max()) > 0 for g in got[1]["sr"][1].values()
                    if g.dim() > 1)
@@ -131,8 +128,8 @@ def test_two_copy_checkpoint_and_resume_round_trip(tmp_path):
     assert losses[0] == losses[1]
     with pytest.raises(ValueError, match="copies"):  # one copy cannot take two
         one = Trainer(_cfg(tmp_path, sr_share=True, tpg_share=True),
-                      init_parameters(TATT(stn=True, mask=True, **SMALL), 0),
-                      init_parameters(CRNN(**TINY_CRNN), 1), init_parameters(CRNN(**TINY_CRNN), 2),
+                      [init_parameters(TATT(stn=True, mask=True, **SMALL), 0)],
+                      [init_parameters(CRNN(**TINY_CRNN), 1)], init_parameters(CRNN(**TINY_CRNN), 2),
                       SyntheticTextDataset(n=12, seed=1), CPU)
         one.resume(str(tmp_path / "ckpt" / "v"))
 
@@ -181,18 +178,18 @@ def test_a_checkpoint_of_the_one_copy_format_still_loads(tmp_path):
     """A file written before checkpoints held a list per model (format
     v1: one ``state_dict`` each) restores into a one-copy run."""
     cfg = _cfg(tmp_path, stu_iter=1)
-    src = Trainer(cfg, init_parameters(TATT(stn=True, mask=True, **SMALL), 3),
-                  init_parameters(CRNN(**TINY_CRNN), 4), init_parameters(CRNN(**TINY_CRNN), 5),
+    src = Trainer(cfg, [init_parameters(TATT(stn=True, mask=True, **SMALL), 3)],
+                  [init_parameters(CRNN(**TINY_CRNN), 4)], init_parameters(CRNN(**TINY_CRNN), 5),
                   SyntheticTextDataset(n=12, seed=1), CPU)
     path = str(tmp_path / "v1.ckpt")
-    torch.save({"format": "tatt_tpu_torch.checkpoint.v1", "generator": src.generator.state_dict(),
-                "student": src.student.state_dict(), "optimizer": src.optimizer.state_dict(),
+    torch.save({"format": "tatt_tpu_torch.checkpoint.v1", "generator": src.generators[0].state_dict(),
+                "student": src.students[0].state_dict(), "optimizer": src.optimizer.state_dict(),
                 "iters": 3, "info": {}, "best_history_res": {}, "converge": []}, path)
-    dst = Trainer(cfg, init_parameters(TATT(stn=True, mask=True, **SMALL), 6),
-                  init_parameters(CRNN(**TINY_CRNN), 7), init_parameters(CRNN(**TINY_CRNN), 8),
+    dst = Trainer(cfg, [init_parameters(TATT(stn=True, mask=True, **SMALL), 6)],
+                  [init_parameters(CRNN(**TINY_CRNN), 7)], init_parameters(CRNN(**TINY_CRNN), 8),
                   SyntheticTextDataset(n=12, seed=1), CPU)
     dst.resume(path)
     assert dst.iters == 3
-    for a, b in ((src.generator, dst.generator), (src.student, dst.student)):
+    for a, b in zip(src.generators + src.students, dst.generators + dst.students):
         for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
             assert torch.equal(va, vb), k

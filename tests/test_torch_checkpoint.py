@@ -60,13 +60,13 @@ def make_trainer(cfg, seed=0, val_datasets=None) -> Trainer:
     generator = init_parameters(TATT(stn=True, mask=True, **SMALL), seed)
     student = init_parameters(CRNN(**TINY_CRNN), seed + 1)
     teacher = init_parameters(CRNN(**TINY_CRNN), 99)
-    return Trainer(cfg, generator, student, teacher, SyntheticTextDataset(n=12, seed=1), CPU,
+    return Trainer(cfg, [generator], [student], teacher, SyntheticTextDataset(n=12, seed=1), CPU,
                    val_datasets)
 
 
 def assert_state_equal(a: Trainer, b: Trainer) -> None:
     """Models (parameters and BN buffers) and Adam state, bit for bit."""
-    for ma, mb in ((a.generator, b.generator), (a.student, b.student)):
+    for ma, mb in zip(a.generators + a.students, b.generators + b.students):
         sa, sb = ma.state_dict(), mb.state_dict()
         assert sorted(sa) == sorted(sb)
         for k in sa:
@@ -85,12 +85,12 @@ def test_round_trip_is_bitwise(tmp_path):
     info = {"arch": "tatt", "iters": np.int64(2), "epochs": 0}
     best = {"easy": {"psnr_avg": np.float32(20.5), "accuracy": 0.25, "images": 8}}
     converge = [{"iterator": 2, "results": best}]
-    save_checkpoint(path, t1.generator, t1.student, t1.optimizer, 2, info, best, converge)
+    save_checkpoint(path, t1.generators, t1.students, t1.optimizer, 2, info, best, converge)
     assert os.listdir(tmp_path / "run") == ["x.ckpt"]  # no .tmp left
 
     t2 = make_trainer(make_cfg(tmp_path), seed=5)
     payload = load_checkpoint(path)
-    restore_checkpoint(payload, t2.generator, t2.student, t2.optimizer)
+    restore_checkpoint(payload, t2.generators, t2.students, t2.optimizer)
     assert_state_equal(t1, t2)
     assert any(s["exp_avg"].abs().max() > 0 for s in t2.optimizer.state.values())
     assert payload["iters"] == 2
@@ -115,7 +115,7 @@ def test_finetune_resume_new_lr(tmp_path):
     for i, s in t2.optimizer.state_dict()["state"].items():
         for k, v in s.items():
             assert torch.equal(v, saved[i][k]), (i, k)
-    before = {k: p.detach().clone() for k, p in t2.generator.named_parameters()}
+    before = {k: p.detach().clone() for k, p in t2.generators[0].named_parameters()}
     assert t2.train(max_iters=3)["iters"] == 3
     assert all(float(s["step"]) == 3.0 for s in t2.optimizer.state.values())
     # the same resumed step at the saved lr moves the weights 5x as far
@@ -126,7 +126,7 @@ def test_finetune_resume_new_lr(tmp_path):
     t3.resume(str(tmp_path / "ckpt" / "v"))
     t3.train(max_iters=3)
     norm = lambda t: torch.sqrt(sum(((p - before[k]) ** 2).sum()  # noqa: E731
-                                    for k, p in t.generator.named_parameters())).item()
+                                    for k, p in t.generators[0].named_parameters())).item()
     np.testing.assert_allclose(norm(t3) / norm(t2), 5.0, rtol=1e-4)
 
 
@@ -142,7 +142,7 @@ def test_step_after_resume_is_bitwise_the_uninterrupted_step(tmp_path):
     hr, lr = to_device(collate([ds[i] for i in range(4)]), CPU, True)
     losses = []
     for t in (run, resumed):
-        m = train_step(t.generator.train(), t.student.train(), t.teacher.eval(), t.optimizer,
+        m = train_step([t.generators[0].train()], [t.students[0].train()], t.teacher.eval(), t.optimizer,
                        {"images_hr": hr, "images_lr": lr}, StepConfig(),
                        torch.Generator().manual_seed(5))
         losses.append(m["loss_total"].item())
@@ -185,7 +185,7 @@ def test_reference_pth_still_resumes(tmp_path):
     torch.save({"state_dict": stu.state_dict()}, str(tmp_path / "recognizer_best_acc_0.pth"))
     t = make_trainer(make_cfg(tmp_path))
     t.resume(str(tmp_path))
-    for src, dst in ((gen, t.generator), (stu, t.student)):
+    for src, dst in ((gen, t.generators[0]), (stu, t.students[0])):
         for k, v in src.state_dict().items():
             assert torch.equal(dst.state_dict()[k], v), k
     assert t.iters == 0 and not t.optimizer.state
@@ -207,7 +207,7 @@ def test_foreign_checkpoints_are_refused_by_name(tmp_path):
         with pytest.raises(ValueError, match="JAX package"):
             call()
     port_path = str(tmp_path / "port.ckpt")
-    save_checkpoint(port_path, t.generator, t.student, t.optimizer, 0)
+    save_checkpoint(port_path, t.generators, t.students, t.optimizer, 0)
     with pytest.raises(ValueError, match="checkpoint of the port"):
         load_reference_pth(port_path)
 

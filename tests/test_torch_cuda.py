@@ -502,7 +502,7 @@ def test_small_train_step_card_matches_cpu(cuda):
         batch = {"images_hr": hr, "images_lr": lr, **{k: v.to(dev) for k, v in rot.items()}}
         opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1.0)
         before = [f.launches for f in counters]
-        metrics = train_step(models[0].train(), models[1].train(), models[2].eval(), opt, batch,
+        metrics = train_step([models[0].train()], [models[1].train()], models[2].eval(), opt, batch,
                              StepConfig(), torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
         launches = [f.launches - n for f, n in zip(counters, before)]

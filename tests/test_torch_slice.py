@@ -101,8 +101,8 @@ def test_checkpoint_bookkeeping_matches_the_jax_trainer(tmp_path, monkeypatch):
     pcfg.TRAIN.ckpt_dir = str(tmp_path / "port")
     pcfg.TRAIN.saveInterval, pcfg.TRAIN.VAL.valInterval = 3, 2
     trainer = loop.Trainer(
-        pcfg, init_parameters(TATT(stn=True, mask=True, **SMALL), 0),
-        init_parameters(CRNN(**TINY_CRNN), 1), init_parameters(CRNN(**TINY_CRNN), 2),
+        pcfg, [init_parameters(TATT(stn=True, mask=True, **SMALL), 0)],
+        [init_parameters(CRNN(**TINY_CRNN), 1)], init_parameters(CRNN(**TINY_CRNN), 2),
         SyntheticTextDataset(n=16), torch.device("cpu"), {n: None for n in val_names},
     )
     trainer.evaluate = scripted(evals)
@@ -142,7 +142,7 @@ def test_go_test_on_an_lmdb_matches_the_jax_trainer(tmp_path, monkeypatch, capsy
     student.load_state_dict(from_jax(host({"params": st.student_params[0],
                                            "batch_stats": st.student_batch_stats[0]})))
     ckpt = str(tmp_path / "port" / "model_best_acc_0.ckpt")
-    save_checkpoint(ckpt, generator, student,
+    save_checkpoint(ckpt, [generator], [student],
                     make_optimizer(list(generator.parameters()) + list(student.parameters()), 1e-3), 0)
     crnn_pth = str(tmp_path / "crnn.pth")
     torch.save(from_jax(host(teacher)), crnn_pth)

@@ -225,7 +225,7 @@ def _port_step(step_setup, fused):
     teacher.load_state_dict(from_jax(teacher_vars))
     opt = torch.optim.SGD(list(generator.parameters()) + list(student.parameters()), lr=1.0)
     metrics = train_step(
-        generator.train(), student.train(), teacher.eval(), opt,
+        [generator.train()], [student.train()], teacher.eval(), opt,
         {k: _t(v) for k, v in batch.items()}, StepConfig(fused_tssim=fused),
         torch.Generator().manual_seed(0),
     )
