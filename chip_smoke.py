@@ -10,6 +10,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --data-only              # phases 1 and 10 alone
   python3 chip_smoke.py --pretrain-only          # phases 1 and 11 alone
   python3 chip_smoke.py --flags-only             # phases 1 and 12 alone
+  python3 chip_smoke.py --judges-only            # phases 1 and 13 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -58,7 +59,18 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      --gradient / --tssim_loss): launches per step, falling loss_sr, the
      new metrics, images/s; then one --stu_iter=2 step at batch 8, card
      against CPU, leaf by leaf
-The last line is the JSON object the chip check reads.  Imports no JAX.
+ 13. the evaluation protocol's judges and extras: ASTER and MORAN at full
+     width with seeded weights at batch 50 on the card (BiLSTM launches a
+     judge call; encoder features and first-step logits card vs CPU; the
+     share of identical ids; the ASTER decode's ms a batch), the BiLSTM
+     forward kernel at their shapes (L=25, R=50, H=256, In 512 and 256)
+     against its plain version, Evaluator images/s and launches a batch
+     with the CRNN, ASTER and MORAN judges, with and without a seeded
+     LPIPS, the --vis files, --demo over 8 PNGs, and ``cli.run`` with
+     ``--test --rec=aster`` and ``--go_test --test_model=MORAN`` from
+     saved weights against Evaluator on the same weights
+The last line is the JSON object the chip check reads; the line before
+it the kernels, and before that the whole run's seconds.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -86,7 +98,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from tatt_tpu_torch.cli import main as cli  # noqa: E402
-from tatt_tpu_torch.core.charset import ctc_greedy_decode, str_filt  # noqa: E402
+from tatt_tpu_torch.core.charset import AsterInfo, ctc_greedy_decode, str_filt  # noqa: E402
 from tatt_tpu_torch.core.checkpoint import (  # noqa: E402
     load_checkpoint, restore_checkpoint, save_checkpoint,
 )
@@ -109,10 +121,16 @@ from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
 )
 from tatt_tpu_torch.kernels.ctc import ctc_loss  # noqa: E402
 from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, compose_input_projection  # noqa: E402
+from tatt_tpu_torch.losses.perceptual import VGG16Features, lpips_vgg  # noqa: E402
 from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
+from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer, parse_aster_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, parse_crnn_input  # noqa: E402
+from tatt_tpu_torch.models.recognizers.moran import MORAN, parse_moran_input  # noqa: E402
 from tatt_tpu_torch.models.tsrn import TATT  # noqa: E402
-from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies, to_device  # noqa: E402
+from tatt_tpu_torch.train.judge import make_judge  # noqa: E402
+from tatt_tpu_torch.train.loop import (  # noqa: E402
+    Evaluator, Trainer, copies, make_summary_writer, to_device,
+)
 from tatt_tpu_torch.train.pretrain import (  # noqa: E402
     encode_ctc_targets, hr_crops, pretrain_recognizer, word_accuracy,
 )
@@ -211,6 +229,17 @@ FLAG_SETS = {
         {"use_distill": False, "gradient": False, "tssim_loss": False},
         {"bigru_fwd": 10, "bigru_bwd": 10, "bilstm_fwd": 4, "bilstm_bwd": 0}),
 }
+# phase 13, the judges: the val batch of scripts/test_TATT.sh; ASTER's
+# 97 classes (voc "all" + EOS, PADDING, UNKNOWN); ASTER's encoder BiLSTM
+# (two layers, In 512 then 2H = 512) and MORAN's rnn0 / rnn1 (In 512 /
+# 256), each L=25 (the CNN's width) and H=256, one launch each per call
+JUDGE_BATCH, JUDGE_EVAL_N, JUDGE_DEMO_N, JUDGE_N_VIS = 50, 256, 8, 10
+JUDGE_LAUNCHES = {"ASTER": 2, "MORAN": 2, "CRNN": 2}
+# a judge on the card (cuDNN convs, the kernel) against the same on the
+# CPU (oneDNN convs, the plain recurrence): ResNet trunks of ~50 layers,
+# the STN / MORN resampling and the BiLSTMs in float32, each error over
+# the largest |value| (at least 1)
+JUDGE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -1148,6 +1177,217 @@ def flags_phase(smi: str, synthetic_ips) -> None:
                      FLAG_SETS[name][1], with_f64=False)
 
 
+def seeded_lpips(seed: int):
+    """LPIPS-VGG with seeded weights on the card (the real VGG16 and lpips
+    heads are the user's files): a function of (images, HR) -> [N]."""
+    vgg = init_parameters(VGG16Features(), seed).to(DEV).eval()
+    gen = torch.Generator().manual_seed(seed)
+    lin = [(0.1 * torch.rand(c, generator=gen)).to(DEV) for c in (64, 128, 256, 512, 512)]  # relu1_2..5_3
+    return lambda a, b: lpips_vgg(vgg, lin, a, b)
+
+
+def judge_readings(kind: str, model, images):
+    """(encoder features, first decode step's logits, ids) of an ASTER or
+    MORAN ``model`` on RGB ``images`` in [0, 1]."""
+    with torch.no_grad():
+        if kind == "ASTER":
+            feats = model.encode(parse_aster_input(images))
+            dec = model.decoder.decoder
+            state = feats.new_zeros(feats.shape[0], dec.s_dim)
+            bos = torch.full((feats.shape[0],), dec.num_classes, dtype=torch.long, device=feats.device)
+            first, _ = dec.step(dec.attention_unit.xEmbed(feats), feats, state, bos)
+            return feats, first, model.decoder(feats, model.max_len)[0]
+        x = parse_moran_input(images)
+        seq = model.ASRN.cnn(model.MORN(x))[:, :, 0].transpose(1, 2)
+        for layer in model.ASRN.rnn:
+            seq = layer(seq)
+        l2r = model(x)[0]
+        return seq, l2r[:, 0], l2r.argmax(-1)
+
+
+def print_lstm(row, smi: str = "") -> None:
+    """A forward BiLSTM shape: the launch and its time a step, with c, the
+    input projection beside cuDNN's ``nn.LSTM`` (which includes it), the
+    bound, the plain version and the plan."""
+    step_us = (row["kernel_ms"] - row["one_step_ms"]) / (row["L"] - 1) * 1e3
+    print(f"[lstm] {row['shape']}: kernel {row['kernel_ms']:.4f} ms "
+          f"({step_us:.2f} us a step after {row['one_step_ms']:.4f} ms for set-up and "
+          f"step 1; events {row['kernel_event_ms']:.4f}, profiler "
+          f"{row['kernel_profiler_ms']}), "
+          f"with c {row['kernel_cs_ms']:.4f}; + projection "
+          f"{row['kernel_ms'] + row['projection_ms']:.4f} vs nn.LSTM {row['library_ms']:.4f}; bound "
+          f"{row['bound_ms']:.4f} ({row['bound_by']}); plain {row['plain_ms']:.3f}; plan "
+          f"{json.dumps(bilstm_fwd_plan(row['H'], row['R']))}" + (f" ({smi})" if smi else ""))
+
+
+def judges_phase(smi: str) -> list:
+    """Phase 13: the ASTER and MORAN judges, LPIPS, --vis, --demo and the
+    CLI's --test / --test_model (checks and numbers in the module
+    docstring).  Returns the BiLSTM forward rows at the judges' shapes."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(13)
+
+    # ---- (a) the BiLSTM forward kernel at the judges' shapes
+    with torch.no_grad():
+        rows = [check_lstm("judges In 512 (ASTER rnn l0 and l1, MORAN rnn0)", 25, JUDGE_BATCH, 512,
+                           256, gen),
+                check_lstm("judges In 256 (MORAN rnn1)", 25, JUDGE_BATCH, 256, 256, gen)]
+    for row in rows:
+        row["plan"] = bilstm_fwd_plan(row["H"], row["R"])
+        print("[kernel] " + json.dumps(row))
+        if not row["max_abs_err"] <= KERNEL_ATOL:
+            fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
+        print_lstm(row, smi)
+
+    # ---- (b) ASTER and MORAN at full width, batch 50: card against CPU
+    sds = SyntheticTextDataset(n=JUDGE_BATCH, seed=30)
+    hr, _ = to_device(collate([sds[i] for i in range(JUDGE_BATCH)]), DEV, True)
+    info = AsterInfo("all")
+    judges = {"CRNN": make_judge("CRNN", load_judge().to(DEV))}
+    models = {"ASTER": init_parameters(AsterRecognizer(info.rec_num_classes), 20),
+              "MORAN": init_parameters(MORAN(), 21)}
+    for kind, model in models.items():
+        cpu = copy.deepcopy(model).eval()
+        card = model.to(DEV).eval()
+        judges[kind] = judge = make_judge(kind, card, "all")
+        judge(hr)  # cuDNN autotuning
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        strings = judge(hr)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        f_card, l_card, ids_card = judge_readings(kind, card, hr)
+        f_cpu, l_cpu, ids_cpu = judge_readings(kind, cpu, hr.cpu())
+        errs = {"features": scaled_err(f_card.cpu(), f_cpu), "first_logits": scaled_err(l_card.cpu(), l_cpu)}
+        same = (ids_card.cpu() == ids_cpu).double().mean().item()
+        extra = ""
+        if kind == "ASTER":
+            with torch.no_grad():
+                feats = card.encode(parse_aster_input(hr))
+                decode_ms = timed_ms(lambda: card.decoder(feats, card.max_len), 5)
+                profile_window(lambda: card.decoder(feats, card.max_len),
+                               f"ASTER decode, {card.max_len} steps at batch {JUDGE_BATCH}")
+            extra = f"; the decode alone ({card.max_len} steps) {decode_ms:.2f} ms a batch"
+        print(f"[judges] {kind} at batch {JUDGE_BATCH}: {wall_ms:.2f} ms a call (host clock){extra}; "
+              f"launches a call {json.dumps(counts)}; card vs CPU {json.dumps(errs)} (tol {JUDGE_TOL}); "
+              f"identical ids {same:.4f} (not gated); readings e.g. {strings[:3]} ({smi})")
+        if counts != {"bigru_fwd": 0, "bigru_bwd": 0, "bilstm_fwd": JUDGE_LAUNCHES[kind], "bilstm_bwd": 0}:
+            fail(f"{kind} judge launches {counts}")
+        if not (all(e <= JUDGE_TOL for e in errs.values()) and len(strings) == JUDGE_BATCH):
+            fail(f"{kind} judge card vs CPU {errs}")
+
+    # ---- (c) Evaluator images/s by judge, without and with LPIPS
+    generator = init_parameters(TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True),
+                                1234).to(DEV).eval()
+    student = init_parameters(CRNN(), 1235).to(DEV).eval()
+    lpips = seeded_lpips(22)
+    ev_ds = SyntheticTextDataset(n=JUDGE_EVAL_N, seed=2)
+    for i in range(len(ev_ds)):  # render (and cache) every sample up front
+        ev_ds[i]
+    n_batches = math.ceil(JUDGE_EVAL_N / JUDGE_BATCH)
+    for kind in ("CRNN", "ASTER", "MORAN"):
+        for fn in (None, lpips):
+            ev = Evaluator([generator], [student], judges[kind], DEV, JUDGE_BATCH, True, lpips=fn)
+            ev.evaluate(ev_ds)  # the tail batch's shapes autotuned too
+            rates = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                summary = ev.evaluate(ev_ds)
+                torch.cuda.synchronize()
+                rates.append(JUDGE_EVAL_N / (time.perf_counter() - t0))
+            counts = read_counts()
+            # 10 GruBlocks a generator forward; the student's 2 BiLSTMs and
+            # each judge call's (on SR, LR and HR)
+            want = {"bigru_fwd": 10 * n_batches, "bigru_bwd": 0,
+                    "bilstm_fwd": (2 + 3 * JUDGE_LAUNCHES[kind]) * n_batches, "bilstm_bwd": 0}
+            lp = (f", LPIPS SR {summary['lpips_vgg_sr']:.4f} LR {summary['lpips_vgg_lr']:.4f}"
+                  if fn else "")
+            print(f"[judges] Evaluator, {kind} judge{' + LPIPS' if fn else ''}: {JUDGE_EVAL_N} images at "
+                  f"batch {JUDGE_BATCH}, images/s {rates[0]:.1f} / {rates[1]:.1f} (two passes); launches a batch "
+                  f"{json.dumps({k: v / n_batches for k, v in counts.items()})}; psnr "
+                  f"{summary['psnr_avg']:.4f} ssim {summary['ssim_avg']:.5f} acc SR "
+                  f"{summary['accuracy']:.4f} HR {summary['accuracy_hr']:.4f}{lp} ({smi})")
+            if counts != want:
+                fail(f"Evaluator with {kind}: launches {counts} (want {want})")
+            if not (math.isfinite(summary["psnr_avg"]) and (fn is None or (
+                    summary["lpips_vgg_sr"] > 0 and math.isfinite(summary["lpips_vgg_lr"])))):
+                fail(f"Evaluator with {kind}: {summary}")
+
+    # ---- (d) --log_dir's writer, --vis, --demo, and the CLI from saved judge weights
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = make_summary_writer(os.path.join(tmp, "tb"), "smoke")
+        print(f"[judges] tensorboardX summary writer made: {writer is not None} (without "
+              "tensorboardX the trainers log no scalars, after one warning)")
+        if writer is not None:
+            writer.add_scalar("smoke/one", 1.0, 0)
+            writer.close()
+        vis = os.path.join(tmp, "vis")
+        Evaluator([generator], [student], judges["ASTER"], DEV, JUDGE_BATCH, True, n_vis=JUDGE_N_VIS,
+                  vis_root=vis).evaluate(ev_ds)
+        files = os.listdir(vis)
+        n_att = sum(f.startswith("att_") for f in files)
+        print(f"[judges] --vis: {len(files) - n_att} triptychs and {n_att} attention tiles")
+        if (len(files) - n_att, n_att) != (JUDGE_N_VIS, JUDGE_N_VIS):
+            fail(f"--vis wrote {sorted(files)}")
+        crops = os.path.join(tmp, "crops")
+        os.makedirs(crops)
+        dds = SyntheticTextDataset(n=JUDGE_DEMO_N, seed=31)
+        for i in range(JUDGE_DEMO_N):
+            dds[i][1].save(os.path.join(crops, f"crop{i}.png"))
+        out, cwd = io.StringIO(), os.getcwd()
+        os.chdir(tmp)  # --demo writes demo_out/<vis_dir> where it runs, as JAX does
+        try:
+            with contextlib.redirect_stdout(out):
+                code = cli.main(["--arch=tatt", "--mask", "--demo", "--demo_dir", crops, "--vis_dir", "smoke",
+                                 "--synthetic", "8"])
+        finally:
+            os.chdir(cwd)
+        lines = out.getvalue().splitlines()
+        readings = [ln for ln in lines if ": LR='" in ln]
+        saved = os.listdir(os.path.join(tmp, "demo_out", "smoke"))
+        print(f"[judges] --demo over {JUDGE_DEMO_N} PNGs: exit {code}, {len(readings)} readings, "
+              f"{len(saved)} SR images saved; {lines[-1] if lines else ''}")
+        if code != 0 or len(readings) != JUDGE_DEMO_N or len(saved) != JUDGE_DEMO_N \
+                or not lines[-1].startswith(f"demo: {JUDGE_DEMO_N} images, fps="):
+            fail(f"--demo: exit {code}, output {out.getvalue()[-500:]}")
+        paths = {"ASTER": os.path.join(tmp, "aster_demo.pth.tar"), "MORAN": os.path.join(tmp, "moran.pth")}
+        torch.save({"state_dict": {f"module.{k}": v.cpu() for k, v in models["ASTER"].state_dict().items()},
+                    "epoch": 0}, paths["ASTER"])
+        torch.save({k: v.cpu() for k, v in models["MORAN"].state_dict().items()}, paths["MORAN"])
+        base = ["--arch=tatt", "--mask", "--synthetic", str(4 * JUDGE_EVAL_N), "--batch_size", str(JUDGE_BATCH)]
+        for kind, argv in (("ASTER", ["--test", "--rec=aster", "--rec_pretrained", paths["ASTER"]]),
+                           ("MORAN", ["--go_test", "--test_model=MORAN", "--moran_pretrained", paths["MORAN"]])):
+            out = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(base + argv)
+            counts = read_counts()
+            lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[easy] ")]
+            got = ast.literal_eval(lines[-1][len("[easy] "):]) if lines else {}
+            cfg, _ = cli.parse_config(base + argv)
+            gens, stus, _ = cli.build_models(cfg, "")
+            want = Evaluator([m.to(DEV).eval() for m in gens], [m.to(DEV).eval() for m in stus],
+                             cli.load_judge(kind, paths[kind], "all", DEV), DEV, JUDGE_BATCH,
+                             True).evaluate(ev_ds)
+            keys = ("psnr_avg", "ssim_avg", "accuracy", "accuracy_lr", "accuracy_hr", "images")
+            print(f"[judges] cli {' '.join(argv[:2])}: exit {code}, "
+                  f"{json.dumps({k: got.get(k) for k in keys})}; Evaluator on the same weights "
+                  f"{json.dumps({k: want[k] for k in keys})}; launches {json.dumps(counts)}")
+            if code != 0 or not got or got["images"] != JUDGE_EVAL_N:
+                fail(f"cli {argv}: exit {code}, output {out.getvalue()[-500:]}")
+            if not (abs(got["psnr_avg"] - want["psnr_avg"]) <= GO_TEST_PSNR_TOL
+                    and abs(got["ssim_avg"] - want["ssim_avg"]) <= GO_TEST_SSIM_TOL
+                    and all(got[k] == want[k] for k in keys[2:])):
+                fail(f"cli {argv}: {got} against the Evaluator's {want}")
+            if counts["bilstm_fwd"] != (2 + 3 * JUDGE_LAUNCHES[kind]) * n_batches:
+                fail(f"cli {argv}: launches {counts}")
+    print(f"[judges] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -1171,7 +1411,11 @@ def main(argv=None) -> int:
     ap.add_argument("--flags-only", action="store_true",
                     help="run phases 1 and 12 alone (the TATT step's flags); prints no result "
                          "line")
+    ap.add_argument("--judges-only", action="store_true",
+                    help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
+                         "--demo, --test); prints no result line")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1213,6 +1457,10 @@ def main(argv=None) -> int:
     if args.flags_only:
         flags_phase(smi, None)
         return 0
+    if args.judges_only:
+        judges_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
 
     # ---- 2. forward kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
@@ -1241,13 +1489,7 @@ def main(argv=None) -> int:
     for row in gru_rows:
         print_gru(row)
     for row in lstm_rows:
-        step_us = (row["kernel_ms"] - row["one_step_ms"]) / (row["L"] - 1) * 1e3
-        print(f"[lstm] {row['shape']}: kernel {row['kernel_ms']:.4f} ms "
-              f"({step_us:.2f} us a step after {row['one_step_ms']:.4f} ms for set-up and "
-              f"step 1; events {row['kernel_event_ms']:.4f}, profiler "
-              f"{row['kernel_profiler_ms']}), "
-              f"with c {row['kernel_cs_ms']:.4f}; + projection "
-              f"{row['kernel_ms'] + row['projection_ms']:.4f} vs nn.LSTM {row['library_ms']:.4f}")
+        print_lstm(row)
     if args.forward_kernels_only or args.gru_fwd_only:
         return 0
     if args.kernels_only:
@@ -1391,6 +1633,9 @@ def main(argv=None) -> int:
     # ---- 12. the TATT step's flags
     flags_phase(smi, synthetic_ips)
 
+    # ---- 13. the evaluation protocol: ASTER and MORAN judges, LPIPS, --vis, --demo, --test
+    judge_lstm_rows = judges_phase(smi)
+
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the
     # student's and the teacher's rnn0 and rnn1 forward, the student's backward)
@@ -1407,7 +1652,7 @@ def main(argv=None) -> int:
         ("bigru_bwd", "tatt_tpu_torch/csrc/bigru_bwd.cu", "tatt_tpu/kernels/pallas_gru.py:132",
          gru_bwd_rows[:2], gru_bwd_rows),
         ("bilstm_fwd", "tatt_tpu_torch/csrc/bilstm_fwd.cu", "tatt_tpu/kernels/pallas_lstm.py:22",
-         lstm_rows[:2], lstm_rows),
+         lstm_rows[:2], lstm_rows + judge_lstm_rows),
         ("bilstm_bwd", "tatt_tpu_torch/csrc/bilstm_bwd.cu", "tatt_tpu/kernels/pallas_lstm.py:53",
          lstm_bwd_rows[:2], lstm_bwd_rows),
     ):
@@ -1419,6 +1664,7 @@ def main(argv=None) -> int:
             "ms": m["kernel_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
+    print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

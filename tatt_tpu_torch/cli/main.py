@@ -32,14 +32,32 @@ a run directory or a reference ``.pth``; else the YAML's
 ``python -m tatt_tpu_torch.train.pretrain`` writes; else
 ``TRAIN.VAL.crnn_pretrained``; a missing file exits with code 2; the
 CRNNs take the file's widths),
-``--test_model=CRNN``, the shrink flags ``--srb``, ``--hd_u`` and
-``--tiny_tpg``, and ``--device`` (default ``cuda``).  Refused with "not
-ported yet": ``--color_loss`` and ``--mse_fuse`` (flags of the plain
-step, which serves the other architectures), ``--dtype bfloat16``,
-another ``--arch`` or ``--test_model``, any other flag, and a YAML the
-port does not serve; nothing is silently ignored.  Without weights the
-generators and the CRNN students / teacher start from initial weights
-seeded by ``TRAIN.manualSeed``; the teacher is also the judge.
+the shrink flags ``--srb``, ``--hd_u`` and ``--tiny_tpg``, and
+``--device`` (default ``cuda``).
+
+The evaluation protocol of ``scripts/test_TATT.sh``: ``--go_test`` reads
+SR, LR and HR with the ``--test_model`` judge: CRNN (the teacher), ASTER
+(weights from ``--rec_pretrained``, else ``TRAIN.VAL.rec_pretrained``) or
+MORAN (``--moran_pretrained`` / ``TRAIN.VAL.moran_pretrained``); a
+non-CRNN judge without weights is an error, as in JAX.  ``--test`` runs
+the same evaluation with the ``--rec`` recognizer (crnn, aster or moran,
+fed the LR input as JAX feeds it), ``--demo`` super-resolves the images
+of ``--demo_dir`` into ``demo_out/<vis_dir>`` and prints the ``--rec``
+readings, ``--vis`` writes ``n_vis`` LR / SR / HR triptychs of each
+evaluation to ``demo/<vis_dir>``, ``--vgg16_pretrained`` with
+``--lpips_pretrained`` (else the YAML's) adds LPIPS-VGG to the summaries,
+and ``--log_dir`` (default ``tensorboard``) takes the trainer's scalars.
+The reference's dead flags (``--text_focus``, ``--prob_insert``,
+``--test_distorted_fusing``, ``--BiSR``, ``--rotate_test``,
+``--results_rotate``) are accepted with a warning.
+
+Refused with "not ported yet": ``--color_loss`` and ``--mse_fuse`` (flags
+of the plain step, which serves the other architectures), ``--dtype
+bfloat16``, another ``--arch``, ``--tpg OPT``, ``--CHNSR`` and the data
+flags of ``data/variants.py``, any other flag, and a YAML the port does
+not serve; nothing is silently ignored.  Without weights the generators
+and the CRNN students / teacher start from initial weights seeded by
+``TRAIN.manualSeed``.
 """
 
 from __future__ import annotations
@@ -51,29 +69,53 @@ import os
 import sys
 from typing import Optional
 
+import torch
+
+from tatt_tpu_torch.core.charset import AsterInfo
 from tatt_tpu_torch.core.checkpoint import resume_models
 from tatt_tpu_torch.core.config import Config, Flags, load_config
 from tatt_tpu_torch.core.convert import load_reference_pth, load_weights
 from tatt_tpu_torch.core.device import resolve_device, set_cuda_flags
 from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
+from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, crnn_widths
+from tatt_tpu_torch.models.recognizers.moran import MORAN
 from tatt_tpu_torch.models.tsrn import TATT
+from tatt_tpu_torch.train.demo import run_demo
+from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies
+from tatt_tpu_torch.train.steps import eval_step
 
 TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))  # --tiny_tpg
 STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss", "tssim_loss",
               "sr_share", "tpg_share", "for_cascading", "y_domain", "learning_STN",
               "training_stablize")
+# a non-CRNN judge's or recognizer's weights: the flag, else the YAML's key
+JUDGE_WEIGHTS = {"ASTER": "rec_pretrained", "MORAN": "moran_pretrained"}
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="tatt_tpu_torch — TATT on CUDA")
+    p = argparse.ArgumentParser(description="tatt_tpu_torch — TATT on CUDA", allow_abbrev=False)
     p.add_argument("--arch", default="tatt")
-    p.add_argument("--test_model", default="CRNN")
+    p.add_argument("--test_model", default="CRNN", choices=["CRNN", "ASTER", "MORAN"])
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--go_test", action="store_true")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--rec", default="crnn", choices=["crnn", "aster", "moran"])
+    p.add_argument("--demo", action="store_true")
+    p.add_argument("--demo_dir", type=str, default="./demo")
+    p.add_argument("--vis", action="store_true", help="dump LR/SR/HR triptychs during eval")
+    p.add_argument("--log_dir", default="tensorboard")
+    p.add_argument("--tpg", default="CRNN", choices=["CRNN", "OPT"])
+    for flag in ("text_focus", "BiSR", "results_rotate"):
+        p.add_argument(f"--{flag}", action="store_true")
+    p.add_argument("--prob_insert", type=float, default=1.0)
+    p.add_argument("--test_distorted_fusing", type=int, default=0)
+    p.add_argument("--rotate_test", type=float, default=0.0)
+    p.add_argument("--results_rotate_angle", type=float, default=5.0)
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     p.add_argument("--max_iters", type=int, default=None)
     for flag in STEP_FLAGS + ("color_loss", "mse_fuse"):
@@ -92,19 +134,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny_tpg", action="store_true")
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--crnn_pretrained", type=str, default=None)
+    for name, what in (("rec", "ASTER (--test_model=ASTER, --rec=aster)"),
+                       ("moran", "MORAN (--test_model=MORAN, --rec=moran)"),
+                       ("vgg16", "torchvision VGG16 (LPIPS, with --lpips_pretrained)"),
+                       ("lpips", "the lpips package's vgg heads (with --vgg16_pretrained)")):
+        p.add_argument(f"--{name}_pretrained", type=str, default=None, help=f".pth weights of {what}")
     p.add_argument("--device", default="cuda")
     return p
 
 
 def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     """(the config tree, the parsed namespace with the extras that are
-    not ``Flags``: ``synthetic``, ``max_iters``, ``crnn_pretrained``,
-    ``device``).  Raises SystemExit("not ported yet: ...")."""
+    not ``Flags``: ``synthetic``, ``max_iters``, the ``*_pretrained``
+    paths, ``device``).  Raises SystemExit("not ported yet: ...")."""
     args, unknown = build_parser().parse_known_args(argv)
     refused = [
         (bool(unknown), " ".join(unknown)),
         (args.arch != "tatt", f"--arch={args.arch} (only tatt)"),
-        (args.test_model != "CRNN", f"--test_model={args.test_model} (only CRNN)"),
+        (args.tpg != "CRNN", f"--tpg={args.tpg} (only CRNN)"),
         (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
         (args.color_loss, "--color_loss (a flag of the plain step)"),
         (args.mse_fuse, "--mse_fuse (a flag of the plain step)"),
@@ -119,6 +166,34 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     except ValueError as exc:  # a YAML the port does not serve
         raise SystemExit(str(exc)) from exc
     return cfg, args
+
+
+def warn_dead_flags(cfg: Config) -> None:
+    """The reference parses these flags and reads them nowhere
+    (``tatt_tpu/cli/main.py:157-184``): accepted, each with a warning."""
+    a = cfg.args
+    dead = [flag for flag, on in (
+        ("--text_focus", a.text_focus), ("--test_distorted_fusing", a.test_distorted_fusing),
+        ("--BiSR", a.BiSR), ("--prob_insert", a.prob_insert != 1.0),
+        ("--rotate_test", a.rotate_test), ("--results_rotate", a.results_rotate),
+    ) if on]
+    for flag in dead:
+        print(f"WARNING: {flag} is dead code in the reference and has no effect here "
+              "(accepted for CLI compatibility)", file=sys.stderr)
+
+
+def weights_path(kind: str, cfg: Config, cli: argparse.Namespace) -> str:
+    """The ASTER or MORAN weights: the flag, else the YAML's path."""
+    key = JUDGE_WEIGHTS[kind]
+    return getattr(cli, key) or getattr(cfg.TRAIN.VAL, key)
+
+
+def load_judge(kind: str, path: str, voc_type: str, device):
+    """A judge (:func:`make_judge`) over an ASTER or MORAN ``.pth`` (or
+    ``.pth.tar``) in the reference layout, on ``device``."""
+    model = AsterRecognizer(AsterInfo(voc_type).rec_num_classes) if kind == "ASTER" else MORAN()
+    load_weights(model, load_reference_pth(path))
+    return make_judge(kind, model.to(device).eval(), voc_type)
 
 
 def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
@@ -160,9 +235,25 @@ def build_models(cfg: Config, crnn_path: str):
     return generators, students, teacher
 
 
+def rec_judge(cfg: Config, cli: argparse.Namespace, teacher, device):
+    """The ``--rec`` recognizer of ``--test`` and ``--demo``
+    (``super_resolution.py:1702-1876``): the teacher CRNN, or ASTER / MORAN,
+    which need their weights."""
+    rec = cfg.args.rec
+    if rec == "crnn":
+        return make_judge("CRNN", teacher)
+    kind = rec.upper()
+    path = weights_path(kind, cfg, cli)
+    if not path or not os.path.exists(path):
+        key = JUDGE_WEIGHTS[kind]
+        raise SystemExit(f"--rec={rec} requires {kind} weights: pass --{key} or set TRAIN.VAL.{key}")
+    return load_judge(kind, path, cfg.TRAIN.voc_type, device)
+
+
 def run(argv=None) -> tuple[int, Optional[Trainer]]:
     """:func:`main`, also returning the trainer of a training run."""
     cfg, cli = parse_config(argv)
+    warn_dead_flags(cfg)
     device = resolve_device(cli.device)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
 
@@ -190,20 +281,58 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
     students = [m.to(device) for m in students]
     teacher = teacher.to(device)
 
-    if cfg.args.go_test:
+    # the judge per --test_model (test_bible, super_resolution.py:485-513);
+    # None: the teacher, read as a CRNN judge
+    a, judge = cfg.args, None
+    if a.test_model != "CRNN":
+        path = weights_path(a.test_model, cfg, cli)
+        if not path:
+            raise SystemExit(
+                f"--test_model={a.test_model} requires judge weights: set TRAIN.VAL.rec_pretrained "
+                "(ASTER) / moran_pretrained (MORAN) in the YAML or pass --rec_pretrained / "
+                "--moran_pretrained")
+        if not os.path.exists(path):
+            print(f"{a.test_model} judge weights not found: {path}", file=sys.stderr)
+            return 2, None
+        judge = load_judge(a.test_model, path, cfg.TRAIN.voc_type, device)
+    # LPIPS when both checkpoints are given (super_resolution.py:41-43, 1409-1420)
+    lpips = None
+    lpips_paths = (cli.vgg16_pretrained or cfg.TRAIN.VAL.vgg16_pretrained,
+                   cli.lpips_pretrained or cfg.TRAIN.VAL.lpips_pretrained)
+    if all(lpips_paths):
+        missing = [pth for pth in lpips_paths if not os.path.exists(pth)]
+        if missing:
+            print(f"LPIPS weights not found: {missing[0]}", file=sys.stderr)
+            return 2, None
+        vgg, lin = import_lpips(*lpips_paths)
+        vgg, lin = vgg.to(device), [w.to(device) for w in lin]
+        lpips = lambda x, y: lpips_vgg(vgg, lin, x, y)  # noqa: E731
+
+    if a.go_test or a.test or a.demo:
         if cfg.resume:
             resume_models(cfg.resume, generators, students)
+        generators, students = [m.eval() for m in generators], [m.eval() for m in students]
+        if a.test or a.demo:
+            judge = rec_judge(cfg, cli, teacher.eval(), device)
+        if a.demo:
+            with torch.no_grad():
+                run_demo(a.demo_dir,
+                         lambda lr: eval_step(generators, students, lr, a.stu_iter, a.for_cascading)[0],
+                         judge, os.path.join("demo_out", cfg.vis_dir), device, cfg.TRAIN.width,
+                         cfg.TRAIN.height, cfg.scale_factor, a.mask)
+            return 0, None
         evaluator = Evaluator(
-            [m.eval() for m in generators], [m.eval() for m in students], teacher.eval(), device,
-            batch_size=cfg.args.val_batch_size or cfg.batch_size, mask=cfg.args.mask,
-            workers=max(cfg.TRAIN.workers, 1), stu_iter=cfg.args.stu_iter,
-            for_cascading=cfg.args.for_cascading,
+            generators, students, judge or teacher.eval(), device,
+            batch_size=a.val_batch_size or cfg.batch_size, mask=a.mask,
+            workers=max(cfg.TRAIN.workers, 1), stu_iter=a.stu_iter, for_cascading=a.for_cascading,
+            lpips=lpips, n_vis=cfg.TRAIN.VAL.n_vis if a.vis else 0,
+            vis_root=os.path.join("demo", cfg.vis_dir),
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")
         return 0, None
 
-    trainer = Trainer(cfg, generators, students, teacher, train_ds, device, val_sets)
+    trainer = Trainer(cfg, generators, students, teacher, train_ds, device, val_sets, judge, lpips)
     if cfg.resume:
         trainer.resume(cfg.resume)
     result = trainer.train(max_iters=cli.max_iters)

@@ -1,6 +1,7 @@
-"""Character set, vocabulary filter, CTC greedy decode and the collate's
-label spreading (copied from ``tatt_tpu/core/charset.py``; the port
-imports nothing from the JAX package)."""
+"""Character set, vocabulary filter, CTC greedy decode, the ASTER
+vocabulary and decode, and the collate's label spreading (copied from
+``tatt_tpu/core/charset.py``; the port imports nothing from the JAX
+package).  The 3965-character ``chinese`` table waits for ``--CHNSR``."""
 
 from __future__ import annotations
 
@@ -21,13 +22,56 @@ _TABLES = {
 }
 
 
+def voc_table(voc_type: str) -> str:
+    """The characters of ``voc_type`` (digit, lower, upper or all)."""
+    return _TABLES[voc_type]
+
+
 def str_filt(s: str, voc_type: str) -> str:
     """Vocabulary filter of the accuracy protocol (``utils/util.py:12-32``):
     lowercases for 'lower', drops out-of-vocabulary characters."""
-    table = _TABLES[voc_type]
+    table = voc_table(voc_type)
     if voc_type == "lower":
         s = s.lower()
     return "".join(ch for ch in s if ch in table)
+
+
+def normalize_text(text: str) -> str:
+    """ASTER-eval normalization (``utils/metrics.py:15-17``): lowercase
+    alphanumerics only."""
+    return "".join(ch for ch in text if ch in string.digits + string.ascii_letters).lower()
+
+
+class AsterInfo:
+    """ASTER vocabulary (``interfaces/base.py:862-874``,
+    ``utils/labelmaps.py:6-28``): the table's characters, then EOS,
+    PADDING and UNKNOWN."""
+
+    def __init__(self, voc_type: str = "all"):
+        self.voc_type = voc_type
+        self.EOS, self.PADDING, self.UNKNOWN = "EOS", "PADDING", "UNKNOWN"
+        self.max_len = 100
+        self.voc = list(voc_table(voc_type)) + [self.EOS, self.PADDING, self.UNKNOWN]
+        self.char2id = {c: i for i, c in enumerate(self.voc)}
+        self.id2char = dict(enumerate(self.voc))
+        self.rec_num_classes = len(self.voc)
+
+
+def decode_aster_ids(ids, info: AsterInfo) -> list[str]:
+    """``get_string_aster`` (``utils/metrics.py:20-68``): each row of ids
+    up to its first EOS, UNKNOWN skipped, then :func:`normalize_text`."""
+    eos, unk = info.char2id[info.EOS], info.char2id[info.UNKNOWN]
+    out = []
+    for row in np.asarray(ids):
+        chars = []
+        for v in row:
+            v = int(v)
+            if v == eos:
+                break
+            if v != unk and v in info.id2char:
+                chars.append(info.id2char[v])
+        out.append(normalize_text("".join(chars)))
+    return out
 
 
 def ctc_greedy_decode(logits, alphabet: str = CRNN_ALPHABET) -> list[str]:

@@ -101,6 +101,21 @@ class Flags:
     lr: Optional[float] = None
     dtype: str = "float32"
     tiny_tpg: bool = False
+    # eval extras (``tatt_tpu/core/config.py``'s defaults)
+    rec: str = "crnn"  # --test's recognizer: crnn | aster | moran
+    test: bool = False
+    demo: bool = False
+    demo_dir: str = "./demo"
+    vis: bool = False  # LR / SR / HR triptychs during eval
+    log_dir: str = "tensorboard"
+    # parsed by the reference and read nowhere (cli/main.py:warn_dead_flags)
+    text_focus: bool = False
+    prob_insert: float = 1.0
+    test_distorted_fusing: int = 0
+    BiSR: bool = False
+    rotate_test: float = 0.0
+    results_rotate: bool = False
+    results_rotate_angle: float = 5.0
 
 
 @dataclass

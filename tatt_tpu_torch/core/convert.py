@@ -2,9 +2,10 @@
 the port's ``state_dict``.
 
 The port's ``state_dict`` keys follow the reference PyTorch layout
-(``model/tsrn.py``, ``model/crnn/crnn.py``), so reference checkpoints load
-directly and the JAX package's own importers (``import_tatt``,
-``import_crnn``) read port weights back.
+(``model/tsrn.py``, ``model/crnn/crnn.py``, ``model/recognizer/``,
+``model/moran/``), so reference checkpoints load directly and the JAX
+package's own importers (``import_tatt``, ``import_crnn``,
+``import_aster``, ``import_moran``) read port weights back.
 
 :func:`from_jax` takes JAX variables as numpy arrays, either nested
 (``{"params": {...}, "batch_stats": {...}}``, as ``tree_map(np.asarray,
@@ -17,6 +18,7 @@ a ``TATT(stn=True)`` included (to the reference's ``stn_head.stn_convnet``
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Any, Mapping, Sequence
 
@@ -85,12 +87,8 @@ def _tatt_prefix(mods: list[str], srb: int, n_up: int) -> str:
     }
     if head in fixed and not rest:
         return fixed[head]
-    if head == "stn_head" and len(rest) == 1:
-        m = re.fullmatch(r"(conv|bn)(\d)", rest[0])
-        if m:  # conv blocks sit at the even indices of stn_convnet
-            return f"stn_head.stn_convnet.{2 * int(m[2])}.{0 if m[1] == 'conv' else 1}"
-        if rest[0] in ("fc1", "fc1_bn"):
-            return f"stn_head.stn_fc1.{0 if rest[0] == 'fc1' else 1}"
+    if head == "stn_head":
+        return _stn_prefix(mods)
     if head == "infoGen":
         if not rest:
             return "infoGen"
@@ -101,6 +99,75 @@ def _tatt_prefix(mods: list[str], srb: int, n_up: int) -> str:
         if sub in _INFOGEN:
             return ".".join([f"infoGen.{_INFOGEN[sub]}", *tail])
     raise KeyError(f"unmapped TATT module path {'/'.join(mods)!r}")
+
+
+def _stn_prefix(mods: list[str]) -> str:
+    """An STN head's modules (the generator's or ASTER's)."""
+    if len(mods) == 2:
+        m = re.fullmatch(r"(conv|bn)(\d)", mods[1])
+        if m:  # conv blocks sit at the even indices of stn_convnet
+            return f"stn_head.stn_convnet.{2 * int(m[2])}.{0 if m[1] == 'conv' else 1}"
+        if mods[1] in ("fc1", "fc1_bn"):
+            return f"stn_head.stn_fc1.{0 if mods[1] == 'fc1' else 1}"
+    raise KeyError(f"unmapped STN head module path {'/'.join(mods)!r}")
+
+
+# a residual block's JAX submodules -> reference names, for ASTER
+# (``torch_import.py:138-151``) and MORAN (``:193-208``)
+_ASTER_BLOCK = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2", "bn2": "bn2",
+                "downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_MORAN_BLOCK = {"conv1": "conv1.0", "bn1": "conv1.1", "conv2": "conv2.0", "bn2": "conv2.1",
+                "downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+# leaves of ASTER's decoder (``torch_import.py:154-173``): (name, transposed)
+_ASTER_DECODER = {
+    "tgt_embedding": ("tgt_embedding.weight", False),
+    **{f"gru_{a}": (f"gru.{_RNN[a]}_l0", False) for a in _RNN},
+    **{f"{m}_{leaf}": (f"{'fc' if m == 'fc' else 'attention_unit.' + m}.{t}", leaf == "kernel")
+       for m in ("sEmbed", "xEmbed", "wEmbed", "fc") for leaf, t in (("kernel", "weight"),
+                                                                      ("bias", "bias"))},
+}
+# leaves of a MORAN attention decoder (``torch_import.py:214-228``)
+_MORAN_ATTENTION = {
+    "i2h_w": "attention_cell.i2h.weight", "h2h_w": "attention_cell.h2h.weight",
+    "h2h_b": "attention_cell.h2h.bias", "score_w": "attention_cell.score.weight",
+    **{f"gru_{a}": f"attention_cell.rnn.{_RNN[a]}" for a in _RNN},
+    "generator_w": "generator.weight", "generator_b": "generator.bias",
+    "char_embeddings": "char_embeddings",
+}
+# MORN's offset tower: JAX conv<i> / bn<i> -> the reference Sequential index
+_MORN_INDEX = {"conv1": 1, "bn1": 2, "conv2": 5, "bn2": 6, "conv3": 9, "bn3": 10,
+               "conv4": 12, "bn4": 13, "conv5": 15, "bn5": 16}
+
+
+def _aster_prefix(mods: list[str]) -> str:
+    head, rest = mods[0], mods[1:]
+    if head == "stn_head":
+        return _stn_prefix(mods)
+    if head == "encoder" and len(rest) == 1 and rest[0] in ("conv0", "bn0", "rnn"):
+        return {"conv0": "encoder.layer0.0", "bn0": "encoder.layer0.1", "rnn": "encoder.rnn"}[rest[0]]
+    if head == "encoder" and len(rest) == 2 and rest[1] in _ASTER_BLOCK:
+        m = re.fullmatch(r"layer(\d)_(\d+)", rest[0])
+        if m:
+            return f"encoder.layer{m[1]}.{m[2]}.{_ASTER_BLOCK[rest[1]]}"
+    raise KeyError(f"unmapped ASTER module path {'/'.join(mods)!r}")
+
+
+def _moran_prefix(mods: list[str]) -> str:
+    head, rest = mods[0], mods[1:]
+    if head == "MORN" and len(rest) == 2 and rest[0] == "offsets" and rest[1] in _MORN_INDEX:
+        return f"MORN.cnn.{_MORN_INDEX[rest[1]]}"
+    if head == "cnn" and len(rest) == 1 and rest[0] in ("block0_conv", "block0_bn"):
+        return f"ASRN.cnn.block0.{0 if rest[0] == 'block0_conv' else 1}"
+    if head == "cnn" and len(rest) == 2 and rest[1] in _MORAN_BLOCK:
+        m = re.fullmatch(r"block(\d)_(\d+)", rest[0])
+        if m:
+            return f"ASRN.cnn.block{m[1]}.{m[2]}.{_MORAN_BLOCK[rest[1]]}"
+    m = re.fullmatch(r"rnn(\d)(_embedding)?", head)
+    if m and not rest:
+        return f"ASRN.rnn.{m[1]}.{'embedding' if m[2] else 'rnn'}"
+    if head in ("attentionL2R", "attentionR2L") and not rest:
+        return f"ASRN.{head}"
+    raise KeyError(f"unmapped MORAN module path {'/'.join(mods)!r}")
 
 
 def _crnn_prefix(mods: list[str]) -> str:
@@ -114,7 +181,8 @@ def _crnn_prefix(mods: list[str]) -> str:
 
 
 def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``TATT`` or ``CRNN`` variables -> the port's ``state_dict``."""
+    """JAX ``TATT``, ``CRNN``, ``AsterRecognizer`` or ``MORAN`` variables ->
+    the port's ``state_dict``."""
     flat = _flatten(variables)
     top = {k.split("/")[1] for k in flat}
     if "block1_conv" in top:
@@ -123,21 +191,31 @@ def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         prefix_of = lambda mods: _tatt_prefix(mods, srb, n_up)  # noqa: E731
     elif "conv0" in top:
         prefix_of = _crnn_prefix
+    elif "encoder" in top:
+        prefix_of = _aster_prefix
+    elif "MORN" in top:
+        prefix_of = _moran_prefix
     else:
-        raise KeyError(f"neither TATT nor CRNN variables (modules {sorted(top)})")
+        raise KeyError(f"not TATT, CRNN, ASTER or MORAN variables (modules {sorted(top)})")
     out: dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         _, *mods, leaf = key.split("/")
         value = np.asarray(value, np.float32)
+        rnn = re.fullmatch(r"(w_ih|w_hh|b_ih|b_hh)(?:_l(\d))?", leaf)
         if leaf == "init_factor" and mods == ["infoGen"]:
             entries = {"infoGen.init_factor.weight": value}
         elif leaf == "fc2_kernel" and mods == ["stn_head"]:
             entries = {"stn_head.stn_fc2.weight": value.T}
         elif leaf == "fc2_bias" and mods == ["stn_head"]:
             entries = {"stn_head.stn_fc2.bias": value}
-        elif leaf in _RNN:
-            base = f"{prefix_of(mods)}.{_RNN[leaf]}"
-            entries = {f"{base}_l0": value[0], f"{base}_l0_reverse": value[1]}
+        elif mods == ["decoder"] and leaf in _ASTER_DECODER:
+            name, transposed = _ASTER_DECODER[leaf]
+            entries = {f"decoder.decoder.{name}": value.T if transposed else value}
+        elif prefix_of is _moran_prefix and mods[0].startswith("attention") and leaf in _MORAN_ATTENTION:
+            entries = {f"{prefix_of(mods)}.{_MORAN_ATTENTION[leaf]}": value}
+        elif rnn:  # a bidirectional layer's [2, ...] leaf; "_l<k>" of a stacked BiLSTM
+            base = f"{prefix_of(mods)}.{_RNN[rnn[1]]}_l{rnn[2] or 0}"
+            entries = {base: value[0], f"{base}_reverse": value[1]}
         elif leaf == "kernel":
             # conv kernels are OIHW in both; Dense kernels are [in, out]
             entries = {f"{prefix_of(mods)}.weight": value if value.ndim == 4 else value.T}
@@ -206,21 +284,33 @@ def is_jax_checkpoint(path: str) -> bool:
 
 def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
     """A reference ``.pth`` (a ``state_dict_G`` generator checkpoint, a
-    ``state_dict`` wrapper, or a bare ``crnn.pth``) -> its state dict with
-    ``DataParallel``'s ``module.`` prefixes removed.  Mirrors the JAX
-    package's ``--resume`` / ``--crnn_pretrained`` loading
-    (``cli/main.py:242-250``, ``loop.py:454``).  A JAX-package checkpoint
-    or one of the port's own raises ``ValueError`` naming what it is."""
+    ``state_dict`` wrapper such as ASTER's ``.pth.tar``, or a bare
+    ``crnn.pth`` / ``moran.pth``) -> its state dict with ``DataParallel``'s
+    ``module.`` prefixes removed.  Reads every file that the JAX package's
+    ``load_state_dict`` reads (``torch_import.py:20-28``): tensors only
+    first, and a wrapper that also pickles other objects (an epoch count,
+    the training options) as JAX does, with ``weights_only=False`` — so
+    load only files you trust.  A JAX-package checkpoint, one of the port's
+    own, or a file torch cannot read raises ``ValueError`` naming the file
+    and the reason."""
     if is_jax_checkpoint(path):
         raise ValueError(f"{path} is a checkpoint of the JAX package tatt_tpu (msgpack), "
                          "not a reference .pth")
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        try:
+            blob = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError:  # a wrapper pickling more than tensors
+            blob = torch.load(path, map_location="cpu", weights_only=False)
+    except Exception as exc:
+        raise ValueError(f"{path}: not a readable torch checkpoint ({type(exc).__name__}: {exc})") from exc
     if isinstance(blob, dict) and blob.get("format") in CHECKPOINT_FORMATS:
         raise ValueError(f"{path} is a checkpoint of the port (core/checkpoint.py), "
                          "not a reference .pth: resume it with --resume")
     for key in ("state_dict", "state_dict_G"):
         if isinstance(blob, dict) and key in blob:
             blob = blob[key]
+    if not isinstance(blob, Mapping):
+        raise ValueError(f"{path}: holds a {type(blob).__name__}, not a state dict")
     return {k.replace("module.", ""): v for k, v in blob.items() if torch.is_tensor(v)}
 
 

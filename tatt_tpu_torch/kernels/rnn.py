@@ -13,6 +13,7 @@ stays ordinary differentiable torch ops outside it, as the JAX VJP keeps
 its projection GEMMs (``pallas_gru.py:360-375``).  Wider recurrences — the
 TP-Interpreter's query GRU, hidden 512 — run :func:`bigru_apply`, a plain
 loop under autograd, as JAX keeps it on ``lax.scan`` (``rnn.py:211-218``).
+:func:`gru_cell` is one plain GRU step, as in JAX.
 """
 
 from __future__ import annotations
@@ -99,31 +100,48 @@ def compose_input_projection(w_ih, b_ih, pre_kernel=None, pre_bias=None):
     return w_eff, b_eff
 
 
+def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
+    """One torch-semantics GRU step (``rnn.py:133-151``): ``x`` [B, In],
+    ``h`` [B, H], ``w_ih`` [3H, In], ``w_hh`` [3H, H].  The attention
+    decoders of ASTER and MORAN take one such step per decoded symbol."""
+    hid = h.shape[-1]
+    gx = torch.addmm(b_ih, x, w_ih.T)
+    gh = torch.addmm(b_hh, h, w_hh.T)
+    r = torch.sigmoid(gx[:, :hid] + gh[:, :hid])
+    z = torch.sigmoid(gx[:, hid : 2 * hid] + gh[:, hid : 2 * hid])
+    n = torch.tanh(gx[:, 2 * hid :] + r * gh[:, 2 * hid :])
+    return (1.0 - z) * n + z * h
+
+
 class _BiRNN(nn.Module):
-    """Parameters of a one-layer bidirectional torch RNN with ``gates``
-    gate blocks, under torch's names."""
+    """Parameters of a bidirectional torch RNN of ``num_layers`` layers with
+    ``gates`` gate blocks, under torch's names (layer k > 0 reads the 2H
+    outputs of layer k - 1)."""
 
     gates = 0
 
-    def __init__(self, in_features: int, hidden: int):
+    def __init__(self, in_features: int, hidden: int, num_layers: int = 1):
         super().__init__()
-        self.hidden = hidden
+        self.hidden, self.num_layers = hidden, num_layers
         g = self.gates * hidden
-        for sfx in ("l0", "l0_reverse"):
-            self.register_parameter(f"weight_ih_{sfx}", nn.Parameter(torch.empty(g, in_features)))
-            self.register_parameter(f"weight_hh_{sfx}", nn.Parameter(torch.empty(g, hidden)))
-            self.register_parameter(f"bias_ih_{sfx}", nn.Parameter(torch.empty(g)))
-            self.register_parameter(f"bias_hh_{sfx}", nn.Parameter(torch.empty(g)))
+        for layer in range(num_layers):
+            n_in = in_features if layer == 0 else 2 * hidden
+            for sfx in (f"l{layer}", f"l{layer}_reverse"):
+                self.register_parameter(f"weight_ih_{sfx}", nn.Parameter(torch.empty(g, n_in)))
+                self.register_parameter(f"weight_hh_{sfx}", nn.Parameter(torch.empty(g, hidden)))
+                self.register_parameter(f"bias_ih_{sfx}", nn.Parameter(torch.empty(g)))
+                self.register_parameter(f"bias_hh_{sfx}", nn.Parameter(torch.empty(g)))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.hidden)
         for p in self.parameters(recurse=False):
             p.uniform_(-bound, bound, generator=gen)
 
-    def stacked(self):
-        """``(w_ih [2, G, In], w_hh [2, G, H], b_ih [2, G], b_hh [2, G])``."""
+    def stacked(self, layer: int = 0):
+        """Layer ``layer``'s ``(w_ih [2, G, In], w_hh [2, G, H], b_ih [2, G],
+        b_hh [2, G])``."""
         return tuple(
-            torch.stack([getattr(self, f"{n}_l0"), getattr(self, f"{n}_l0_reverse")])
+            torch.stack([getattr(self, f"{n}_l{layer}"), getattr(self, f"{n}_l{layer}_reverse")])
             for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
         )
 
@@ -159,12 +177,17 @@ class BiGRU(_BiRNN):
 
 
 class BiLSTM(_BiRNN):
-    """``nn.LSTM(in, hidden, bidirectional=True)`` output[0] on [R, L, In]."""
+    """``nn.LSTM(in, hidden, num_layers, bidirectional=True)`` output[0] on
+    [R, L, In]; each layer's recurrence is one kernel launch."""
 
     gates = 4
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w_ih, w_hh, b_ih, b_hh = self.stacked()
+        for layer in range(self.num_layers):
+            x = self._layer(x, *self.stacked(layer))
+        return x
+
+    def _layer(self, x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
         if self.hidden > lstm_kernel.MAX_HIDDEN:
             return bilstm_apply(x, w_ih, w_hh, b_ih, b_hh)
         # one matmul for all timesteps of both directions, emitted in the

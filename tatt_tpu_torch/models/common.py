@@ -46,7 +46,7 @@ def _uniform(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
 
 
 class Conv2d(nn.Module):
-    """Stride-1-or-more conv with explicit symmetric padding, OIHW weight.
+    """Conv with explicit symmetric padding and a stride, OIHW weight.
 
     The JAX package computes TATT's final 9x9 conv through a TPU
     lane-packing trick (``common.py:130-188``); it is the same linear map,
@@ -59,9 +59,10 @@ class Conv2d(nn.Module):
         kernel_size: tuple[int, int] = (3, 3),
         padding: tuple[int, int] = (1, 1),
         bias: bool = True,
+        stride: tuple[int, int] = (1, 1),
     ):
         super().__init__()
-        self.padding = padding
+        self.padding, self.stride = padding, stride
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel_size))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
@@ -73,7 +74,7 @@ class Conv2d(nn.Module):
             _uniform(self.bias, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias, padding=self.padding)
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class _BatchNorm(nn.Module):

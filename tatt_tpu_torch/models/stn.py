@@ -1,10 +1,10 @@
 """STN head and thin-plate-spline rectification
 (counterpart of ``tatt_tpu/models/stn.py``).
 
-``STNHead`` is the generator variant of ``model/stn_head.py``: six
-conv-BN-ReLU blocks pooling 16x64 down to 1x2, then fc1 + BatchNorm1d +
-ReLU and fc2 to 20 control points, fc2 starting at the identity border
-grid.  Module names follow the reference (``stn_head.stn_convnet.{0,2,..,10}``,
+``STNHead`` is ``model/stn_head.py`` (the generator's, 16x64 in) or
+``model/recognizer/stn_head.py`` (ASTER's, 32x64 in): six conv-BN-ReLU
+blocks pooling down to 1x2, then fc1 + BatchNorm1d + ReLU and fc2 to 20
+control points, fc2 starting at the identity border grid.  Module names follow the reference (``stn_head.stn_convnet.{0,2,..,10}``,
 ``stn_fc1``, ``stn_fc2``; ``torch_import.py:264-281``).  ``tps_transform``
 solves the TPS mapping from precomputed numpy matrices in f32 (TF32 off,
 ``core/device.py``) and samples bilinearly.
@@ -125,13 +125,16 @@ class _FC2(nn.Module):
 
 
 class STNHead(nn.Module):
-    """The TATT generator's STN head, ``variant='generator'``
-    (``stn.py:124-178``): [N, C, 16, 64] -> control points [N, K, 2]."""
+    """``stn.py:124-178``: [N, C, H, W] -> control points [N, K, 2].
+    ``variant='generator'`` pools like the TATT generator's head (16x64
+    input -> 1x2), ``variant='aster'`` like the ASTER recognizer's (five
+    2x2 pools, 32x64 input -> 1x2, ``model/recognizer/stn_head.py:33-44``)."""
 
-    def __init__(self, in_planes: int, num_ctrlpoints: int = 20):
+    def __init__(self, in_planes: int, num_ctrlpoints: int = 20, variant: str = "generator"):
         super().__init__()
         chans = (32, 64, 128, 256, 256, 256)
-        pools = ((2, 2), (2, 2), (2, 2), (2, 2), (1, 2), None)
+        last = {"generator": (1, 2), "aster": (2, 2)}[variant]
+        pools = ((2, 2), (2, 2), (2, 2), (2, 2), last, None)
         layers, cin = [], in_planes
         for c, pool in zip(chans, pools):
             layers.append(_LayerBN(Conv2d(cin, c), BatchNorm2d(c)))

@@ -2,9 +2,12 @@
 
 :class:`Evaluator` is ``Trainer.evaluate``: for each batch the eval step
 (student prior -> TATT, ``stu_iter`` times, with ``for_cascading``), PSNR/SSIM
-of SR and of the bicubic-upscaled LR against HR, and the judge CRNN's
-greedy CTC decode of SR, LR and HR.  Visualisation and LPIPS are not
-ported yet.
+of SR and of the bicubic-upscaled LR against HR, and the judge's
+reading of SR, LR and HR (:mod:`.judge`: CRNN, ASTER or MORAN);
+with an LPIPS function also LPIPS of SR and of the bicubic LR against HR;
+with ``n_vis`` the first ``n_vis`` samples of each evaluation as LR / SR /
+HR triptychs, and the TP-Interpreter's attention tiles (``att_``), under
+``vis_root`` (``demo/<vis_dir>`` in the trainer, as JAX writes them).
 
 :class:`Trainer` is ``Trainer.train`` (``loop.py:546-673``) for the TATT
 step, configured by a :class:`~tatt_tpu_torch.core.config.Config`: the
@@ -22,19 +25,26 @@ checkpoint also carries ``best_history_res``, which the JAX package leaves
 empty there, so that a resume from it keeps the best sum-accuracy.
 :meth:`Trainer.resume` restores models, BN buffers, Adam state, ``iters``,
 ``converge_list`` and the best history, then sets the configured ``lr``.
+With ``--log_dir`` (default ``tensorboard``) and tensorboardX installed,
+the trainer writes every metric as ``loss/<name>`` every 5 steps and each
+val set's ``eval/{psnr,ssim,accuracy}_<set>`` at each validation, under
+``<log_dir>/<vis_dir>`` (:func:`make_summary_writer`); tensorboardX
+writes its queue out when the writer is closed, at the latest when the
+process exits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
+import sys
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
-from tatt_tpu_torch.core.charset import CRNN_ALPHABET, ctc_greedy_decode
 from tatt_tpu_torch.core.checkpoint import resume_models, save_checkpoint
 from tatt_tpu_torch.core.config import Config, Flags
 from tatt_tpu_torch.data.collate import Batch
@@ -42,10 +52,36 @@ from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
-from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
+from tatt_tpu_torch.train.demo import attention_grid, triptych
+from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.metrics import EvalAccumulator
 from tatt_tpu_torch.train.state import make_optimizer
 from tatt_tpu_torch.train.steps import StepConfig, eval_step, train_step
+
+_warned_no_tensorboard = False
+
+
+def make_summary_writer(log_dir: str, vis_dir: str):
+    """A tensorboardX ``SummaryWriter`` on ``<log_dir>/<vis_dir>`` with the
+    directory's old event files removed (``loop.py:46-71``), or None, with
+    one warning on stderr a process, when tensorboardX is not installed."""
+    global _warned_no_tensorboard
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        if not _warned_no_tensorboard:
+            print(f"tatt_tpu_torch: tensorboardX is not installed — scalar logging to {log_dir!r} "
+                  "is disabled (install tensorboardX to enable)", file=sys.stderr)
+            _warned_no_tensorboard = True
+        return None
+    tb_dir = os.path.join(log_dir, vis_dir)
+    os.makedirs(tb_dir, exist_ok=True)
+    for name in os.listdir(tb_dir):
+        path = os.path.join(tb_dir, name)
+        if os.path.isfile(path):
+            with contextlib.suppress(FileNotFoundError):  # another run's wipe got there first
+                os.unlink(path)
+    return SummaryWriter(tb_dir)
 
 
 def to_device(batch, device: torch.device, mask: bool) -> tuple[torch.Tensor, torch.Tensor]:
@@ -93,36 +129,38 @@ class Evaluator:
     """The ``--go_test`` protocol over a dataset of (HR, LR, label)
     samples at the default geometry (HR 128x32, LR 64x16).  Models must
     already sit on ``device`` in eval mode; ``generators`` / ``students``
-    hold one module or one per ``stu_iter`` iteration.  ``workers`` threads
-    build the batches (the same batches for any count)."""
+    hold one module or one per ``stu_iter`` iteration.  ``judge`` reads
+    images into strings (:func:`~tatt_tpu_torch.train.judge.make_judge`; a
+    module given here is taken as a CRNN judge).  ``lpips``: a function of
+    (images, HR) -> per-sample LPIPS, or None.  ``workers`` threads build
+    the batches (the same batches for any count)."""
 
     def __init__(
         self,
         generators: Sequence[nn.Module],
         students: Sequence[nn.Module],
-        judge: nn.Module,
+        judge,
         device: torch.device,
         batch_size: int = 64,
         mask: bool = True,
         workers: int = 1,
         stu_iter: int = 1,
         for_cascading: bool = False,
+        lpips: Optional[Callable] = None,
+        n_vis: int = 0,
+        vis_root: str = os.path.join("demo", "demo"),
     ):
         self.generators = list(generators)
         self.students = list(students)
         self.stu_iter = stu_iter
         self.for_cascading = for_cascading
-        self.judge = judge
+        self.decode = make_judge("CRNN", judge) if isinstance(judge, nn.Module) else judge
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.mask = mask
         self.workers = workers
-
-    @torch.no_grad()
-    def decode(self, images: torch.Tensor) -> list[str]:
-        """Judge CRNN reading of NCHW images in [0, 1]."""
-        logits = self.judge(parse_crnn_input(images[:, :3]))
-        return ctc_greedy_decode(logits.cpu().numpy(), CRNN_ALPHABET)
+        self.lpips = lpips
+        self.n_vis, self.vis_root = n_vis, vis_root
 
     def batches(self, dataset):
         """(HR, LR, labels) per batch, images normalized on the device."""
@@ -134,30 +172,55 @@ class Evaluator:
     def evaluate(self, dataset) -> dict:
         acc = EvalAccumulator()
         t0 = time.perf_counter()
+        n_vis_left = self.n_vis
         for hr, lr, labels in self.batches(dataset):
-            sr, _ = eval_step(self.generators, self.students, lr, self.stu_iter, self.for_cascading)
+            sr, aux = eval_step(self.generators, self.students, lr, self.stu_iter, self.for_cascading)
             lr_up = resize_bicubic(lr, hr.shape[-2], hr.shape[-1])
+            lpips_sr = lpips_lr = None
+            if self.lpips is not None:
+                lpips_sr = self.lpips(sr, hr).mean().item()
+                lpips_lr = self.lpips(lr_up, hr).mean().item()
+            preds = [self.decode(im) for im in (sr, lr, hr)]
             acc.add_batch(
                 psnr(sr, hr).item(),
                 ssim(sr, hr).item(),
-                self.decode(sr),
-                self.decode(lr),
-                self.decode(hr),
+                *preds,
                 labels,
                 psnr_lr=psnr(lr_up, hr).item(),
                 ssim_lr=ssim(lr_up, hr).item(),
+                lpips_sr=lpips_sr,
+                lpips_lr=lpips_lr,
                 n_real=len(labels),
             )
+            if n_vis_left > 0:
+                n = min(n_vis_left, len(labels))
+                self.visualize(lr[:n], sr[:n], hr[:n], preds[1][:n], preds[0][:n], labels[:n],
+                               aux.get("pr_weights") if isinstance(aux, dict) else None)
+                n_vis_left -= n
         acc.infer_time = time.perf_counter() - t0
         return acc.summary()
+
+    def visualize(self, lr, sr, hr, preds_lr, preds_sr, labels, pr_weights) -> None:
+        """``--vis`` (``loop.py:785-829``): a triptych per sample, named by
+        its LR and SR readings and label, and its attention tiles (``att_``)."""
+        lr, sr, hr = (t.cpu().numpy() for t in (lr, sr, hr))
+        weights = None if pr_weights is None else pr_weights.cpu().numpy()
+        for i, (p_lr, p_sr, label) in enumerate(zip(preds_lr, preds_sr, labels)):
+            name = f"{p_lr}_{p_sr}_{label}_.png".replace("/", "")
+            triptych(lr[i], sr[i], hr[i], os.path.join(self.vis_root, name))
+            if weights is not None:
+                attention_grid(weights[i], os.path.join(self.vis_root, "att_" + name),
+                               feat_hw=tuple(lr.shape[-2:]))
 
 
 class Trainer:
     """Trains ``generators`` and ``students`` (the :func:`copies` of each,
-    as lists; one Adam over all) against the frozen
-    ``teacher``, which is also the validation judge (the JAX package's CRNN
-    judge without dedicated weights, ``loop.py:353-355``).  The models
-    must already sit on ``device``."""
+    as lists; one Adam over all) against the frozen ``teacher``.  The
+    validation judge is ``judge`` (:func:`~tatt_tpu_torch.train.judge.
+    make_judge`), else the teacher read as a CRNN judge (the JAX package's
+    CRNN judge without dedicated weights, ``loop.py:353-355``); ``lpips``
+    adds LPIPS to each validation.  The models must already sit on
+    ``device``."""
 
     def __init__(
         self,
@@ -168,6 +231,8 @@ class Trainer:
         train_dataset,
         device: torch.device,
         val_datasets: Optional[dict] = None,
+        judge: Optional[Callable] = None,
+        lpips: Optional[Callable] = None,
     ):
         self.cfg = cfg
         self.generators, self.students = list(generators), list(students)
@@ -186,15 +251,19 @@ class Trainer:
         self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
                                  seed=cfg.TRAIN.manualSeed, num_workers=workers,
                                  y_domain=cfg.args.y_domain)
-        self.evaluator = Evaluator(self.generators, self.students, teacher, device,
-                                   cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers,
-                                   cfg.args.stu_iter, cfg.args.for_cascading)
+        self.evaluator = Evaluator(
+            self.generators, self.students, judge or teacher, device,
+            cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers, cfg.args.stu_iter,
+            cfg.args.for_cascading, lpips, cfg.TRAIN.VAL.n_vis if cfg.args.vis else 0,
+            os.path.join("demo", cfg.vis_dir),
+        )
         self.val_datasets = val_datasets or {}
         self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)
         self.iters = 0
         self.converge_list: list = []
         self.best_history: dict = {}
         self.best_sum_acc = -1.0
+        self.writer = make_summary_writer(cfg.args.log_dir, cfg.vis_dir) if cfg.args.log_dir else None
 
     def resume(self, path: str) -> None:
         """``--resume`` of a port checkpoint, a run directory or a
@@ -245,9 +314,19 @@ class Trainer:
             converge=self.converge_list,
         )
 
+    def _scalars(self, metrics: dict) -> None:
+        """``loop.py:539-543``: every metric as ``loss/<name>``."""
+        for key, value in metrics.items():
+            self.writer.add_scalar(f"loss/{key.replace('loss_', '')}", float(value), self.iters)
+
     def _validate_and_checkpoint(self, epoch: int) -> None:
         """``loop.py:685-711``."""
         results = self.validate()
+        if self.writer is not None:
+            for name, r in results.items():
+                for key in ("psnr", "ssim", "accuracy"):
+                    value = r["accuracy" if key == "accuracy" else f"{key}_avg"]
+                    self.writer.add_scalar(f"eval/{key}_{name}", value, self.iters)
         self.converge_list.append({"iterator": self.iters, "results": results})
         sum_acc = sum(r["accuracy"] for r in results.values())
         if results and sum_acc > self.best_sum_acc:
@@ -282,6 +361,8 @@ class Trainer:
                 )
                 history.append(metrics)
                 self.iters += 1
+                if self.writer is not None and self.iters % 5 == 0:
+                    self._scalars(metrics)
                 if self.iters % cfg.displayInterval == 0:
                     ips = len(history) * self.cfg.batch_size / (time.perf_counter() - t0)
                     print(

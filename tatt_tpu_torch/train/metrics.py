@@ -1,6 +1,7 @@
 """Eval metric aggregation — the reference's judge protocol (copied from
 ``tatt_tpu/train/metrics.py``: PSNR/SSIM per batch averaged over batches,
-word accuracy after ``str_filt(., 'lower')``, NED)."""
+word accuracy after ``str_filt(., 'lower')``, NED, and LPIPS of SR and of
+the bicubic LR against HR when it is measured)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ class EvalAccumulator:
     batch_sizes: list = field(default_factory=list)
     psnr_lr: list = field(default_factory=list)
     ssim_lr: list = field(default_factory=list)
+    lpips_sr: list = field(default_factory=list)
+    lpips_lr: list = field(default_factory=list)
     n_images: int = 0
     n_correct_sr: int = 0
     n_correct_lr: int = 0
@@ -36,6 +39,8 @@ class EvalAccumulator:
         filter_mode: str = "lower",
         psnr_lr: float | None = None,
         ssim_lr: float | None = None,
+        lpips_sr: float | None = None,
+        lpips_lr: float | None = None,
         n_real: int | None = None,
     ) -> None:
         self.psnr.append(float(psnr))
@@ -45,6 +50,10 @@ class EvalAccumulator:
             self.psnr_lr.append(float(psnr_lr))
         if ssim_lr is not None:
             self.ssim_lr.append(float(ssim_lr))
+        if lpips_sr is not None:
+            self.lpips_sr.append(float(lpips_sr))
+        if lpips_lr is not None:
+            self.lpips_lr.append(float(lpips_lr))
         for p_sr, p_lr, p_hr, label in zip(preds_sr, preds_lr, preds_hr, labels):
             self.n_images += 1
             gt = str_filt(label, filter_mode)
@@ -76,6 +85,10 @@ class EvalAccumulator:
             out["psnr_avg_lr"] = float(np.sum(self.psnr_lr)) / len(self.psnr_lr)
         if self.ssim_lr:
             out["ssim_avg_lr"] = float(np.sum(self.ssim_lr)) / len(self.ssim_lr)
+        if self.lpips_sr:
+            out["lpips_vgg_sr"] = float(np.mean(self.lpips_sr))
+        if self.lpips_lr:
+            out["lpips_vgg_lr"] = float(np.mean(self.lpips_lr))
         if self.infer_time > 0:
             out["fps"] = self.n_images / self.infer_time
         return out

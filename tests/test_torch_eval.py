@@ -153,11 +153,11 @@ def test_cli_go_test_on_cpu(capsys):
     "argv",
     [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=tsrn", "--go_test", "--synthetic", "8"],
      ["--synthetic", "8", "--color_loss"], ["--go_test", "--mixed"],
-     # the plain step's other flag, and a logging flag
+     # the plain step's other flag, and the Chinese path
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
       "--mse_fuse", "--synthetic", "8"],
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--tssim_loss",
-      "--rotate_train=3.0", "--log_dir", "tb", "--synthetic", "8"]],
+      "--rotate_train=3.0", "--CHNSR", "--synthetic", "8"]],
 )
 def test_cli_refuses_what_is_not_ported(argv):
     from tatt_tpu_torch.cli import main as cli
