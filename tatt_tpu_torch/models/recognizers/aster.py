@@ -1,7 +1,7 @@
 """ASTER recognizer, the judge of ``--test_model=ASTER``
 (counterpart of ``tatt_tpu/models/recognizers/aster.py``).
 
-The reference's ``RecognizerBuilder`` (``recognizer_builder.py:27-104``):
+The reference's ASTER (``model/recognizer/``):
 an STN head on a 32x64 resize predicts 20 control points, a TPS warp
 rectifies the input to 32x100, ``ResNet_ASTER`` (five stages of 1x1 -> 3x3
 residual blocks, 3/4/6/6/3 deep) and a two-layer BiLSTM give [N, 25, 512]
