@@ -113,6 +113,28 @@ def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     return (1.0 - z) * n + z * h
 
 
+class GRUCellWeights(nn.Module):
+    """The parameters of a one-direction, one-layer GRU under torch's
+    names plus ``suffix`` (``nn.GRUCell``: none; ``nn.GRU``: ``_l0``), and
+    one :func:`gru_cell` step over them."""
+
+    def __init__(self, in_features: int, hidden: int, suffix: str = ""):
+        super().__init__()
+        self.hidden, self.suffix = hidden, suffix
+        for name, shape in (("weight_ih", (3 * hidden, in_features)), ("weight_hh", (3 * hidden, hidden)),
+                            ("bias_ih", (3 * hidden,)), ("bias_hh", (3 * hidden,))):
+            self.register_parameter(name + suffix, nn.Parameter(torch.empty(shape)))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.hidden)
+        for p in self.parameters(recurse=False):
+            p.uniform_(-bound, bound, generator=gen)
+
+    def step(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return gru_cell(x, h, *(getattr(self, n + self.suffix)
+                                for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+
+
 class _BiRNN(nn.Module):
     """Parameters of a bidirectional torch RNN of ``num_layers`` layers with
     ``gates`` gate blocks, under torch's names (layer k > 0 reads the 2H

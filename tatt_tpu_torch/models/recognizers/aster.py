@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from tatt_tpu_torch.kernels.resize import resize_bilinear
-from tatt_tpu_torch.kernels.rnn import BiLSTM, gru_cell
+from tatt_tpu_torch.kernels.rnn import BiLSTM, GRUCellWeights
 from tatt_tpu_torch.models.common import BatchNorm2d, Conv2d, Dense
 from tatt_tpu_torch.models.stn import STNHead, tps_transform
 
@@ -102,27 +102,6 @@ class _Embedding(nn.Module):
         self.weight.normal_(0.0, 1.0, generator=gen)
 
 
-class _GRUWeights(nn.Module):
-    """The parameters of a one-layer unidirectional ``nn.GRU``."""
-
-    def __init__(self, in_features: int, hidden: int):
-        super().__init__()
-        self.hidden = hidden
-        self.weight_ih_l0 = nn.Parameter(torch.empty(3 * hidden, in_features))
-        self.weight_hh_l0 = nn.Parameter(torch.empty(3 * hidden, hidden))
-        self.bias_ih_l0 = nn.Parameter(torch.empty(3 * hidden))
-        self.bias_hh_l0 = nn.Parameter(torch.empty(3 * hidden))
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        bound = 1.0 / math.sqrt(self.hidden)
-        for p in self.parameters(recurse=False):
-            p.uniform_(-bound, bound, generator=gen)
-
-    def step(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        return gru_cell(x, h, self.weight_ih_l0, self.weight_hh_l0, self.bias_ih_l0,
-                        self.bias_hh_l0)
-
-
 class DecoderUnit(nn.Module):
     """Additive attention over the features, a GRU cell fed the previous
     symbol's embedding and the context, a linear head
@@ -133,7 +112,7 @@ class DecoderUnit(nn.Module):
         self.num_classes, self.s_dim = num_classes, s_dim
         self.attention_unit = _AttentionUnit(s_dim, in_planes, att_dim)
         self.tgt_embedding = _Embedding(num_classes + 1, att_dim)  # the last id is <BOS>
-        self.gru = _GRUWeights(in_planes + att_dim, s_dim)
+        self.gru = GRUCellWeights(in_planes + att_dim, s_dim, suffix="_l0")  # an nn.GRU
         self.fc = Dense(s_dim, num_classes)
 
     def step(self, x_proj, x, state, y_prev):

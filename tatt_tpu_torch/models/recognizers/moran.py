@@ -25,7 +25,7 @@ from torch import nn
 
 from tatt_tpu_torch.kernels.grid_sample import grid_sample_bilinear
 from tatt_tpu_torch.kernels.resize import resize_bicubic, resize_bilinear, rgb_to_luma
-from tatt_tpu_torch.kernels.rnn import gru_cell
+from tatt_tpu_torch.kernels.rnn import GRUCellWeights
 from tatt_tpu_torch.models.common import BatchNorm2d, Conv2d, Dense, max_pool
 from tatt_tpu_torch.models.recognizers.crnn import BidirectionalLSTM
 
@@ -144,30 +144,13 @@ class _Weight(nn.Module):
                              generator=gen)
 
 
-class _GRUCellWeights(nn.Module):
-    """The parameters of an ``nn.GRUCell``."""
-
-    def __init__(self, in_features: int, hidden: int):
-        super().__init__()
-        self.hidden = hidden
-        self.weight_ih = nn.Parameter(torch.empty(3 * hidden, in_features))
-        self.weight_hh = nn.Parameter(torch.empty(3 * hidden, hidden))
-        self.bias_ih = nn.Parameter(torch.empty(3 * hidden))
-        self.bias_hh = nn.Parameter(torch.empty(3 * hidden))
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        bound = 1.0 / math.sqrt(self.hidden)
-        for p in self.parameters(recurse=False):
-            p.uniform_(-bound, bound, generator=gen)
-
-
 class _AttentionCell(nn.Module):
     def __init__(self, hidden: int, num_embeddings: int):
         super().__init__()
         self.i2h = _Weight(hidden, hidden)
         self.h2h = Dense(hidden, hidden)
         self.score = _Weight(hidden, 1)
-        self.rnn = _GRUCellWeights(hidden + num_embeddings, hidden)
+        self.rnn = GRUCellWeights(hidden + num_embeddings, hidden)
 
 
 class MoranAttention(nn.Module):
@@ -195,8 +178,7 @@ class MoranAttention(nn.Module):
             e = torch.tanh(feats_proj + cell.h2h(hidden)[None]) @ cell.score.weight[0]  # [T, B]
             context = (feats * torch.softmax(e, dim=0)[:, :, None]).sum(0)
             gru_in = torch.cat([context, self.char_embeddings[tgt]], dim=1)
-            hidden = gru_cell(gru_in, hidden, cell.rnn.weight_ih, cell.rnn.weight_hh,
-                              cell.rnn.bias_ih, cell.rnn.bias_hh)
+            hidden = cell.rnn.step(gru_in, hidden)
             logits = self.generator(hidden)
             tgt = logits.argmax(dim=1) + 1
             out.append(logits)
