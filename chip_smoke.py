@@ -11,6 +11,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --pretrain-only          # phases 1 and 11 alone
   python3 chip_smoke.py --flags-only             # phases 1 and 12 alone
   python3 chip_smoke.py --judges-only            # phases 1 and 13 alone
+  python3 chip_smoke.py --tsrn-only              # phases 1 and 14 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -29,7 +30,11 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      plain twin and a cuDNN forward+backward; for both backward kernels
      also the device time of each of their entries (recurrence,
      weight-gradient pass, ...), a launch at L=1 and so the time of a step,
-     and the launch plan
+     and the launch plan; the BiGRU backward also at the plain step's
+     shapes (B=64, L=16 R=4096 and L=64 R=1024); and the BiLSTM module at
+     H=113 and 250, which its kernels refuse: the path it takes (decided
+     from the kernels' plan queries, counted), forward and backward against
+     the plain twin on the CPU, timed beside the plain twin and cuDNN
   7. the full-width training path: Trainer.train with the canonical recipe
      at batch 64, images/s, launches per step, finite and falling losses
   8. one full-width train step at batch 8 on the card (kernels) against
@@ -69,6 +74,14 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      LPIPS, the --vis files, --demo over 8 PNGs, and ``cli.run`` with
      ``--test --rec=aster`` and ``--go_test --test_model=MORAN`` from
      saved weights against Evaluator on the same weights
+ 14. the TSRN family at full width (hidden 32, 5 SRBs, scale 2, --mask):
+     Trainer steps at batch 64 for tsrn, tsrn_c2f and sem_tsrn (the plain
+     step) and tsrn_tl_cascade and tsrn_tl_cascade_sft (the TATT step),
+     images/s and launches per step, falling loss_sr for tsrn and
+     tsrn_tl_cascade; one batch-8 tsrn step with --tssim_loss --mse_fuse,
+     card against CPU, leaf by leaf; Evaluator images/s for tsrn; and
+     ``cli.run --arch=tsrn`` for 4 steps, then ``--go_test`` of its best
+     checkpoint against the summary saved with it
 The last line is the JSON object the chip check reads; the line before
 it the kernels, and before that the whole run's seconds.  Imports no JAX.
 """
@@ -117,7 +130,7 @@ from tatt_tpu_torch.kernels.gru import (  # noqa: E402
 )
 from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
     bilstm_bwd_plan, bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd,
-    bilstm_recurrence_bwd_ref, bilstm_recurrence_ref,
+    bilstm_recurrence_bwd_ref, bilstm_recurrence_ref, kernels_serve,
 )
 from tatt_tpu_torch.kernels.ctc import ctc_loss  # noqa: E402
 from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, compose_input_projection  # noqa: E402
@@ -126,7 +139,8 @@ from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer, parse_aster_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, parse_crnn_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.moran import MORAN, parse_moran_input  # noqa: E402
-from tatt_tpu_torch.models.tsrn import TATT  # noqa: E402
+from tatt_tpu_torch.models.factory import build_generator  # noqa: E402
+from tatt_tpu_torch.models.tsrn import TATT, TSRN  # noqa: E402
 from tatt_tpu_torch.train.judge import make_judge  # noqa: E402
 from tatt_tpu_torch.train.loop import (  # noqa: E402
     Evaluator, Trainer, copies, make_summary_writer, to_device,
@@ -134,7 +148,10 @@ from tatt_tpu_torch.train.loop import (  # noqa: E402
 from tatt_tpu_torch.train.pretrain import (  # noqa: E402
     encode_ctc_targets, hr_crops, pretrain_recognizer, word_accuracy,
 )
-from tatt_tpu_torch.train.steps import StepConfig, eval_step, train_step  # noqa: E402
+from tatt_tpu_torch.losses.image import image_loss  # noqa: E402
+from tatt_tpu_torch.train.steps import (  # noqa: E402
+    StepConfig, eval_step, plain_train_step, train_step,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(HERE, "tests", "assets", "fixture_crnn.npz")
@@ -240,6 +257,27 @@ JUDGE_LAUNCHES = {"ASTER": 2, "MORAN": 2, "CRNN": 2}
 # the STN / MORN resampling and the BiLSTMs in float32, each error over
 # the largest |value| (at least 1)
 JUDGE_TOL = 1e-3
+# phase 14, the TSRN family: Trainer steps at full width, batch 64, with
+# the recipe's flags (use_distill acts in the TATT step only), and
+# launches per step from the code: the plain step runs two forwards of B
+# (sr, and sr_ret for tssim) and backward through both, with no CRNN;
+# the TL archs run the TATT step's fused 2B forward (STEP_LAUNCHES);
+# SEM_TSRN's blocks hold no recurrence
+TSRN_WARM, TSRN_STEPS = 5, 20
+PLAIN_LAUNCHES = {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
+TSRN_ARCHS = {
+    "tsrn": PLAIN_LAUNCHES,
+    "tsrn_c2f": PLAIN_LAUNCHES,
+    "sem_tsrn": {"bigru_fwd": 0, "bigru_bwd": 0, "bilstm_fwd": 0, "bilstm_bwd": 0},
+    "tsrn_tl_cascade": STEP_LAUNCHES,
+    "tsrn_tl_cascade_sft": STEP_LAUNCHES,
+}
+TSRN_RECIPE = dict(STN=True, mask=True, use_distill=True, gradient=True, sr_share=True,
+                   tssim_loss=True, rotate_train=5.0)
+# the batch-8 tsrn step with --tssim_loss --mse_fuse: sr and sr_ret forward
+# and backward, the mse_fuse target forward only
+PLAIN_MSE_FUSE_LAUNCHES = {"bigru_fwd": 30, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
+TSRN_CLI_ITERS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -544,6 +582,58 @@ def check_lstm_bwd(name, length, rows, cin, hid, gen):
     return row
 
 
+def check_lstm_module(name, length, rows, cin, hid, gen):
+    """The BiLSTM module at a hidden size its kernels refuse: the path it
+    takes (the plain loop, decided from the kernels' plan queries before
+    any launch and counted in ``BiLSTM.plain_layers``; no kernel launch),
+    its forward and backward against the same module on the CPU (the
+    plain twins), and its times beside the plain twins on the card and
+    cuDNN's ``nn.LSTM`` on the same weights."""
+    layer = init_parameters(BiLSTM(cin, hid), 5)
+    x = torch.randn(rows, length, cin, generator=gen)
+    w = torch.randn(rows, length, 2 * hid, generator=gen)
+    xd, wd = x.to(DEV), w.to(DEV)
+    card = copy.deepcopy(layer).to(DEV)
+
+    def fwd_bwd(module, xs, ws):
+        xg = xs.detach().clone().requires_grad_()
+        module.zero_grad()
+        out = module(xg)
+        (out * ws).sum().backward()
+        return out.detach(), xg.grad, [p.grad for p in module.parameters()]
+
+    want = fwd_bwd(layer, x, w)
+    plain_before, launches_before = BiLSTM.plain_layers, read_counts()
+    got = fwd_bwd(card, xd, wd)
+    torch.cuda.synchronize()
+    path = "plain loop" if BiLSTM.plain_layers == plain_before + 1 else "kernels"
+    launched = {k: v - launches_before[k] for k, v in read_counts().items()}
+    errs = {"out": (got[0].cpu() - want[0]).abs().max().item(),
+            "d_input": scaled_err(got[1].cpu(), want[1]),
+            "d_weights": max(scaled_err(g.cpu(), r) for g, r in zip(got[2], want[2]))}
+    w_ih, w_hh, b_ih, b_hh = (t.detach() for t in card.stacked())
+    gates = torch.matmul(xd, w_ih.transpose(1, 2)[:, None]) + b_ih[:, None, None]
+    out, cs = bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs=True)
+    lib = _library_rnn(torch.nn.LSTM, cin, hid, w_ih, w_hh, b_ih, b_hh)
+    with torch.no_grad():
+        fwd = {"module_ms": timed_ms(lambda: card(xd), 5),
+               "plain_ms": timed_ms(lambda: bilstm_recurrence_ref(gates, w_hh, b_hh), 5),
+               "library_ms": timed_ms(lambda: lib(xd), 20)}
+    fwd_bwd_ms = {"module_ms": timed_ms(lambda: fwd_bwd(card, xd, wd), 5),
+                  "plain_ms": timed_ms(lambda: bilstm_recurrence_bwd_ref(
+                      gates, w_hh, b_hh, *bilstm_recurrence_ref(gates, w_hh, b_hh, with_cs=True),
+                      wd), 5),
+                  "library_ms": timed_ms(lambda: _library_fwd_bwd(lib, xd, wd), 20)}
+    row = dict(shape=name, L=length, R=rows, H=hid, In=cin, served_by_kernels=kernels_serve(hid, DEV),
+               path=path, kernel_launches=launched, errs=errs, forward=fwd,
+               forward_backward=fwd_bwd_ms)
+    row["ok"] = (path == "plain loop" and not row["served_by_kernels"] and not any(launched.values())
+                 and errs["out"] <= KERNEL_ATOL and errs["d_input"] <= KERNEL_ATOL
+                 and errs["d_weights"] <= DW_TOL)
+    del out, cs
+    return row
+
+
 def profile_window(fn, label: str) -> None:
     """Device busy time, idle share and the top kernels of one call of
     ``fn`` under the profiler (device kernels only: an operator's device
@@ -598,6 +688,10 @@ def backward_kernels(gen, lstm_only: bool = False):
         check_gru_bwd("gru1, fused train batch 2B", 16, 2 * BATCH * 64, 128, 64, 32, gen),
         check_gru_bwd("gru2, fused train batch 2B", 64, 2 * BATCH * 16, 64, 64, 32, gen),
         check_gru_bwd("gru1 ragged rows", 16, 2 * BATCH * 64 + 3, 128, 64, 32, gen),
+        # the plain step's two forwards of B (phase 14): its SRB's gru1
+        # reads the residual alone, 64 channels
+        check_gru_bwd("gru1, plain step batch B", 16, BATCH * 64, 64, 64, 32, gen),
+        check_gru_bwd("gru2, plain step batch B", 64, BATCH * 16, 64, 64, 32, gen),
     ]
     lstm_bwd_rows = [
         check_lstm_bwd("student rnn0", 26, BATCH, 512, 256, gen),
@@ -617,6 +711,18 @@ def backward_kernels(gen, lstm_only: bool = False):
         print_bwd_split("gru-bwd", row, GRU_BWD_ENTRIES)
     for row in lstm_bwd_rows:
         print_bwd_split("lstm-bwd", row, LSTM_BWD_ENTRIES)
+    # hidden sizes the LSTM kernels refuse: the module serves them on the
+    # plain loop (L and R of the CRNN head at batch 64)
+    for hid in (113, 250):
+        row = check_lstm_module(f"BiLSTM module H={hid}", 26, BATCH, 512, hid, gen)
+        print("[lstm-module] " + json.dumps(row))
+        f, fb = row["forward"], row["forward_backward"]
+        print(f"[lstm-module] H={hid}: path {row['path']}; forward {f['module_ms']:.3f} ms "
+              f"(plain twin {f['plain_ms']:.3f}, cuDNN {f['library_ms']:.4f}); forward + backward "
+              f"{fb['module_ms']:.3f} ms (plain twin {fb['plain_ms']:.3f}, cuDNN "
+              f"{fb['library_ms']:.4f})")
+        if not row["ok"]:
+            fail(f"BiLSTM module at H={hid}: {row}")
     return gru_bwd_rows, lstm_bwd_rows
 
 
@@ -1388,6 +1494,154 @@ def judges_phase(smi: str) -> list:
     return rows
 
 
+def plain_card_vs_cpu_step() -> None:
+    """One full-width tsrn step at batch 8 with --tssim_loss --mse_fuse
+    (rotation pinned, SGD at lr 1): the card (kernels) against the CPU
+    (plain twins), each gradient leaf with phase 8's two-tier gate."""
+    cfg = StepConfig(tssim_loss=True, mse_fuse=True)
+    model_cpu = init_parameters(TSRN(stn=True, mask=True), 17)
+    sds = SyntheticTextDataset(n=STEP_BATCH, seed=15)
+    b = collate([sds[i] for i in range(STEP_BATCH)])
+    rot = {"rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
+           "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
+    grads, stats = {}, {}
+    for run, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        model = copy.deepcopy(model_cpu).to(dev)
+        hr, lr = to_device(b, dev, True)
+        batch = {"images_hr": hr, "images_lr": lr, **{k: v.to(dev) for k, v in rot.items()}}
+        opt = torch.optim.SGD(model.parameters(), lr=1.0)
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = plain_train_step([model.train()], opt, batch, cfg,
+                                   torch.Generator(device=dev).manual_seed(0),
+                                   image_loss, 4, distorted=True)
+        counts = read_counts()
+        grads[run] = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+        stats[run] = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
+        print(f"[tsrn-step] {run} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps({k: v.item() for k, v in metrics.items()})} launches {json.dumps(counts)}")
+    if counts != PLAIN_MSE_FUSE_LAUNCHES:
+        fail(f"tsrn step launches {counts} (want {PLAIN_MSE_FUSE_LAUNCHES})")
+    card = leaf_errors(grads["cpu"], grads["card"])
+    rnn = rnn_leaves(model_cpu)
+    for what, keys, tol in (("BiGRU", rnn, RNN_LEAF_TOL), ("other", set(card) - rnn, LEAF_TOL)):
+        worst = sorted(keys, key=lambda k: -card[k])
+        print(f"[tsrn-step] {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| (tol {tol}): "
+              + "; ".join(f"{card[k]:.3e} {k}" for k in worst[:3]))
+        bad = {k: card[k] for k in worst if not card[k] <= tol}
+        if bad:
+            fail(f"tsrn {what} gradients card vs CPU above {tol}: {bad}")
+    stat_err = max(scaled_err(stats["card"][k], v) for k, v in stats["cpu"].items())
+    print(f"[tsrn-step] BN running statistics after three forwards, card vs CPU: {stat_err:.3e} "
+          f"(tol {LEAF_TOL})")
+    if not stat_err <= LEAF_TOL:
+        fail(f"tsrn BN running statistics card vs CPU {stat_err}")
+
+
+def tsrn_phase(smi: str) -> None:
+    """Phase 14: the TSRN family at full width (checks and numbers in the
+    module docstring)."""
+    t_phase = time.perf_counter()
+    train_ds = SyntheticTextDataset(n=8 * BATCH, seed=1)
+    for i in range(len(train_ds)):
+        train_ds[i]
+    ips = {}
+    for arch, want in TSRN_ARCHS.items():
+        cfg = Config(args=Flags(arch=arch, batch_size=BATCH, **TSRN_RECIPE))
+        cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+        cfg.TRAIN.displayInterval = 10**9
+        generator = init_parameters(build_generator(arch, cfg), 1234).to(DEV)
+        trainer = Trainer(cfg, [generator], [init_parameters(CRNN(), 1235).to(DEV)],
+                          init_parameters(CRNN(), 1236).to(DEV), train_ds, DEV)
+        first = trainer.train(max_iters=TSRN_WARM)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        timed = trainer.train(max_iters=TSRN_WARM + TSRN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step = {k: v / TSRN_STEPS for k, v in read_counts().items()}
+        metrics = {k: first["metrics"][k] + timed["metrics"][k] for k in timed["metrics"]}
+        ips[arch] = TSRN_STEPS * BATCH / wall
+        sr = metrics["loss_sr"]
+        step = "plain" if trainer.channels is not None else "TATT"
+        print(f"[tsrn] {arch} ({step} step): {TSRN_STEPS} steps at batch {BATCH}, images/s "
+              f"{ips[arch]:.1f}, {wall / TSRN_STEPS * 1e3:.1f} ms a step; launches per step "
+              f"{json.dumps(per_step)} (want {json.dumps(want)}); metrics {sorted(metrics)}; "
+              f"loss_sr {[round(v, 4) for v in sr]} ({smi})")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            fail(f"{arch}: launches per step {per_step} (want {want})")
+        if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
+            fail(f"{arch}: non-finite metrics")
+        # phase 12's gate: the median of the last 5 steps below that of steps 2-4
+        if arch in ("tsrn", "tsrn_tl_cascade") and not np.median(sr[-5:]) < np.median(sr[1:4]):
+            fail(f"{arch}: loss_sr did not fall: {sr[1:4]} -> {sr[-5:]}")
+        if arch == "tsrn":
+            tsrn_gen, tsrn_teacher = generator, trainer.teacher
+        del trainer
+
+    plain_card_vs_cpu_step()
+
+    # ---- Evaluator for tsrn at batch 64: the generator on LR alone, the
+    # judge (the teacher CRNN) on SR, LR and HR
+    evaluator = Evaluator([tsrn_gen.eval()], [], tsrn_teacher.eval(), DEV, batch_size=BATCH,
+                          mask=True, channels=4)
+    ds, warm = SyntheticTextDataset(n=4 * BATCH, seed=2), SyntheticTextDataset(n=BATCH, seed=3)
+    for d in (ds, warm):  # render (and cache) every sample up front, as phase 3 does
+        for i in range(len(d)):
+            d[i]
+    evaluator.evaluate(warm)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = evaluator.evaluate(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"bigru_fwd": 10 * 4, "bigru_bwd": 0, "bilstm_fwd": 6 * 4, "bilstm_bwd": 0}
+    print(f"[tsrn] Evaluator, tsrn at batch {BATCH}: images/s {summary['images'] / wall:.1f}, psnr "
+          f"{summary['psnr_avg']:.4f} ssim {summary['ssim_avg']:.5f}, launches {json.dumps(counts)} "
+          f"(want {json.dumps(want)}) ({smi})")
+    if counts != want or not math.isfinite(summary["psnr_avg"]):
+        fail(f"tsrn eval: launches {counts}, psnr {summary['psnr_avg']}")
+
+    # ---- cli.run --arch=tsrn, then --go_test of its best checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = os.path.join(tmp, "tsrn.yaml")
+        with open(yaml, "w") as fh:
+            fh.write(f"TRAIN:\n  batch_size: {BATCH}\n  saveInterval: {TSRN_CLI_ITERS}\n"
+                     f"  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n"
+                     f"  VAL:\n    valInterval: {TSRN_CLI_ITERS}\n    crnn_pretrained: ''\n")
+        argv = ["--arch=tsrn", "--STN", "--mask", "--gradient", "--rotate_train=5.0", "--tssim_loss",
+                "--config", yaml, "--vis_dir", "vis_tsrn", "--synthetic", str(4 * BATCH)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code, _ = cli.run(argv + ["--max_iters", str(TSRN_CLI_ITERS)])
+        best_path = os.path.join(tmp, "ckpt", "vis_tsrn", "model_best_acc_0.ckpt")
+        if code != 0 or not os.path.exists(best_path):
+            fail(f"cli.run --arch=tsrn: exit {code}, output {out.getvalue()[-500:]}")
+        saved = load_checkpoint(best_path)
+        best = saved["best_history_res"]["easy"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv + ["--go_test", "--resume", best_path])
+        lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[easy] ")]
+        got = ast.literal_eval(lines[-1][len("[easy] "):]) if lines else {}
+        print(f"[tsrn] cli.run --arch=tsrn {TSRN_CLI_ITERS} steps (arch in the checkpoint: "
+              f"{saved['info']['arch']}), --go_test of model_best_acc_0.ckpt: psnr "
+              f"{got.get('psnr_avg')} ssim {got.get('ssim_avg')} acc {got.get('accuracy')}; saved "
+              f"with it: psnr {best['psnr_avg']} ssim {best['ssim_avg']} acc {best['accuracy']}")
+        if code != 0 or not got or got["images"] != best["images"] or saved["info"]["arch"] != "tsrn":
+            fail(f"--go_test --arch=tsrn: exit {code}, output {out.getvalue()[-500:]}")
+        if not (abs(got["psnr_avg"] - best["psnr_avg"]) <= GO_TEST_PSNR_TOL
+                and abs(got["ssim_avg"] - best["ssim_avg"]) <= GO_TEST_SSIM_TOL
+                and got["accuracy"] == best["accuracy"]):
+            fail(f"--go_test --arch=tsrn summary {got} differs from the saved {best}")
+    print(f"[tsrn] train images/s at batch {BATCH}: "
+          + ", ".join(f"{a} {v:.1f}" for a, v in ips.items())
+          + f" ({smi}); phase 14 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -1411,6 +1665,9 @@ def main(argv=None) -> int:
     ap.add_argument("--flags-only", action="store_true",
                     help="run phases 1 and 12 alone (the TATT step's flags); prints no result "
                          "line")
+    ap.add_argument("--tsrn-only", action="store_true",
+                    help="run phases 1 and 14 alone (the TSRN family at full width); prints "
+                         "no result line")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -1459,6 +1716,10 @@ def main(argv=None) -> int:
         return 0
     if args.judges_only:
         judges_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.tsrn_only:
+        tsrn_phase(smi)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -1635,6 +1896,9 @@ def main(argv=None) -> int:
 
     # ---- 13. the evaluation protocol: ASTER and MORAN judges, LPIPS, --vis, --demo, --test
     judge_lstm_rows = judges_phase(smi)
+
+    # ---- 14. the TSRN family: factory archs, the plain step, the CLI
+    tsrn_phase(smi)
 
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the

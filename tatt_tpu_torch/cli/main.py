@@ -1,7 +1,10 @@
 """CLI of the port (the ported subset of ``tatt_tpu/cli/main.py``).
 
-Training of the TATT step with any of its flags (the canonical recipe of
-``scripts/train_TATT.sh`` below), on the TextZoom LMDBs that a YAML names (``TRAIN.train_data_dir``, and
+Training of ``--arch`` ``tatt`` (the canonical recipe of
+``scripts/train_TATT.sh`` below) or of the TSRN family (``tsrn``,
+``tsrn_tl_cascade``, ``tsrn_tl_cascade_sft``, ``tsrn_c2f``, ``sem_tsrn``):
+the archs of ``ABLATION_SET`` take the TATT step, the others the plain
+step, on the TextZoom LMDBs that a YAML names (``TRAIN.train_data_dir``, and
 ``TRAIN.VAL.val_data_dir`` for validation, each set keyed by its
 directory's basename):
 
@@ -24,7 +27,9 @@ the JAX package.  Ported: the step's flags ``--STN``, ``--mask``,
 ``--gradient``, ``--use_distill``, ``--use_label``, ``--ssim_loss``,
 ``--tssim_loss`` (``--no-fused_tssim``), ``--sr_share``, ``--tpg_share``,
 ``--stu_iter``, ``--for_cascading``, ``--y_domain``, ``--learning_STN``,
-``--training_stablize`` and ``--rotate_train`` (any angle, 0 for none);
+``--training_stablize``, ``--rotate_train`` (any angle, 0 for none), and
+``--color_loss`` and ``--mse_fuse``, which act in the plain step only, as
+in JAX;
 ``--config``, ``--vis_dir``, ``--batch_size``, ``--val_batch_size``,
 ``--lr``, ``--epochs``, ``--max_iters``, ``--resume`` (a port checkpoint,
 a run directory or a reference ``.pth``; else the YAML's
@@ -51,9 +56,8 @@ The reference's dead flags (``--text_focus``, ``--prob_insert``,
 ``--test_distorted_fusing``, ``--BiSR``, ``--rotate_test``,
 ``--results_rotate``) are accepted with a warning.
 
-Refused with "not ported yet": ``--color_loss`` and ``--mse_fuse`` (flags
-of the plain step, which serves the other architectures), ``--dtype
-bfloat16``, another ``--arch``, ``--tpg OPT``, ``--CHNSR`` and the data
+Refused with "not ported yet": ``--dtype bfloat16``, another ``--arch``
+(the zoo's), ``--tpg OPT``, ``--CHNSR`` and the data
 flags of ``data/variants.py``, any other flag, and a YAML the port does
 not serve; nothing is silently ignored.  Without weights the generators
 and the CRNN students / teacher start from initial weights seeded by
@@ -80,19 +84,19 @@ from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
+from tatt_tpu_torch.models.factory import available_archs, build_generator, plain_channels
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, crnn_widths
 from tatt_tpu_torch.models.recognizers.moran import MORAN
-from tatt_tpu_torch.models.tsrn import TATT
 from tatt_tpu_torch.train.demo import run_demo
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies
-from tatt_tpu_torch.train.steps import eval_step
+from tatt_tpu_torch.train.steps import eval_step, plain_eval_step
 
 TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))  # --tiny_tpg
 STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss", "tssim_loss",
               "sr_share", "tpg_share", "for_cascading", "y_domain", "learning_STN",
-              "training_stablize")
+              "training_stablize", "color_loss", "mse_fuse")
 # a non-CRNN judge's or recognizer's weights: the flag, else the YAML's key
 JUDGE_WEIGHTS = {"ASTER": "rec_pretrained", "MORAN": "moran_pretrained"}
 
@@ -118,7 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--results_rotate_angle", type=float, default=5.0)
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     p.add_argument("--max_iters", type=int, default=None)
-    for flag in STEP_FLAGS + ("color_loss", "mse_fuse"):
+    for flag in STEP_FLAGS:
         p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--fused_tssim", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--stu_iter", type=int, default=1)
@@ -150,11 +154,10 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     args, unknown = build_parser().parse_known_args(argv)
     refused = [
         (bool(unknown), " ".join(unknown)),
-        (args.arch != "tatt", f"--arch={args.arch} (only tatt)"),
+        (args.arch not in available_archs(),
+         f"--arch={args.arch} (ported: {', '.join(available_archs())})"),
         (args.tpg != "CRNN", f"--tpg={args.tpg} (only CRNN)"),
         (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
-        (args.color_loss, "--color_loss (a flag of the plain step)"),
-        (args.mse_fuse, "--mse_fuse (a flag of the plain step)"),
     ]
     for bad, what in refused:
         if bad:
@@ -213,18 +216,15 @@ def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
 
 def build_models(cfg: Config, crnn_path: str):
     """(generators, students, teacher): the :func:`~tatt_tpu_torch.train.
-    loop.copies` of the generator and of the student, each copy seeded
+    loop.copies` of the ``--arch`` generator (:func:`~tatt_tpu_torch.models.
+    factory.build_generator`) and of the student, each copy seeded
     from ``TRAIN.manualSeed`` and its index; the teacher's weights, and
     every student's start, from ``crnn_path`` (``loop.py:176-186``), whose
     shapes also give the CRNN's widths (a CRNN that
     ``tatt_tpu_torch.train.pretrain`` trained at any width)."""
     a, seed = cfg.args, cfg.TRAIN.manualSeed
     n_sr, n_stu = copies(a)
-    generators = [
-        init_parameters(TATT(srb_nums=a.srb, hidden_units=a.hd_u, out_text_channels=2 * a.hd_u,
-                             mask=a.mask, stn=a.STN), seed + 3 * i)
-        for i in range(n_sr)
-    ]
+    generators = [init_parameters(build_generator(a.arch, cfg), seed + 3 * i) for i in range(n_sr)]
     sd = load_reference_pth(crnn_path) if crnn_path else None
     crnn = crnn_widths(sd) if sd else TINY_CRNN if a.tiny_tpg else {}
     students = [init_parameters(CRNN(**crnn), seed + 1 + 3 * i) for i in range(n_stu)]
@@ -314,19 +314,23 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
         generators, students = [m.eval() for m in generators], [m.eval() for m in students]
         if a.test or a.demo:
             judge = rec_judge(cfg, cli, teacher.eval(), device)
+        channels = plain_channels(a.arch, a.mask)
         if a.demo:
+            if channels is None:
+                sr_fn = lambda lr: eval_step(generators, students, lr, a.stu_iter,  # noqa: E731
+                                             a.for_cascading)[0]
+            else:
+                sr_fn = lambda lr: plain_eval_step(generators[0], lr, channels)[0]  # noqa: E731
             with torch.no_grad():
-                run_demo(a.demo_dir,
-                         lambda lr: eval_step(generators, students, lr, a.stu_iter, a.for_cascading)[0],
-                         judge, os.path.join("demo_out", cfg.vis_dir), device, cfg.TRAIN.width,
-                         cfg.TRAIN.height, cfg.scale_factor, a.mask)
+                run_demo(a.demo_dir, sr_fn, judge, os.path.join("demo_out", cfg.vis_dir), device,
+                         cfg.TRAIN.width, cfg.TRAIN.height, cfg.scale_factor, a.mask)
             return 0, None
         evaluator = Evaluator(
             generators, students, judge or teacher.eval(), device,
             batch_size=a.val_batch_size or cfg.batch_size, mask=a.mask,
             workers=max(cfg.TRAIN.workers, 1), stu_iter=a.stu_iter, for_cascading=a.for_cascading,
             lpips=lpips, n_vis=cfg.TRAIN.VAL.n_vis if a.vis else 0,
-            vis_root=os.path.join("demo", cfg.vis_dir),
+            vis_root=os.path.join("demo", cfg.vis_dir), channels=channels,
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")

@@ -14,6 +14,16 @@ variables)`` gives them) or flat (``"params/conv0/kernel"``, the form of
 a ``TATT(stn=True)`` included (to the reference's ``stn_head.stn_convnet``
 / ``stn_fc1`` / ``stn_fc2`` names, ``torch_import.py:264-281``), or
 :func:`from_jax` raises.
+
+The generators share the reference trunk names (``block1``, ``block<i>``,
+``block{srb+2}``, ``block{srb+3}``).  A generator's family shows in its
+modules: ``infoGen/tconv*`` (the TL archs' InfoGen) against ``infoGen``'s
+TP Interpreter (TATT), ``sft_layer`` (TSRN_TL_SFT), ``coarse_proj``
+(TSRN_C2F) and ``w2v_proj`` (SEM_TSRN).  No reference importer defines
+names for the last three or for SEM_TSRN's attention blocks
+(``mask_multihead``, ``norm1`` / ``norm3`` with ``a_2`` / ``b_2``,
+``pff_w1`` / ``pff_w2``): there the port keeps the JAX module names, its
+own choice.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ _LEAF = {
     "in_proj_bias": "in_proj_bias",
     "out_proj_weight": "out_proj.weight",
     "out_proj_bias": "out_proj.bias",
+    "a_2": "a_2",
+    "b_2": "b_2",
 }
 _INFOGEN = {
     "fc_in": "fc_in",
@@ -70,7 +82,18 @@ def _flatten(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
     return flat
 
 
-def _tatt_prefix(mods: list[str], srb: int, n_up: int) -> str:
+# top-level modules of the generators beside the shared trunk, kept under
+# their JAX names (no JAX importer names them: SFT_TL's SFT layer, TSRN_C2F's
+# coarse projection, SEM_TSRN's word-vector head)
+_OWN_MODULES = ("sft_layer", "coarse_proj", "w2v_proj")
+
+
+def _generator_prefix(mods: list[str], srb: int, n_up: int) -> str:
+    """A module path of a TATT or TSRN-family generator -> the port's
+    name.  The trunk takes the reference names that ``import_tatt`` reads
+    (``torch_import.py:241``); ``infoGen`` holds either TATT's TP
+    Interpreter or the TL archs' deconv stack (``tconv1-4``, ``bn1-4``:
+    the names of ``torch_import._infogen``, ``:356``)."""
     head, rest = mods[0], mods[1:]
     m = re.fullmatch(r"srb(\d+)", head)
     if m:
@@ -89,6 +112,10 @@ def _tatt_prefix(mods: list[str], srb: int, n_up: int) -> str:
         return fixed[head]
     if head == "stn_head":
         return _stn_prefix(mods)
+    if head in _OWN_MODULES:
+        return ".".join(mods)
+    if head == "infoGen" and len(rest) == 1 and re.fullmatch(r"(tconv|bn)[1-4]", rest[0]):
+        return f"infoGen.{rest[0]}"
     if head == "infoGen":
         if not rest:
             return "infoGen"
@@ -98,7 +125,7 @@ def _tatt_prefix(mods: list[str], srb: int, n_up: int) -> str:
             return ".".join([f"infoGen.transformer.{m[1]}.layers.{m[2]}", *tail])
         if sub in _INFOGEN:
             return ".".join([f"infoGen.{_INFOGEN[sub]}", *tail])
-    raise KeyError(f"unmapped TATT module path {'/'.join(mods)!r}")
+    raise KeyError(f"unmapped generator module path {'/'.join(mods)!r}")
 
 
 def _stn_prefix(mods: list[str]) -> str:
@@ -181,14 +208,16 @@ def _crnn_prefix(mods: list[str]) -> str:
 
 
 def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``TATT``, ``CRNN``, ``AsterRecognizer`` or ``MORAN`` variables ->
+    """JAX variables of a ``TATT``, a TSRN-family generator (``TSRN``,
+    ``TSRN_TL``, ``TSRN_TL_SFT``, ``TSRN_C2F``, ``SEM_TSRN``,
+    ``TSRNEncoder``), a ``CRNN``, an ``AsterRecognizer`` or a ``MORAN`` ->
     the port's ``state_dict``."""
     flat = _flatten(variables)
     top = {k.split("/")[1] for k in flat}
     if "block1_conv" in top:
         srb = sum(bool(re.fullmatch(r"srb\d+", m)) for m in top)
         n_up = sum(bool(re.fullmatch(r"up\d+", m)) for m in top)
-        prefix_of = lambda mods: _tatt_prefix(mods, srb, n_up)  # noqa: E731
+        prefix_of = lambda mods: _generator_prefix(mods, srb, n_up)  # noqa: E731
     elif "conv0" in top:
         prefix_of = _crnn_prefix
     elif "encoder" in top:
@@ -196,7 +225,7 @@ def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     elif "MORN" in top:
         prefix_of = _moran_prefix
     else:
-        raise KeyError(f"not TATT, CRNN, ASTER or MORAN variables (modules {sorted(top)})")
+        raise KeyError(f"not generator, CRNN, ASTER or MORAN variables (modules {sorted(top)})")
     out: dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         _, *mods, leaf = key.split("/")

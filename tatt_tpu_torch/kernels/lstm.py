@@ -177,6 +177,41 @@ def bilstm_fwd_plan(hid: int, rows: int) -> dict:
     return dict(zip(_PLAN_KEYS, plan))
 
 
+def _plan_fits(entry: str, argtypes: list, n_keys: int, hid: int) -> bool:
+    """Whether the plan query ``entry`` of a kernel finds a launch for
+    hidden size ``hid`` on the current card (launches nothing; any other
+    error raises)."""
+    lib = _build.load(entry.removesuffix("_plan"), argtypes)
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = (ctypes.c_int * n_keys)()
+    err = fn(hid, 1, plan)
+    if err == _NO_FIT:
+        return False
+    _build.check(err, entry)
+    return True
+
+
+_SERVES: dict = {}
+
+
+def kernels_serve(hid: int, device: torch.device) -> bool:
+    """Whether both the forward and the backward kernel serve hidden size
+    ``hid`` on CUDA ``device``, from their plan queries (which launch
+    nothing; a plan's fit depends on H alone, not on the row count).
+    Cached per (device, H).  ``BiLSTM`` sends an H they do not serve to
+    the plain loop before any launch."""
+    index = torch.device(device).index
+    key = (torch.cuda.current_device() if index is None else index, hid)
+    if key not in _SERVES:
+        with torch.cuda.device(key[0]):
+            _SERVES[key] = 0 < hid <= MAX_HIDDEN and all(
+                _plan_fits(entry, argtypes, n_keys, hid) for entry, argtypes, n_keys in (
+                    ("bilstm_fwd_plan", _FWD_ARGTYPES, len(_PLAN_KEYS)),
+                    ("bilstm_bwd_plan", _BWD_ARGTYPES, len(_BWD_PLAN_KEYS))))
+    return _SERVES[key]
+
+
 def bilstm_bwd_plan(hid: int, rows: int) -> dict:
     """How the backward kernel's recurrence launches at hidden size ``hid``
     over ``rows`` rows on the current card, for logs (launches nothing):

@@ -5,14 +5,17 @@ Parameters keep torch's ``nn.GRU``/``nn.LSTM`` names and layout
 r, z, n for the GRU and i, f, g, o for the LSTM), so reference checkpoints
 load as they are.  The input projection of all timesteps is one matmul;
 the recurrence goes to the hand-written kernels (:mod:`.gru`, :mod:`.lstm`)
-for every BiGRU with hidden <= 128 and every BiLSTM with hidden <= 256, at
-any row count (the JAX row thresholds are TPU padding concerns).  When a
+for every BiGRU with hidden <= 128 and every BiLSTM whose hidden size the
+LSTM kernels' launch plans serve (:func:`.lstm.kernels_serve`: most H up to
+256), at any row count (the JAX row thresholds are TPU padding concerns).  When a
 gradient is wanted, the recurrence runs through the kernels'
 ``autograd.Function`` (forward and backward kernels), and the projection
 stays ordinary differentiable torch ops outside it, as the JAX VJP keeps
 its projection GEMMs (``pallas_gru.py:360-375``).  Wider recurrences — the
-TP-Interpreter's query GRU, hidden 512 — run :func:`bigru_apply`, a plain
-loop under autograd, as JAX keeps it on ``lax.scan`` (``rnn.py:211-218``).
+TP-Interpreter's query GRU, hidden 512 — and the BiLSTM hidden sizes the
+kernels refuse run :func:`bigru_apply` / :func:`bilstm_apply`, a plain
+loop under autograd, as JAX keeps them on ``lax.scan`` (``rnn.py:211-218,
+263-268``); ``BiLSTM.plain_layers`` counts the BiLSTM layers that take it.
 :func:`gru_cell` is one plain GRU step, as in JAX.
 """
 
@@ -209,8 +212,15 @@ class BiLSTM(_BiRNN):
             x = self._layer(x, *self.stacked(layer))
         return x
 
+    # calls of the plain loop for an H the kernels do not serve (above
+    # MAX_HIDDEN, or refused by their launch plans on the card)
+    plain_layers = 0
+
     def _layer(self, x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
-        if self.hidden > lstm_kernel.MAX_HIDDEN:
+        if self.hidden > lstm_kernel.MAX_HIDDEN or (
+            x.device.type == "cuda" and not lstm_kernel.kernels_serve(self.hidden, x.device)
+        ):
+            BiLSTM.plain_layers += 1
             return bilstm_apply(x, w_ih, w_hh, b_ih, b_hh)
         # one matmul for all timesteps of both directions, emitted in the
         # kernel's [2, R, L, 4H] layout (gates minor)

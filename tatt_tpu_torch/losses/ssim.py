@@ -1,7 +1,8 @@
 """SSIM, PSNR and the TRI-SSIM loss (counterpart of ``tatt_tpu/losses/ssim.py``).
 
-SSIM uses the reference's 11x11 Gaussian window (sigma 1.5) applied as
-two separable 1-D depthwise passes in float32.  With TF32 off
+SSIM uses the reference's 11x11 Gaussian window (sigma 1.5), and
+``distorted_ssim`` rectangular ones, applied as two separable 1-D
+depthwise passes in float32.  With TF32 off
 (:func:`tatt_tpu_torch.core.device.set_cuda_flags`) the window convs stay in
 full f32 on the card: the variances E[x^2] - E[x]^2 cancel badly in any
 reduced precision (``ssim.py:41-48``).
@@ -26,20 +27,21 @@ def _gaussian_1d(n: int, sigma: float = 1.5) -> np.ndarray:
     return (w / w.sum()).astype(np.float32)
 
 
-def _depthwise_filter(img: torch.Tensor, window_size: int) -> torch.Tensor:
+def _depthwise_filter(img: torch.Tensor, window) -> torch.Tensor:
     """Depthwise 'same' Gaussian filter of NCHW, zero padding, as a row
-    pass then a column pass."""
+    pass then a column pass.  ``window``: n for an n x n window, or
+    (height, width) for a rectangular one (``distorted_ssim``)."""
+    kh, kw = (window, window) if isinstance(window, int) else window
     c = img.shape[1]
-    g = torch.as_tensor(_gaussian_1d(window_size), device=img.device)
-    pad = window_size // 2
-    row = g.reshape(1, 1, 1, window_size).expand(c, 1, 1, window_size)
-    col = g.reshape(1, 1, window_size, 1).expand(c, 1, window_size, 1)
-    y = F.conv2d(img, row, padding=(0, pad), groups=c)
-    return F.conv2d(y, col, padding=(pad, 0), groups=c)
+    row = torch.as_tensor(_gaussian_1d(kw), device=img.device).reshape(1, 1, 1, kw)
+    col = torch.as_tensor(_gaussian_1d(kh), device=img.device).reshape(1, 1, kh, 1)
+    y = F.conv2d(img, row.expand(c, 1, 1, kw), padding=(0, kw // 2), groups=c)
+    return F.conv2d(y, col.expand(c, 1, kh, 1), padding=(kh // 2, 0), groups=c)
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM over the first 3 channels (``utils/ssim_psnr.py:76-96``)."""
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size=11) -> torch.Tensor:
+    """Mean SSIM over the first 3 channels (``utils/ssim_psnr.py:76-96``);
+    ``window_size`` as :func:`_depthwise_filter`'s ``window``."""
     img1 = img1[:, :3].float()
     img2 = img2[:, :3].float()
     mu1 = _depthwise_filter(img1, window_size)
@@ -52,6 +54,13 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
     )
     return ssim_map.mean()
+
+
+def distorted_ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Mean of the SSIMs with rectangular windows (5, 11), (11, 5) and
+    (11, 11) (``utils/ssim_psnr.py:158-197``, ``ssim.py:136-158``): the
+    ``--ssim_loss`` of the ``tsrn`` arch."""
+    return sum(ssim(img1, img2, window) for window in ((5, 11), (11, 5), (11, 11))) / 3.0
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:

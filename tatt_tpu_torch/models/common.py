@@ -77,6 +77,33 @@ class Conv2d(nn.Module):
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
 
+class ConvTranspose2d(nn.Module):
+    """Torch ``nn.ConvTranspose2d`` geometry with an IOHW weight and no
+    bias, as InfoGen uses it (``common.py:276-314``, ``model/tsrn.py:284-317``).
+    The JAX kernel is stored in this layout, so its weight carries over as
+    is."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        out_ch: int,
+        kernel_size: tuple[int, int] = (3, 3),
+        stride: tuple[int, int] = (2, 2),
+        padding: tuple[int, int] = (0, 0),
+    ):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, *kernel_size))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # torch's fan_in of a transposed conv: out_channels * kh * kw
+        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3])
+        _uniform(self.weight, bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight, None, self.stride, self.padding)
+
+
 class _BatchNorm(nn.Module):
     """BatchNorm over every axis but 1, torch eps/momentum defaults
     (``common.py:336-536``).  Eval mode normalizes with the running

@@ -93,6 +93,27 @@ class LayerNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+class TorchLayerNorm(nn.Module):
+    """The reference's hand-rolled LayerNorm (``model/tbsrn.py:23-36``; the
+    JAX package's ``zoo/tbsrn.py:53-66``): ``a_2 (x - mean) / (std + 1e-6)
+    + b_2`` with the unbiased std, f32 statistics."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.a_2 = nn.Parameter(torch.ones(channels))
+        self.b_2 = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.a_2.fill_(1.0)
+        self.b_2.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        std = x32.var(-1, keepdim=True, unbiased=x.shape[-1] > 1).sqrt()
+        y = self.a_2 * (x32 - x32.mean(-1, keepdim=True)) / (std + 1e-6) + self.b_2
+        return y.to(x.dtype)
+
+
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer (``transformer_v2.py:470-484``)."""
 

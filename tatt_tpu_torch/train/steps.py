@@ -18,13 +18,17 @@ per-copy BatchNorm statistics (``steps.py:230-250``).
 
 :func:`eval_step` is ``make_eval_step`` (``steps.py:553-610``) including
 the ``stu_iter`` cascade of ``model_inference`` and ``for_cascading``.
+
+:func:`plain_train_step` and :func:`plain_eval_step` serve the archs
+without a text prior (``make_plain_train_step``, ``steps.py:424-550``, and
+``loop.py:318-329``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -35,15 +39,15 @@ from tatt_tpu_torch.kernels.grid_sample import rotate_batch
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.distill import semantic_loss
 from tatt_tpu_torch.losses.image import image_loss
-from tatt_tpu_torch.losses.ssim import ssim, tri_ssim
+from tatt_tpu_torch.losses.ssim import distorted_ssim, ssim, tri_ssim
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 from tatt_tpu_torch.train.state import clip_grads_per_model
 
 @dataclass(frozen=True)
 class StepConfig:
     """The JAX ``StepConfig`` (``steps.py:30-59``) with its defaults, the
-    canonical recipe, but for ``color_loss`` and ``mse_fuse`` (flags of the
-    plain step) and ``compute_dtype`` (the port runs float32).
+    canonical recipe, but for ``compute_dtype`` (the port runs float32).
+    ``color_loss`` and ``mse_fuse`` act in the plain step only, as in JAX.
     ``fused_tssim`` runs sr and the counter-rotated sr_ret in one 2B
     forward (else two forwards); ``mask`` is the mask channel of the
     uint8 image leaves the step normalizes."""
@@ -56,10 +60,12 @@ class StepConfig:
     for_cascading: bool = False
     y_domain: bool = False
     learning_STN: bool = False
+    color_loss: bool = False
     gradient: bool = True
     ssim_loss: bool = False
     tssim_loss: bool = True
     fused_tssim: bool = True
+    mse_fuse: bool = False
     rotate_train: float = 5.0
     training_stablize: bool = False
     grad_clip: float = 0.25
@@ -85,6 +91,19 @@ def _rotation(batch: dict, n: int, degrees: float, gen: torch.Generator):
     dev = batch["images_lr"].device
     angle = (torch.rand(n, generator=gen, device=dev) * 2.0 - 1.0) * degrees
     return angle / 180.0 * math.pi, torch.rand(n, generator=gen, device=dev)
+
+
+def _backward(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+    """The gradients of ``loss`` for every parameter of ``optimizer``: a
+    parameter no loss reaches (the students without distillation, or in
+    the plain step) gets a zero gradient and steps, as optax updates every
+    leaf."""
+    optimizer.zero_grad(set_to_none=False)
+    loss.backward()
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 @torch.no_grad()
@@ -208,18 +227,99 @@ def train_step(
     metrics["sr_mean"], metrics["sr_min"], metrics["sr_max"] = (
         sr[:, :3].mean(), sr[:, :3].min(), sr[:, :3].max())
 
-    optimizer.zero_grad(set_to_none=False)
-    total.backward()
-    # a parameter no loss reaches (the students without use_distill) steps
-    # with a zero gradient, as optax updates every leaf
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    _backward(optimizer, total)
     metrics.update(_grad_metrics(generators[0]))
     clip_grads_per_model(generators, cfg.grad_clip)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def plain_train_step(
+    generators: Sequence[nn.Module],
+    optimizer: torch.optim.Optimizer,
+    batch: dict,
+    cfg: StepConfig,
+    gen: torch.Generator,
+    criterion: Callable,
+    channels: int = 4,
+    distorted: bool = False,
+) -> dict:
+    """One optimizer step of an arch without a text prior
+    (``make_plain_train_step``, ``steps.py:424-550``; reference
+    ``super_resolution.py:664-700, 1037-1063``).
+
+    ``generators``: one module in training mode (its output, or the first
+    of its outputs, is the SR image); ``optimizer`` over it and the
+    students, which no loss reaches (they step with zero gradients, as
+    optax updates every leaf).  ``batch`` as :func:`train_step` reads it
+    (``images_hr`` / ``images_lr``, optionally ``rot_arc`` / ``rot_offs``),
+    cut to ``channels``; ``gen`` draws the rotation.  Losses: ``criterion``
+    (per sample) x100; ``color_loss``: the mean-colour L1 x30; ``ssim_loss``:
+    (1 - SSIM) x10, ``distorted`` SSIM for ``tsrn``; ``tssim_loss``: a
+    second forward of the counter-rotated LR (BatchNorm statistics of its
+    own batch, running statistics advanced again), rotated back, TRI-SSIM
+    x10; ``mse_fuse``: a third such forward, without autograd (JAX stops
+    its gradient), and the criterion of SR against it x100 (JAX compares
+    with this rotated-back copy, where the reference reads the unrotated
+    one).  Then per-copy clipping and one Adam step.  Returns the JAX
+    metric names as device scalars."""
+    batch = prep_image_batch(batch, cfg.mask)
+    images_hr = batch["images_hr"][:, :channels]
+    images_lr = batch["images_lr"][:, :channels]
+    generator = generators[0]
+    if cfg.rotate_train:
+        arc, offs = _rotation(batch, images_lr.shape[0], cfg.rotate_train, gen)
+        images_lr = rotate_batch(images_lr, arc, offs)
+        images_hr = rotate_batch(images_hr, arc, offs)
+        images_lr_ret = rotate_batch(images_lr, -arc, offs)
+    else:
+        images_lr_ret = images_lr
+
+    def forward(x):
+        out = generator(x)
+        return out[0] if isinstance(out, tuple) else out
+
+    def rotated_back(x):
+        sr_ret = forward(x)
+        return rotate_batch(sr_ret, arc, offs) if cfg.rotate_train else sr_ret
+
+    metrics = {}
+    sr = forward(images_lr)
+    loss = criterion(sr, images_hr).mean() * 100.0
+    metrics["loss_sr"] = loss
+    if cfg.color_loss:  # mean-colour consistency (super_resolution.py:669-672)
+        c = (images_lr.mean(dim=(2, 3)) - sr.mean(dim=(2, 3))).abs().mean() * 30.0
+        loss = loss + c
+        metrics["loss_color"] = c
+    if cfg.ssim_loss:
+        s = (1.0 - (distorted_ssim if distorted else ssim)(sr, images_hr)) * 10.0
+        loss = loss + s
+        metrics["loss_ssim"] = s
+    if cfg.tssim_loss:
+        ts = (1.0 - tri_ssim(rotated_back(images_lr_ret), sr, images_hr)) * 10.0
+        loss = loss + ts
+        metrics["loss_tssim"] = ts
+    if cfg.mse_fuse:
+        with torch.no_grad():  # its output is a constant of the loss
+            target = rotated_back(images_lr_ret)
+        mf = criterion(sr, target).mean() * 100.0
+        loss = loss + mf
+        metrics["loss_mse_fuse"] = mf
+    metrics["loss_total"] = loss
+
+    _backward(optimizer, loss)
+    clip_grads_per_model(generators, cfg.grad_clip)
+    optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def plain_eval_step(generator: nn.Module, images_lr: torch.Tensor, channels: int = 4):
+    """``images_lr`` [N, 4, 16, 64] -> (SR of ``images_lr[:, :channels]``,
+    {}): the plain archs' evaluation (``loop.py:318-329``), no prior, the
+    first output of a model that returns several."""
+    out = generator(images_lr[:, :channels])
+    return (out[0] if isinstance(out, tuple) else out), {}
 
 
 @torch.no_grad()

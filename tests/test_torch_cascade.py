@@ -155,6 +155,8 @@ CLI_BASE = ["--srb", "1", "--hd_u", "4", "--tiny_tpg", "--batch_size", "4", "--m
     (["--mask", "--y_domain", "--learning_STN", "--STN", "--training_stablize", "--ssim_loss",
       "--stu_iter=2", "--tpg_share"], (2, 1)),
     (["--rotate_train=0", "--tssim_loss", "--no-fused_tssim"], (1, 1)),
+    # flags of the plain step: accepted, and no-ops in the TATT step
+    (["--mask", "--tssim_loss", "--color_loss", "--mse_fuse"], (1, 1)),
 ])
 def test_cli_accepts_the_step_flags(argv, copies, capsys):
     from tatt_tpu_torch.cli import main as cli
@@ -166,7 +168,9 @@ def test_cli_accepts_the_step_flags(argv, copies, capsys):
     assert line.startswith("[train] iters 1 ") and "sr_mean" in line and "gnorm/srb2" in line
 
 
-@pytest.mark.parametrize("flag", [["--color_loss"], ["--mse_fuse"], ["--dtype", "bfloat16"]])
+# --color_loss and --mse_fuse are served now (the plain step; no-ops in the
+# TATT step, as in JAX): their cases hold two other refusals
+@pytest.mark.parametrize("flag", [["--arch=srcnn"], ["--tpg", "OPT"], ["--dtype", "bfloat16"]])
 def test_cli_still_refuses_what_waits(flag):
     from tatt_tpu_torch.cli import main as cli
 

@@ -209,6 +209,66 @@ def test_modules_run_both_kernels_under_autograd(cuda):
             assert _scaled_err(g, r) <= DW_TOL
 
 
+def _bilstm_module_run(module, x, w):
+    """Output, d(input) and the weight gradients of one forward and
+    backward of ``module`` on ``x`` against the weights ``w``."""
+    xg = x.detach().clone().requires_grad_()
+    module.zero_grad()
+    out = module(xg)
+    (out * w).sum().backward()
+    return out.detach(), xg.grad, [p.grad.clone() for p in module.parameters()]
+
+
+@pytest.mark.parametrize("hid", [113, 250])
+def test_bilstm_module_serves_hidden_the_kernels_refuse(cuda, hid):
+    """H = 113 and 250, which the kernels refuse (the two tests above):
+    the module decides from the kernels' plan queries, before any launch,
+    to run the plain loop, counts it in ``BiLSTM.plain_layers``, and
+    launches no kernel.  Forward and backward against the plain twin on
+    the CPU: outputs within 1e-5, d(input) within 1e-5 and the weight
+    gradients within 1e-4 of their largest entry (at least 1)."""
+    from tatt_tpu_torch.kernels import lstm
+    from tatt_tpu_torch.kernels.rnn import BiLSTM
+    from tatt_tpu_torch.models.common import init_parameters
+
+    assert not lstm.kernels_serve(hid, cuda)
+    gen = torch.Generator().manual_seed(hid)
+    layer = init_parameters(BiLSTM(48, hid), 3)
+    x = torch.randn(64, 26, 48, generator=gen)
+    w = torch.randn(64, 26, 2 * hid, generator=gen)
+    want = _bilstm_module_run(layer, x, w)
+    card = copy.deepcopy(layer).to(cuda)
+    launches = (lstm.bilstm_recurrence.launches, lstm.bilstm_recurrence_bwd.launches)
+    plain = BiLSTM.plain_layers
+    got = _bilstm_module_run(card, x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert BiLSTM.plain_layers == plain + 1
+    assert (lstm.bilstm_recurrence.launches, lstm.bilstm_recurrence_bwd.launches) == launches
+    assert (got[0].cpu() - want[0]).abs().max().item() <= ATOL
+    assert _scaled_err(got[1].cpu(), want[1]) <= ATOL
+    for g, r in zip(got[2], want[2]):
+        assert _scaled_err(g.cpu(), r) <= DW_TOL
+
+
+def test_bilstm_module_launches_the_kernels_at_h256(cuda):
+    """H = 256, which the kernels serve: one forward and one backward
+    launch, and the plain-loop counter stays."""
+    from tatt_tpu_torch.kernels import lstm
+    from tatt_tpu_torch.kernels.rnn import BiLSTM
+    from tatt_tpu_torch.models.common import init_parameters
+
+    assert lstm.kernels_serve(256, cuda)
+    module = init_parameters(BiLSTM(64, 256), 4).to(cuda)
+    x = torch.randn(32, 26, 64, device=cuda)
+    launches = (lstm.bilstm_recurrence.launches, lstm.bilstm_recurrence_bwd.launches)
+    plain = BiLSTM.plain_layers
+    _bilstm_module_run(module, x, torch.randn(32, 26, 512, device=cuda))
+    torch.cuda.synchronize()
+    assert BiLSTM.plain_layers == plain
+    assert (lstm.bilstm_recurrence.launches - launches[0],
+            lstm.bilstm_recurrence_bwd.launches - launches[1]) == (1, 1)
+
+
 # (L, R, H): gru1 and gru2 of the fused 2B=128 training batch, ragged row
 # counts (a last tile cut short at both: 4099, 2049), L=1 and L=2, odd L;
 # the hidden sizes where the recurrence's unit groups stop covering H

@@ -151,11 +151,13 @@ def test_cli_go_test_on_cpu(capsys):
 
 @pytest.mark.parametrize(
     "argv",
-    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=tsrn", "--go_test", "--synthetic", "8"],
-     ["--synthetic", "8", "--color_loss"], ["--go_test", "--mixed"],
-     # the plain step's other flag, and the Chinese path
+    # the TSRN family, --color_loss and --mse_fuse are served now: their
+    # cases hold a zoo arch, --tpg OPT and a zoo arch with the recipe's flags
+    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--synthetic", "8"],
+     ["--synthetic", "8", "--tpg", "OPT"], ["--go_test", "--mixed"],
+     # a zoo arch with a text prior, and the Chinese path
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
-      "--mse_fuse", "--synthetic", "8"],
+      "--arch=tbsrn_tl", "--synthetic", "8"],
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--tssim_loss",
       "--rotate_train=3.0", "--CHNSR", "--synthetic", "8"]],
 )
