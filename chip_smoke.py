@@ -32,9 +32,10 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      weight-gradient pass, ...), a launch at L=1 and so the time of a step,
      and the launch plan; the BiGRU backward also at the plain step's
      shapes (B=64, L=16 R=4096 and L=64 R=1024); and the BiLSTM module at
-     H=113 and 250, which its kernels refuse: the path it takes (decided
-     from the kernels' plan queries, counted), forward and backward against
-     the plain twin on the CPU, timed beside the plain twin and cuDNN
+     H=113 and 250, which its kernels refuse: the H it runs them at
+     (decided from the kernels' plan queries, the layer counted, one
+     forward and one backward launch), forward and backward against the
+     plain twin on the CPU, timed beside the plain twin and cuDNN
   7. the full-width training path: Trainer.train with the canonical recipe
      at batch 64, images/s, launches per step, finite and falling losses
   8. one full-width train step at batch 8 on the card (kernels) against
@@ -130,7 +131,7 @@ from tatt_tpu_torch.kernels.gru import (  # noqa: E402
 )
 from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
     bilstm_bwd_plan, bilstm_fwd_plan, bilstm_recurrence, bilstm_recurrence_bwd,
-    bilstm_recurrence_bwd_ref, bilstm_recurrence_ref, kernels_serve,
+    bilstm_recurrence_bwd_ref, bilstm_recurrence_ref, kernels_serve, served_hidden,
 )
 from tatt_tpu_torch.kernels.ctc import ctc_loss  # noqa: E402
 from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, compose_input_projection  # noqa: E402
@@ -139,7 +140,7 @@ from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer, parse_aster_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, parse_crnn_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.moran import MORAN, parse_moran_input  # noqa: E402
-from tatt_tpu_torch.models.factory import build_generator  # noqa: E402
+from tatt_tpu_torch.models.factory import ABLATION_SET, build_generator  # noqa: E402
 from tatt_tpu_torch.models.tsrn import TATT, TSRN  # noqa: E402
 from tatt_tpu_torch.train.judge import make_judge  # noqa: E402
 from tatt_tpu_torch.train.loop import (  # noqa: E402
@@ -583,12 +584,13 @@ def check_lstm_bwd(name, length, rows, cin, hid, gen):
 
 
 def check_lstm_module(name, length, rows, cin, hid, gen):
-    """The BiLSTM module at a hidden size its kernels refuse: the path it
-    takes (the plain loop, decided from the kernels' plan queries before
-    any launch and counted in ``BiLSTM.plain_layers``; no kernel launch),
-    its forward and backward against the same module on the CPU (the
-    plain twins), and its times beside the plain twins on the card and
-    cuDNN's ``nn.LSTM`` on the same weights."""
+    """The BiLSTM module at a hidden size its kernels refuse: the H it runs
+    them at (the next one they serve, decided from their plan queries
+    before any launch, the layer counted in ``BiLSTM.padded_layers``; one
+    forward and one backward launch), its forward and backward against
+    the same module on the CPU (the plain twins at the true H), and its
+    times beside the plain twins on the card and cuDNN's ``nn.LSTM`` on
+    the same weights."""
     layer = init_parameters(BiLSTM(cin, hid), 5)
     x = torch.randn(rows, length, cin, generator=gen)
     w = torch.randn(rows, length, 2 * hid, generator=gen)
@@ -603,10 +605,11 @@ def check_lstm_module(name, length, rows, cin, hid, gen):
         return out.detach(), xg.grad, [p.grad for p in module.parameters()]
 
     want = fwd_bwd(layer, x, w)
-    plain_before, launches_before = BiLSTM.plain_layers, read_counts()
+    padded_before, launches_before = BiLSTM.padded_layers, read_counts()
     got = fwd_bwd(card, xd, wd)
     torch.cuda.synchronize()
-    path = "plain loop" if BiLSTM.plain_layers == plain_before + 1 else "kernels"
+    wide = served_hidden(hid, DEV)
+    path = f"kernels at H={wide}" if BiLSTM.padded_layers == padded_before + 1 else "kernels"
     launched = {k: v - launches_before[k] for k, v in read_counts().items()}
     errs = {"out": (got[0].cpu() - want[0]).abs().max().item(),
             "d_input": scaled_err(got[1].cpu(), want[1]),
@@ -627,7 +630,8 @@ def check_lstm_module(name, length, rows, cin, hid, gen):
     row = dict(shape=name, L=length, R=rows, H=hid, In=cin, served_by_kernels=kernels_serve(hid, DEV),
                path=path, kernel_launches=launched, errs=errs, forward=fwd,
                forward_backward=fwd_bwd_ms)
-    row["ok"] = (path == "plain loop" and not row["served_by_kernels"] and not any(launched.values())
+    row["ok"] = (wide > hid and path == f"kernels at H={wide}" and not row["served_by_kernels"]
+                 and launched == {"bigru_fwd": 0, "bigru_bwd": 0, "bilstm_fwd": 1, "bilstm_bwd": 1}
                  and errs["out"] <= KERNEL_ATOL and errs["d_input"] <= KERNEL_ATOL
                  and errs["d_weights"] <= DW_TOL)
     del out, cs
@@ -711,8 +715,8 @@ def backward_kernels(gen, lstm_only: bool = False):
         print_bwd_split("gru-bwd", row, GRU_BWD_ENTRIES)
     for row in lstm_bwd_rows:
         print_bwd_split("lstm-bwd", row, LSTM_BWD_ENTRIES)
-    # hidden sizes the LSTM kernels refuse: the module serves them on the
-    # plain loop (L and R of the CRNN head at batch 64)
+    # hidden sizes the LSTM kernels refuse: the module runs them at the next
+    # H they serve on zero-padded weights (L and R of the CRNN head at batch 64)
     for hid in (113, 250):
         row = check_lstm_module(f"BiLSTM module H={hid}", 26, BATCH, 512, hid, gen)
         print("[lstm-module] " + json.dumps(row))
@@ -1564,7 +1568,7 @@ def tsrn_phase(smi: str) -> None:
         metrics = {k: first["metrics"][k] + timed["metrics"][k] for k in timed["metrics"]}
         ips[arch] = TSRN_STEPS * BATCH / wall
         sr = metrics["loss_sr"]
-        step = "plain" if trainer.channels is not None else "TATT"
+        step = "TATT" if arch in ABLATION_SET else "plain"
         print(f"[tsrn] {arch} ({step} step): {TSRN_STEPS} steps at batch {BATCH}, images/s "
               f"{ips[arch]:.1f}, {wall / TSRN_STEPS * 1e3:.1f} ms a step; launches per step "
               f"{json.dumps(per_step)} (want {json.dumps(want)}); metrics {sorted(metrics)}; "
@@ -1578,6 +1582,7 @@ def tsrn_phase(smi: str) -> None:
             fail(f"{arch}: loss_sr did not fall: {sr[1:4]} -> {sr[-5:]}")
         if arch == "tsrn":
             tsrn_gen, tsrn_teacher = generator, trainer.teacher
+            tsrn_sr_fn = trainer.evaluator.sr_fn
         del trainer
 
     plain_card_vs_cpu_step()
@@ -1585,7 +1590,7 @@ def tsrn_phase(smi: str) -> None:
     # ---- Evaluator for tsrn at batch 64: the generator on LR alone, the
     # judge (the teacher CRNN) on SR, LR and HR
     evaluator = Evaluator([tsrn_gen.eval()], [], tsrn_teacher.eval(), DEV, batch_size=BATCH,
-                          mask=True, channels=4)
+                          mask=True, sr_fn=tsrn_sr_fn)
     ds, warm = SyntheticTextDataset(n=4 * BATCH, seed=2), SyntheticTextDataset(n=BATCH, seed=3)
     for d in (ds, warm):  # render (and cache) every sample up front, as phase 3 does
         for i in range(len(d)):

@@ -84,14 +84,13 @@ from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
-from tatt_tpu_torch.models.factory import available_archs, build_generator, plain_channels
+from tatt_tpu_torch.models.factory import arch_steps, available_archs, build_generator
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, crnn_widths
 from tatt_tpu_torch.models.recognizers.moran import MORAN
 from tatt_tpu_torch.train.demo import run_demo
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies
-from tatt_tpu_torch.train.steps import eval_step, plain_eval_step
 
 TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))  # --tiny_tpg
 STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss", "tssim_loss",
@@ -314,23 +313,19 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
         generators, students = [m.eval() for m in generators], [m.eval() for m in students]
         if a.test or a.demo:
             judge = rec_judge(cfg, cli, teacher.eval(), device)
-        channels = plain_channels(a.arch, a.mask)
+        _, sr_fn = arch_steps(cfg)
         if a.demo:
-            if channels is None:
-                sr_fn = lambda lr: eval_step(generators, students, lr, a.stu_iter,  # noqa: E731
-                                             a.for_cascading)[0]
-            else:
-                sr_fn = lambda lr: plain_eval_step(generators[0], lr, channels)[0]  # noqa: E731
             with torch.no_grad():
-                run_demo(a.demo_dir, sr_fn, judge, os.path.join("demo_out", cfg.vis_dir), device,
-                         cfg.TRAIN.width, cfg.TRAIN.height, cfg.scale_factor, a.mask)
+                run_demo(a.demo_dir, lambda lr: sr_fn(generators, students, lr)[0], judge,
+                         os.path.join("demo_out", cfg.vis_dir), device, cfg.TRAIN.width,
+                         cfg.TRAIN.height, cfg.scale_factor, a.mask)
             return 0, None
         evaluator = Evaluator(
             generators, students, judge or teacher.eval(), device,
             batch_size=a.val_batch_size or cfg.batch_size, mask=a.mask,
             workers=max(cfg.TRAIN.workers, 1), stu_iter=a.stu_iter, for_cascading=a.for_cascading,
             lpips=lpips, n_vis=cfg.TRAIN.VAL.n_vis if a.vis else 0,
-            vis_root=os.path.join("demo", cfg.vis_dir), channels=channels,
+            vis_root=os.path.join("demo", cfg.vis_dir), sr_fn=sr_fn,
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")

@@ -5,9 +5,8 @@ The reference YAML schema (``config/super_resolution.yaml``) read into
 field names and defaults, unknown keys ignored.  ``Flags`` holds the CLI
 flags that the port serves, with the same names and defaults; flags win
 over the YAML through the same ``Config`` properties (``batch_size``,
-``lr``, ``resume``, ``vis_dir``, ``epochs``).  ``ModelConfig`` holds the
-two widths the factory reads; the flags of paths not yet ported are not
-here.
+``lr``, ``resume``, ``vis_dir``, ``epochs``).  ``ModelConfig`` and the
+flags of paths not yet ported are not here.
 
 :func:`load_config` refuses, with "not ported yet", a YAML whose geometry
 differs from what the port's collate serves (``width`` 128, ``height``
@@ -70,15 +69,6 @@ class TestConfig:
 
 
 @dataclass
-class ModelConfig:
-    """The architecture widths the factory reads (``tatt_tpu/core/config.py``'s
-    ``ModelConfig`` defaults; not read from the YAML, as in JAX)."""
-
-    text_emb: int = 37  # CRNN class count (blank + 0-9 + a-z)
-    out_text_channels: int = 64
-
-
-@dataclass
 class Flags:
     """The CLI flags the port serves (reference ``main.py:23-69``)."""
 
@@ -135,7 +125,6 @@ class Config:
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     TEST: TestConfig = field(default_factory=TestConfig)
     args: Flags = field(default_factory=Flags)
-    MODEL: ModelConfig = field(default_factory=ModelConfig)
 
     # flags over YAML (reference base.py:168-182)
     @property

@@ -164,52 +164,24 @@ def _check_launch(err: int, what: str, hid: int) -> None:
     _build.check(err, what)
 
 
+def _query_plan(kernel: str, argtypes: list, keys: tuple, hid: int, rows: int):
+    """``(error code, plan)`` of the plan query ``<kernel>_plan`` at hidden
+    size ``hid`` over ``rows`` rows on the current card (launches nothing)."""
+    lib = _build.load(kernel, argtypes)
+    fn = getattr(lib, f"{kernel}_plan")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = (ctypes.c_int * len(keys))()
+    return fn(hid, rows, plan), dict(zip(keys, plan))
+
+
 def bilstm_fwd_plan(hid: int, rows: int) -> dict:
     """How the forward kernel launches at hidden size ``hid`` over ``rows``
     rows on the current card, for logs (launches nothing): cluster size,
     rows per cluster, k groups, threads and shared-memory bytes of a block,
     and the clusters the card runs at once."""
-    lib = _build.load("bilstm_fwd", _FWD_ARGTYPES)
-    fn = lib.bilstm_fwd_plan
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    plan = (ctypes.c_int * len(_PLAN_KEYS))()
-    _check_launch(fn(hid, rows, plan), "bilstm_fwd_plan", hid)
-    return dict(zip(_PLAN_KEYS, plan))
-
-
-def _plan_fits(entry: str, argtypes: list, n_keys: int, hid: int) -> bool:
-    """Whether the plan query ``entry`` of a kernel finds a launch for
-    hidden size ``hid`` on the current card (launches nothing; any other
-    error raises)."""
-    lib = _build.load(entry.removesuffix("_plan"), argtypes)
-    fn = getattr(lib, entry)
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    plan = (ctypes.c_int * n_keys)()
-    err = fn(hid, 1, plan)
-    if err == _NO_FIT:
-        return False
-    _build.check(err, entry)
-    return True
-
-
-_SERVES: dict = {}
-
-
-def kernels_serve(hid: int, device: torch.device) -> bool:
-    """Whether both the forward and the backward kernel serve hidden size
-    ``hid`` on CUDA ``device``, from their plan queries (which launch
-    nothing; a plan's fit depends on H alone, not on the row count).
-    Cached per (device, H).  ``BiLSTM`` sends an H they do not serve to
-    the plain loop before any launch."""
-    index = torch.device(device).index
-    key = (torch.cuda.current_device() if index is None else index, hid)
-    if key not in _SERVES:
-        with torch.cuda.device(key[0]):
-            _SERVES[key] = 0 < hid <= MAX_HIDDEN and all(
-                _plan_fits(entry, argtypes, n_keys, hid) for entry, argtypes, n_keys in (
-                    ("bilstm_fwd_plan", _FWD_ARGTYPES, len(_PLAN_KEYS)),
-                    ("bilstm_bwd_plan", _BWD_ARGTYPES, len(_BWD_PLAN_KEYS))))
-    return _SERVES[key]
+    err, plan = _query_plan("bilstm_fwd", _FWD_ARGTYPES, _PLAN_KEYS, hid, rows)
+    _check_launch(err, "bilstm_fwd_plan", hid)
+    return plan
 
 
 def bilstm_bwd_plan(hid: int, rows: int) -> dict:
@@ -220,12 +192,45 @@ def bilstm_bwd_plan(hid: int, rows: int) -> dict:
     once.  Raises ``ValueError`` for an H the forward does not serve."""
     if not 0 < hid <= MAX_HIDDEN:
         raise ValueError(f"bilstm_bwd_plan: H={hid} must be in 1..{MAX_HIDDEN}")
-    lib = _build.load("bilstm_bwd", _BWD_ARGTYPES)
-    fn = lib.bilstm_bwd_plan
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    plan = (ctypes.c_int * len(_BWD_PLAN_KEYS))()
-    _check_launch(fn(hid, rows, plan), "bilstm_bwd_plan", hid)
-    return dict(zip(_BWD_PLAN_KEYS, plan))
+    err, plan = _query_plan("bilstm_bwd", _BWD_ARGTYPES, _BWD_PLAN_KEYS, hid, rows)
+    _check_launch(err, "bilstm_bwd_plan", hid)
+    return plan
+
+
+_SERVES: dict = {}
+
+
+def kernels_serve(hid: int, device: torch.device) -> bool:
+    """Whether both the forward and the backward kernel serve hidden size
+    ``hid`` on CUDA ``device``, from their plan queries (which launch
+    nothing; a plan's fit depends on H alone, not on the row count).
+    Cached per (device, H)."""
+    index = torch.device(device).index
+    key = (torch.cuda.current_device() if index is None else index, hid)
+    if key not in _SERVES:
+
+        def fits(kernel, argtypes, keys) -> bool:
+            err, _ = _query_plan(kernel, argtypes, keys, hid, 1)
+            if err != _NO_FIT:
+                _build.check(err, f"{kernel}_plan")
+            return err != _NO_FIT
+
+        with torch.cuda.device(key[0]):
+            _SERVES[key] = 0 < hid <= MAX_HIDDEN and all(
+                fits(*q) for q in (("bilstm_fwd", _FWD_ARGTYPES, _PLAN_KEYS),
+                                   ("bilstm_bwd", _BWD_ARGTYPES, _BWD_PLAN_KEYS)))
+    return _SERVES[key]
+
+
+def served_hidden(hid: int, device: torch.device) -> int:
+    """The hidden size at which ``BiLSTM`` runs the kernels for a layer of
+    hidden size ``hid`` <= ``MAX_HIDDEN`` on ``device``: ``hid`` itself on
+    the CPU (the plain twins serve any H) and where the kernels serve it,
+    else the next size they serve (H=256 always fits), decided from the
+    plan queries before any launch."""
+    if torch.device(device).type == "cpu":
+        return hid
+    return next(h for h in range(hid, MAX_HIDDEN + 1) if kernels_serve(h, device))
 
 
 def bilstm_recurrence_bwd(gates, w_hh, b_hh, out, cs, dout):

@@ -5,17 +5,19 @@ Parameters keep torch's ``nn.GRU``/``nn.LSTM`` names and layout
 r, z, n for the GRU and i, f, g, o for the LSTM), so reference checkpoints
 load as they are.  The input projection of all timesteps is one matmul;
 the recurrence goes to the hand-written kernels (:mod:`.gru`, :mod:`.lstm`)
-for every BiGRU with hidden <= 128 and every BiLSTM whose hidden size the
-LSTM kernels' launch plans serve (:func:`.lstm.kernels_serve`: most H up to
-256), at any row count (the JAX row thresholds are TPU padding concerns).  When a
+for every BiGRU with hidden <= 128 and every BiLSTM with hidden <= 256, at
+any row count (the JAX row thresholds are TPU padding concerns).  A BiLSTM
+hidden size that the LSTM kernels' launch plans refuse on the card (99 of
+113..255, :func:`.lstm.served_hidden`) runs them at the next size they
+serve, its weights zero-padded: the padded units stay exactly 0 and feed
+nothing back, so outputs and gradients are those of the true size
+(``BiLSTM.padded_layers`` counts these layers).  When a
 gradient is wanted, the recurrence runs through the kernels'
 ``autograd.Function`` (forward and backward kernels), and the projection
 stays ordinary differentiable torch ops outside it, as the JAX VJP keeps
 its projection GEMMs (``pallas_gru.py:360-375``).  Wider recurrences — the
-TP-Interpreter's query GRU, hidden 512 — and the BiLSTM hidden sizes the
-kernels refuse run :func:`bigru_apply` / :func:`bilstm_apply`, a plain
-loop under autograd, as JAX keeps them on ``lax.scan`` (``rnn.py:211-218,
-263-268``); ``BiLSTM.plain_layers`` counts the BiLSTM layers that take it.
+TP-Interpreter's query GRU, hidden 512 — run :func:`bigru_apply`, a plain
+loop under autograd, as JAX keeps it on ``lax.scan`` (``rnn.py:211-218``).
 :func:`gru_cell` is one plain GRU step, as in JAX.
 """
 
@@ -26,6 +28,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from tatt_tpu_torch.kernels import gru as gru_kernel
 from tatt_tpu_torch.kernels import lstm as lstm_kernel
@@ -212,19 +215,41 @@ class BiLSTM(_BiRNN):
             x = self._layer(x, *self.stacked(layer))
         return x
 
-    # calls of the plain loop for an H the kernels do not serve (above
-    # MAX_HIDDEN, or refused by their launch plans on the card)
-    plain_layers = 0
+    # layers run at a wider hidden size that the kernels serve on the card
+    padded_layers = 0
 
     def _layer(self, x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
-        if self.hidden > lstm_kernel.MAX_HIDDEN or (
-            x.device.type == "cuda" and not lstm_kernel.kernels_serve(self.hidden, x.device)
-        ):
-            BiLSTM.plain_layers += 1
+        hid = self.hidden
+        if hid > lstm_kernel.MAX_HIDDEN:
             return bilstm_apply(x, w_ih, w_hh, b_ih, b_hh)
+        wide = lstm_kernel.served_hidden(hid, x.device)
+        if wide != hid:
+            BiLSTM.padded_layers += 1
+            w_ih, w_hh, b_ih, b_hh = _pad_lstm_hidden(wide, w_ih, w_hh, b_ih, b_hh)
         # one matmul for all timesteps of both directions, emitted in the
         # kernel's [2, R, L, 4H] layout (gates minor)
         gates = torch.matmul(x, w_ih.transpose(1, 2)[:, None]) + b_ih[:, None, None]
         if _wants_grad(gates, w_hh, b_hh):
-            return lstm_kernel.BiLSTMRecurrence.apply(gates, w_hh, b_hh)
-        return lstm_kernel.bilstm_recurrence(gates, w_hh, b_hh)
+            y = lstm_kernel.BiLSTMRecurrence.apply(gates, w_hh, b_hh)
+        else:
+            y = lstm_kernel.bilstm_recurrence(gates, w_hh, b_hh)
+        if wide != hid:
+            y = torch.cat([y[..., :hid], y[..., wide : wide + hid]], dim=-1)
+        return y
+
+
+def _pad_lstm_hidden(wide: int, w_ih, w_hh, b_ih, b_hh):
+    """A BiLSTM layer's stacked weights (``BiLSTM.stacked``) at hidden size
+    ``wide``: each gate block's rows, and W_hh's columns, padded with
+    zeros.  A padded unit's gates are sigmoid(0), sigmoid(0), tanh(0),
+    sigmoid(0), so its cell stays 0.5 * 0 + 0.5 * 0 = 0 and its output 0;
+    its zero W_hh column adds nothing to the true units, and no gradient
+    reaches it, so the true units' outputs and gradients are unchanged."""
+    hid = w_hh.shape[-1]
+    extra = wide - hid
+
+    def rows(t, *pad):  # [2, 4H, ...] -> [2, 4, H, ...] padded -> [2, 4W, ...]
+        t = F.pad(t.reshape(2, 4, hid, *t.shape[2:]), (*pad, 0, extra))
+        return t.reshape(2, 4 * wide, *t.shape[3:])
+
+    return rows(w_ih, 0, 0), rows(w_hh, 0, extra), rows(b_ih), rows(b_hh)

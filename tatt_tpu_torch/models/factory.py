@@ -5,15 +5,15 @@
 package's constructor arguments (``factory.py:83-116, 319-374``):
 ``tatt`` and the TSRN family.  The zoo's archs are not registered yet.
 ``ABLATION_SET`` (``factory.py:18-31``, reference
-``super_resolution.py:59-61``) lists the archs that take a text prior: the
-trainer runs the TATT step for them and the plain step for the rest.
+``super_resolution.py:59-61``) lists the archs that take a text prior:
+:func:`arch_steps` gives them the TATT step and the rest the plain step.
 :func:`build_criterion` holds every branch of ``factory.py:56-80``.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Optional
+from typing import Callable
 
 from torch import nn
 
@@ -26,6 +26,7 @@ from tatt_tpu_torch.losses.image import (
     mse_loss,
 )
 from tatt_tpu_torch.models.tsrn import SEM_TSRN, TATT, TSRN, TSRN_C2F, TSRN_TL, TSRN_TL_SFT
+from tatt_tpu_torch.train.steps import eval_step, plain_eval_step, plain_train_step, train_step
 
 ABLATION_SET = [
     "tsrn_tl_cascade_sft",
@@ -66,13 +67,26 @@ def available_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def plain_channels(arch: str, mask: bool) -> Optional[int]:
-    """None for an arch of ``ABLATION_SET`` (the TATT step and its eval),
-    else the channels of the images that the plain step and eval cut the
-    batch to (``loop.py:149-153``)."""
-    if arch in ABLATION_SET:
-        return None
-    return 3 if arch in THREE_CHANNEL_ARCHS else 4 if mask else 3
+def arch_steps(cfg: Config) -> tuple[Callable, Callable]:
+    """``(train_fn, sr_fn)`` of ``cfg.args.arch``, the one place that says
+    which step an arch takes: ``train_fn(generators, students, teacher,
+    optimizer, arrays, step_cfg, gen) -> metrics`` and ``sr_fn(generators,
+    students, lr) -> (sr, aux)``.  An arch of ``ABLATION_SET`` takes the
+    TATT step and its eval; the others the plain step and eval on their
+    channels (``loop.py:149-153``) with their criterion, distorted SSIM for
+    ``tsrn`` (``loop.py:317``) and no loss on the students."""
+    a = cfg.args
+    if a.arch in ABLATION_SET:
+        return train_step, lambda gens, stus, lr: eval_step(gens, stus, lr, a.stu_iter,
+                                                            a.for_cascading)
+    channels = 3 if a.arch in THREE_CHANNEL_ARCHS else 4 if a.mask else 3
+    criterion, distorted = build_criterion(a.arch, cfg), a.arch == "tsrn"
+
+    def train_fn(generators, students, teacher, optimizer, arrays, step_cfg, gen):
+        return plain_train_step(generators, optimizer, arrays, step_cfg, gen, criterion,
+                                channels, distorted)
+
+    return train_fn, lambda gens, stus, lr: plain_eval_step(gens[0], lr, channels)
 
 
 def build_criterion(arch: str, cfg: Config) -> Callable:
@@ -107,8 +121,7 @@ def _geometry(cfg: Config) -> dict:
 def _tatt(cfg: Config):
     # the TP decoder uses the stem features as queries, so the prior width
     # is 2 * hidden_units
-    return TATT(**_trunk_args(cfg), **_geometry(cfg), text_emb=cfg.MODEL.text_emb,
-                out_text_channels=2 * cfg.args.hd_u)
+    return TATT(**_trunk_args(cfg), **_geometry(cfg), out_text_channels=2 * cfg.args.hd_u)
 
 
 @register("tsrn")
@@ -118,8 +131,9 @@ def _tsrn(cfg: Config):
 
 @register("tsrn_tl_cascade")
 def _tsrn_tl(cfg: Config):
-    return TSRN_TL(**_trunk_args(cfg), **_geometry(cfg),
-                   out_text_channels=cfg.MODEL.out_text_channels)
+    # text_emb 37 and out_text_channels 64: the constructors' defaults are
+    # the JAX package's ModelConfig defaults (tatt_tpu/core/config.py:71-72)
+    return TSRN_TL(**_trunk_args(cfg), **_geometry(cfg))
 
 
 @register("tsrn_tl_cascade_sft")

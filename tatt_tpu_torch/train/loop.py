@@ -16,7 +16,8 @@ HR triptychs, and the TP-Interpreter's attention tiles (``att_``), under
 batches (``TRAIN.workers`` threads), one step each with a generator seeded
 from the run's seed and the step number: :func:`train_step` for an arch
 of ``ABLATION_SET``, else :func:`plain_train_step` (the students then
-carry no loss, as in JAX's ``TrainState``); a log
+carry no loss, as in JAX's ``TrainState``), as
+:func:`~tatt_tpu_torch.models.factory.arch_steps` says; a log
 line every ``displayInterval`` steps.  When ``iters`` reaches a
 multiple of ``valInterval`` it evaluates the val sets, appends
 ``{"iterator", "results"}`` to ``converge_list`` and, on a new best sum of
@@ -54,14 +55,12 @@ from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
-from tatt_tpu_torch.models.factory import build_criterion, plain_channels
+from tatt_tpu_torch.models.factory import arch_steps
 from tatt_tpu_torch.train.demo import attention_grid, triptych
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.metrics import EvalAccumulator
 from tatt_tpu_torch.train.state import make_optimizer
-from tatt_tpu_torch.train.steps import (
-    StepConfig, eval_step, plain_eval_step, plain_train_step, train_step,
-)
+from tatt_tpu_torch.train.steps import StepConfig, eval_step
 
 _warned_no_tensorboard = False
 
@@ -139,9 +138,10 @@ class Evaluator:
     images into strings (:func:`~tatt_tpu_torch.train.judge.make_judge`; a
     module given here is taken as a CRNN judge).  ``lpips``: a function of
     (images, HR) -> per-sample LPIPS, or None.  ``workers`` threads build
-    the batches (the same batches for any count).  ``channels`` set: the
-    generator is an arch without a text prior, run on the LR's first
-    ``channels`` channels with no student (:func:`plain_eval_step`)."""
+    the batches (the same batches for any count).  ``sr_fn(generators,
+    students, lr) -> (sr, aux)`` makes the SR images: the arch's, from
+    :func:`~tatt_tpu_torch.models.factory.arch_steps`; by default the TATT
+    eval (:func:`eval_step` with ``stu_iter`` and ``for_cascading``)."""
 
     def __init__(
         self,
@@ -157,13 +157,12 @@ class Evaluator:
         lpips: Optional[Callable] = None,
         n_vis: int = 0,
         vis_root: str = os.path.join("demo", "demo"),
-        channels: Optional[int] = None,
+        sr_fn: Optional[Callable] = None,
     ):
         self.generators = list(generators)
-        self.channels = channels
         self.students = list(students)
-        self.stu_iter = stu_iter
-        self.for_cascading = for_cascading
+        self.sr_fn = sr_fn or (lambda gens, stus, lr: eval_step(gens, stus, lr, stu_iter,
+                                                                for_cascading))
         self.decode = make_judge("CRNN", judge) if isinstance(judge, nn.Module) else judge
         self.device = torch.device(device)
         self.batch_size = batch_size
@@ -184,11 +183,7 @@ class Evaluator:
         t0 = time.perf_counter()
         n_vis_left = self.n_vis
         for hr, lr, labels in self.batches(dataset):
-            if self.channels is None:
-                sr, aux = eval_step(self.generators, self.students, lr, self.stu_iter,
-                                    self.for_cascading)
-            else:
-                sr, aux = plain_eval_step(self.generators[0], lr, self.channels)
+            sr, aux = self.sr_fn(self.generators, self.students, lr)
             lr_up = resize_bicubic(lr, hr.shape[-2], hr.shape[-1])
             lpips_sr = lpips_lr = None
             if self.lpips is not None:
@@ -257,10 +252,7 @@ class Trainer:
         self.teacher = teacher
         self.device = torch.device(device)
         self.step_cfg = step_config(cfg.args)
-        # the TATT step for the archs that take a text prior, else the plain
-        # step on the arch's channels with its criterion (loop.py:149-153)
-        self.channels = plain_channels(cfg.args.arch, cfg.args.mask)
-        self.criterion = None if self.channels is None else build_criterion(cfg.args.arch, cfg)
+        self.train_fn, sr_fn = arch_steps(cfg)
         self.optimizer = make_optimizer(
             itertools.chain(*(m.parameters() for m in self.generators + self.students)),
             cfg.lr, cfg.TRAIN.beta1,
@@ -273,7 +265,7 @@ class Trainer:
             self.generators, self.students, judge or teacher, device,
             cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers, cfg.args.stu_iter,
             cfg.args.for_cascading, lpips, cfg.TRAIN.VAL.n_vis if cfg.args.vis else 0,
-            os.path.join("demo", cfg.vis_dir), self.channels,
+            os.path.join("demo", cfg.vis_dir), sr_fn,
         )
         self.val_datasets = val_datasets or {}
         self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)
@@ -373,14 +365,10 @@ class Trainer:
                 gen = torch.Generator(device=self.device).manual_seed(
                     cfg.manualSeed * 1_000_003 + self.iters
                 )
-                arrays = step_batch(batch, self.device, self.step_cfg)
-                if self.channels is None:
-                    metrics = train_step(self.generators, self.students, self.teacher,
-                                         self.optimizer, arrays, self.step_cfg, gen)
-                else:
-                    metrics = plain_train_step(
-                        self.generators, self.optimizer, arrays, self.step_cfg, gen,
-                        self.criterion, self.channels, distorted=self.cfg.args.arch == "tsrn")
+                metrics = self.train_fn(self.generators, self.students, self.teacher,
+                                        self.optimizer,
+                                        step_batch(batch, self.device, self.step_cfg),
+                                        self.step_cfg, gen)
                 history.append(metrics)
                 self.iters += 1
                 if self.writer is not None and self.iters % 5 == 0:

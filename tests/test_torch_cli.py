@@ -16,6 +16,7 @@ import pytest
 from test_torch_lmdb import write_textzoom
 from tatt_tpu_torch.cli import main as cli
 from tatt_tpu_torch.core.checkpoint import load_checkpoint
+from tatt_tpu_torch.models.factory import ABLATION_SET
 
 SHRUNK = ["--srb", "1", "--hd_u", "4", "--tiny_tpg", "--device", "cpu"]
 RECIPE = ["--arch=tatt", "--STN", "--mask", "--use_distill", "--gradient", "--sr_share",
@@ -132,7 +133,7 @@ def test_tsrn_family_archs_train(arch, capsys):
     assert all(math.isfinite(v) for v in values.values()), values
     tl = arch.startswith("tsrn_tl")
     assert ("loss_distill" in values) == ("gnorm/infoGen" in values) == tl
-    assert (trainer.channels is None) == tl
+    assert (arch in ABLATION_SET) == tl
 
 
 @pytest.mark.parametrize("arch", ["srcnn", "tbsrn_tl", "pcan"])

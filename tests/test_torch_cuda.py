@@ -222,16 +222,20 @@ def _bilstm_module_run(module, x, w):
 @pytest.mark.parametrize("hid", [113, 250])
 def test_bilstm_module_serves_hidden_the_kernels_refuse(cuda, hid):
     """H = 113 and 250, which the kernels refuse (the two tests above):
-    the module decides from the kernels' plan queries, before any launch,
-    to run the plain loop, counts it in ``BiLSTM.plain_layers``, and
-    launches no kernel.  Forward and backward against the plain twin on
-    the CPU: outputs within 1e-5, d(input) within 1e-5 and the weight
-    gradients within 1e-4 of their largest entry (at least 1)."""
+    the module finds, from the kernels' plan queries and before any
+    launch, the next H they serve, counts the layer in
+    ``BiLSTM.padded_layers`` and launches one forward and one backward
+    kernel at that H on zero-padded weights.  Forward and backward against
+    the plain twin on the CPU at the true H: outputs within 1e-5,
+    d(input) within 1e-5 and the weight gradients within 1e-4 of their
+    largest entry (at least 1)."""
     from tatt_tpu_torch.kernels import lstm
     from tatt_tpu_torch.kernels.rnn import BiLSTM
     from tatt_tpu_torch.models.common import init_parameters
 
     assert not lstm.kernels_serve(hid, cuda)
+    wide = lstm.served_hidden(hid, cuda)
+    assert hid < wide <= lstm.MAX_HIDDEN and lstm.kernels_serve(wide, cuda)
     gen = torch.Generator().manual_seed(hid)
     layer = init_parameters(BiLSTM(48, hid), 3)
     x = torch.randn(64, 26, 48, generator=gen)
@@ -239,11 +243,12 @@ def test_bilstm_module_serves_hidden_the_kernels_refuse(cuda, hid):
     want = _bilstm_module_run(layer, x, w)
     card = copy.deepcopy(layer).to(cuda)
     launches = (lstm.bilstm_recurrence.launches, lstm.bilstm_recurrence_bwd.launches)
-    plain = BiLSTM.plain_layers
+    padded = BiLSTM.padded_layers
     got = _bilstm_module_run(card, x.to(cuda), w.to(cuda))
     torch.cuda.synchronize()
-    assert BiLSTM.plain_layers == plain + 1
-    assert (lstm.bilstm_recurrence.launches, lstm.bilstm_recurrence_bwd.launches) == launches
+    assert BiLSTM.padded_layers == padded + 1
+    assert (lstm.bilstm_recurrence.launches - launches[0],
+            lstm.bilstm_recurrence_bwd.launches - launches[1]) == (1, 1)
     assert (got[0].cpu() - want[0]).abs().max().item() <= ATOL
     assert _scaled_err(got[1].cpu(), want[1]) <= ATOL
     for g, r in zip(got[2], want[2]):
@@ -252,19 +257,19 @@ def test_bilstm_module_serves_hidden_the_kernels_refuse(cuda, hid):
 
 def test_bilstm_module_launches_the_kernels_at_h256(cuda):
     """H = 256, which the kernels serve: one forward and one backward
-    launch, and the plain-loop counter stays."""
+    launch at H itself, and the padded-layer counter stays."""
     from tatt_tpu_torch.kernels import lstm
     from tatt_tpu_torch.kernels.rnn import BiLSTM
     from tatt_tpu_torch.models.common import init_parameters
 
-    assert lstm.kernels_serve(256, cuda)
+    assert lstm.kernels_serve(256, cuda) and lstm.served_hidden(256, cuda) == 256
     module = init_parameters(BiLSTM(64, 256), 4).to(cuda)
     x = torch.randn(32, 26, 64, device=cuda)
     launches = (lstm.bilstm_recurrence.launches, lstm.bilstm_recurrence_bwd.launches)
-    plain = BiLSTM.plain_layers
+    padded = BiLSTM.padded_layers
     _bilstm_module_run(module, x, torch.randn(32, 26, 512, device=cuda))
     torch.cuda.synchronize()
-    assert BiLSTM.plain_layers == plain
+    assert BiLSTM.padded_layers == padded
     assert (lstm.bilstm_recurrence.launches - launches[0],
             lstm.bilstm_recurrence_bwd.launches - launches[1]) == (1, 1)
 

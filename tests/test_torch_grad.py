@@ -88,11 +88,9 @@ def test_bigru_grads_match_pallas_vjp(fold, length):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("hidden", [8, 5])
-@pytest.mark.parametrize("length", [1, 9])
-def test_bilstm_grads_match_pallas_vjp(length, hidden):
-    """At an odd H too: the plain twin, which the CUDA kernel is held
-    against on the card, against the Pallas VJP."""
+def _bilstm_case(length, hidden):
+    """(x, params, weight) from a seed and JAX's gradients of
+    sum(bilstm_pallas * weight) with respect to x and the params."""
     rng = np.random.default_rng(300 + length)
     rows, in_f = 5, 7
     x = rng.standard_normal((rows, length, in_f)).astype(np.float32)
@@ -106,14 +104,42 @@ def test_bilstm_grads_match_pallas_vjp(length, hidden):
         np.asarray(g)
         for g in jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in (x, *params)))
     ]
-    lstm = _module(trnn.BiLSTM, in_f, hidden, *params)
+    return x, params, weight, want
+
+
+def _check_bilstm_grads(x, params, weight, want):
+    lstm = _module(trnn.BiLSTM, x.shape[-1], weight.shape[-1] // 2, *params)
     xt = torch.from_numpy(x).requires_grad_()
     y = lstm(xt)
-    assert "BiLSTMRecurrence" in type(y.grad_fn).__name__
     (y * torch.from_numpy(weight)).sum().backward()
     got = [xt.grad.numpy(), *_stacked_grads(lstm)]
     for g, w, name in zip(got, want, ("dx", "dw_ih", "dw_hh", "db_ih", "db_hh")):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+    return y.grad_fn
+
+
+@pytest.mark.parametrize("hidden", [8, 5])
+@pytest.mark.parametrize("length", [1, 9])
+def test_bilstm_grads_match_pallas_vjp(length, hidden):
+    """At an odd H too: the plain twin, which the CUDA kernel is held
+    against on the card, against the Pallas VJP."""
+    assert "BiLSTMRecurrence" in type(_check_bilstm_grads(*_bilstm_case(length, hidden))).__name__
+
+
+@pytest.mark.parametrize("wide", [6, 8])
+def test_bilstm_at_a_padded_hidden_matches_pallas_vjp(monkeypatch, wide):
+    """On the card ``BiLSTM`` runs an H that the kernels refuse at the next
+    H they serve (``lstm.served_hidden``), its weights zero-padded.  Forced
+    here on the CPU, H=5 run at ``wide``: the output and every gradient are
+    still H=5's, against the Pallas VJP, and the layer is counted."""
+    monkeypatch.setattr(tlstm, "served_hidden", lambda hid, device: wide)
+    padded = trnn.BiLSTM.padded_layers
+    grad_fn = _check_bilstm_grads(*_bilstm_case(9, 5))
+    assert trnn.BiLSTM.padded_layers == padded + 1
+    # the output slices the padded recurrence's two directions back to H
+    assert [type(f).__name__ for f, _ in grad_fn.next_functions] == ["SliceBackward0"] * 2
+    recurrence = grad_fn.next_functions[0][0].next_functions[0][0]
+    assert "BiLSTMRecurrence" in type(recurrence).__name__
 
 
 def test_recurrences_refuse_other_devices_and_shapes():

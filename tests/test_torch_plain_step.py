@@ -5,27 +5,33 @@ small widths: one SRB, hidden 4, batch 8).
 Plain step: ``tsrn`` with ``--tssim_loss --rotate_train=5``; ``tsrn`` with
 ``--ssim_loss --color_loss --mse_fuse`` (Distorted-SSIM, the mean-colour
 term and a second forward, rotated back); ``sem_tsrn``; ``tsrn_c2f`` with
-``--ssim_loss --tssim_loss --mse_fuse`` (plain SSIM, three forwards).  Weights come from ``random_variables`` through
-``from_jax``, inputs from the JAX collate of seeded synthetic crops, and
-the rotation from the JAX step's own draws at ``PRNGKey(0)``, pinned into
-the port's batch.  Both sides run the trainer's Adam (lr 1e-3, betas (0.5,
-0.999)) after per-model clipping.  Held at the tolerances of
-``test_torch_flags.py``: every metric within rtol 1e-5, the BN running
-statistics (three forwards' worth under ``--tssim_loss --mse_fuse``) and
-every parameter after the Adam step within rtol 1e-4 / atol 1e-6, but for
-the entries whose gradient lies within that file's gradient tolerance
-(1e-4 of the model's largest entry) of zero: Adam's first step moves an
-entry by ``lr g / (|g| + 1e-8)``, about ``lr`` whatever ``g``'s size, so
-an entry whose gradient vanishes analytically (a conv bias ahead of a
+``--ssim_loss --tssim_loss --mse_fuse`` (plain SSIM, three forwards).
+Weights come from ``random_variables`` through ``from_jax``, inputs from
+the JAX collate of seeded synthetic crops, and the rotation from the JAX
+step's own draws at ``PRNGKey(0)``, pinned into the port's batch.  Both
+sides step with SGD at lr 1, so that an update is the (per-model
+clipped) gradient, and are held by ``test_torch_flags.assert_steps_match``:
+every metric within rtol 1e-5, every gradient leaf within 1e-4 of the
+model's largest entry, the updated parameters and the BN running
+statistics (three forwards' worth under ``--tssim_loss --mse_fuse``)
+within rtol 1e-4 / atol 1e-6.  The students carry no loss: their
+gradients are zero on both sides.  The STN is off: its head's float32 gap
+is held in ``test_torch_flags.py``.
+
+The trainer's Adam (lr 1e-3, betas (0.5, 0.999)) is held once more, for
+``tsrn --tssim_loss``: every parameter after its first step within rtol
+1e-4 / atol 1e-6, but for the entries whose gradient lies within 1e-4 of
+the model's largest entry of zero: Adam's first step moves an entry by
+``lr g / (|g| + 1e-8)``, about ``lr`` whatever ``g``'s size, so an entry
+whose gradient vanishes analytically (a conv bias ahead of a
 training-mode BatchNorm) moves by ``lr`` in the direction of its rounding
 noise; each side moves those entries by at most ``lr``, so they are held
-within ``2 lr`` of JAX's.  The STN is
-off: its head's float32 gap is held in ``test_torch_flags.py``.
+within ``2 lr`` of JAX's.
 
 TATT step: the canonical recipe's flags with ``tsrn_tl_cascade``'s
 generator, the fused 2B forward through JAX's ``bn_copies=2`` clone as
-``loop.py:246-258`` builds it, SGD at lr 1 so that an update is the
-(clipped) gradient, held by ``test_torch_flags.assert_steps_match``.
+``loop.py:246-258`` builds it, SGD at lr 1, held by
+``test_torch_flags.assert_steps_match``.
 """
 
 from functools import partial
@@ -80,7 +86,9 @@ def _jax_rotation(n: int, degrees: float):
     return np.asarray(angle / 180.0 * np.pi), np.asarray(jax.random.uniform(o_rng, (n,)))
 
 
-def _jax_plain_step(arch, model, flags, sr_vars, stu_vars, batch):
+def _jax_plain_step(arch, model, flags, sr_vars, stu_vars, batch, tx):
+    """JAX's step under optimizer ``tx``: (metrics, updates = old - new
+    parameters, new states) in the port's names."""
     def sr_apply_plain(variables, lr, train, rngs=None, mutable=False):  # loop.py:260-272
         sr, mut = model.apply(variables, lr, train=train, rngs=rngs, mutable=mutable)
         return (sr[0] if isinstance(sr, tuple) else sr), mut
@@ -89,28 +97,33 @@ def _jax_plain_step(arch, model, flags, sr_vars, stu_vars, batch):
     criterion = partial(jimage_loss, gradient=cfg.gradient, loss_weight=(1.0, 1e-4))
     step = jax.jit(make_plain_train_step(sr_apply_plain, criterion, cfg, 4,
                                          ssim_variant="distorted" if arch == "tsrn" else "ssim"))
-    state = TrainState.create([sr_vars], [stu_vars], jmake_optimizer(LR, 0.5))
+    state = TrainState.create([sr_vars], [stu_vars], tx)
     new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
-    params = {"sr": from_jax(_host({"params": new.sr_params[0], "batch_stats": new.sr_batch_stats[0]})),
-              "student": from_jax(_host({"params": new.student_params[0],
-                                         "batch_stats": new.student_batch_stats[0]}))}
-    return {k: float(v) for k, v in metrics.items()}, params
+    updates = {part: [from_jax({"params": jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a) - np.asarray(b), getattr(state, f"{part}_params")[0],
+        getattr(new, f"{part}_params")[0])})] for part in ("sr", "student")}
+    states = {part: [from_jax(_host({"params": getattr(new, f"{part}_params")[0],
+                                     "batch_stats": getattr(new, f"{part}_batch_stats")[0]}))]
+              for part in ("sr", "student")}
+    return {k: float(v) for k, v in metrics.items()}, updates, states
 
 
-def _port_plain_step(arch, pcls, flags, sr_vars, stu_vars, batch):
+def _port_plain_step(arch, pcls, flags, sr_vars, stu_vars, batch, make_opt):
+    """The port's step under ``make_opt(params)``: (metrics, gradients,
+    new states), as :func:`_jax_plain_step` gives them."""
     generator = pcls(**TRUNK)
     generator.load_state_dict(from_jax(_host(sr_vars)))
     student = CRNN(**TINY_CRNN)
     student.load_state_dict(from_jax(_host(stu_vars)))
-    opt = make_optimizer(list(generator.parameters()) + list(student.parameters()), LR, 0.5)
+    opt = make_opt(list(generator.parameters()) + list(student.parameters()))
     cfg = StepConfig(**flags)
     metrics = plain_train_step([generator.train()], opt, {k: torch.from_numpy(v) for k, v in batch.items()},
                                cfg, torch.Generator().manual_seed(0),
                                partial(image_loss, gradient=cfg.gradient), 4, distorted=arch == "tsrn")
-    grads = {"sr": {k: p.grad.clone() for k, p in generator.named_parameters()},
-             "student": {k: p.grad.clone() for k, p in student.named_parameters()}}
-    return ({k: v.item() for k, v in metrics.items()},
-            {"sr": generator.state_dict(), "student": student.state_dict()}, grads)
+    grads = {"sr": [{k: p.grad.clone() for k, p in generator.named_parameters()}],
+             "student": [{k: p.grad.clone() for k, p in student.named_parameters()}]}
+    return ({k: v.item() for k, v in metrics.items()}, grads,
+            {"sr": [generator.state_dict()], "student": [student.state_dict()]})
 
 
 @pytest.fixture(scope="module")
@@ -121,8 +134,7 @@ def plain_batch():
     return batch, dict(batch, rot_arc=arc.astype(np.float32), rot_offs=offs.astype(np.float32))
 
 
-@pytest.mark.parametrize("case", list(PLAIN_CASES))
-def test_plain_step_matches_make_plain_train_step(plain_batch, case):
+def _run_case(case, plain_batch, jax_tx, make_opt):
     arch, jcls, pcls, flags = PLAIN_CASES[case]
     extra = {"word_vec_d": 12} if arch == "sem_tsrn" else {}
     model = jcls(**TRUNK, **extra)
@@ -130,26 +142,41 @@ def test_plain_step_matches_make_plain_train_step(plain_batch, case):
     sr_vars = random_variables(model, rng, jnp.zeros((2, 4, 16, 64)), train=True)
     stu_vars = random_variables(JCRNN(**TINY_CRNN), rng, jnp.zeros((2, 1, 32, 100)))
     jbatch, tbatch = plain_batch
-    m_j, s_j = _jax_plain_step(arch, model, flags, sr_vars, stu_vars, jbatch)
-    m_t, s_t, grads = _port_plain_step(arch, partial(pcls, **extra), flags, sr_vars, stu_vars, tbatch)
+    want = _jax_plain_step(arch, model, flags, sr_vars, stu_vars, jbatch, jax_tx)
+    got = _port_plain_step(arch, partial(pcls, **extra), flags, sr_vars, stu_vars, tbatch, make_opt)
     want_metrics = {"loss_sr", "loss_total"} | {
         name for flag, name in (("color_loss", "loss_color"), ("ssim_loss", "loss_ssim"),
                                 ("tssim_loss", "loss_tssim"), ("mse_fuse", "loss_mse_fuse"))
         if flags.get(flag)}
-    assert set(m_t) == set(m_j) == want_metrics
+    assert set(got[0]) == set(want[0]) == want_metrics
+    # no loss reaches the students
+    assert all(float(g.abs().max()) == 0.0 for g in got[1]["student"][0].values())
+    return want, got
+
+
+@pytest.mark.parametrize("case", list(PLAIN_CASES))
+def test_plain_step_matches_make_plain_train_step(plain_batch, case):
+    want, got = _run_case(case, plain_batch, optax.sgd(1.0),
+                          lambda params: torch.optim.SGD(params, lr=1.0))
+    assert_steps_match(want, got)
+
+
+def test_plain_step_adam_update_matches(plain_batch):
+    """The trainer's Adam after the plain step (module docstring)."""
+    (m_j, _, s_j), (m_t, grads, s_t) = _run_case(
+        "tsrn tssim", plain_batch, jmake_optimizer(LR, 0.5),
+        lambda params: make_optimizer(params, LR, 0.5))
     for key, value in m_j.items():
         np.testing.assert_allclose(m_t[key], value, rtol=1e-5, atol=1e-7, err_msg=key)
     for part in ("sr", "student"):
-        assert sorted(s_t[part]) == sorted(s_j[part])
-        g = grads[part]
+        (g,), (st,), (sj,) = grads[part], s_t[part], s_j[part]
+        assert sorted(st) == sorted(sj)
         scale = max(float(v.abs().max()) for v in g.values())
-        for name, want in s_j[part].items():
-            got, want = s_t[part][name].numpy(), want.numpy()
+        for name, want in sj.items():
+            got, want = st[name].numpy(), want.numpy()
             if name not in g:  # BN running statistics
                 np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6, err_msg=f"{part} {name}")
                 continue
-            if part == "student":  # no loss reaches it: Adam leaves it where it was
-                assert float(g[name].abs().max()) == 0.0
             noise = g[name].abs().numpy() <= 1e-4 * scale
             ok = np.isclose(got, want, rtol=1e-4, atol=1e-6) | (
                 noise & (np.abs(got - want) <= 2 * LR * (1 + 1e-4)))
