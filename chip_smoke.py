@@ -12,6 +12,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --flags-only             # phases 1 and 12 alone
   python3 chip_smoke.py --judges-only            # phases 1 and 13 alone
   python3 chip_smoke.py --tsrn-only              # phases 1 and 14 alone
+  python3 chip_smoke.py --zoo-only               # phases 1 and 15 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -83,6 +84,19 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      card against CPU, leaf by leaf; Evaluator images/s for tsrn; and
      ``cli.run --arch=tsrn`` for 4 steps, then ``--go_test`` of its best
      checkpoint against the summary saved with it
+ 15. the zoo at full width (the factory's defaults: hidden 32, 5 blocks,
+     scale 2, --mask): Trainer steps at batch 64 with the recipe's flags
+     for every factory arch but tatt, the TSRN family and bicubic (the
+     plain step, or the TATT step with two forwards for the _tl archs and
+     tranSR_v4), images/s, max memory and launches per step (20/20/0/0
+     for pcan, 20/20/4/2 for pcan_tl, 0/0/4/2 for the other TATT-step
+     archs, none for the other plain ones), falling loss_sr for pcan and
+     pcan_tl (han at lr 1e-4: it diverges at the YAML's 1e-3, in the JAX
+     package too); one batch-8 step card against CPU, leaf by leaf, for
+     pcan_tl (the TATT step's two-forward tssim path) and pcan (the plain
+     step, edge_image_loss); Evaluator images/s for pcan; ``cli.run
+     --arch=pcan`` for 4 steps, then ``--go_test`` of its best checkpoint
+     against the summary saved with it
 The last line is the JSON object the chip check reads; the line before
 it the kernels, and before that the whole run's seconds.  Imports no JAX.
 """
@@ -140,11 +154,11 @@ from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer, parse_aster_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, parse_crnn_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.moran import MORAN, parse_moran_input  # noqa: E402
-from tatt_tpu_torch.models.factory import ABLATION_SET, build_generator  # noqa: E402
+from tatt_tpu_torch.models.factory import ABLATION_SET, arch_steps, build_generator  # noqa: E402
 from tatt_tpu_torch.models.tsrn import TATT, TSRN  # noqa: E402
 from tatt_tpu_torch.train.judge import make_judge  # noqa: E402
 from tatt_tpu_torch.train.loop import (  # noqa: E402
-    Evaluator, Trainer, copies, make_summary_writer, to_device,
+    Evaluator, Trainer, copies, make_summary_writer, step_config, to_device,
 )
 from tatt_tpu_torch.train.pretrain import (  # noqa: E402
     encode_ctc_targets, hr_crops, pretrain_recognizer, word_accuracy,
@@ -279,6 +293,36 @@ TSRN_RECIPE = dict(STN=True, mask=True, use_distill=True, gradient=True, sr_shar
 # and backward, the mse_fuse target forward only
 PLAIN_MSE_FUSE_LAUNCHES = {"bigru_fwd": 30, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
 TSRN_CLI_ITERS = 4
+# phase 15, the zoo: Trainer steps at full width (the factory's defaults:
+# hidden 32, 5 blocks, scale 2, --mask), batch 64, the recipe's flags, for
+# every arch of the factory but tatt and the TSRN family (phases 7, 14) and
+# bicubic (nothing to train).  Launches per step from the code: PCAN's 5
+# PCABs run 2 GruBlocks each, 10 BiGRUs a forward; the plain step runs two
+# forwards of B (sr, sr_ret) with backward through both and no CRNN; the
+# zoo's _tl archs take the TATT step with two forwards of B (JAX fuses only
+# the archs with bn_copies), the teacher's two BiLSTMs forward and the
+# student's two forward and backward; the TP Interpreter's query GRU
+# (hidden 512) is a plain loop, as in JAX
+ZOO_PLAIN = {"bigru_fwd": 0, "bigru_bwd": 0, "bilstm_fwd": 0, "bilstm_bwd": 0}
+ZOO_TL = {"bigru_fwd": 0, "bigru_bwd": 0, "bilstm_fwd": 4, "bilstm_bwd": 2}
+ZOO_ARCHS = {
+    **{a: ZOO_PLAIN for a in ("srcnn", "vdsr", "scgan", "srres", "edsr", "lapsrn", "rdn",
+                              "esrgan", "han", "tbsrn")},
+    **{a: ZOO_TL for a in ("srcnn_tl", "vdsr_tl", "scgan_tl", "srresnet_tl", "rdn_tl",
+                           "esrgan_tl", "tbsrn_tl", "tranSR_v4")},
+    "pcan": PLAIN_LAUNCHES,
+    "pcan_tl": {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 4, "bilstm_bwd": 2},
+}
+# warm-up and timed steps: PCAN and PCAN_TL (the kernels' archs) long
+# enough for phase 12's falling-loss_sr gate, the rest a few
+ZOO_WARM, ZOO_STEPS = 2, 3
+ZOO_GATED, ZOO_GATED_WARM, ZOO_GATED_STEPS = ("pcan", "pcan_tl"), 5, 20
+ZOO_CLI_ITERS = 4
+# HAN at the YAML's lr 1e-3 diverges after its first Adam step, in the JAX
+# package and the port alike (scripts/han_lr_divergence.py on the CPU; on
+# the card loss_sr 11.8 -> 3.0e10 -> 8.8e27 -> nan): the phase trains it at
+# the HAN paper's 1e-4
+ZOO_LR = {"han": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -1647,6 +1691,168 @@ def tsrn_phase(smi: str) -> None:
           + f" ({smi}); phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
 
+def zoo_card_vs_cpu_step(arch: str, want_launches: dict) -> None:
+    """One full-width ``arch`` step at batch 8 through ``factory.arch_steps``
+    with the recipe's flags (rotation pinned, SGD at lr 1): the card
+    (kernels) against the CPU (plain twins), each trainable model's
+    gradient leaf by leaf with phase 8's two-tier gate."""
+    cfg = Config(args=Flags(arch=arch, **TSRN_RECIPE))
+    train_fn, _ = arch_steps(cfg)
+    tl = arch in ABLATION_SET
+    models_cpu = [init_parameters(build_generator(arch, cfg), 27), init_parameters(CRNN(), 28),
+                  init_parameters(CRNN(), 29)]
+    names = ["generator", "student"] if tl else ["generator"]
+    sds = SyntheticTextDataset(n=STEP_BATCH, seed=25)
+    b = collate([sds[i] for i in range(STEP_BATCH)])
+    rot = {"rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
+           "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
+    grads = {}
+    for run, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        gen_m, stu, teacher = (copy.deepcopy(m).to(dev) for m in models_cpu)
+        hr, lr = to_device(b, dev, True)
+        batch = {"images_hr": hr, "images_lr": lr, **{k: v.to(dev) for k, v in rot.items()}}
+        opt = torch.optim.SGD(list(gen_m.parameters()) + list(stu.parameters()), lr=1.0)
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = train_fn([gen_m.train()], [stu.train()], teacher.eval(), opt, batch,
+                           step_config(cfg.args), torch.Generator(device=dev).manual_seed(0))
+        counts = read_counts()
+        grads[run] = [{k: p.grad.double().cpu() for k, p in m.named_parameters()}
+                      for m in (gen_m, stu)[:len(names)]]
+        print(f"[zoo-step] {arch} {run} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps({k: v.item() for k, v in metrics.items()})} launches {json.dumps(counts)}")
+    if counts != want_launches:
+        fail(f"{arch} step launches {counts} (want {want_launches})")
+    for i, name in enumerate(names):
+        card = leaf_errors(grads["cpu"][i], grads["card"][i])
+        rnn = rnn_leaves(models_cpu[i])
+        for what, keys, tol in (("BiGRU/BiLSTM", rnn, RNN_LEAF_TOL),
+                                ("other", set(card) - rnn, LEAF_TOL)):
+            worst = sorted(keys, key=lambda k: -card[k])
+            print(f"[zoo-step] {arch} {name}, {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| "
+                  f"(tol {tol}): " + "; ".join(f"{card[k]:.3e} {k}" for k in worst[:3]))
+            bad = {k: card[k] for k in worst if not card[k] <= tol}
+            if bad:
+                fail(f"{arch} {name} {what} gradients card vs CPU above {tol}: {bad}")
+
+
+def zoo_phase(smi: str) -> None:
+    """Phase 15: the zoo at full width (checks and numbers in the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    train_ds = SyntheticTextDataset(n=8 * BATCH, seed=1)
+    for i in range(len(train_ds)):
+        train_ds[i]
+    ips, mem = {}, {}
+    for arch, want in ZOO_ARCHS.items():
+        cfg = Config(args=Flags(arch=arch, batch_size=BATCH, lr=ZOO_LR.get(arch), **TSRN_RECIPE))
+        cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+        cfg.TRAIN.displayInterval = 10**9
+        warm, steps = (ZOO_GATED_WARM, ZOO_GATED_STEPS) if arch in ZOO_GATED else (ZOO_WARM, ZOO_STEPS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_arch = time.perf_counter()
+        generator = init_parameters(build_generator(arch, cfg), 1234).to(DEV)
+        trainer = Trainer(cfg, [generator], [init_parameters(CRNN(), 1235).to(DEV)],
+                          init_parameters(CRNN(), 1236).to(DEV), train_ds, DEV)
+        first = trainer.train(max_iters=warm)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        timed = trainer.train(max_iters=warm + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step = {k: v / steps for k, v in read_counts().items()}
+        metrics = {k: first["metrics"][k] + timed["metrics"][k] for k in timed["metrics"]}
+        ips[arch] = steps * BATCH / wall
+        mem[arch] = torch.cuda.max_memory_allocated() / 2**30
+        sr = metrics["loss_sr"]
+        step = "TATT" if arch in ABLATION_SET else "plain"
+        print(f"[zoo] {arch} ({step} step, {sum(p.numel() for p in generator.parameters())} "
+              f"parameters, lr {cfg.lr:g}): {steps} steps at batch {BATCH} after {warm}, images/s {ips[arch]:.1f}, "
+              f"{wall / steps * 1e3:.1f} ms a step, max memory {mem[arch]:.2f} GiB; launches per "
+              f"step {json.dumps(per_step)} (want {json.dumps(want)}); loss_sr "
+              f"{[round(v, 4) for v in sr]}; {time.perf_counter() - t_arch:.1f} s ({smi})")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            fail(f"{arch}: launches per step {per_step} (want {want})")
+        if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
+            fail(f"{arch}: non-finite metrics")
+        # phase 12's gate: the median of the last 5 steps below that of steps 2-4
+        if arch in ZOO_GATED:
+            print(f"[zoo] {arch} loss_sr median of steps 2-4 {np.median(sr[1:4]):.4f}, of the "
+                  f"last 5 {np.median(sr[-5:]):.4f}")
+            if not np.median(sr[-5:]) < np.median(sr[1:4]):
+                fail(f"{arch}: loss_sr did not fall: {sr[1:4]} -> {sr[-5:]}")
+        if arch == "pcan":
+            pcan_gen, pcan_teacher = generator, trainer.teacher
+            pcan_sr_fn = trainer.evaluator.sr_fn
+        del trainer, generator
+    torch.cuda.empty_cache()
+
+    zoo_card_vs_cpu_step("pcan_tl", ZOO_ARCHS["pcan_tl"])
+    zoo_card_vs_cpu_step("pcan", ZOO_ARCHS["pcan"])
+
+    # ---- Evaluator for pcan at batch 64: the generator on LR alone, the
+    # judge (the teacher CRNN) on SR, LR and HR
+    evaluator = Evaluator([pcan_gen.eval()], [], pcan_teacher.eval(), DEV, batch_size=BATCH,
+                          mask=True, sr_fn=pcan_sr_fn)
+    ds, warm_ds = SyntheticTextDataset(n=4 * BATCH, seed=2), SyntheticTextDataset(n=BATCH, seed=3)
+    for d in (ds, warm_ds):
+        for i in range(len(d)):
+            d[i]
+    evaluator.evaluate(warm_ds)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = evaluator.evaluate(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"bigru_fwd": 10 * 4, "bigru_bwd": 0, "bilstm_fwd": 6 * 4, "bilstm_bwd": 0}
+    print(f"[zoo] Evaluator, pcan at batch {BATCH}: images/s {summary['images'] / wall:.1f}, psnr "
+          f"{summary['psnr_avg']:.4f} ssim {summary['ssim_avg']:.5f}, launches {json.dumps(counts)} "
+          f"(want {json.dumps(want)}) ({smi})")
+    if counts != want or not math.isfinite(summary["psnr_avg"]):
+        fail(f"pcan eval: launches {counts}, psnr {summary['psnr_avg']}")
+    del evaluator, pcan_gen, pcan_teacher
+
+    # ---- cli.run --arch=pcan, then --go_test of its best checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = os.path.join(tmp, "pcan.yaml")
+        with open(yaml, "w") as fh:
+            fh.write(f"TRAIN:\n  batch_size: {BATCH}\n  saveInterval: {ZOO_CLI_ITERS}\n"
+                     f"  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n"
+                     f"  VAL:\n    valInterval: {ZOO_CLI_ITERS}\n    crnn_pretrained: ''\n")
+        argv = ["--arch=pcan", "--mask", "--gradient", "--rotate_train=5.0", "--tssim_loss",
+                "--config", yaml, "--vis_dir", "vis_pcan", "--synthetic", str(4 * BATCH)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code, _ = cli.run(argv + ["--max_iters", str(ZOO_CLI_ITERS)])
+        best_path = os.path.join(tmp, "ckpt", "vis_pcan", "model_best_acc_0.ckpt")
+        if code != 0 or not os.path.exists(best_path):
+            fail(f"cli.run --arch=pcan: exit {code}, output {out.getvalue()[-500:]}")
+        saved = load_checkpoint(best_path)
+        best = saved["best_history_res"]["easy"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv + ["--go_test", "--resume", best_path])
+        lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[easy] ")]
+        got = ast.literal_eval(lines[-1][len("[easy] "):]) if lines else {}
+        print(f"[zoo] cli.run --arch=pcan {ZOO_CLI_ITERS} steps (arch in the checkpoint: "
+              f"{saved['info']['arch']}), --go_test of model_best_acc_0.ckpt: psnr "
+              f"{got.get('psnr_avg')} ssim {got.get('ssim_avg')} acc {got.get('accuracy')}; saved "
+              f"with it: psnr {best['psnr_avg']} ssim {best['ssim_avg']} acc {best['accuracy']}")
+        if code != 0 or not got or got["images"] != best["images"] or saved["info"]["arch"] != "pcan":
+            fail(f"--go_test --arch=pcan: exit {code}, output {out.getvalue()[-500:]}")
+        if not (abs(got["psnr_avg"] - best["psnr_avg"]) <= GO_TEST_PSNR_TOL
+                and abs(got["ssim_avg"] - best["ssim_avg"]) <= GO_TEST_SSIM_TOL
+                and got["accuracy"] == best["accuracy"]):
+            fail(f"--go_test --arch=pcan summary {got} differs from the saved {best}")
+    print(f"[zoo] train images/s at batch {BATCH} (max memory GiB): "
+          + ", ".join(f"{a} {ips[a]:.1f} ({mem[a]:.2f})" for a in ips)
+          + f" ({smi}); phase 15 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -1673,6 +1879,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tsrn-only", action="store_true",
                     help="run phases 1 and 14 alone (the TSRN family at full width); prints "
                          "no result line")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="run phases 1 and 15 alone (the zoo at full width); prints no result "
+                         "line")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -1725,6 +1934,10 @@ def main(argv=None) -> int:
         return 0
     if args.tsrn_only:
         tsrn_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.zoo_only:
+        zoo_phase(smi)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -1904,6 +2117,9 @@ def main(argv=None) -> int:
 
     # ---- 14. the TSRN family: factory archs, the plain step, the CLI
     tsrn_phase(smi)
+
+    # ---- 15. the zoo: every other factory arch, PCAN through the BiGRU kernels
+    zoo_phase(smi)
 
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the

@@ -1,9 +1,13 @@
 """CLI of the port (the ported subset of ``tatt_tpu/cli/main.py``).
 
 Training of ``--arch`` ``tatt`` (the canonical recipe of
-``scripts/train_TATT.sh`` below) or of the TSRN family (``tsrn``,
-``tsrn_tl_cascade``, ``tsrn_tl_cascade_sft``, ``tsrn_c2f``, ``sem_tsrn``):
-the archs of ``ABLATION_SET`` take the TATT step, the others the plain
+``scripts/train_TATT.sh`` below), of the TSRN family (``tsrn``,
+``tsrn_tl_cascade``, ``tsrn_tl_cascade_sft``, ``tsrn_c2f``, ``sem_tsrn``)
+or of the baselines of the zoo (``srcnn``, ``srcnn_tl``, ``vdsr``,
+``vdsr_tl``, ``srres``, ``srresnet_tl``, ``edsr``, ``rdn``, ``rdn_tl``,
+``lapsrn``, ``esrgan``, ``esrgan_tl``, ``scgan``, ``scgan_tl``, ``han``,
+``pcan``, ``pcan_tl``, ``tbsrn``, ``tbsrn_tl``): the JAX CLI's choices.
+The archs of ``ABLATION_SET`` take the TATT step, the others the plain
 step, on the TextZoom LMDBs that a YAML names (``TRAIN.train_data_dir``, and
 ``TRAIN.VAL.val_data_dir`` for validation, each set keyed by its
 directory's basename):
@@ -56,10 +60,14 @@ The reference's dead flags (``--text_focus``, ``--prob_insert``,
 ``--test_distorted_fusing``, ``--BiSR``, ``--rotate_test``,
 ``--results_rotate``) are accepted with a warning.
 
-Refused with "not ported yet": ``--dtype bfloat16``, another ``--arch``
-(the zoo's), ``--tpg OPT``, ``--CHNSR`` and the data
-flags of ``data/variants.py``, any other flag, and a YAML the port does
-not serve; nothing is silently ignored.  Without weights the generators
+``--arch=bicubic`` is refused in every mode: BICUBIC has no parameters, so
+there is nothing to train or to checkpoint (the JAX CLI accepts it and
+fails in every mode: its ``TrainState`` reads the absent ``params``,
+``tatt_tpu/train/state.py:36``).  ``tranSR_v4``, which the factory builds,
+is not among the JAX CLI's choices: argparse refuses it (exit code 2).
+Refused with "not ported yet": ``--dtype bfloat16``, ``--tpg OPT``,
+``--CHNSR`` and the data flags of ``data/variants.py``, any other flag,
+and a YAML the port does not serve; nothing is silently ignored.  Without weights the generators
 and the CRNN students / teacher start from initial weights seeded by
 ``TRAIN.manualSeed``.
 """
@@ -84,7 +92,7 @@ from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
-from tatt_tpu_torch.models.factory import arch_steps, available_archs, build_generator
+from tatt_tpu_torch.models.factory import arch_steps, build_generator
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, crnn_widths
 from tatt_tpu_torch.models.recognizers.moran import MORAN
@@ -98,11 +106,18 @@ STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss"
               "training_stablize", "color_loss", "mse_fuse")
 # a non-CRNN judge's or recognizer's weights: the flag, else the YAML's key
 JUDGE_WEIGHTS = {"ASTER": "rec_pretrained", "MORAN": "moran_pretrained"}
+# --arch choices: the JAX CLI's (tatt_tpu/cli/main.py:25-55)
+ARCHS = ("tatt", "tsrn", "sem_tsrn", "tsrn_c2f", "tsrn_tl_cascade", "tsrn_tl_cascade_sft",
+         "srcnn", "srcnn_tl", "vdsr", "vdsr_tl", "srres", "srresnet_tl", "edsr", "rdn", "rdn_tl",
+         "lapsrn", "esrgan", "esrgan_tl", "scgan", "scgan_tl", "han", "pcan", "pcan_tl", "tbsrn",
+         "tbsrn_tl", "bicubic")
+BICUBIC_REFUSAL = ("--arch=bicubic: BICUBIC has no parameters, so there is nothing to train, "
+                   "optimize or checkpoint (the JAX package fails on it in every mode too)")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="tatt_tpu_torch — TATT on CUDA", allow_abbrev=False)
-    p.add_argument("--arch", default="tatt")
+    p.add_argument("--arch", default="tatt", choices=ARCHS)
     p.add_argument("--test_model", default="CRNN", choices=["CRNN", "ASTER", "MORAN"])
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--go_test", action="store_true")
@@ -149,12 +164,13 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     """(the config tree, the parsed namespace with the extras that are
     not ``Flags``: ``synthetic``, ``max_iters``, the ``*_pretrained``
-    paths, ``device``).  Raises SystemExit("not ported yet: ...")."""
+    paths, ``device``).  Raises SystemExit("not ported yet: ...") and
+    SystemExit(BICUBIC_REFUSAL)."""
     args, unknown = build_parser().parse_known_args(argv)
+    if args.arch == "bicubic":
+        raise SystemExit(BICUBIC_REFUSAL)
     refused = [
         (bool(unknown), " ".join(unknown)),
-        (args.arch not in available_archs(),
-         f"--arch={args.arch} (ported: {', '.join(available_archs())})"),
         (args.tpg != "CRNN", f"--tpg={args.tpg} (only CRNN)"),
         (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
     ]

@@ -24,13 +24,27 @@ names for the last three or for SEM_TSRN's attention blocks
 (``mask_multihead``, ``norm1`` / ``norm3`` with ``a_2`` / ``b_2``,
 ``pff_w1`` / ``pff_w2``): there the port keeps the JAX module names, its
 own choice.
+
+The zoo's generators (``models/zoo``) share top-level names with that
+trunk and with one another (``block1_conv``, ``block2``, ``infoGen``,
+...), so their layout is never guessed: ``from_jax(variables, arch=...)``
+takes the factory's arch name.  The families that a JAX importer reads
+keep the reference names that it reads: TBSRN (``import_tbsrn_tl``: the
+TSRN trunk names, the FeatureEnhancer's ``multihead.linears.0-3``,
+``mul_layernorm1`` / ``3`` and ``pff.w_1`` / ``w_2``), HAN
+(``import_han``: ``head.0``, ``body.<g>.body.<b>.body.{0,2,3}``,
+``la`` / ``csa``, ``tail``), RDN (``import_rdn_tl``:
+``RDB<k>.dense_layers.<i>.conv``) and ESRGAN (``import_esrgan_tl``:
+``RRDB_trunk.<i>``), the plain sibling of each too; every other zoo arch
+keeps the JAX module names as they are (a TP Interpreter ``infoGen`` the
+names of TATT's).
 """
 
 from __future__ import annotations
 
 import pickle
 import re
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -125,7 +139,8 @@ def _generator_prefix(mods: list[str], srb: int, n_up: int) -> str:
             return ".".join([f"infoGen.transformer.{m[1]}.layers.{m[2]}", *tail])
         if sub in _INFOGEN:
             return ".".join([f"infoGen.{_INFOGEN[sub]}", *tail])
-    raise KeyError(f"unmapped generator module path {'/'.join(mods)!r}")
+    raise KeyError(f"unmapped generator module path {'/'.join(mods)!r} "
+                   "(a zoo generator's variables need arch=)")
 
 
 def _stn_prefix(mods: list[str]) -> str:
@@ -207,32 +222,152 @@ def _crnn_prefix(mods: list[str]) -> str:
     raise KeyError(f"unmapped CRNN module path {'/'.join(mods)!r}")
 
 
-def from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX variables of a ``TATT``, a TSRN-family generator (``TSRN``,
+def _count(top: set, pattern: str) -> int:
+    return sum(bool(re.fullmatch(pattern, m)) for m in top)
+
+
+def _jax_names_prefix(mods: list[str]) -> str:
+    """A zoo generator that keeps the JAX module names; its ``infoGen``
+    (the TL archs' deconv stack, or a TP Interpreter) as TATT's."""
+    return _generator_prefix(mods, 0, 0) if mods[0] == "infoGen" else ".".join(mods)
+
+
+def _tbsrn_prefix(mods: list[str], srb: int, n_up: int) -> str:
+    """TBSRN / TBSRN_TL -> the names of ``import_tbsrn_tl``
+    (``torch_import.py:422``): the TSRN trunk's, blocks ``block<i>``."""
+    head, rest = mods[0], mods[1:]
+    if re.fullmatch(r"block\d+", head):
+        if rest[:1] == ["feature_enhancer"] and len(rest) == 2:
+            sub = {"multihead": "multihead", "norm1": "mul_layernorm1", "norm3": "mul_layernorm3",
+                   "pff_w1": "pff.w_1", "pff_w2": "pff.w_2", "linear": "linear"}
+            if rest[1] in sub:
+                return f"{head}.feature_enhancer.{sub[rest[1]]}"
+        if len(rest) == 1 and rest[0] in ("conv1", "bn1", "conv2", "bn2", "conv_proj"):
+            return ".".join(mods)
+        raise KeyError(f"unmapped TBSRN module path {'/'.join(mods)!r}")
+    if head == "final" and not rest:
+        return f"block{srb + 3}.{n_up}"
+    if re.fullmatch(r"srb\d+|final_conv|stn_head", head):
+        raise KeyError(f"unmapped TBSRN module path {'/'.join(mods)!r}")
+    return _generator_prefix(mods, srb, n_up)
+
+
+def _han_prefix(mods: list[str], n_resgroups: int, n_resblocks: int) -> str:
+    """HAN -> the names of ``import_han`` (``torch_import.py:455``)."""
+    head, rest = mods[0], mods[1:]
+    m = re.fullmatch(r"group(\d+)", head)
+    if m and rest == ["conv_tail"]:
+        return f"body.{m[1]}.body.{n_resblocks}"
+    if m and len(rest) >= 2 and re.fullmatch(r"rcab\d+", rest[0]):
+        block = f"body.{m[1]}.body.{rest[0][len('rcab'):]}.body"
+        sub = {("conv1",): "0", ("conv2",): "2", ("ca", "down"): "3.conv_du.0",
+               ("ca", "up"): "3.conv_du.2"}.get(tuple(rest[1:]))
+        if sub:
+            return f"{block}.{sub}"
+    m = re.fullmatch(r"up(\d+)", head)
+    fixed = {"head": "head.0", "body_tail": f"body.{n_resgroups}", "la": "la", "csa": "csa",
+             "last_conv": "last_conv", "last": "last", "tail": "tail.1"}
+    if m and not rest:
+        return f"tail.0.{2 * int(m[1])}"
+    if head in fixed and not rest:
+        return fixed[head]
+    raise KeyError(f"unmapped HAN module path {'/'.join(mods)!r}")
+
+
+def _rdn_prefix(mods: list[str]) -> str:
+    """RDN / RDN_TL -> the names of ``import_rdn_tl`` (``torch_import.py:491``)."""
+    if re.fullmatch(r"RDB\d", mods[0]) and len(mods) == 2:
+        m = re.fullmatch(r"dense(\d+)", mods[1])
+        if m:
+            return f"{mods[0]}.dense_layers.{m[1]}.conv"
+    return _jax_names_prefix(mods)
+
+
+def _esrgan_prefix(mods: list[str]) -> str:
+    """RRDBNet / RRDBNet_TL -> the names of ``import_esrgan_tl``
+    (``torch_import.py:511``)."""
+    m = re.fullmatch(r"RRDB(\d+)", mods[0])
+    if m:
+        return ".".join([f"RRDB_trunk.{m[1]}", *mods[1:]])
+    return _jax_names_prefix(mods)
+
+
+# the factory's archs by layout: the TSRN trunk (TATT and the TSRN family),
+# the families of a JAX importer, and the rest of the zoo with JAX names
+TSRN_ARCHS = ("tatt", "tsrn", "tsrn_tl_cascade", "tsrn_tl_cascade_sft", "tsrn_c2f", "sem_tsrn")
+JAX_NAMED_ARCHS = ("srcnn", "srcnn_tl", "vdsr", "vdsr_tl", "scgan", "scgan_tl", "srres",
+                   "srresnet_tl", "edsr", "lapsrn", "pcan", "pcan_tl", "tranSR_v4")
+REFERENCE_NAMED_ARCHS = ("tbsrn", "tbsrn_tl", "han", "rdn", "rdn_tl", "esrgan", "esrgan_tl")
+
+
+def _layout(arch: Optional[str], paths: list[list[str]]):
+    """The module-path mapping of ``arch``'s variables (``paths``: each
+    leaf's module path); with no arch, of TATT / TSRN-family, CRNN, ASTER
+    or MORAN variables by their modules."""
+    top = {p[0] for p in paths if p}
+    srb, n_up = _count(top, r"srb\d+"), _count(top, r"up\d+")
+    if arch in TSRN_ARCHS or (arch is None and "block1_conv" in top):
+        return lambda mods: _generator_prefix(mods, srb, n_up)
+    if arch in ("tbsrn", "tbsrn_tl"):
+        return lambda mods: _tbsrn_prefix(mods, _count(top, r"block\d+"), n_up)
+    if arch == "han":
+        n_resblocks = _count({p[1] for p in paths if p[:1] == ["group0"]}, r"rcab\d+")
+        return lambda mods: _han_prefix(mods, _count(top, r"group\d+"), n_resblocks)
+    if arch in ("rdn", "rdn_tl"):
+        return _rdn_prefix
+    if arch in ("esrgan", "esrgan_tl"):
+        return _esrgan_prefix
+    if arch in JAX_NAMED_ARCHS:
+        return _jax_names_prefix
+    if arch is not None:
+        known = sorted(TSRN_ARCHS + JAX_NAMED_ARCHS + REFERENCE_NAMED_ARCHS)
+        raise KeyError(f"no weight layout for arch {arch!r} (have: {', '.join(known)})")
+    for marker, prefix_of in (("conv0", _crnn_prefix), ("encoder", _aster_prefix),
+                              ("MORN", _moran_prefix)):
+        if marker in top:
+            return prefix_of
+    raise KeyError(f"not generator, CRNN, ASTER or MORAN variables (modules {sorted(top)}); "
+                   "a zoo generator's needs arch=")
+
+
+def _attention_entries(prefix: str, leaf: str, value: np.ndarray) -> Optional[dict]:
+    """TBSRN's packed attention leaves -> the reference's four Linears
+    (``import_tbsrn_tl`` packs them, ``torch_import.py:385-403``)."""
+    if leaf in ("in_proj_weight", "in_proj_bias"):
+        kind = "weight" if leaf == "in_proj_weight" else "bias"
+        return {f"{prefix}.linears.{i}.{kind}": part
+                for i, part in enumerate(np.split(value, 3, axis=0))}
+    if leaf in ("out_proj_weight", "out_proj_bias"):
+        return {f"{prefix}.linears.3.{leaf[len('out_proj_'):]}": value}
+    return None
+
+
+def from_jax(variables: Mapping[str, Any], arch: Optional[str] = None) -> dict[str, torch.Tensor]:
+    """JAX variables -> the port's ``state_dict``.  ``arch``: the factory's
+    name of the generator (every zoo generator needs it); without it, the
+    variables of a ``TATT``, a TSRN-family generator (``TSRN``,
     ``TSRN_TL``, ``TSRN_TL_SFT``, ``TSRN_C2F``, ``SEM_TSRN``,
-    ``TSRNEncoder``), a ``CRNN``, an ``AsterRecognizer`` or a ``MORAN`` ->
-    the port's ``state_dict``."""
+    ``TSRNEncoder``), a ``CRNN``, an ``AsterRecognizer`` or a ``MORAN``."""
     flat = _flatten(variables)
-    top = {k.split("/")[1] for k in flat}
-    if "block1_conv" in top:
-        srb = sum(bool(re.fullmatch(r"srb\d+", m)) for m in top)
-        n_up = sum(bool(re.fullmatch(r"up\d+", m)) for m in top)
-        prefix_of = lambda mods: _generator_prefix(mods, srb, n_up)  # noqa: E731
-    elif "conv0" in top:
-        prefix_of = _crnn_prefix
-    elif "encoder" in top:
-        prefix_of = _aster_prefix
-    elif "MORN" in top:
-        prefix_of = _moran_prefix
-    else:
-        raise KeyError(f"not generator, CRNN, ASTER or MORAN variables (modules {sorted(top)})")
+    prefix_of = _layout(arch, [k.split("/")[1:-1] for k in flat])
     out: dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         _, *mods, leaf = key.split("/")
         value = np.asarray(value, np.float32)
         rnn = re.fullmatch(r"(w_ih|w_hh|b_ih|b_hh)(?:_l(\d))?", leaf)
-        if leaf == "init_factor" and mods == ["infoGen"]:
+        attention = (arch in ("tbsrn", "tbsrn_tl") and mods[-1:] == ["multihead"]
+                     and _attention_entries(prefix_of(mods), leaf, value))
+        if attention:
+            entries = attention
+        elif leaf == "init_factor" and mods == ["infoGen"]:
             entries = {"infoGen.init_factor.weight": value}
+        elif leaf == "init_factor" and not mods and arch == "tranSR_v4":
+            entries = {"init_factor": value}
+        elif leaf in ("horizontal_w", "horizontal_b", "vertical_w", "vertical_b", "gamma"):
+            entries = {f"{prefix_of(mods)}.{leaf}": value}
+        elif leaf in ("conv3d_kernel", "conv3d_bias"):  # HAN's CSAM: a Conv3d
+            entries = {f"{prefix_of(mods)}.conv.{'weight' if leaf == 'conv3d_kernel' else 'bias'}":
+                       value}
         elif leaf == "fc2_kernel" and mods == ["stn_head"]:
             entries = {"stn_head.stn_fc2.weight": value.T}
         elif leaf == "fc2_bias" and mods == ["stn_head"]:

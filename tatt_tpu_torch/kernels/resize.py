@@ -3,7 +3,8 @@
 Counterpart of ``tatt_tpu/kernels/resize.py``: the same [out, in] weight
 matrices (bicubic Keys kernel with a = -0.75 and edge clamping, matching
 torch's ``upsample_bicubic2d`` with ``align_corners=False``; bilinear
-matching ``F.interpolate(mode='bilinear')``), applied as two f32 matmuls.
+matching ``F.interpolate(mode='bilinear')``), applied as two f32 matmuls,
+and the nearest x``s`` upsampling of ``F.interpolate``'s default.
 """
 
 from __future__ import annotations
@@ -85,6 +86,13 @@ def resize_bilinear(
         _linear_matrix(h, out_h, align_corners),
         _linear_matrix(w, out_w, align_corners),
     )
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Torch ``F.interpolate(scale_factor=s)`` default (nearest) for NCHW:
+    each pixel repeated ``scale`` times along H and W
+    (``tatt_tpu/kernels/resize.py:114``)."""
+    return x.repeat_interleave(scale, dim=-2).repeat_interleave(scale, dim=-1)
 
 
 def rgb_to_luma(x: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,13 @@ def _uniform(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
     t.uniform_(-bound, bound, generator=gen)
 
 
+def _torch_bound(fan_in: int) -> float:
+    """torch's default U(-b, b) bound, 1 / sqrt(fan_in); 0 for a layer with
+    no inputs (a squeeze-excite's zero-width bottleneck at shrunk widths),
+    as the JAX package's ``torch_conv_init`` gives it."""
+    return 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+
+
 class Conv2d(nn.Module):
     """Conv with explicit symmetric padding and a stride, OIHW weight.
 
@@ -68,7 +75,7 @@ class Conv2d(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         fan_in = self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3]
-        bound = 1.0 / math.sqrt(fan_in)
+        bound = _torch_bound(fan_in)
         _uniform(self.weight, bound, gen)
         if self.bias is not None:
             _uniform(self.bias, bound, gen)
@@ -97,7 +104,7 @@ class ConvTranspose2d(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         # torch's fan_in of a transposed conv: out_channels * kh * kw
-        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3])
+        bound = _torch_bound(self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3])
         _uniform(self.weight, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -196,12 +203,33 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        bound = _torch_bound(self.weight.shape[1])
         _uniform(self.weight, bound, gen)
         _uniform(self.bias, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+class JaxNamed(nn.Module):
+    """A generator whose top-level modules carry the names of its JAX
+    counterpart's top-level modules, so that the train step's
+    ``gnorm/<module>`` metrics group its parameters by its children."""
+
+    def jax_module_params(self) -> dict[str, list[nn.Parameter]]:
+        groups: dict[str, list[nn.Parameter]] = {}
+        for name, p in self.named_parameters():
+            groups.setdefault(name.split(".")[0], []).append(p)
+        return groups
+
+
+def check_copies(copies: int) -> None:
+    """The zoo's generators take the TATT step's ``copies`` argument but
+    hold no per-copy BatchNorm: the step never packs copies for them
+    (``factory.arch_steps``), and a packed batch is refused here rather
+    than normalized as one."""
+    if copies != 1:
+        raise ValueError(f"this generator runs one copy a forward (copies={copies})")
 
 
 @torch.no_grad()

@@ -1,17 +1,19 @@
 """Arch name -> generator and criterion (counterpart of
 ``tatt_tpu/models/factory.py``).
 
-:func:`build_generator` builds the registered archs with the JAX
-package's constructor arguments (``factory.py:83-116, 319-374``):
-``tatt`` and the TSRN family.  The zoo's archs are not registered yet.
+:func:`build_generator` builds every arch of the JAX factory with its
+constructor arguments (``factory.py:83-374``): ``tatt``, the TSRN family
+and the zoo (``models/zoo``), ``tranSR_v4`` included.
 ``ABLATION_SET`` (``factory.py:18-31``, reference
 ``super_resolution.py:59-61``) lists the archs that take a text prior:
-:func:`arch_steps` gives them the TATT step and the rest the plain step.
+:func:`arch_steps` gives them the TATT step and the rest the plain step,
+and says whether the TATT step fuses its tssim copy.
 :func:`build_criterion` holds every branch of ``factory.py:56-80``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Callable
 
@@ -26,6 +28,15 @@ from tatt_tpu_torch.losses.image import (
     mse_loss,
 )
 from tatt_tpu_torch.models.tsrn import SEM_TSRN, TATT, TSRN, TSRN_C2F, TSRN_TL, TSRN_TL_SFT
+from tatt_tpu_torch.models.zoo.esrgan import RRDBNet, RRDBNet_TL
+from tatt_tpu_torch.models.zoo.han import HAN
+from tatt_tpu_torch.models.zoo.pcan import PCAN, PCAN_TL
+from tatt_tpu_torch.models.zoo.resnets import EDSR, RDN, RDN_TL, LapSRN, SRResNet, SRResNet_TL
+from tatt_tpu_torch.models.zoo.simple import (
+    BICUBIC, SCGAN, SCGAN_TL, SRCNN, SRCNN_TL, VDSR, VDSR_TL,
+)
+from tatt_tpu_torch.models.zoo.tbsrn import TBSRN, TBSRN_TL
+from tatt_tpu_torch.models.zoo.transformer_sr import SRTransformerV4
 from tatt_tpu_torch.train.steps import eval_step, plain_eval_step, plain_train_step, train_step
 
 ABLATION_SET = [
@@ -45,6 +56,11 @@ ABLATION_SET = [
 # archs the reference feeds 3 channels whatever --mask says
 # (super_resolution.py:1038-1043, tatt_tpu/train/loop.py:151-153)
 THREE_CHANNEL_ARCHS = ("srcnn", "rdn", "vdsr", "edsr", "lapsrn", "han")
+# the archs whose TATT step runs sr and the counter-rotated sr_ret in one 2B
+# forward under --tssim_loss --fused_tssim: JAX fuses the models with a
+# bn_copies field (loop.py:240-253; TATT, TSRN_TL, TSRN_TL_SFT), every other
+# arch of ABLATION_SET takes two forwards of B
+FUSED_TSSIM_ARCHS = ("tatt", "tsrn_tl_cascade", "tsrn_tl_cascade_sft")
 
 _REGISTRY: dict[str, Callable[[Config], nn.Module]] = {}
 
@@ -72,13 +88,22 @@ def arch_steps(cfg: Config) -> tuple[Callable, Callable]:
     which step an arch takes: ``train_fn(generators, students, teacher,
     optimizer, arrays, step_cfg, gen) -> metrics`` and ``sr_fn(generators,
     students, lr) -> (sr, aux)``.  An arch of ``ABLATION_SET`` takes the
-    TATT step and its eval; the others the plain step and eval on their
-    channels (``loop.py:149-153``) with their criterion, distorted SSIM for
-    ``tsrn`` (``loop.py:317``) and no loss on the students."""
+    TATT step and its eval, with ``fused_tssim`` as the flags say for the
+    archs of ``FUSED_TSSIM_ARCHS`` and off for the rest; the others the
+    plain step and eval on their channels (``loop.py:149-153``) with their
+    criterion, distorted SSIM for ``tsrn`` (``loop.py:317``) and no loss
+    on the students."""
     a = cfg.args
     if a.arch in ABLATION_SET:
-        return train_step, lambda gens, stus, lr: eval_step(gens, stus, lr, a.stu_iter,
-                                                            a.for_cascading)
+        fuses = a.arch in FUSED_TSSIM_ARCHS
+
+        def tatt_fn(generators, students, teacher, optimizer, arrays, step_cfg, gen):
+            if not fuses:
+                step_cfg = dataclasses.replace(step_cfg, fused_tssim=False)
+            return train_step(generators, students, teacher, optimizer, arrays, step_cfg, gen)
+
+        return tatt_fn, lambda gens, stus, lr: eval_step(gens, stus, lr, a.stu_iter,
+                                                         a.for_cascading)
     channels = 3 if a.arch in THREE_CHANNEL_ARCHS else 4 if a.mask else 3
     criterion, distorted = build_criterion(a.arch, cfg), a.arch == "tsrn"
 
@@ -149,3 +174,50 @@ def _tsrn_c2f(cfg: Config):
 @register("sem_tsrn")
 def _sem_tsrn(cfg: Config):
     return SEM_TSRN(**_trunk_args(cfg))
+
+
+def _planes(cfg: Config) -> int:
+    return 4 if cfg.args.mask else 3
+
+
+def _hr(cfg: Config) -> dict:
+    return dict(height=cfg.TRAIN.height, width=cfg.TRAIN.width)
+
+
+def _zoo_trunk(cfg: Config) -> dict:
+    a = cfg.args
+    return dict(scale_factor=cfg.scale_factor, srb_nums=a.srb, mask=a.mask, hidden_units=a.hd_u)
+
+
+# the zoo (factory.py:119-316): the reference feeds srcnn, vdsr, rdn, edsr,
+# lapsrn and han 3 channels whatever --mask says (THREE_CHANNEL_ARCHS)
+_ZOO: dict[str, Callable[[Config], nn.Module]] = {
+    "srcnn": lambda c: SRCNN(scale_factor=c.scale_factor, in_planes=3),
+    "srcnn_tl": lambda c: SRCNN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c)),
+    "vdsr": lambda c: VDSR(scale_factor=c.scale_factor, in_planes=3),
+    "vdsr_tl": lambda c: VDSR_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c)),
+    "scgan": lambda c: SCGAN(scale_factor=c.scale_factor, in_planes=_planes(c)),
+    "scgan_tl": lambda c: SCGAN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c)),
+    "bicubic": lambda c: BICUBIC(scale_factor=c.scale_factor),
+    "srres": lambda c: SRResNet(scale_factor=c.scale_factor, mask=c.args.mask),
+    "srresnet_tl": lambda c: SRResNet_TL(scale_factor=c.scale_factor, mask=c.args.mask, **_hr(c)),
+    "edsr": lambda c: EDSR(scale_factor=c.scale_factor),
+    "lapsrn": lambda c: LapSRN(scale_factor=c.scale_factor, in_planes=3),
+    "rdn": lambda c: RDN(scale_factor=c.scale_factor, in_planes=3),
+    "rdn_tl": lambda c: RDN_TL(scale_factor=c.scale_factor, in_planes=_planes(c)),
+    "esrgan": lambda c: RRDBNet(scale_factor=c.scale_factor, in_nc=_planes(c), out_nc=_planes(c)),
+    "esrgan_tl": lambda c: RRDBNet_TL(scale_factor=c.scale_factor, in_nc=_planes(c),
+                                      out_nc=_planes(c)),
+    "han": lambda c: HAN(scale=c.scale_factor),
+    "pcan": lambda c: PCAN(**_zoo_trunk(c)),
+    "pcan_tl": lambda c: PCAN_TL(**_zoo_trunk(c)),
+    # the reference CLI lists tbsrn but its factory lacks the branch
+    # (base.py:368-369); the JAX package wires it as evidently intended
+    "tbsrn": lambda c: TBSRN(**_zoo_trunk(c)),
+    "tbsrn_tl": lambda c: TBSRN_TL(**_zoo_trunk(c)),
+    "tranSR_v4": lambda c: SRTransformerV4(
+        scale_factor=c.scale_factor, in_planes=_planes(c),
+        lr_size=(c.TRAIN.height // c.scale_factor, c.TRAIN.width // c.scale_factor)),
+}
+for _name, _build in _ZOO.items():
+    register(_name)(_build)

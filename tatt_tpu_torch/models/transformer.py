@@ -1,5 +1,6 @@
-"""Transformer pieces of the TP Interpreter
-(counterpart of ``tatt_tpu/models/transformer.py``).
+"""Transformer pieces of the TP Interpreter and of the zoo's
+``SRTransformerV4`` and TBSRN (counterpart of
+``tatt_tpu/models/transformer.py``).
 
 Batch-first [B, L, C].  Attention keeps torch ``nn.MultiheadAttention``'s
 packed ``in_proj`` [3C, C] layout and is written out in plain ops: the
@@ -38,6 +39,29 @@ def positional_encoding_table(max_len: int, d_model: int) -> np.ndarray:
     return pe
 
 
+def positional_encoding(length: int, d_model: int, device=None) -> torch.Tensor:
+    """The first ``length`` rows of :func:`positional_encoding_table` as a
+    float32 tensor on ``device`` (``transformer.py:43``)."""
+    return torch.as_tensor(positional_encoding_table(length, d_model), device=device)
+
+
+def attend(q, k, v, nhead: int, rate: float = 0.0, gen=None, need_weights: bool = True):
+    """Scaled dot-product attention of projected ``q`` [B, Lq, C] against
+    ``k`` / ``v`` [B, Lk, C] in ``nhead`` heads, logits and softmax in f32,
+    dropout on the weights -> (output [B, Lq, C], weights averaged over
+    heads [B, Lq, Lk], or None without ``need_weights``)."""
+    b, lq, c = q.shape
+    lk = k.shape[1]
+    hd = c // nhead
+    q = q.reshape(b, lq, nhead, hd).transpose(1, 2)
+    k = k.reshape(b, lk, nhead, hd).transpose(1, 2)
+    v = v.reshape(b, lk, nhead, hd).transpose(1, 2)
+    logits = torch.matmul(q.float() * (1.0 / math.sqrt(hd)), k.float().transpose(-1, -2))
+    weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
+    out = torch.matmul(weights.to(v.dtype), v)
+    return out.transpose(1, 2).reshape(b, lq, c), weights.mean(dim=1) if need_weights else None
+
+
 class MultiheadAttention(nn.Module):
     """Torch-parity MHA returning (output, weights averaged over heads)."""
 
@@ -57,20 +81,9 @@ class MultiheadAttention(nn.Module):
         c = self.d_model
         wq, wk, wv = self.in_proj_weight.split(c)
         bq, bk, bv = self.in_proj_bias.split(c)
-        q = F.linear(query, wq, bq)
-        k = F.linear(key, wk, bk)
-        v = F.linear(value, wv, bv)
-        b, lq, _ = q.shape
-        lk = k.shape[1]
-        hd = c // self.nhead
-        q = q.reshape(b, lq, self.nhead, hd).transpose(1, 2)
-        k = k.reshape(b, lk, self.nhead, hd).transpose(1, 2)
-        v = v.reshape(b, lk, self.nhead, hd).transpose(1, 2)
-        logits = torch.matmul(q.float() * (1.0 / math.sqrt(hd)), k.float().transpose(-1, -2))
-        weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
-        out = torch.matmul(weights.to(v.dtype), v)
-        out = out.transpose(1, 2).reshape(b, lq, c)
-        return self.out_proj(out), weights.mean(dim=1)
+        out, weights = attend(F.linear(query, wq, bq), F.linear(key, wk, bk),
+                              F.linear(value, wv, bv), self.nhead, rate, gen)
+        return self.out_proj(out), weights
 
 
 class LayerNorm(nn.Module):
@@ -133,6 +146,35 @@ class EncoderLayer(nn.Module):
         src = self.norm1(src + dropout(attn, rate, gen))
         ff = self.linear2(dropout(torch.relu(self.linear1(src)), rate, gen))
         return self.norm2(src + dropout(ff, rate, gen))
+
+
+class DecoderLayer(nn.Module):
+    """Full post-norm decoder layer with self-attention (JAX
+    ``transformer.py:164-204``, reference ``transformer_v2.py:707-734``):
+    self-attn (q = k = tgt + query_pos, v = tgt) -> add&norm -> cross-attn
+    (q = tgt + query_pos, k = memory + pos, v = memory) -> add&norm -> FFN
+    -> add&norm.  Returns (tgt, cross-attention weights)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.multihead_attn = MultiheadAttention(d_model, nhead)
+        self.linear1 = Dense(d_model, dim_feedforward)
+        self.linear2 = Dense(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+
+    def forward(self, tgt, memory, pos, query_pos, rate: float = 0.0, gen=None):
+        q = tgt if query_pos is None else tgt + query_pos
+        sa, _ = self.self_attn(q, q, tgt, rate, gen)
+        tgt = self.norm1(tgt + dropout(sa, rate, gen))
+        qc = tgt if query_pos is None else tgt + query_pos
+        k = memory if pos is None else memory + pos
+        ca, weights = self.multihead_attn(qc, k, memory, rate, gen)
+        tgt = self.norm2(tgt + dropout(ca, rate, gen))
+        ff = self.linear2(dropout(torch.relu(self.linear1(tgt)), rate, gen))
+        return self.norm3(tgt + dropout(ff, rate, gen)), weights
 
 
 class TPDecoderLayer(nn.Module):

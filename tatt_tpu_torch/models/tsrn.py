@@ -24,7 +24,9 @@ TL archs' deconv :class:`InfoGen`), ``sft_layer``, ``coarse_proj`` or
 
 The generators with a text prior (TATT, TSRN_TL, TSRN_TL_SFT) take the
 TATT step's convention ``forward(x, text_emb, copies=1, gen=None) -> (sr,
-aux)``; the plain ones take ``forward(x)``.
+aux)``; the plain ones the plain step's ``forward(x, gen=None)`` (``gen``:
+the dropout generator of a training forward; none of this family has
+dropout).
 
 Axis conventions: inside a block, ``gru1`` scans HEIGHT, batched over
 N*W rows (its input is the H<->W transposed map, rows ordered (n, w) as
@@ -203,7 +205,11 @@ class ReasoningResidualBlock(nn.Module):
 class _Trunk(nn.Module):
     """The family's shared layout and the pieces of its forward: the STN
     head, the stem ``block1``, the residual blocks, ``block{srb+2}`` and
-    the upsampling tail ``block{srb+3}``, registered in that order."""
+    the upsampling tail ``block{srb+3}``, registered in that order.  The
+    JAX model names the blocks ``<JAX_BLOCK><i>`` and the final conv
+    ``JAX_FINAL`` (the zoo's TBSRN: ``block<i>`` and ``final``)."""
+
+    JAX_BLOCK, JAX_FINAL = "srb", "final_conv"
 
     def _build_trunk(
         self,
@@ -258,7 +264,7 @@ class _Trunk(nn.Module):
         indexed = {
             "block1": ("block1_conv", "block1_act"),
             f"block{srb + 2}": ("post_conv", "post_bn"),
-            f"block{srb + 3}": tuple(f"up{j}" for j in range(len(tail) - 1)) + ("final_conv",),
+            f"block{srb + 3}": tuple(f"up{j}" for j in range(len(tail) - 1)) + (self.JAX_FINAL,),
         }
         groups: dict[str, list[nn.Parameter]] = {}
         for name, p in self.named_parameters():
@@ -266,7 +272,7 @@ class _Trunk(nn.Module):
             if head in indexed:
                 key = indexed[head][int(sub)]
             else:  # block2 .. block{srb+1} are the JAX srb2 .., the rest keep their names
-                key = "srb" + head[len("block"):] if head.startswith("block") else head
+                key = self.JAX_BLOCK + head[len("block"):] if head.startswith("block") else head
             groups.setdefault(key, []).append(p)
         return groups
 
@@ -282,7 +288,8 @@ class TSRN(_Trunk):
         self._build_trunk(4 if mask else 3, ch, srb_nums, stn, lambda: RecurrentResidualBlock(ch),
                           scale_factor, lr_size=(height // scale_factor, width // scale_factor))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``gen`` is accepted for the plain step's convention (no dropout)."""
         b1 = self.block1(self.rectify(x))
         h = b1
         for block in self.blocks():
@@ -375,7 +382,8 @@ class TSRN_C2F(_Trunk):
                           scale_factor, tail_channels=ch + in_planes)
         self.coarse_proj = Conv2d(ch, in_planes, (9, 9), (4, 4))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         b1 = self.block1(self.rectify(x))
         h = b1
         for block in self.blocks():
@@ -420,7 +428,8 @@ class SEM_TSRN(_Trunk):
                           lambda: ReasoningResidualBlock(ch), scale_factor)
         self.w2v_proj = Dense(ch, word_vec_d)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         b1 = self.block1(self.rectify(x))
         h, pred_vecs = b1, []
         for block in self.blocks():

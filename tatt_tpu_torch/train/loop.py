@@ -229,7 +229,7 @@ class Trainer:
     make_judge`), else the teacher read as a CRNN judge (the JAX package's
     CRNN judge without dedicated weights, ``loop.py:353-355``); ``lpips``
     adds LPIPS to each validation.  The models must already sit on
-    ``device``."""
+    ``device``.  A generator without parameters (``bicubic``) is refused."""
 
     def __init__(
         self,
@@ -249,6 +249,9 @@ class Trainer:
         if (len(self.generators), len(self.students)) != want:
             raise ValueError(f"{len(self.generators)} generators and {len(self.students)} students "
                              f"given, the flags ask for {want[0]} and {want[1]}")
+        if not any(True for m in self.generators for _ in m.parameters()):
+            # BICUBIC: the JAX Trainer fails on it too (train/state.py:36)
+            raise ValueError(f"--arch={cfg.args.arch}: the generator has no parameters to train")
         self.teacher = teacher
         self.device = torch.device(device)
         self.step_cfg = step_config(cfg.args)

@@ -254,7 +254,9 @@ def plain_train_step(
     optax updates every leaf).  ``batch`` as :func:`train_step` reads it
     (``images_hr`` / ``images_lr``, optionally ``rot_arc`` / ``rot_offs``),
     cut to ``channels``; ``gen`` draws the rotation.  Losses: ``criterion``
-    (per sample) x100; ``color_loss``: the mean-colour L1 x30; ``ssim_loss``:
+    (per sample) x100, of the first output of ``generator(x, gen=gen)``
+    (``gen`` also draws the dropout of a generator that has it);
+    ``color_loss``: the mean-colour L1 x30; ``ssim_loss``:
     (1 - SSIM) x10, ``distorted`` SSIM for ``tsrn``; ``tssim_loss``: a
     second forward of the counter-rotated LR (BatchNorm statistics of its
     own batch, running statistics advanced again), rotated back, TRI-SSIM
@@ -276,7 +278,7 @@ def plain_train_step(
         images_lr_ret = images_lr
 
     def forward(x):
-        out = generator(x)
+        out = generator(x, gen=gen)
         return out[0] if isinstance(out, tuple) else out
 
     def rotated_back(x):

@@ -5,8 +5,10 @@ a ``--config`` YAML over TextZoom-layout LMDBs writes both checkpoints, a
 summary; without data, or with a missing teacher file, the CLI exits with
 code 2.  The TSRN family: ``--arch=tsrn`` trains through the plain step
 with ``--color_loss --mse_fuse`` and ``--go_test`` of its checkpoint gives
-the saved summary; each other arch of the family trains; the zoo's archs
-still exit with "not ported yet"."""
+the saved summary; each other arch of the family trains.  The zoo: its
+archs train through the step that ``ABLATION_SET`` picks, ``tranSR_v4``
+exits with code 2 as the JAX parser does, and ``bicubic`` is refused with
+its reason."""
 
 import ast
 import math
@@ -136,7 +138,44 @@ def test_tsrn_family_archs_train(arch, capsys):
     assert (arch in ABLATION_SET) == tl
 
 
-@pytest.mark.parametrize("arch", ["srcnn", "tbsrn_tl", "pcan"])
-def test_zoo_archs_are_not_ported_yet(arch):
-    with pytest.raises(SystemExit, match=f"not ported yet: --arch={arch}"):
-        cli.main([f"--arch={arch}"] + PLAIN_RECIPE)
+@pytest.mark.parametrize("arch", ["srcnn", "pcan", "pcan_tl", "tbsrn_tl"])
+def test_zoo_archs_train(arch, capsys):
+    """Two steps of zoo archs on the CPU print finite losses, through the
+    step that ``ABLATION_SET`` picks: the TATT step (distillation, the
+    ``gnorm/<module>`` metrics) for the ``_tl`` archs, the plain step with
+    the arch's criterion for the others."""
+    code, trainer = cli.run([f"--arch={arch}", "--use_distill", "--max_iters", "2"] + PLAIN_RECIPE)
+    assert code == 0
+    values = _train_metrics(capsys.readouterr().out)
+    assert all(math.isfinite(v) for v in values.values()), values
+    tl = arch.endswith("_tl")
+    assert (arch in ABLATION_SET) == tl
+    assert ("loss_distill" in values) == ("gnorm/infoGen" in values) == tl
+    assert "loss_tssim" in values
+
+
+def test_transr_v4_is_not_a_cli_choice(capsys):
+    """The factory builds ``tranSR_v4``; the JAX CLI does not offer it, and
+    the port's parser refuses it as argparse does (exit code 2)."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--arch=tranSR_v4"] + PLAIN_RECIPE)
+    assert exc.value.code == 2
+    assert "invalid choice: 'tranSR_v4'" in capsys.readouterr().err
+
+
+def test_bicubic_is_refused_with_its_reason():
+    """BICUBIC has no parameters: the CLI refuses it in every mode and the
+    Trainer refuses a generator without parameters (ROADMAP C.4)."""
+    from tatt_tpu_torch.core.config import Config, Flags
+    from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+    from tatt_tpu_torch.models.recognizers.crnn import CRNN
+    from tatt_tpu_torch.models.zoo.simple import BICUBIC
+    from tatt_tpu_torch.train.loop import Trainer
+
+    for mode in ([], ["--go_test"]):
+        with pytest.raises(SystemExit, match="bicubic: BICUBIC has no parameters"):
+            cli.main(["--arch=bicubic"] + mode + PLAIN_RECIPE)
+    cfg = Config(args=Flags(arch="bicubic", batch_size=4))
+    with pytest.raises(ValueError, match="no parameters to train"):
+        Trainer(cfg, [BICUBIC()], [CRNN(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))],
+                CRNN(nh=16, nm=(8, 8, 16, 16, 32, 32, 32)), SyntheticTextDataset(n=4), "cpu")

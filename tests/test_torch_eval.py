@@ -151,13 +151,14 @@ def test_cli_go_test_on_cpu(capsys):
 
 @pytest.mark.parametrize(
     "argv",
-    # the TSRN family, --color_loss and --mse_fuse are served now: their
-    # cases hold a zoo arch, --tpg OPT and a zoo arch with the recipe's flags
-    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--synthetic", "8"],
+    # the TSRN family, --color_loss, --mse_fuse and the zoo are served now:
+    # their cases hold --tpg OPT, a data flag of data/variants.py and a zoo
+    # arch with the recipe's flags and a multi-device flag (DDP)
+    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--ic15sr"],
      ["--synthetic", "8", "--tpg", "OPT"], ["--go_test", "--mixed"],
-     # a zoo arch with a text prior, and the Chinese path
+     # a zoo arch with a text prior under --bn_per_replica, and the Chinese path
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
-      "--arch=tbsrn_tl", "--synthetic", "8"],
+      "--arch=tbsrn_tl", "--bn_per_replica", "--synthetic", "8"],
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--tssim_loss",
       "--rotate_train=3.0", "--CHNSR", "--synthetic", "8"]],
 )

@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax_or_jax_package():
     )
     assert res.returncode == 0, res.stderr
     assert len(SUBMODULES) >= 20
+    zoo = ("esrgan", "han", "pcan", "resnets", "simple", "tbsrn", "transformer_sr")
+    assert {f"tatt_tpu_torch.models.zoo.{m}" for m in zoo} <= set(SUBMODULES)
 
 
 def test_sources_use_no_jax_library_rnn_compile_or_sdpa():
