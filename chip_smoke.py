@@ -291,8 +291,8 @@ JUDGE_TOL = 1e-3
 # 40 timed steps: loss_sr varies ~2x batch to batch and a seed's
 # trajectory differs run to run from about the fifth step, so after 25
 # steps the gate's last-5 median of tsrn / tsrn_tl_cascade read up to
-# 0.75x / 0.78x that of steps 2-4 over 5 runs, after 45 up to 0.64x /
-# 0.73x (scripts/loss_gate_margins.py)
+# 0.75x / 0.92x that of steps 2-4 over 5 runs, after 45 up to 0.67x /
+# 0.55x (scripts/loss_gate_margins.py)
 TSRN_WARM, TSRN_STEPS = 5, 40
 PLAIN_LAUNCHES = {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
 TSRN_ARCHS = {
@@ -330,9 +330,9 @@ ZOO_ARCHS = {
 }
 # warm-up and timed steps: PCAN and PCAN_TL (the kernels' archs) long
 # enough for phase 12's falling-loss_sr gate, the rest a few.  After 25
-# steps pcan_tl's last-5 median read 5.8-8.9 over 5 runs against 12.3-14.0
+# steps pcan_tl's last-5 median read 6.0-9.3 over 5 runs against 12.3-14.0
 # for steps 2-4, and once 12.36 against 12.27 (a run the gate stopped);
-# after 45 it read 4.4-5.6 (scripts/loss_gate_margins.py)
+# after 45 it read 4.2-5.3 (scripts/loss_gate_margins.py)
 ZOO_WARM, ZOO_STEPS = 2, 3
 ZOO_GATED, ZOO_GATED_WARM, ZOO_GATED_STEPS = ("pcan", "pcan_tl"), 5, 40
 ZOO_CLI_ITERS = 4
