@@ -13,6 +13,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --judges-only            # phases 1 and 13 alone
   python3 chip_smoke.py --tsrn-only              # phases 1 and 14 alone
   python3 chip_smoke.py --zoo-only               # phases 1 and 15 alone
+  python3 chip_smoke.py --chinese-only           # phases 1 and 16 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -98,6 +99,22 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      step, edge_image_loss); Evaluator images/s for pcan; ``cli.run
      --arch=pcan`` for 4 steps, then ``--go_test`` of its best checkpoint
      against the summary saved with it
+ 16. the Chinese path (``--CHNSR --tpg OPT``): the shipped TPG
+     (``TPGModel(num_class=3965)``, the FAN ResNet at 512, CTC over
+     T=129) with seeded weights, card against CPU on 8 images (logits in
+     eval mode; logits and BatchNorm statistics in train mode), its
+     forward ms at batch 64; the BiLSTM variant's launches a forward and
+     backward (2/2); the LSTM kernels at its L=129 R=64 H=256 (In 512 /
+     256) forward and backward against their plain twins, timed beside
+     cuDNN; the Attn variant's greedy ids card vs CPU (agreement printed);
+     Trainer steps at full width (TATT at text_emb 3965), batch 64, the
+     recipe's flags: images/s, max memory, launches per step (10/10/0/0),
+     falling loss_sr; Evaluator with the teacher TPG as judge (NED,
+     accuracy under the chinese filter, images/s); one batch-8 step card
+     against CPU, leaf by leaf (and the CPU step in float64); the host ms
+     a batch of the collate over the 3965-symbol alphabet, the CTC decode
+     and the filter; ``cli.run --CHNSR --tpg OPT`` for 4 steps, then
+     ``--go_test`` of its best checkpoint against the summary saved with it
 The last line is the JSON object the chip check reads; the line before
 it the kernels, and before that the whole run's seconds.  Imports no JAX.
 """
@@ -127,7 +144,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from tatt_tpu_torch.cli import main as cli  # noqa: E402
-from tatt_tpu_torch.core.charset import AsterInfo, ctc_greedy_decode, str_filt  # noqa: E402
+from tatt_tpu_torch.core.charset import AsterInfo, ctc_greedy_decode, str_filt, voc_table  # noqa: E402
 from tatt_tpu_torch.core.checkpoint import (  # noqa: E402
     load_checkpoint, restore_checkpoint, save_checkpoint,
 )
@@ -155,7 +172,10 @@ from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer, parse_aster_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.crnn import CRNN, parse_crnn_input  # noqa: E402
 from tatt_tpu_torch.models.recognizers.moran import MORAN, parse_moran_input  # noqa: E402
-from tatt_tpu_torch.models.factory import ABLATION_SET, arch_steps, build_generator  # noqa: E402
+from tatt_tpu_torch.models.factory import (  # noqa: E402
+    ABLATION_SET, arch_steps, build_generator, build_recognizer,
+)
+from tatt_tpu_torch.models.recognizers.tpg import TPGModel, parse_opt_input  # noqa: E402
 from tatt_tpu_torch.models.tsrn import TATT, TSRN  # noqa: E402
 from tatt_tpu_torch.train.judge import make_judge  # noqa: E402
 from tatt_tpu_torch.train.loop import (  # noqa: E402
@@ -341,6 +361,26 @@ ZOO_CLI_ITERS = 4
 # the card loss_sr 11.8 -> 3.0e10 -> 8.8e27 -> nan): the phase trains it at
 # the HAN paper's 1e-4
 ZOO_LR = {"han": 1e-4}
+# phase 16, the Chinese path (--CHNSR --tpg OPT): the TPG's 3965 classes;
+# its card-vs-CPU checks on 8 images (a full-width CPU forward of 64 takes
+# tens of seconds); launches per train step: the generator's fused 2B
+# forward and backward (10 BiGRUs each), no recurrence in the TPG (its
+# default sequence stage is "None"); Trainer steps as phase 14's
+N_CHINESE = 3965
+CHINESE_CHECK_BATCH = 8
+CHINESE_LAUNCHES = {"bigru_fwd": 10, "bigru_bwd": 10, "bilstm_fwd": 0, "bilstm_bwd": 0}
+CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 40, 4
+# the batch-8 step's student: its gradient comes from the distillation
+# loss, whose margin term's sign flips where the seeded teacher's and
+# student's near-uniform probabilities over 3965 classes (~2.5e-4) differ
+# by less than rounding, and through train-mode BatchNorm, which makes the
+# extractor's gradient ill-conditioned: the CPU's own float32 step reads
+# 8.2e-3-1.3e-2 from its float64 one on the first convs and BatchNorm
+# (this phase on an H100's host; tests/test_torch_chinese.py).  So each
+# student leaf of the card's step is
+# held against the CPU's float64 step within the larger of LEAF_TOL and
+# STUDENT_TOL_FACTOR times the CPU float32 step's own distance from it
+STUDENT_TOL_FACTOR = 2.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -1862,6 +1902,273 @@ def zoo_phase(smi: str) -> None:
           + f" ({smi}); phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
 
+def chinese_trainer(seed: int, train_ds):
+    """Phase 16's ``Trainer``: TATT at full width (5 SRBs, hidden 32) with
+    ``text_emb`` 3965 and the TPG students and teacher (``--tpg OPT``),
+    the recipe's flags under ``--CHNSR``, the models seeded from ``seed``."""
+    cfg = Config(args=Flags(batch_size=BATCH, CHNSR=True, tpg="OPT", **TSRN_RECIPE))
+    cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+    cfg.TRAIN.displayInterval = 10**9
+    gen = init_parameters(build_generator("tatt", cfg), seed).to(DEV)
+    return Trainer(cfg, [gen], [init_parameters(build_recognizer(cfg), seed + 1).to(DEV)],
+                   init_parameters(build_recognizer(cfg), seed + 2).to(DEV), train_ds, DEV)
+
+
+def chinese_dataset(n: int, seed: int) -> SyntheticTextDataset:
+    """Synthetic crops labelled from a slice of the 3965-character table
+    (as ``tests/test_chinese_path.py``), every sample rendered up front."""
+    ds = SyntheticTextDataset(n=n, seed=seed, charset=voc_table("chinese")[200:264])
+    for i in range(n):
+        ds[i]
+    return ds
+
+
+def tpg_card_vs_cpu(gen) -> None:
+    """The shipped TPG at full width, one set of seeded weights, card
+    against CPU on ``CHINESE_CHECK_BATCH`` images: logits in eval mode, and
+    logits and BatchNorm running statistics after a train-mode forward;
+    the BiLSTM variant's launches a forward and backward; the Attn
+    variant's greedy ids (agreement printed, not gated)."""
+    luma = torch.rand(CHINESE_CHECK_BATCH, 1, 32, 512, generator=gen)
+    model = init_parameters(TPGModel(num_class=N_CHINESE), 41)
+    for train in (False, True):
+        cpu, card = copy.deepcopy(model).train(train), copy.deepcopy(model).to(DEV).train(train)
+        with torch.no_grad():
+            want, got = cpu(luma), card(luma.to(DEV)).cpu()
+        errs = {"logits": scaled_err(got, want)}
+        if train:
+            own = card.state_dict()
+            errs["bn_stats"] = max(scaled_err(own[k].cpu(), v) for k, v in cpu.state_dict().items()
+                                   if "running" in k)
+        print(f"[chinese] TPGModel(num_class={N_CHINESE}) {'train' if train else 'eval'} mode, "
+              f"batch {CHINESE_CHECK_BATCH}, logits {tuple(got.shape)}: card vs CPU "
+              f"{json.dumps(errs)} (tol {JUDGE_TOL})")
+        if got.shape != (129, CHINESE_CHECK_BATCH, N_CHINESE) or not max(errs.values()) <= JUDGE_TOL:
+            fail(f"TPG card vs CPU ({'train' if train else 'eval'}): {errs}")
+    card = model.to(DEV).eval()
+    batch_luma = torch.rand(BATCH, 1, 32, 512, generator=gen).to(DEV)
+    with torch.no_grad():
+        fwd_ms = timed_ms(lambda: card(batch_luma), 10)
+    print(f"[chinese] TPGModel forward at batch {BATCH} (32x512, T=129): {fwd_ms:.3f} ms "
+          f"({BATCH / fwd_ms * 1e3:.1f} images/s)")
+
+    bilstm = init_parameters(TPGModel(num_class=N_CHINESE, sequence_modeling="BiLSTM"), 42).to(DEV)
+    reset_counts()
+    (bilstm.train()(batch_luma).square().mean()).backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"bigru_fwd": 0, "bigru_bwd": 0, "bilstm_fwd": 2, "bilstm_bwd": 2}
+    print(f"[chinese] TPGModel(sequence_modeling='BiLSTM') forward + backward at batch {BATCH}: "
+          f"launches {json.dumps(counts)} (want {json.dumps(want)})")
+    if counts != want:
+        fail(f"TPG BiLSTM launches {counts} (want {want})")
+
+    attn = init_parameters(TPGModel(num_class=N_CHINESE, prediction="Attn"), 43).eval()
+    with torch.no_grad():
+        want_ids = attn(luma).argmax(-1)
+        got_ids = attn.to(DEV)(luma.to(DEV)).argmax(-1).cpu()
+    print(f"[chinese] TPGModel(prediction='Attn') greedy ids card vs CPU: identical share "
+          f"{(got_ids == want_ids).float().mean().item():.4f} over {tuple(got_ids.shape)} (not gated)")
+    del bilstm, attn, card
+
+
+def chinese_card_vs_cpu_step() -> None:
+    """One full-width ``--CHNSR --tpg OPT`` step at batch 8 with the recipe's
+    flags (rotation pinned, dropout off, SGD at lr 1): the card (kernels)
+    against the CPU (plain twins), each trainable model's gradient leaf
+    by leaf with phase 8's two-tier gate, and the CPU step in float64."""
+    cfg = Config(args=Flags(CHNSR=True, tpg="OPT", **TSRN_RECIPE))
+    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True,
+                text_emb=N_CHINESE, dropout=0.0)
+    models_cpu = [init_parameters(tatt, 7), init_parameters(build_recognizer(cfg), 8),
+                  init_parameters(build_recognizer(cfg), 9)]
+    ds = chinese_dataset(STEP_BATCH, 5)
+    b = collate([ds[i] for i in range(STEP_BATCH)], alphabet=cfg.alphabet)
+    rot = {"rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
+           "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
+    grads = {}
+    for run, dev, dt in (("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64),
+                         ("card", DEV, torch.float32)):
+        models = [copy.deepcopy(m).to(dev, dt) for m in models_cpu]
+        hr, lr = to_device(b, torch.device(dev), True)
+        batch = {"images_hr": hr.to(dt), "images_lr": lr.to(dt),
+                 **{k: v.to(dev, dt) for k, v in rot.items()}}
+        opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1.0)
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = train_step([models[0].train()], [models[1].train()], models[2].eval(), opt, batch,
+                             StepConfig(), torch.Generator(device=dev).manual_seed(0),
+                             parse_opt_input)
+        counts = read_counts()
+        grads[run] = [{k: p.grad.double().cpu() for k, p in m.named_parameters()} for m in models[:2]]
+        print(f"[chinese-step] {run} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps({k: v.item() for k, v in metrics.items()})} launches {json.dumps(counts)}")
+    if counts != CHINESE_LAUNCHES:
+        fail(f"card --CHNSR step launches {counts} (want {CHINESE_LAUNCHES})")
+    for i, (name, model) in enumerate(zip(("generator", "student"), models_cpu)):
+        card = leaf_errors(grads["cpu"][i], grads["card"][i])
+        f32 = leaf_errors(grads["cpu64"][i], grads["cpu"][i])
+        card64 = leaf_errors(grads["cpu64"][i], grads["card"][i])
+        rnn = rnn_leaves(model)
+        for what, keys, tol in (("BiGRU/BiLSTM", rnn, RNN_LEAF_TOL), ("other", set(card) - rnn, LEAF_TOL)):
+            worst = sorted(keys, key=lambda k: -card[k])
+            print(f"[chinese-step] {name}, {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| (tol "
+                  f"{tol}; CPU float32 vs float64; card vs CPU float64):")
+            for k in worst[:3]:
+                print(f"[chinese-step]   {card[k]:.3e}  ({f32[k]:.3e}; {card64[k]:.3e})  {k}")
+            if name == "student":  # STUDENT_TOL_FACTOR: the card against the float64 step
+                bad = {k: card64[k] for k in keys
+                       if not card64[k] <= max(tol, STUDENT_TOL_FACTOR * f32[k])}
+            else:
+                bad = {k: card[k] for k in worst if not card[k] <= tol}
+            if bad:
+                fail(f"--CHNSR step: {name} {what} gradients card vs CPU above {tol}: {bad}")
+
+
+def chinese_host_costs() -> None:
+    """Host work that grows with the alphabet, per batch of ``BATCH``: the
+    collate's label fields over blank + the table against the CRNN's 37
+    symbols, the CTC decode of [129, B, 3965] logits, the ``chinese``
+    filter."""
+    ds = chinese_dataset(BATCH, 11)
+    samples = [ds[i] for i in range(BATCH)]
+    alphabet = "-" + voc_table("chinese")
+
+    def host_ms(fn, n=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    logits = torch.randn(129, BATCH, N_CHINESE).numpy()
+    labels = [s[2] for s in samples]
+    costs = {"collate_chinese_ms": host_ms(lambda: collate(samples, alphabet=alphabet)),
+             "collate_crnn_ms": host_ms(lambda: collate(samples)),
+             "ctc_decode_ms": host_ms(lambda: ctc_greedy_decode(logits, alphabet)),
+             "str_filt_ms": host_ms(lambda: [str_filt(w, "chinese") for w in labels * 3])}
+    print(f"[chinese] host ms a batch of {BATCH}: {json.dumps(costs)} (one-hots "
+          f"[{BATCH}, {len(set(alphabet))}, 1, 26] f32, "
+          f"{BATCH * len(set(alphabet)) * 26 * 4 / 2**20:.1f} MiB)")
+
+
+def chinese_phase(smi: str) -> list:
+    """Phase 16: the Chinese path, ``--CHNSR --tpg OPT`` (checks and numbers
+    in the module docstring).  Returns the LSTM kernels' rows at the TPG
+    BiLSTM's shapes."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(16)
+    tpg_card_vs_cpu(gen)
+
+    # ---- kernels #3 and #4 at the TPG BiLSTM's L=129 R=64 H=256 (In 512 / 256)
+    with torch.no_grad():
+        fwd_rows = [check_lstm("TPG seq0", 129, BATCH, 512, 256, gen),
+                    check_lstm("TPG seq1", 129, BATCH, 256, 256, gen)]
+    bwd_rows = [check_lstm_bwd("TPG seq0", 129, BATCH, 512, 256, gen),
+                check_lstm_bwd("TPG seq1", 129, BATCH, 256, 256, gen)]
+    for row in fwd_rows:
+        print("[chinese-kernel] " + json.dumps(row))
+        print_lstm(row, smi)
+        if not row["max_abs_err"] <= KERNEL_ATOL:
+            fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
+    for row in bwd_rows:
+        print("[chinese-kernel-bwd] " + json.dumps(row))
+        print_bwd_split("lstm-bwd", row, LSTM_BWD_ENTRIES)
+        if not row["ok"]:
+            fail(f"backward kernel {row['shape']}: {row}")
+
+    # ---- Trainer steps at full width, batch 64
+    train_ds = chinese_dataset(8 * BATCH, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = chinese_trainer(1234, train_ds)
+    t0 = time.perf_counter()
+    first = trainer.train(max_iters=CHINESE_WARM)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    timed = trainer.train(max_iters=CHINESE_WARM + CHINESE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {k: v / CHINESE_STEPS for k, v in read_counts().items()}
+    metrics = {k: first["metrics"][k] + timed["metrics"][k] for k in timed["metrics"]}
+    sr, ips = metrics["loss_sr"], CHINESE_STEPS * BATCH / wall
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[chinese] Trainer --CHNSR --tpg OPT, recipe flags: {CHINESE_STEPS} steps at batch {BATCH} "
+          f"after {CHINESE_WARM} ({warm_s:.1f} s), images/s {ips:.1f}, {wall / CHINESE_STEPS * 1e3:.1f} "
+          f"ms a step, max memory {mem:.2f} GiB; launches per step {json.dumps(per_step)} (want "
+          f"{json.dumps(CHINESE_LAUNCHES)}); loss_sr {[round(v, 4) for v in sr]} ({smi})")
+    if per_step != {k: float(v) for k, v in CHINESE_LAUNCHES.items()}:
+        fail(f"--CHNSR train launches per step {per_step} (want {CHINESE_LAUNCHES})")
+    if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
+        fail("--CHNSR: non-finite training metrics")
+    print(f"[chinese] loss_sr median of steps 2-4 {np.median(sr[1:4]):.4f}, of the last 5 "
+          f"{np.median(sr[-5:]):.4f}")
+    if not np.median(sr[-5:]) < np.median(sr[1:4]):
+        fail(f"--CHNSR: loss_sr did not fall: {sr[1:4]} -> {sr[-5:]}")
+
+    # ---- Evaluator: the teacher TPG as judge, NED and accuracy under the chinese filter
+    ds, warm_ds = chinese_dataset(4 * BATCH, 2), chinese_dataset(BATCH, 3)
+    evaluator = trainer.evaluator
+    trainer.evaluate(warm_ds)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = trainer.evaluate(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"bigru_fwd": 10 * 4, "bigru_bwd": 0, "bilstm_fwd": 0, "bilstm_bwd": 0}
+    print(f"[chinese] Evaluator (judge: the teacher TPG, filter {evaluator.filter_mode}) at batch "
+          f"{BATCH}: images/s {summary['images'] / wall:.1f}, psnr {summary['psnr_avg']:.4f} ssim "
+          f"{summary['ssim_avg']:.5f} acc {summary['accuracy']:.4f} ned {summary['ned']:.4f}, "
+          f"launches {json.dumps(counts)} (want {json.dumps(want)}) ({smi})")
+    if (counts != want or not math.isfinite(summary["psnr_avg"]) or not 0.0 <= summary["ned"] <= 1.0
+            or evaluator.filter_mode != "chinese"):
+        fail(f"--CHNSR eval: launches {counts}, summary {summary}")
+    del trainer, evaluator
+    torch.cuda.empty_cache()
+
+    chinese_card_vs_cpu_step()
+    chinese_host_costs()
+
+    # ---- cli.run --CHNSR --tpg OPT, then --go_test of its best checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = os.path.join(tmp, "chnsr.yaml")
+        with open(yaml, "w") as fh:
+            fh.write(f"TRAIN:\n  batch_size: {BATCH}\n  voc_type: chinese\n"
+                     f"  saveInterval: {CHINESE_CLI_ITERS}\n  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n"
+                     f"  VAL:\n    valInterval: {CHINESE_CLI_ITERS}\n    crnn_pretrained: ''\n")
+        argv = RECIPE + ["--CHNSR", "--tpg", "OPT", "--config", yaml, "--vis_dir", "vis_chnsr",
+                         "--synthetic", str(4 * BATCH)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code, _ = cli.run(argv + ["--max_iters", str(CHINESE_CLI_ITERS)])
+        best_path = os.path.join(tmp, "ckpt", "vis_chnsr", "model_best_acc_0.ckpt")
+        if code != 0 or not os.path.exists(best_path):
+            fail(f"cli.run --CHNSR --tpg OPT: exit {code}, output {out.getvalue()[-500:]}")
+        best = load_checkpoint(best_path)["best_history_res"]["easy"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv + ["--go_test", "--resume", best_path])
+        lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[easy] ")]
+        got = ast.literal_eval(lines[-1][len("[easy] "):]) if lines else {}
+        print(f"[chinese] cli.run --CHNSR --tpg OPT {CHINESE_CLI_ITERS} steps, --go_test of "
+              f"model_best_acc_0.ckpt: psnr {got.get('psnr_avg')} ssim {got.get('ssim_avg')} acc "
+              f"{got.get('accuracy')} ned {got.get('ned')}; saved with it: psnr {best['psnr_avg']} "
+              f"ssim {best['ssim_avg']} acc {best['accuracy']} ned {best['ned']}")
+        if code != 0 or not got or got["images"] != best["images"]:
+            fail(f"--go_test --CHNSR --tpg OPT: exit {code}, output {out.getvalue()[-500:]}")
+        if not (abs(got["psnr_avg"] - best["psnr_avg"]) <= GO_TEST_PSNR_TOL
+                and abs(got["ssim_avg"] - best["ssim_avg"]) <= GO_TEST_SSIM_TOL
+                and got["accuracy"] == best["accuracy"] and abs(got["ned"] - best["ned"]) <= 1e-9):
+            fail(f"--go_test --CHNSR summary {got} differs from the saved {best}")
+    print(f"[chinese] train images/s at batch {BATCH} {ips:.1f}, max memory {mem:.2f} GiB ({smi}); "
+          f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return fwd_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -1891,6 +2198,9 @@ def main(argv=None) -> int:
     ap.add_argument("--zoo-only", action="store_true",
                     help="run phases 1 and 15 alone (the zoo at full width); prints no result "
                          "line")
+    ap.add_argument("--chinese-only", action="store_true",
+                    help="run phases 1 and 16 alone (the Chinese path, --CHNSR --tpg OPT); prints "
+                         "no result line")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -1947,6 +2257,10 @@ def main(argv=None) -> int:
         return 0
     if args.zoo_only:
         zoo_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.chinese_only:
+        chinese_phase(smi)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -2130,6 +2444,9 @@ def main(argv=None) -> int:
     # ---- 15. the zoo: every other factory arch, PCAN through the BiGRU kernels
     zoo_phase(smi)
 
+    # ---- 16. the Chinese path: the TPG recognizer, --CHNSR --tpg OPT
+    chinese_lstm_rows = chinese_phase(smi)
+
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the
     # student's and the teacher's rnn0 and rnn1 forward, the student's backward)
@@ -2146,7 +2463,7 @@ def main(argv=None) -> int:
         ("bigru_bwd", "tatt_tpu_torch/csrc/bigru_bwd.cu", "tatt_tpu/kernels/pallas_gru.py:132",
          gru_bwd_rows[:2], gru_bwd_rows),
         ("bilstm_fwd", "tatt_tpu_torch/csrc/bilstm_fwd.cu", "tatt_tpu/kernels/pallas_lstm.py:22",
-         lstm_rows[:2], lstm_rows + judge_lstm_rows),
+         lstm_rows[:2], lstm_rows + judge_lstm_rows + chinese_lstm_rows),
         ("bilstm_bwd", "tatt_tpu_torch/csrc/bilstm_bwd.cu", "tatt_tpu/kernels/pallas_lstm.py:53",
          lstm_bwd_rows[:2], lstm_bwd_rows),
     ):

@@ -1,7 +1,8 @@
-"""The falling-loss_sr gate of ``chip_smoke.py`` phases 12, 14 and 15
+"""The falling-loss_sr gate of ``chip_smoke.py`` phases 12, 14, 15 and 16
 under run-to-run noise: Trainer runs at full width and batch 64 on one
 CUDA card, set up as those phases set them up (an arch with the recipe's
-flags, phases 14-15; TATT with one of phase 12's flag sets), repeated and
+flags, phases 14-15; TATT with one of phase 12's flag sets; the Chinese
+path, ``--CHNSR --tpg OPT``, on Chinese-labelled crops, phase 16), repeated and
 over a few init seeds.  Each run is two ``Trainer.train`` calls, the
 phase's warm-up and then the rest, as the phases run them (each call
 walks the loader afresh).  For each run prints ``loss_sr`` step by step,
@@ -10,6 +11,7 @@ the median of steps 2-4 and of the 5 steps ending at each of ``--ends``.
   python3 scripts/loss_gate_margins.py --archs pcan_tl pcan --steps 45 --reps 3 --seeds 77 5150
   python3 scripts/loss_gate_margins.py --archs --flag-sets "training_stablize + ssim_loss" \\
       --steps 47 --ends 32 47
+  python3 scripts/loss_gate_margins.py --archs --chinese --steps 45 --ends 25 35 45
 
 The trajectory of one seed differs run to run from about the fifth step
 (cuDNN's weight-gradient sums), and loss_sr varies about 2x from batch to
@@ -63,6 +65,7 @@ def main(argv=None) -> int:
     ap.add_argument("--archs", nargs="*", default=["pcan_tl", "pcan"])
     ap.add_argument("--flag-sets", nargs="*", default=[], choices=list(cs.FLAG_SETS),
                     help="phase 12's flag sets, by name")
+    ap.add_argument("--chinese", action="store_true", help="phase 16's --CHNSR --tpg OPT trainer")
     ap.add_argument("--steps", type=int, default=45, help="steps a run, warm-up included")
     ap.add_argument("--reps", type=int, default=3, help="runs at the phases' init seed 1234")
     ap.add_argument("--seeds", type=int, nargs="*", default=[77, 5150],
@@ -78,9 +81,13 @@ def main(argv=None) -> int:
     train_ds = cs.SyntheticTextDataset(n=8 * cs.BATCH, seed=1)
     for i in range(len(train_ds)):
         train_ds[i]
-    # warm-up steps: phase 15's gated archs and phase 14 take 5, phase 12 2
+    # warm-up steps: phase 15's gated archs, phase 14 and phase 16 take 5, phase 12 2
     runs = ([(a, arch_trainer, cs.TSRN_WARM) for a in args.archs]
             + [(f, flags_trainer, cs.FLAG_WARM) for f in args.flag_sets])
+    if args.chinese:
+        chinese_ds = cs.chinese_dataset(8 * cs.BATCH, 1)
+        runs.append(("chinese", lambda _, seed, __: cs.chinese_trainer(seed, chinese_ds),
+                     cs.CHINESE_WARM))
     for name, build, warm in runs:
         for rep, seed in enumerate([1234] * args.reps + list(args.seeds)):
             trainer = build(name, seed, train_ds)

@@ -60,15 +60,34 @@ The reference's dead flags (``--text_focus``, ``--prob_insert``,
 ``--test_distorted_fusing``, ``--BiSR``, ``--rotate_test``,
 ``--results_rotate``) are accepted with a warning.
 
+``--tpg OPT`` takes the NAVER TPG recognizer (``TPGModel``, 32x512 luma,
+129 CTC steps) for the students, the teacher and the CRNN-kind judge, and
+``--CHNSR`` the Chinese path: the 3965-character table as the
+recognizer's classes and the prior's width (``text_emb``), its decode
+alphabet, and the ``chinese`` accuracy filter, as
+``tatt_tpu/train/loop.py:105-147`` wires them:
+
+  python -m tatt_tpu_torch.cli.main --arch=tatt --CHNSR --tpg OPT --STN \\
+      --mask --use_distill --gradient --sr_share --stu_iter=1 \\
+      --rotate_train=5.0 --tssim_loss --synthetic 512 --max_iters 100
+
+``--tiny_tpg`` shrinks the TPG to ``output_channel`` 64, hidden 32.  Three
+combinations are refused with the JAX package's reason, because it fails on
+them: ``--CHNSR`` without ``--tpg OPT`` (the 37-class CRNN's prior meets a
+generator built for 3965 classes), ``--tpg OPT`` with a teacher file
+(``--crnn_pretrained`` or the YAML's: JAX reads it as a CRNN and hands the
+CRNN's variables to the TPG), and ``--CHNSR`` with a text-prior arch other
+than ``tatt`` ("not ported yet": only ``tatt`` takes the 3965-wide prior).
+
 ``--arch=bicubic`` is refused in every mode: BICUBIC has no parameters, so
 there is nothing to train or to checkpoint (the JAX CLI accepts it and
 fails in every mode: its ``TrainState`` reads the absent ``params``,
 ``tatt_tpu/train/state.py:36``).  ``tranSR_v4``, which the factory builds,
 is not among the JAX CLI's choices: argparse refuses it (exit code 2).
-Refused with "not ported yet": ``--dtype bfloat16``, ``--tpg OPT``,
-``--CHNSR`` and the data flags of ``data/variants.py``, any other flag,
-and a YAML the port does not serve; nothing is silently ignored.  Without weights the generators
-and the CRNN students / teacher start from initial weights seeded by
+Refused with "not ported yet": ``--dtype bfloat16`` and the data flags of
+``data/variants.py``, any other flag, and a YAML the port does not serve;
+nothing is silently ignored.  Without weights the generators and the
+students / teacher start from initial weights seeded by
 ``TRAIN.manualSeed``.
 """
 
@@ -92,15 +111,16 @@ from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
-from tatt_tpu_torch.models.factory import arch_steps, build_generator
+from tatt_tpu_torch.models.factory import (
+    ABLATION_SET, arch_steps, build_generator, build_recognizer, recognizer_input,
+)
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
-from tatt_tpu_torch.models.recognizers.crnn import CRNN, crnn_widths
+from tatt_tpu_torch.models.recognizers.crnn import crnn_widths
 from tatt_tpu_torch.models.recognizers.moran import MORAN
 from tatt_tpu_torch.train.demo import run_demo
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies
 
-TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))  # --tiny_tpg
 STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss", "tssim_loss",
               "sr_share", "tpg_share", "for_cascading", "y_domain", "learning_STN",
               "training_stablize", "color_loss", "mse_fuse")
@@ -113,6 +133,16 @@ ARCHS = ("tatt", "tsrn", "sem_tsrn", "tsrn_c2f", "tsrn_tl_cascade", "tsrn_tl_cas
          "tbsrn_tl", "bicubic")
 BICUBIC_REFUSAL = ("--arch=bicubic: BICUBIC has no parameters, so there is nothing to train, "
                    "optimize or checkpoint (the JAX package fails on it in every mode too)")
+# combinations the JAX package fails on (its flax errors quoted)
+CHNSR_CRNN_REFUSAL = (
+    "--CHNSR needs --tpg OPT: the 37-class CRNN's prior meets a generator built for the "
+    "3965-character table (the JAX package fails on it too: 'For parameter \"kernel\" in "
+    "\"/infoGen/fc_in\", the given initializer is expected to generate shape (37, 8), but the "
+    "existing parameter it received has shape (3965, 8)')")
+OPT_TEACHER_REFUSAL = (
+    "--tpg OPT with a teacher file ({path}): the file is read as a CRNN, and CRNN weights do "
+    "not fit the TPG recognizer (the JAX package imports it with import_crnn and fails too: "
+    "'Could not find parameter named \"kernel\" in scope \"/FeatureExtraction/conv0_1_conv\"')")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -128,6 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vis", action="store_true", help="dump LR/SR/HR triptychs during eval")
     p.add_argument("--log_dir", default="tensorboard")
     p.add_argument("--tpg", default="CRNN", choices=["CRNN", "OPT"])
+    p.add_argument("--CHNSR", action="store_true")
     for flag in ("text_focus", "BiSR", "results_rotate"):
         p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--prob_insert", type=float, default=1.0)
@@ -164,15 +195,18 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     """(the config tree, the parsed namespace with the extras that are
     not ``Flags``: ``synthetic``, ``max_iters``, the ``*_pretrained``
-    paths, ``device``).  Raises SystemExit("not ported yet: ...") and
-    SystemExit(BICUBIC_REFUSAL)."""
+    paths, ``device``).  Raises SystemExit("not ported yet: ..."),
+    SystemExit(BICUBIC_REFUSAL) and SystemExit(CHNSR_CRNN_REFUSAL)."""
     args, unknown = build_parser().parse_known_args(argv)
     if args.arch == "bicubic":
         raise SystemExit(BICUBIC_REFUSAL)
+    if args.CHNSR and args.tpg != "OPT":
+        raise SystemExit(CHNSR_CRNN_REFUSAL)
     refused = [
         (bool(unknown), " ".join(unknown)),
-        (args.tpg != "CRNN", f"--tpg={args.tpg} (only CRNN)"),
         (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
+        (args.CHNSR and args.arch in ABLATION_SET and args.arch != "tatt",
+         f"--CHNSR with --arch={args.arch} (only tatt takes the 3965-wide prior)"),
     ]
     for bad, what in refused:
         if bad:
@@ -232,18 +266,21 @@ def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
 def build_models(cfg: Config, crnn_path: str):
     """(generators, students, teacher): the :func:`~tatt_tpu_torch.train.
     loop.copies` of the ``--arch`` generator (:func:`~tatt_tpu_torch.models.
-    factory.build_generator`) and of the student, each copy seeded
-    from ``TRAIN.manualSeed`` and its index; the teacher's weights, and
-    every student's start, from ``crnn_path`` (``loop.py:176-186``), whose
-    shapes also give the CRNN's widths (a CRNN that
-    ``tatt_tpu_torch.train.pretrain`` trained at any width)."""
+    factory.build_generator`) and of the student (a CRNN, or the TPG
+    under ``--tpg OPT``: :func:`~tatt_tpu_torch.models.factory.
+    build_recognizer`), each copy seeded from ``TRAIN.manualSeed`` and its
+    index; the teacher's weights, and every student's start, from
+    ``crnn_path`` (``loop.py:176-186``), whose shapes also give the CRNN's
+    widths (a CRNN that ``tatt_tpu_torch.train.pretrain`` trained at any
+    width)."""
     a, seed = cfg.args, cfg.TRAIN.manualSeed
     n_sr, n_stu = copies(a)
     generators = [init_parameters(build_generator(a.arch, cfg), seed + 3 * i) for i in range(n_sr)]
     sd = load_reference_pth(crnn_path) if crnn_path else None
-    crnn = crnn_widths(sd) if sd else TINY_CRNN if a.tiny_tpg else {}
-    students = [init_parameters(CRNN(**crnn), seed + 1 + 3 * i) for i in range(n_stu)]
-    teacher = init_parameters(CRNN(**crnn), seed + 2)  # also the judge
+    widths = crnn_widths(sd) if sd else None
+    students = [init_parameters(build_recognizer(cfg, widths), seed + 1 + 3 * i)
+                for i in range(n_stu)]
+    teacher = init_parameters(build_recognizer(cfg, widths), seed + 2)  # also the judge
     if sd:
         for model in (teacher, *students):
             load_weights(model, sd)
@@ -252,11 +289,11 @@ def build_models(cfg: Config, crnn_path: str):
 
 def rec_judge(cfg: Config, cli: argparse.Namespace, teacher, device):
     """The ``--rec`` recognizer of ``--test`` and ``--demo``
-    (``super_resolution.py:1702-1876``): the teacher CRNN, or ASTER / MORAN,
-    which need their weights."""
+    (``super_resolution.py:1702-1876``): the teacher (CRNN or TPG), or
+    ASTER / MORAN, which need their weights."""
     rec = cfg.args.rec
     if rec == "crnn":
-        return make_judge("CRNN", teacher)
+        return make_judge("CRNN", teacher, parse_fn=recognizer_input(cfg), alphabet=cfg.alphabet)
     kind = rec.upper()
     path = weights_path(kind, cfg, cli)
     if not path or not os.path.exists(path):
@@ -282,6 +319,8 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
     if crnn_path and not os.path.exists(crnn_path):
         print(f"teacher CRNN weights not found: {crnn_path}", file=sys.stderr)
         return 2, None
+    if crnn_path and cfg.args.tpg == "OPT":
+        raise SystemExit(OPT_TEACHER_REFUSAL.format(path=crnn_path))
     if not crnn_path and cfg.args.use_distill and not cli.synthetic:
         print(
             "WARNING: --use_distill with a RANDOMLY-INITIALIZED teacher CRNN "
@@ -342,6 +381,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
             workers=max(cfg.TRAIN.workers, 1), stu_iter=a.stu_iter, for_cascading=a.for_cascading,
             lpips=lpips, n_vis=cfg.TRAIN.VAL.n_vis if a.vis else 0,
             vis_root=os.path.join("demo", cfg.vis_dir), sr_fn=sr_fn,
+            parse_fn=recognizer_input(cfg), alphabet=cfg.alphabet, filter_mode=cfg.filter_mode,
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")

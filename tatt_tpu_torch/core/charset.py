@@ -1,12 +1,16 @@
 """Character set, vocabulary filter, CTC greedy decode, the ASTER
 vocabulary and decode, and the collate's label spreading (copied from
 ``tatt_tpu/core/charset.py``; the port imports nothing from the JAX
-package).  The 3965-character ``chinese`` table waits for ``--CHNSR``."""
+package).  The ``chinese`` vocabulary of ``--CHNSR`` is the reference's
+3965-character table, shipped as ``tatt_tpu_torch/data/al_chinese.txt``
+(byte-identical to the JAX package's copy) and read once a process."""
 
 from __future__ import annotations
 
+import os
 import string
-from typing import Sequence
+from functools import lru_cache
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -22,17 +26,38 @@ _TABLES = {
 }
 
 
-def voc_table(voc_type: str) -> str:
-    """The characters of ``voc_type`` (digit, lower, upper or all)."""
-    return _TABLES[voc_type]
+_CHINESE_TABLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "data", "al_chinese.txt")
+# what the chinese filter keeps before the table (``utils/util.py:24-30``):
+# CJK U+4E00-U+9FA5, ASCII digits and letters
+_CJK_FIRST, _CJK_LAST = "\u4e00", "\u9fa5"
+_ALNUM = frozenset(string.digits + string.ascii_letters)
 
 
-def str_filt(s: str, voc_type: str) -> str:
+@lru_cache(maxsize=None)
+def voc_table(voc_type: str, chinese_path: Optional[str] = None) -> str:
+    """The characters of ``voc_type`` (digit, lower, upper, all or
+    chinese).  ``chinese``: the first line of ``chinese_path``, or of the
+    packaged table where that is None or missing (the reference opens
+    ``al_chinese.txt`` relative to the working directory,
+    ``main.py:140-142``)."""
+    if voc_type != "chinese":
+        return _TABLES[voc_type]
+    if chinese_path is None or not os.path.exists(chinese_path):
+        chinese_path = _CHINESE_TABLE
+    with open(chinese_path, encoding="utf-8") as fh:
+        return fh.readline().replace("\n", "")
+
+
+def str_filt(s: str, voc_type: str, chinese_path: Optional[str] = None) -> str:
     """Vocabulary filter of the accuracy protocol (``utils/util.py:12-32``):
-    lowercases for 'lower', drops out-of-vocabulary characters."""
-    table = voc_table(voc_type)
+    lowercases for 'lower'; for 'chinese' keeps CJK U+4E00-U+9FA5 and
+    ASCII letters and digits; then drops out-of-vocabulary characters."""
+    table = voc_table(voc_type, chinese_path)
     if voc_type == "lower":
         s = s.lower()
+    if voc_type == "chinese":
+        s = "".join(ch for ch in s if _CJK_FIRST <= ch <= _CJK_LAST or ch in _ALNUM)
     return "".join(ch for ch in s if ch in table)
 
 

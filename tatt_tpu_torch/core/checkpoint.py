@@ -14,6 +14,10 @@ trainer keeps that package's file names under
 sum-accuracy.  A file of the earlier format (one ``state_dict`` per model)
 still loads.
 
+The students are CRNNs or, under ``--tpg OPT``, TPG models: a checkpoint
+of one kind does not load into a run of the other (``restore_checkpoint``
+raises, naming both).
+
 Three kinds of file reach ``--resume``: a port checkpoint (a torch zip
 with the marker), a reference ``.pth`` (a torch zip or a legacy pickle
 without it) and a JAX-package checkpoint (msgpack, which the port cannot
@@ -94,6 +98,13 @@ def load_checkpoint(path: str) -> Optional[dict]:
     return blob
 
 
+def recognizer_kind(state_dict) -> str:
+    """``"TPG"`` (``--tpg OPT``'s ``TPGModel``), ``"CRNN"`` or ``"other"``
+    by the top-level names of a student's ``state_dict``."""
+    heads = {k.split(".")[0] for k in state_dict}
+    return "TPG" if "FeatureExtraction" in heads else "CRNN" if "cnn" in heads else "other"
+
+
 def restore_checkpoint(
     payload: dict,
     generators: Sequence[nn.Module],
@@ -106,6 +117,11 @@ def restore_checkpoint(
     checkpoint in an eval model without ``--STN``, are left out) and, when
     given, the optimizer, whose parameters must be those it was saved
     with, in the same order."""
+    if payload["student"] and students:
+        have, want = recognizer_kind(payload["student"][0]), recognizer_kind(students[0].state_dict())
+        if have != want:
+            raise ValueError(f"the checkpoint's students are {have} recognizers, the run's "
+                             f"are {want} (--tpg {'OPT' if want == 'TPG' else 'CRNN'})")
     for what, models in (("generator", generators), ("student", students)):
         saved = payload[what]
         if len(models) != len(saved):

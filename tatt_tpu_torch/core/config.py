@@ -6,12 +6,18 @@ field names and defaults, unknown keys ignored.  ``Flags`` holds the CLI
 flags that the port serves, with the same names and defaults; flags win
 over the YAML through the same ``Config`` properties (``batch_size``,
 ``lr``, ``resume``, ``vis_dir``, ``epochs``).  ``ModelConfig`` and the
-flags of paths not yet ported are not here.
+flags of paths not yet ported are not here: of ``ModelConfig`` the port
+reads only ``text_emb``, the recognizer's class count, which
+``Config.text_emb`` derives from ``--CHNSR`` as the JAX ``Trainer`` sets
+it (``loop.py:112-116``).  ``--CHNSR`` also gives the decode alphabet
+(``Config.alphabet``: blank + the 3965-character table, whose last
+character the 3965-class head cannot emit, a reference quirk kept) and
+the accuracy filter (``Config.filter_mode``).
 
 :func:`load_config` refuses, with "not ported yet", a YAML whose geometry
 differs from what the port's collate serves (``width`` 128, ``height``
-32, ``down_sample_scale`` 2) or whose ``voc_type`` is ``chinese`` (that
-needs ``--CHNSR``).  The other vocabularies only filter labels.
+32, ``down_sample_scale`` 2).  ``voc_type`` filters the LMDB labels;
+``chinese`` reads the 3965-character table.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import yaml
+
+from tatt_tpu_torch.core.charset import CRNN_ALPHABET, voc_table
 
 # what the port's collate serves (data/collate.py: HR_SIZE, LR_SIZE)
 PORTED_GEOMETRY = {"width": 128, "height": 32, "down_sample_scale": 2}
@@ -102,6 +110,8 @@ class Flags:
     hd_u: int = 32
     lr: Optional[float] = None
     dtype: str = "float32"
+    tpg: str = "CRNN"  # the recognizer: CRNN | OPT (the NAVER TPG)
+    CHNSR: bool = False  # the Chinese path: the 3965-character table
     tiny_tpg: bool = False
     # eval extras (``tatt_tpu/core/config.py``'s defaults)
     rec: str = "crnn"  # --test's recognizer: crnn | aster | moran
@@ -151,6 +161,23 @@ class Config:
     def scale_factor(self) -> int:
         return self.TRAIN.down_sample_scale
 
+    @property
+    def text_emb(self) -> int:
+        """The recognizer's class count and the prior's width: 3965 under
+        ``--CHNSR`` (``loop.py:112-116``), else the CRNN's 37."""
+        return len(voc_table("chinese")) if self.args.CHNSR else len(CRNN_ALPHABET)
+
+    @property
+    def alphabet(self) -> str:
+        """The blank-first CTC decode alphabet of the teacher and judge."""
+        return "-" + voc_table("chinese") if self.args.CHNSR else CRNN_ALPHABET
+
+    @property
+    def filter_mode(self) -> str:
+        """``str_filt``'s vocabulary for the accuracy protocol
+        (``loop.py:789-792``)."""
+        return "chinese" if self.args.CHNSR else "lower"
+
 
 def _coerce(dc_cls, data: Optional[dict]) -> Any:
     """A dataclass from a dict, recursing into nested dataclasses and
@@ -185,8 +212,6 @@ def load_config(yaml_path: Optional[str] = None, flags: Optional[Flags] = None) 
         cfg.args = flags
     bad = [f"TRAIN.{k}={getattr(cfg.TRAIN, k)} (only {v})"
            for k, v in PORTED_GEOMETRY.items() if getattr(cfg.TRAIN, k) != v]
-    if cfg.TRAIN.voc_type == "chinese":
-        bad.append("TRAIN.voc_type=chinese (needs --CHNSR)")
     if bad:
         raise ValueError(f"not ported yet: {', '.join(bad)}")
     return cfg

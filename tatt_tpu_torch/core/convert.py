@@ -38,6 +38,14 @@ TSRN trunk names, the FeatureEnhancer's ``multihead.linears.0-3``,
 ``RRDB_trunk.<i>``), the plain sibling of each too; every other zoo arch
 keeps the JAX module names as they are (a TP Interpreter ``infoGen`` the
 names of TATT's).
+
+The TPG of ``--tpg OPT`` (``models/recognizers/tpg.py``) has no reference
+importer either: its submodules carry the flax names (``FeatureExtraction``,
+``seq0``, ``seq0_embedding``, ``Prediction``, ...), and a flax
+``nn.LSTMCell`` (the attention head's ``rnn``: input Denses ``ii`` /
+``if`` / ``ig`` / ``io`` without bias, hidden ones ``hi`` ... ``ho`` with)
+becomes one ``weight_ih`` [4H, In], ``weight_hh`` [4H, H] and ``bias``
+[4H] in gate order (i, f, g, o).
 """
 
 from __future__ import annotations
@@ -222,6 +230,40 @@ def _crnn_prefix(mods: list[str]) -> str:
     raise KeyError(f"unmapped CRNN module path {'/'.join(mods)!r}")
 
 
+def _tpg_prefix(mods: list[str]) -> str:
+    """A TPG's modules keep their flax names."""
+    return ".".join(mods)
+
+
+_CELL_GATES = "ifgo"
+
+
+def _lstm_cell_entries(flat: dict[str, np.ndarray]) -> tuple[dict, dict]:
+    """Split a TPG's flax ``nn.LSTMCell`` leaves off ``flat``: (the other
+    leaves, the port's ``LSTMCell`` entries, gates stacked (i, f, g, o))."""
+    cells: dict[str, dict] = {}
+    rest = {}
+    for key, value in flat.items():
+        m = re.fullmatch(r"params/(.+)/([ih])([ifgo])/(kernel|bias)", key)
+        if m:
+            cells.setdefault(m[1], {})[m[2] + m[3] + "/" + m[4]] = value
+        else:
+            rest[key] = value
+    entries = {}
+    for path, leaves in cells.items():
+        def stack(side, leaf, transpose=True):
+            parts = [leaves[f"{side}{g}/{leaf}"] for g in _CELL_GATES]
+            return np.concatenate([p.T if transpose else p for p in parts])
+
+        if len(leaves) != 12:
+            raise KeyError(f"LSTMCell {path!r} has leaves {sorted(leaves)}")
+        prefix = path.replace("/", ".")
+        entries.update({f"{prefix}.weight_ih": stack("i", "kernel"),
+                        f"{prefix}.weight_hh": stack("h", "kernel"),
+                        f"{prefix}.bias": stack("h", "bias", transpose=False)})
+    return rest, entries
+
+
 def _count(top: set, pattern: str) -> int:
     return sum(bool(re.fullmatch(pattern, m)) for m in top)
 
@@ -322,11 +364,11 @@ def _layout(arch: Optional[str], paths: list[list[str]]):
     if arch is not None:
         known = sorted(TSRN_ARCHS + JAX_NAMED_ARCHS + REFERENCE_NAMED_ARCHS)
         raise KeyError(f"no weight layout for arch {arch!r} (have: {', '.join(known)})")
-    for marker, prefix_of in (("conv0", _crnn_prefix), ("encoder", _aster_prefix),
-                              ("MORN", _moran_prefix)):
+    for marker, prefix_of in (("FeatureExtraction", _tpg_prefix), ("conv0", _crnn_prefix),
+                              ("encoder", _aster_prefix), ("MORN", _moran_prefix)):
         if marker in top:
             return prefix_of
-    raise KeyError(f"not generator, CRNN, ASTER or MORAN variables (modules {sorted(top)}); "
+    raise KeyError(f"not generator, CRNN, TPG, ASTER or MORAN variables (modules {sorted(top)}); "
                    "a zoo generator's needs arch=")
 
 
@@ -347,10 +389,15 @@ def from_jax(variables: Mapping[str, Any], arch: Optional[str] = None) -> dict[s
     name of the generator (every zoo generator needs it); without it, the
     variables of a ``TATT``, a TSRN-family generator (``TSRN``,
     ``TSRN_TL``, ``TSRN_TL_SFT``, ``TSRN_C2F``, ``SEM_TSRN``,
-    ``TSRNEncoder``), a ``CRNN``, an ``AsterRecognizer`` or a ``MORAN``."""
+    ``TSRNEncoder``), a ``CRNN``, a ``TPGModel`` (any extractor, the
+    BiLSTM stage, the CTC or Attn head), an ``AsterRecognizer`` or a
+    ``MORAN``."""
     flat = _flatten(variables)
     prefix_of = _layout(arch, [k.split("/")[1:-1] for k in flat])
     out: dict[str, torch.Tensor] = {}
+    if prefix_of is _tpg_prefix:
+        flat, cells = _lstm_cell_entries(flat)
+        out.update({k: torch.from_numpy(np.array(v, np.float32)) for k, v in cells.items()})
     for key, value in flat.items():
         _, *mods, leaf = key.split("/")
         value = np.asarray(value, np.float32)

@@ -12,7 +12,11 @@ of integer lumas over 32x128 or 16x64 pixels, exact in float32).  With
 pair and are normalized the same way, their mask channel computed from
 the ``YCbCr`` bytes as the JAX host collate computes it.
 
-The label fields are the train collate's (``collate.py:203-214``): the
+The label fields are the train collate's (``collate.py:203-214``), over
+``alphabet`` (the CRNN's 37 symbols, or blank + the 3965-character table
+under ``--CHNSR``: the table holds '-' too, so its symbols map to 3965
+ids, '-' to the table's, and the one-hots are [B, 3965, 1, 26], as in
+JAX): the
 '-'-spread one-hots, their flat CTC ids, dense padded ``ctc_targets``
 [B, 26] (the '-' padding is id 0, the blank) with ``ctc_lengths`` counted
 from the one-hots' occupancy, and ``weighted_tics``.  ``--use_label``
@@ -46,7 +50,7 @@ class Batch:
     images_hr: np.ndarray  # [B, H, W, 3] uint8
     images_lr: np.ndarray  # [B, H/s, W/s, 3] uint8
     label_strs: list[str]
-    label_vecs: np.ndarray  # [B, 37, 1, 26] spread one-hots
+    label_vecs: np.ndarray  # [B, len(alphabet), 1, 26] spread one-hots
     ctc_ids: np.ndarray  # flat CTC ids
     ctc_targets: np.ndarray  # [B, 26] int32
     ctc_lengths: np.ndarray  # [B] int32
@@ -55,10 +59,11 @@ class Batch:
     images_lr_y: Optional[np.ndarray] = None
 
 
-def collate(samples: Sequence[tuple[Image.Image, Image.Image, str]], y_domain: bool = False) -> Batch:
+def collate(samples: Sequence[tuple[Image.Image, Image.Image, str]], y_domain: bool = False,
+            alphabet: str = CRNN_ALPHABET) -> Batch:
     """``samples``: iterable of (img_HR, img_lr, label)."""
     hrs, lrs, labels = zip(*samples)
-    label_vecs, ctc_ids, tics = encode_label_vecs(labels, CRNN_ALPHABET, LABEL_LEN)
+    label_vecs, ctc_ids, tics = encode_label_vecs(labels, alphabet, LABEL_LEN)
     lengths = (label_vecs.sum(axis=1)[:, 0, :] > 0).sum(axis=1).astype(np.int32)
     ctc_targets = np.zeros((len(labels), LABEL_LEN), dtype=np.int32)
     ends = np.cumsum(lengths)

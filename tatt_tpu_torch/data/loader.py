@@ -4,7 +4,8 @@
 es of ``batch_size``, shuffled per epoch by ``np.random.default_rng(seed +
 epoch)`` as the JAX loader shuffles (the same seed gives the same batches),
 the last short batch dropped when ``drop_last``; ``y_domain`` adds the
-``YCbCr`` crops to each batch (:func:`~tatt_tpu_torch.data.collate.collate`).
+``YCbCr`` crops to each batch, and ``alphabet`` is the one the label fields
+are encoded over (:func:`~tatt_tpu_torch.data.collate.collate`).
 
 Real crops cost a PNG/JPEG decode and, where their size differs, a bicubic
 resize per sample, so whole batches are built ahead on a thread pool of
@@ -22,13 +23,14 @@ from typing import Iterator
 
 import numpy as np
 
+from tatt_tpu_torch.core.charset import CRNN_ALPHABET
 from tatt_tpu_torch.data.collate import Batch, collate
 
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 1234, num_workers: int = 1,
-                 prefetch: int = 2, y_domain: bool = False):
+                 prefetch: int = 2, y_domain: bool = False, alphabet: str = CRNN_ALPHABET):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -37,6 +39,7 @@ class DataLoader:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.y_domain = y_domain
+        self.alphabet = alphabet
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -44,7 +47,7 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _build(self, sel: np.ndarray) -> Batch:
-        return collate([self.dataset[int(i)] for i in sel], self.y_domain)
+        return collate([self.dataset[int(i)] for i in sel], self.y_domain, self.alphabet)
 
     def __iter__(self) -> Iterator[Batch]:
         idx = np.arange(len(self.dataset))

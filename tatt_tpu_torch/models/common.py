@@ -197,15 +197,16 @@ class PReLU(nn.Module):
 class Dense(nn.Module):
     """Linear layer on the last axis, torch layout (weight [out, in])."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         bound = _torch_bound(self.weight.shape[1])
         _uniform(self.weight, bound, gen)
-        _uniform(self.bias, bound, gen)
+        if self.bias is not None:
+            _uniform(self.bias, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

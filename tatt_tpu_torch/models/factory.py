@@ -9,13 +9,17 @@ and the zoo (``models/zoo``), ``tranSR_v4`` included.
 :func:`arch_steps` gives them the TATT step and the rest the plain step,
 and says whether the TATT step fuses its tssim copy.
 :func:`build_criterion` holds every branch of ``factory.py:56-80``.
+:func:`build_recognizer` builds the student / teacher of ``--tpg`` (a
+``CRNN``, or the NAVER ``TPGModel`` under ``OPT``, as
+``tatt_tpu/train/loop.py:118-147`` does) and :func:`recognizer_input`
+gives its input adapter, which the steps take.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable
+from typing import Callable, Optional
 
 from torch import nn
 
@@ -27,6 +31,8 @@ from tatt_tpu_torch.losses.image import (
     l1_loss,
     mse_loss,
 )
+from tatt_tpu_torch.models.recognizers.crnn import CRNN, parse_crnn_input
+from tatt_tpu_torch.models.recognizers.tpg import TPGModel, parse_opt_input
 from tatt_tpu_torch.models.tsrn import SEM_TSRN, TATT, TSRN, TSRN_C2F, TSRN_TL, TSRN_TL_SFT
 from tatt_tpu_torch.models.zoo.esrgan import RRDBNet, RRDBNet_TL
 from tatt_tpu_torch.models.zoo.han import HAN
@@ -83,6 +89,28 @@ def available_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
+# --tiny_tpg's shrunk recognizers (tatt_tpu/train/loop.py:133-147)
+TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))
+TINY_TPG = dict(output_channel=64, hidden_size=32)
+
+
+def build_recognizer(cfg: Config, crnn_widths: Optional[dict] = None) -> nn.Module:
+    """A student or teacher of ``--tpg``: ``TPGModel(num_class=
+    cfg.text_emb)`` under ``OPT`` (the FAN ResNet, CTC head), else a
+    ``CRNN`` at ``crnn_widths`` (a teacher file's); ``--tiny_tpg``
+    shrinks either.  Parameters uninitialized (``init_parameters``)."""
+    a = cfg.args
+    if a.tpg == "OPT":
+        return TPGModel(num_class=cfg.text_emb, **(TINY_TPG if a.tiny_tpg else {}))
+    return CRNN(**(crnn_widths or (TINY_CRNN if a.tiny_tpg else {})))
+
+
+def recognizer_input(cfg: Config) -> Callable:
+    """The recognizers' input adapter: 32x512 luma for the TPG, else the
+    CRNN's 32x100 (``parse_OPT_data`` / ``parse_crnn_data``)."""
+    return parse_opt_input if cfg.args.tpg == "OPT" else parse_crnn_input
+
+
 def arch_steps(cfg: Config) -> tuple[Callable, Callable]:
     """``(train_fn, sr_fn)`` of ``cfg.args.arch``, the one place that says
     which step an arch takes: ``train_fn(generators, students, teacher,
@@ -92,18 +120,21 @@ def arch_steps(cfg: Config) -> tuple[Callable, Callable]:
     archs of ``FUSED_TSSIM_ARCHS`` and off for the rest; the others the
     plain step and eval on their channels (``loop.py:149-153``) with their
     criterion, distorted SSIM for ``tsrn`` (``loop.py:317``) and no loss
-    on the students."""
+    on the students.  The TATT step and eval read the recognizers through
+    :func:`recognizer_input`."""
     a = cfg.args
     if a.arch in ABLATION_SET:
         fuses = a.arch in FUSED_TSSIM_ARCHS
+        parse_fn = recognizer_input(cfg)
 
         def tatt_fn(generators, students, teacher, optimizer, arrays, step_cfg, gen):
             if not fuses:
                 step_cfg = dataclasses.replace(step_cfg, fused_tssim=False)
-            return train_step(generators, students, teacher, optimizer, arrays, step_cfg, gen)
+            return train_step(generators, students, teacher, optimizer, arrays, step_cfg, gen,
+                              parse_fn)
 
         return tatt_fn, lambda gens, stus, lr: eval_step(gens, stus, lr, a.stu_iter,
-                                                         a.for_cascading)
+                                                         a.for_cascading, parse_fn)
     channels = 3 if a.arch in THREE_CHANNEL_ARCHS else 4 if a.mask else 3
     criterion, distorted = build_criterion(a.arch, cfg), a.arch == "tsrn"
 
@@ -145,8 +176,9 @@ def _geometry(cfg: Config) -> dict:
 @register("tatt")
 def _tatt(cfg: Config):
     # the TP decoder uses the stem features as queries, so the prior width
-    # is 2 * hidden_units
-    return TATT(**_trunk_args(cfg), **_geometry(cfg), out_text_channels=2 * cfg.args.hd_u)
+    # is 2 * hidden_units; its input, the recognizer's classes
+    return TATT(**_trunk_args(cfg), **_geometry(cfg), text_emb=cfg.text_emb,
+                out_text_channels=2 * cfg.args.hd_u)
 
 
 @register("tsrn")

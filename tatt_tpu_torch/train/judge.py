@@ -4,12 +4,15 @@ reference's ``test_bible`` (``super_resolution.py:485-513``): for
 NCHW RGB images in [0, 1] and returns one string per image.  Each judge
 runs its recognizer (on the images' device, under ``no_grad``) and decodes
 on the host: CTC greedy for CRNN, ids to the first EOS for ASTER, the
-left-to-right decoder's argmax cut at '$' for MORAN.
+left-to-right decoder's argmax cut at '$' for MORAN.  The CRNN kind is any
+CTC recognizer with its input adapter and alphabet: under ``--tpg OPT``
+the teacher TPG through ``parse_opt_input``, decoded over blank + the
+Chinese table under ``--CHNSR`` (``loop.py:400-417``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -19,16 +22,21 @@ from tatt_tpu_torch.core.charset import CRNN_ALPHABET, AsterInfo, ctc_greedy_dec
 Judge = Callable[[torch.Tensor], list]
 
 
-def make_judge(test_model: str, model: nn.Module, voc_type: str = "all") -> Judge:
-    """``judge(images) -> list[str]`` over ``model`` (a ``CRNN``, an
+def make_judge(test_model: str, model: nn.Module, voc_type: str = "all",
+               parse_fn: Optional[Callable] = None, alphabet: str = CRNN_ALPHABET) -> Judge:
+    """``judge(images) -> list[str]`` over ``model`` (a CTC recognizer, an
     ``AsterRecognizer`` built for ``AsterInfo(voc_type)`` or a ``MORAN``,
-    in eval mode on the images' device)."""
+    in eval mode on the images' device).  For ``CRNN``: ``parse_fn``, the
+    recognizer's input adapter (default ``parse_crnn_input``), and the
+    blank-first ``alphabet`` its logits decode over."""
     if test_model == "CRNN":
         from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 
+        parse = parse_fn or parse_crnn_input
+
         @torch.no_grad()
         def judge(images):
-            return ctc_greedy_decode(model(parse_crnn_input(images[:, :3])).cpu().numpy(), CRNN_ALPHABET)
+            return ctc_greedy_decode(model(parse(images[:, :3])).cpu().numpy(), alphabet)
 
     elif test_model == "ASTER":
         from tatt_tpu_torch.models.recognizers.aster import parse_aster_input

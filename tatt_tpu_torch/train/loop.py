@@ -3,7 +3,9 @@
 :class:`Evaluator` is ``Trainer.evaluate``: for each batch the eval step
 (student prior -> TATT, ``stu_iter`` times, with ``for_cascading``), PSNR/SSIM
 of SR and of the bicubic-upscaled LR against HR, and the judge's
-reading of SR, LR and HR (:mod:`.judge`: CRNN, ASTER or MORAN);
+reading of SR, LR and HR (:mod:`.judge`: CRNN, ASTER or MORAN), its
+accuracy after ``str_filt`` with ``filter_mode`` (``lower``, or ``chinese``
+under ``--CHNSR``) and the SR reading's NED;
 with an LPIPS function also LPIPS of SR and of the bicubic LR against HR;
 with ``n_vis`` the first ``n_vis`` samples of each evaluation as LR / SR /
 HR triptychs, and the TP-Interpreter's attention tiles (``att_``), under
@@ -55,7 +57,9 @@ from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
-from tatt_tpu_torch.models.factory import arch_steps
+from tatt_tpu_torch.core.charset import CRNN_ALPHABET
+from tatt_tpu_torch.models.factory import arch_steps, recognizer_input
+from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 from tatt_tpu_torch.train.demo import attention_grid, triptych
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.metrics import EvalAccumulator
@@ -136,12 +140,15 @@ class Evaluator:
     already sit on ``device`` in eval mode; ``generators`` / ``students``
     hold one module or one per ``stu_iter`` iteration.  ``judge`` reads
     images into strings (:func:`~tatt_tpu_torch.train.judge.make_judge`; a
-    module given here is taken as a CRNN judge).  ``lpips``: a function of
+    module given here is taken as a CRNN-kind judge, read through
+    ``parse_fn`` and decoded over ``alphabet``).  ``lpips``: a function of
     (images, HR) -> per-sample LPIPS, or None.  ``workers`` threads build
     the batches (the same batches for any count).  ``sr_fn(generators,
     students, lr) -> (sr, aux)`` makes the SR images: the arch's, from
     :func:`~tatt_tpu_torch.models.factory.arch_steps`; by default the TATT
-    eval (:func:`eval_step` with ``stu_iter`` and ``for_cascading``)."""
+    eval (:func:`eval_step` with ``stu_iter``, ``for_cascading`` and
+    ``parse_fn``, the students' input adapter).  ``filter_mode``: the
+    accuracy's vocabulary filter."""
 
     def __init__(
         self,
@@ -158,12 +165,17 @@ class Evaluator:
         n_vis: int = 0,
         vis_root: str = os.path.join("demo", "demo"),
         sr_fn: Optional[Callable] = None,
+        parse_fn: Callable = parse_crnn_input,
+        alphabet: str = CRNN_ALPHABET,
+        filter_mode: str = "lower",
     ):
         self.generators = list(generators)
         self.students = list(students)
         self.sr_fn = sr_fn or (lambda gens, stus, lr: eval_step(gens, stus, lr, stu_iter,
-                                                                for_cascading))
-        self.decode = make_judge("CRNN", judge) if isinstance(judge, nn.Module) else judge
+                                                                for_cascading, parse_fn))
+        self.decode = (make_judge("CRNN", judge, parse_fn=parse_fn, alphabet=alphabet)
+                       if isinstance(judge, nn.Module) else judge)
+        self.filter_mode = filter_mode
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.mask = mask
@@ -195,6 +207,7 @@ class Evaluator:
                 ssim(sr, hr).item(),
                 *preds,
                 labels,
+                filter_mode=self.filter_mode,
                 psnr_lr=psnr(lr_up, hr).item(),
                 ssim_lr=ssim(lr_up, hr).item(),
                 lpips_sr=lpips_sr,
@@ -227,7 +240,10 @@ class Trainer:
     as lists; one Adam over all) against the frozen ``teacher``.  The
     validation judge is ``judge`` (:func:`~tatt_tpu_torch.train.judge.
     make_judge`), else the teacher read as a CRNN judge (the JAX package's
-    CRNN judge without dedicated weights, ``loop.py:353-355``); ``lpips``
+    CRNN judge without dedicated weights, ``loop.py:353-355``), through
+    the ``--tpg`` recognizer's input adapter and over ``cfg.alphabet``,
+    accuracy filtered by ``cfg.filter_mode``; the train batches' label
+    fields are encoded over ``cfg.alphabet``; ``lpips``
     adds LPIPS to each validation.  The models must already sit on
     ``device``.  A generator without parameters (``bicubic``) is refused."""
 
@@ -263,12 +279,13 @@ class Trainer:
         workers = max(cfg.TRAIN.workers, 1)
         self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
                                  seed=cfg.TRAIN.manualSeed, num_workers=workers,
-                                 y_domain=cfg.args.y_domain)
+                                 y_domain=cfg.args.y_domain, alphabet=cfg.alphabet)
         self.evaluator = Evaluator(
             self.generators, self.students, judge or teacher, device,
             cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers, cfg.args.stu_iter,
             cfg.args.for_cascading, lpips, cfg.TRAIN.VAL.n_vis if cfg.args.vis else 0,
-            os.path.join("demo", cfg.vis_dir), sr_fn,
+            os.path.join("demo", cfg.vis_dir), sr_fn, recognizer_input(cfg), cfg.alphabet,
+            cfg.filter_mode,
         )
         self.val_datasets = val_datasets or {}
         self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)

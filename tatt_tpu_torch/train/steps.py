@@ -125,6 +125,7 @@ def train_step(
     batch: dict,
     cfg: StepConfig,
     gen: torch.Generator,
+    parse_fn: Callable = parse_crnn_input,
 ) -> dict:
     """One optimizer step.
 
@@ -137,7 +138,10 @@ def train_step(
     ``images_hr_y`` / ``images_lr_y``, with ``use_label`` ``ctc_targets``,
     ``ctc_lengths`` and ``weighted_tics``, optionally ``rot_arc`` /
     ``rot_offs``.  ``gen``: a generator on the device for the rotation and
-    dropout draws.  Returns the JAX metric names as device scalars."""
+    dropout draws.  ``parse_fn``: the recognizers' input adapter
+    (``parse_crnn_input``, or ``parse_opt_input`` for the TPG of ``--tpg
+    OPT``, whose [129, B, C] logits make a [B, C, 1, 129] prior).  Returns
+    the JAX metric names as device scalars."""
     batch = prep_image_batch(batch, cfg.mask)
     images_hr, images_lr = batch["images_hr"], batch["images_lr"]
     hr_raw, lr_raw = images_hr, images_lr
@@ -156,9 +160,9 @@ def train_step(
         hr_raw, lr_raw = images_hr, images_lr
 
     with torch.no_grad():  # the frozen teacher's prior from HR
-        teacher_logits = teacher(parse_crnn_input(hr_raw[:, :3])).float()
+        teacher_logits = teacher(parse_fn(hr_raw[:, :3])).float()
         label_vecs_hr = torch.softmax(teacher_logits, dim=-1)
-    lr_luma = parse_crnn_input(lr_raw[:, :3])
+    lr_luma = parse_fn(lr_raw[:, :3])
     fused = cfg.tssim_loss and cfg.fused_tssim
 
     loss_img = loss_distill = 0.0
@@ -171,7 +175,7 @@ def train_step(
         if cfg.for_cascading and i > 0:
             prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
             cascade = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
-        stage_luma = lr_luma if i == 0 or cfg.y_domain else parse_crnn_input(cascade[:, :3])
+        stage_luma = lr_luma if i == 0 or cfg.y_domain else parse_fn(cascade[:, :3])
         label_vecs = torch.softmax(student(stage_luma).float(), dim=-1)  # [T, B, C]
         prior = label_vecs.permute(1, 2, 0)[:, :, None, :].detach()  # [B, C, 1, T]
         main_input = cascade if cfg.for_cascading else images_lr
@@ -331,6 +335,7 @@ def eval_step(
     images_lr: torch.Tensor,
     stu_iter: int = 1,
     for_cascading: bool = False,
+    parse_fn: Callable = parse_crnn_input,
 ):
     """``images_lr`` [N, 4, 16, 64] -> (SR of the last iteration, aux).
 
@@ -338,18 +343,19 @@ def eval_step(
     ``--tpg_share``) or one per iteration.  At iteration i > 0 the student
     reads the previous SR output (``super_resolution.py:316-318,374-376``);
     the generator reads the LR input, or with ``for_cascading`` the
-    previous SR resized to LR, clamped and averaged with LR."""
+    previous SR resized to LR, clamped and averaged with LR.  ``parse_fn``
+    as in :func:`train_step`."""
     cascade = images_lr
     sr = aux = None
     for i in range(stu_iter):
-        lr_luma = parse_crnn_input(cascade[:, :3])
+        lr_luma = parse_fn(cascade[:, :3])
         sr_input = images_lr
         if for_cascading and i > 0:
             prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
             sr_input = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
         student = students[i if len(students) > 1 else 0]
         generator = generators[i if len(generators) > 1 else 0]
-        logits = student(lr_luma)  # [T, N, 37]
+        logits = student(lr_luma)  # [T, N, C]
         prior = torch.softmax(logits, dim=-1).permute(1, 2, 0)[:, :, None, :]
         sr, aux = generator(sr_input, prior)
         cascade = sr

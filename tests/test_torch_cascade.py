@@ -169,8 +169,9 @@ def test_cli_accepts_the_step_flags(argv, copies, capsys):
 
 
 # --color_loss and --mse_fuse are served now (the plain step; no-ops in the
-# TATT step, as in JAX), and the zoo: their cases hold other refusals
-@pytest.mark.parametrize("flag", [["--arch=srcnn", "--badset"], ["--tpg", "OPT"],
+# TATT step, as in JAX), the zoo and --tpg OPT: their cases hold other
+# refusals (--dp_devices for --tpg OPT)
+@pytest.mark.parametrize("flag", [["--arch=srcnn", "--badset"], ["--dp_devices", "2"],
                                   ["--dtype", "bfloat16"]])
 def test_cli_still_refuses_what_waits(flag):
     from tatt_tpu_torch.cli import main as cli

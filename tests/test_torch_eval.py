@@ -151,16 +151,18 @@ def test_cli_go_test_on_cpu(capsys):
 
 @pytest.mark.parametrize(
     "argv",
-    # the TSRN family, --color_loss, --mse_fuse and the zoo are served now:
-    # their cases hold --tpg OPT, a data flag of data/variants.py and a zoo
-    # arch with the recipe's flags and a multi-device flag (DDP)
+    # the TSRN family, --color_loss, --mse_fuse, the zoo, --tpg OPT and
+    # --CHNSR are served now: their cases hold data flags of
+    # data/variants.py and a zoo arch with the recipe's flags and a
+    # multi-device flag (DDP)
     [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--ic15sr"],
-     ["--synthetic", "8", "--tpg", "OPT"], ["--go_test", "--mixed"],
-     # a zoo arch with a text prior under --bn_per_replica, and the Chinese path
+     ["--synthetic", "8", "--syn"], ["--go_test", "--mixed"],
+     # a zoo arch with a text prior under --bn_per_replica, and the recipe
+     # under --dp_devices (in the Chinese path's place)
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
       "--arch=tbsrn_tl", "--bn_per_replica", "--synthetic", "8"],
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--tssim_loss",
-      "--rotate_train=3.0", "--CHNSR", "--synthetic", "8"]],
+      "--rotate_train=3.0", "--dp_devices", "2", "--synthetic", "8"]],
 )
 def test_cli_refuses_what_is_not_ported(argv):
     from tatt_tpu_torch.cli import main as cli

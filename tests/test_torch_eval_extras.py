@@ -339,6 +339,7 @@ def test_cli_judges_need_weights(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--rec=moran requires MORAN weights"):
         cli.main(["--test", "--rec=moran"] + base[1:])
     assert cli.main(base + ["--test_model=MORAN", "--moran_pretrained", "missing.pth"]) == 2
-    for argv in (["--tpg", "OPT"], ["--syn"], ["--test_data_dir", "x"]):
+    # --tpg OPT is served now: --badset holds its place
+    for argv in (["--badset"], ["--syn"], ["--test_data_dir", "x"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main(base + argv)
