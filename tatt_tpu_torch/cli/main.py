@@ -112,7 +112,7 @@ from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.factory import (
-    ABLATION_SET, arch_steps, build_generator, build_recognizer, recognizer_input,
+    ABLATION_SET, arch_steps, build_generator, recognizer_spec,
 )
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import crnn_widths
@@ -268,7 +268,7 @@ def build_models(cfg: Config, crnn_path: str):
     loop.copies` of the ``--arch`` generator (:func:`~tatt_tpu_torch.models.
     factory.build_generator`) and of the student (a CRNN, or the TPG
     under ``--tpg OPT``: :func:`~tatt_tpu_torch.models.factory.
-    build_recognizer`), each copy seeded from ``TRAIN.manualSeed`` and its
+    recognizer_spec`), each copy seeded from ``TRAIN.manualSeed`` and its
     index; the teacher's weights, and every student's start, from
     ``crnn_path`` (``loop.py:176-186``), whose shapes also give the CRNN's
     widths (a CRNN that ``tatt_tpu_torch.train.pretrain`` trained at any
@@ -277,10 +277,9 @@ def build_models(cfg: Config, crnn_path: str):
     n_sr, n_stu = copies(a)
     generators = [init_parameters(build_generator(a.arch, cfg), seed + 3 * i) for i in range(n_sr)]
     sd = load_reference_pth(crnn_path) if crnn_path else None
-    widths = crnn_widths(sd) if sd else None
-    students = [init_parameters(build_recognizer(cfg, widths), seed + 1 + 3 * i)
-                for i in range(n_stu)]
-    teacher = init_parameters(build_recognizer(cfg, widths), seed + 2)  # also the judge
+    widths, spec = crnn_widths(sd) if sd else None, recognizer_spec(cfg)
+    students = [init_parameters(spec.build(widths), seed + 1 + 3 * i) for i in range(n_stu)]
+    teacher = init_parameters(spec.build(widths), seed + 2)  # also the judge
     if sd:
         for model in (teacher, *students):
             load_weights(model, sd)
@@ -293,7 +292,7 @@ def rec_judge(cfg: Config, cli: argparse.Namespace, teacher, device):
     ASTER / MORAN, which need their weights."""
     rec = cfg.args.rec
     if rec == "crnn":
-        return make_judge("CRNN", teacher, parse_fn=recognizer_input(cfg), alphabet=cfg.alphabet)
+        return make_judge("CRNN", teacher, spec=recognizer_spec(cfg))
     kind = rec.upper()
     path = weights_path(kind, cfg, cli)
     if not path or not os.path.exists(path):
@@ -381,7 +380,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
             workers=max(cfg.TRAIN.workers, 1), stu_iter=a.stu_iter, for_cascading=a.for_cascading,
             lpips=lpips, n_vis=cfg.TRAIN.VAL.n_vis if a.vis else 0,
             vis_root=os.path.join("demo", cfg.vis_dir), sr_fn=sr_fn,
-            parse_fn=recognizer_input(cfg), alphabet=cfg.alphabet, filter_mode=cfg.filter_mode,
+            spec=recognizer_spec(cfg),
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")

@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 import string
 from functools import lru_cache
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 
@@ -35,25 +35,21 @@ _ALNUM = frozenset(string.digits + string.ascii_letters)
 
 
 @lru_cache(maxsize=None)
-def voc_table(voc_type: str, chinese_path: Optional[str] = None) -> str:
+def voc_table(voc_type: str) -> str:
     """The characters of ``voc_type`` (digit, lower, upper, all or
-    chinese).  ``chinese``: the first line of ``chinese_path``, or of the
-    packaged table where that is None or missing (the reference opens
-    ``al_chinese.txt`` relative to the working directory,
-    ``main.py:140-142``)."""
+    chinese).  ``chinese``: the first line of the packaged table (the
+    reference's ``al_chinese.txt``, ``main.py:140-142``)."""
     if voc_type != "chinese":
         return _TABLES[voc_type]
-    if chinese_path is None or not os.path.exists(chinese_path):
-        chinese_path = _CHINESE_TABLE
-    with open(chinese_path, encoding="utf-8") as fh:
+    with open(_CHINESE_TABLE, encoding="utf-8") as fh:
         return fh.readline().replace("\n", "")
 
 
-def str_filt(s: str, voc_type: str, chinese_path: Optional[str] = None) -> str:
+def str_filt(s: str, voc_type: str) -> str:
     """Vocabulary filter of the accuracy protocol (``utils/util.py:12-32``):
     lowercases for 'lower'; for 'chinese' keeps CJK U+4E00-U+9FA5 and
     ASCII letters and digits; then drops out-of-vocabulary characters."""
-    table = voc_table(voc_type, chinese_path)
+    table = voc_table(voc_type)
     if voc_type == "lower":
         s = s.lower()
     if voc_type == "chinese":
@@ -100,13 +96,17 @@ def decode_aster_ids(ids, info: AsterInfo) -> list[str]:
 
 
 def ctc_greedy_decode(logits, alphabet: str = CRNN_ALPHABET) -> list[str]:
-    """Greedy CTC decode with blank collapse of ``logits`` [T, B, C].
+    """Greedy CTC decode with blank collapse of ``logits`` [T, B, C]."""
+    return ctc_collapse(np.asarray(logits).argmax(-1).T, alphabet)
+
+
+def ctc_collapse(best, alphabet: str = CRNN_ALPHABET) -> list[str]:
+    """The blank collapse of greedy ids ``best`` [B, T].
 
     Mirrors ``get_string_crnn`` (``utils/metrics.py:71-92``) including its
     quirk of resetting the repeat tracker on blanks ("a-a" -> "aa")."""
-    best = np.asarray(logits).argmax(-1).T  # [B, T]
     out = []
-    for row in best:
+    for row in np.asarray(best):
         s, last = "", ""
         for idx in row:
             ch = alphabet[int(idx)]

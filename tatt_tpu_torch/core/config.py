@@ -7,12 +7,10 @@ flags that the port serves, with the same names and defaults; flags win
 over the YAML through the same ``Config`` properties (``batch_size``,
 ``lr``, ``resume``, ``vis_dir``, ``epochs``).  ``ModelConfig`` and the
 flags of paths not yet ported are not here: of ``ModelConfig`` the port
-reads only ``text_emb``, the recognizer's class count, which
-``Config.text_emb`` derives from ``--CHNSR`` as the JAX ``Trainer`` sets
-it (``loop.py:112-116``).  ``--CHNSR`` also gives the decode alphabet
-(``Config.alphabet``: blank + the 3965-character table, whose last
-character the 3965-class head cannot emit, a reference quirk kept) and
-the accuracy filter (``Config.filter_mode``).
+reads only ``text_emb``, the recognizer's class count, which follows
+``--CHNSR`` as the JAX ``Trainer`` sets it (``loop.py:112-116``); what
+``--tpg`` and ``--CHNSR`` choose is read in one place,
+``tatt_tpu_torch.models.factory.recognizer_spec``.
 
 :func:`load_config` refuses, with "not ported yet", a YAML whose geometry
 differs from what the port's collate serves (``width`` 128, ``height``
@@ -27,8 +25,6 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import yaml
-
-from tatt_tpu_torch.core.charset import CRNN_ALPHABET, voc_table
 
 # what the port's collate serves (data/collate.py: HR_SIZE, LR_SIZE)
 PORTED_GEOMETRY = {"width": 128, "height": 32, "down_sample_scale": 2}
@@ -160,23 +156,6 @@ class Config:
     @property
     def scale_factor(self) -> int:
         return self.TRAIN.down_sample_scale
-
-    @property
-    def text_emb(self) -> int:
-        """The recognizer's class count and the prior's width: 3965 under
-        ``--CHNSR`` (``loop.py:112-116``), else the CRNN's 37."""
-        return len(voc_table("chinese")) if self.args.CHNSR else len(CRNN_ALPHABET)
-
-    @property
-    def alphabet(self) -> str:
-        """The blank-first CTC decode alphabet of the teacher and judge."""
-        return "-" + voc_table("chinese") if self.args.CHNSR else CRNN_ALPHABET
-
-    @property
-    def filter_mode(self) -> str:
-        """``str_filt``'s vocabulary for the accuracy protocol
-        (``loop.py:789-792``)."""
-        return "chinese" if self.args.CHNSR else "lower"
 
 
 def _coerce(dc_cls, data: Optional[dict]) -> Any:

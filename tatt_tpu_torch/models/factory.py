@@ -9,10 +9,12 @@ and the zoo (``models/zoo``), ``tranSR_v4`` included.
 :func:`arch_steps` gives them the TATT step and the rest the plain step,
 and says whether the TATT step fuses its tssim copy.
 :func:`build_criterion` holds every branch of ``factory.py:56-80``.
-:func:`build_recognizer` builds the student / teacher of ``--tpg`` (a
-``CRNN``, or the NAVER ``TPGModel`` under ``OPT``, as
-``tatt_tpu/train/loop.py:118-147`` does) and :func:`recognizer_input`
-gives its input adapter, which the steps take.
+:func:`recognizer_spec` is the one place that reads ``--tpg`` and
+``--CHNSR`` (``tatt_tpu/train/loop.py:105-147``): its
+:class:`RecognizerSpec` builds the students and teacher (a ``CRNN``, or
+the NAVER ``TPGModel`` under ``OPT``) and carries their class count,
+input adapter, decode alphabet and accuracy filter to the steps, the
+judge, the evaluator and the collate.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable, Optional
 
 from torch import nn
 
+from tatt_tpu_torch.core.charset import CRNN_ALPHABET, voc_table
 from tatt_tpu_torch.core.config import Config
 from tatt_tpu_torch.losses.image import (
     charbonnier_loss,
@@ -94,21 +97,49 @@ TINY_CRNN = dict(nh=16, nm=(8, 8, 16, 16, 32, 32, 32))
 TINY_TPG = dict(output_channel=64, hidden_size=32)
 
 
-def build_recognizer(cfg: Config, crnn_widths: Optional[dict] = None) -> nn.Module:
-    """A student or teacher of ``--tpg``: ``TPGModel(num_class=
-    cfg.text_emb)`` under ``OPT`` (the FAN ResNet, CTC head), else a
-    ``CRNN`` at ``crnn_widths`` (a teacher file's); ``--tiny_tpg``
-    shrinks either.  Parameters uninitialized (``init_parameters``)."""
+@dataclasses.dataclass(frozen=True)
+class RecognizerSpec:
+    """The students' and teacher's recognizer: ``tpg`` (``CRNN`` or
+    ``OPT``), ``num_class`` (its classes and the prior's width,
+    ``text_emb``), ``parse_fn`` (its input adapter), ``alphabet`` (the
+    blank-first CTC decode alphabet; under ``--CHNSR`` blank + the
+    3965-character table, whose last character the 3965-class head cannot
+    emit, a reference quirk kept), ``filter_mode`` (``str_filt``'s
+    vocabulary for accuracy, ``loop.py:789-792``) and ``tiny``
+    (``--tiny_tpg``)."""
+
+    tpg: str
+    num_class: int
+    parse_fn: Callable
+    alphabet: str
+    filter_mode: str
+    tiny: bool = False
+
+    def build(self, crnn_widths: Optional[dict] = None) -> nn.Module:
+        """A student or teacher: ``TPGModel(num_class)`` under ``OPT``
+        (the FAN ResNet, CTC head), else a ``CRNN`` at ``crnn_widths`` (a
+        teacher file's); ``tiny`` shrinks either.  Parameters
+        uninitialized (``init_parameters``)."""
+        if self.tpg == "OPT":
+            return TPGModel(num_class=self.num_class, **(TINY_TPG if self.tiny else {}))
+        return CRNN(**(crnn_widths or (TINY_CRNN if self.tiny else {})))
+
+
+CRNN_SPEC = RecognizerSpec("CRNN", len(CRNN_ALPHABET), parse_crnn_input, CRNN_ALPHABET, "lower")
+
+
+def recognizer_spec(cfg: Config) -> RecognizerSpec:
+    """What ``--tpg`` and ``--CHNSR`` choose: the TPG through
+    ``parse_opt_input`` (32x512 luma) under ``OPT``, else the CRNN through
+    ``parse_crnn_input`` (``parse_OPT_data`` / ``parse_crnn_data``); the
+    3965-character table's classes, alphabet and filter under ``--CHNSR``
+    (``loop.py:105-116``), else the CRNN's 37 and ``lower``."""
     a = cfg.args
-    if a.tpg == "OPT":
-        return TPGModel(num_class=cfg.text_emb, **(TINY_TPG if a.tiny_tpg else {}))
-    return CRNN(**(crnn_widths or (TINY_CRNN if a.tiny_tpg else {})))
-
-
-def recognizer_input(cfg: Config) -> Callable:
-    """The recognizers' input adapter: 32x512 luma for the TPG, else the
-    CRNN's 32x100 (``parse_OPT_data`` / ``parse_crnn_data``)."""
-    return parse_opt_input if cfg.args.tpg == "OPT" else parse_crnn_input
+    parse_fn = parse_opt_input if a.tpg == "OPT" else parse_crnn_input
+    if a.CHNSR:
+        table = voc_table("chinese")
+        return RecognizerSpec(a.tpg, len(table), parse_fn, "-" + table, "chinese", a.tiny_tpg)
+    return dataclasses.replace(CRNN_SPEC, tpg=a.tpg, parse_fn=parse_fn, tiny=a.tiny_tpg)
 
 
 def arch_steps(cfg: Config) -> tuple[Callable, Callable]:
@@ -121,11 +152,11 @@ def arch_steps(cfg: Config) -> tuple[Callable, Callable]:
     plain step and eval on their channels (``loop.py:149-153``) with their
     criterion, distorted SSIM for ``tsrn`` (``loop.py:317``) and no loss
     on the students.  The TATT step and eval read the recognizers through
-    :func:`recognizer_input`."""
+    :func:`recognizer_spec`'s input adapter."""
     a = cfg.args
     if a.arch in ABLATION_SET:
         fuses = a.arch in FUSED_TSSIM_ARCHS
-        parse_fn = recognizer_input(cfg)
+        parse_fn = recognizer_spec(cfg).parse_fn
 
         def tatt_fn(generators, students, teacher, optimizer, arrays, step_cfg, gen):
             if not fuses:
@@ -177,7 +208,7 @@ def _geometry(cfg: Config) -> dict:
 def _tatt(cfg: Config):
     # the TP decoder uses the stem features as queries, so the prior width
     # is 2 * hidden_units; its input, the recognizer's classes
-    return TATT(**_trunk_args(cfg), **_geometry(cfg), text_emb=cfg.text_emb,
+    return TATT(**_trunk_args(cfg), **_geometry(cfg), text_emb=recognizer_spec(cfg).num_class,
                 out_text_channels=2 * cfg.args.hd_u)
 
 

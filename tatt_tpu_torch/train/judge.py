@@ -3,40 +3,40 @@ reference's ``test_bible`` (``super_resolution.py:485-513``): for
 ``--test_model`` CRNN, ASTER or MORAN, a callable that reads a batch of
 NCHW RGB images in [0, 1] and returns one string per image.  Each judge
 runs its recognizer (on the images' device, under ``no_grad``) and decodes
-on the host: CTC greedy for CRNN, ids to the first EOS for ASTER, the
-left-to-right decoder's argmax cut at '$' for MORAN.  The CRNN kind is any
-CTC recognizer with its input adapter and alphabet: under ``--tpg OPT``
-the teacher TPG through ``parse_opt_input``, decoded over blank + the
-Chinese table under ``--CHNSR`` (``loop.py:400-417``).
+on the host: CTC greedy for CRNN (the argmax taken on the device, only the
+[B, T] ids copied), ids to the first EOS for ASTER, the left-to-right
+decoder's argmax cut at '$' for MORAN.  The CRNN kind is any CTC
+recognizer with its :class:`~tatt_tpu_torch.models.factory.RecognizerSpec`'s
+input adapter and alphabet: under ``--tpg OPT`` the teacher TPG through
+``parse_opt_input``, decoded over blank + the Chinese table under
+``--CHNSR`` (``loop.py:400-417``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 from torch import nn
 
-from tatt_tpu_torch.core.charset import CRNN_ALPHABET, AsterInfo, ctc_greedy_decode, decode_aster_ids
+from tatt_tpu_torch.core.charset import AsterInfo, ctc_collapse, decode_aster_ids
+from tatt_tpu_torch.models.factory import CRNN_SPEC, RecognizerSpec
 
 Judge = Callable[[torch.Tensor], list]
 
 
 def make_judge(test_model: str, model: nn.Module, voc_type: str = "all",
-               parse_fn: Optional[Callable] = None, alphabet: str = CRNN_ALPHABET) -> Judge:
+               spec: RecognizerSpec = CRNN_SPEC) -> Judge:
     """``judge(images) -> list[str]`` over ``model`` (a CTC recognizer, an
     ``AsterRecognizer`` built for ``AsterInfo(voc_type)`` or a ``MORAN``,
-    in eval mode on the images' device).  For ``CRNN``: ``parse_fn``, the
-    recognizer's input adapter (default ``parse_crnn_input``), and the
-    blank-first ``alphabet`` its logits decode over."""
+    in eval mode on the images' device).  For ``CRNN``: read through
+    ``spec.parse_fn`` and decoded over ``spec.alphabet``."""
     if test_model == "CRNN":
-        from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
-
-        parse = parse_fn or parse_crnn_input
 
         @torch.no_grad()
         def judge(images):
-            return ctc_greedy_decode(model(parse(images[:, :3])).cpu().numpy(), alphabet)
+            best = model(spec.parse_fn(images[:, :3])).argmax(-1).T  # [B, T]
+            return ctc_collapse(best.cpu().numpy(), spec.alphabet)
 
     elif test_model == "ASTER":
         from tatt_tpu_torch.models.recognizers.aster import parse_aster_input

@@ -57,9 +57,7 @@ from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
-from tatt_tpu_torch.core.charset import CRNN_ALPHABET
-from tatt_tpu_torch.models.factory import arch_steps, recognizer_input
-from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
+from tatt_tpu_torch.models.factory import CRNN_SPEC, RecognizerSpec, arch_steps, recognizer_spec
 from tatt_tpu_torch.train.demo import attention_grid, triptych
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.metrics import EvalAccumulator
@@ -140,15 +138,16 @@ class Evaluator:
     already sit on ``device`` in eval mode; ``generators`` / ``students``
     hold one module or one per ``stu_iter`` iteration.  ``judge`` reads
     images into strings (:func:`~tatt_tpu_torch.train.judge.make_judge`; a
-    module given here is taken as a CRNN-kind judge, read through
-    ``parse_fn`` and decoded over ``alphabet``).  ``lpips``: a function of
+    module given here is taken as a CRNN-kind judge of ``spec``).  ``lpips``: a function of
     (images, HR) -> per-sample LPIPS, or None.  ``workers`` threads build
     the batches (the same batches for any count).  ``sr_fn(generators,
     students, lr) -> (sr, aux)`` makes the SR images: the arch's, from
     :func:`~tatt_tpu_torch.models.factory.arch_steps`; by default the TATT
-    eval (:func:`eval_step` with ``stu_iter``, ``for_cascading`` and
-    ``parse_fn``, the students' input adapter).  ``filter_mode``: the
-    accuracy's vocabulary filter."""
+    eval (:func:`eval_step` with ``stu_iter``, ``for_cascading`` and the
+    students' input adapter).  ``spec``: the recognizer
+    (:func:`~tatt_tpu_torch.models.factory.recognizer_spec`), whose input
+    adapter the eval step and judge take, whose alphabet the judge decodes
+    over and whose ``filter_mode`` filters the accuracy."""
 
     def __init__(
         self,
@@ -165,17 +164,14 @@ class Evaluator:
         n_vis: int = 0,
         vis_root: str = os.path.join("demo", "demo"),
         sr_fn: Optional[Callable] = None,
-        parse_fn: Callable = parse_crnn_input,
-        alphabet: str = CRNN_ALPHABET,
-        filter_mode: str = "lower",
+        spec: RecognizerSpec = CRNN_SPEC,
     ):
         self.generators = list(generators)
         self.students = list(students)
         self.sr_fn = sr_fn or (lambda gens, stus, lr: eval_step(gens, stus, lr, stu_iter,
-                                                                for_cascading, parse_fn))
-        self.decode = (make_judge("CRNN", judge, parse_fn=parse_fn, alphabet=alphabet)
-                       if isinstance(judge, nn.Module) else judge)
-        self.filter_mode = filter_mode
+                                                                for_cascading, spec.parse_fn))
+        self.decode = make_judge("CRNN", judge, spec=spec) if isinstance(judge, nn.Module) else judge
+        self.spec = spec
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.mask = mask
@@ -207,7 +203,7 @@ class Evaluator:
                 ssim(sr, hr).item(),
                 *preds,
                 labels,
-                filter_mode=self.filter_mode,
+                filter_mode=self.spec.filter_mode,
                 psnr_lr=psnr(lr_up, hr).item(),
                 ssim_lr=ssim(lr_up, hr).item(),
                 lpips_sr=lpips_sr,
@@ -241,9 +237,9 @@ class Trainer:
     validation judge is ``judge`` (:func:`~tatt_tpu_torch.train.judge.
     make_judge`), else the teacher read as a CRNN judge (the JAX package's
     CRNN judge without dedicated weights, ``loop.py:353-355``), through
-    the ``--tpg`` recognizer's input adapter and over ``cfg.alphabet``,
-    accuracy filtered by ``cfg.filter_mode``; the train batches' label
-    fields are encoded over ``cfg.alphabet``; ``lpips``
+    the :func:`~tatt_tpu_torch.models.factory.recognizer_spec` of ``cfg``,
+    which also gives the alphabet the train batches' label fields are
+    encoded over; ``lpips``
     adds LPIPS to each validation.  The models must already sit on
     ``device``.  A generator without parameters (``bicubic``) is refused."""
 
@@ -276,16 +272,15 @@ class Trainer:
             itertools.chain(*(m.parameters() for m in self.generators + self.students)),
             cfg.lr, cfg.TRAIN.beta1,
         )
-        workers = max(cfg.TRAIN.workers, 1)
+        workers, spec = max(cfg.TRAIN.workers, 1), recognizer_spec(cfg)
         self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
                                  seed=cfg.TRAIN.manualSeed, num_workers=workers,
-                                 y_domain=cfg.args.y_domain, alphabet=cfg.alphabet)
+                                 y_domain=cfg.args.y_domain, alphabet=spec.alphabet)
         self.evaluator = Evaluator(
             self.generators, self.students, judge or teacher, device,
             cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers, cfg.args.stu_iter,
             cfg.args.for_cascading, lpips, cfg.TRAIN.VAL.n_vis if cfg.args.vis else 0,
-            os.path.join("demo", cfg.vis_dir), sr_fn, recognizer_input(cfg), cfg.alphabet,
-            cfg.filter_mode,
+            os.path.join("demo", cfg.vis_dir), sr_fn, spec,
         )
         self.val_datasets = val_datasets or {}
         self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)

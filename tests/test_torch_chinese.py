@@ -34,6 +34,7 @@ from JAX's by 0.8-1.7e-2 (in eval mode, on a smooth loss, all agree within
 2.7e-6: ``tests/test_torch_tpg.py`` holds the TPG's gradients).
 """
 
+import hashlib
 import math
 import os
 
@@ -61,6 +62,7 @@ from tatt_tpu_torch.core.config import Config, Flags
 from tatt_tpu_torch.core.convert import from_jax, from_jax_copies
 from tatt_tpu_torch.data.collate import collate
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+from tatt_tpu_torch.models.factory import recognizer_spec
 from tatt_tpu_torch.models.recognizers.tpg import TPGModel, parse_opt_input
 from tatt_tpu_torch.models.tsrn import TATT
 from tatt_tpu_torch.train.loop import Evaluator
@@ -98,8 +100,8 @@ def test_table_is_the_jax_packages_byte_for_byte():
         theirs = fh.read()
     assert ours == theirs and len(ours) == 11705
     assert TABLE == jcharset.voc_table("chinese") and N_CLASS == 3965
-    # a missing path falls back to the packaged table, as in JAX
-    assert charset.voc_table("chinese", "al_chinese.txt") == TABLE
+    assert hashlib.sha256(ours).hexdigest() == (
+        "d0d2aae88a563d27650536b3f61eec828ea5d9811248c0d0ef78459741a30fec")
 
 
 @pytest.mark.parametrize("text", STRINGS)
@@ -269,10 +271,10 @@ def test_evaluator_matches_jax_trainer_evaluate():
     student.load_state_dict(from_jax({"params": st.student_params[0],
                                       "batch_stats": st.student_batch_stats[0]}))
     teacher.load_state_dict(from_jax(jax.tree_util.tree_map(np.asarray, trainer.teacher_vars)))
-    cfg = Config(args=Flags(CHNSR=True, tpg="OPT"))
+    spec = recognizer_spec(Config(args=Flags(CHNSR=True, tpg="OPT")))
+    assert spec.parse_fn is parse_opt_input and spec.alphabet == "-" + TABLE
     ev = Evaluator([generator.eval()], [student.eval()], teacher.eval(), torch.device("cpu"),
-                   batch_size=8, mask=True, parse_fn=parse_opt_input, alphabet=cfg.alphabet,
-                   filter_mode=cfg.filter_mode)
+                   batch_size=8, mask=True, spec=spec)
     got = ev.evaluate(chinese_dataset(16, 2))
     for key in ("psnr_avg", "psnr_avg_lr"):
         assert abs(got[key] - want[key]) <= 0.01, (key, got[key], want[key])
@@ -296,8 +298,8 @@ def test_cli_trains_and_go_tests_the_chinese_path(tmp_path, monkeypatch, capsys)
     argv = RECIPE + ["--CHNSR", "--tpg", "OPT", "--synthetic", "8", "--config", _yaml(tmp_path),
                      "--vis_dir", "v"] + SHRUNK
     code, trainer = cli.run(argv + ["--max_iters", "1"])
-    assert code == 0 and trainer.cfg.text_emb == N_CLASS
-    assert isinstance(trainer.teacher, TPGModel) and trainer.evaluator.filter_mode == "chinese"
+    assert code == 0 and recognizer_spec(trainer.cfg).num_class == N_CLASS
+    assert isinstance(trainer.teacher, TPGModel) and trainer.evaluator.spec.filter_mode == "chinese"
     best = tmp_path / "ckpt" / "v" / "model_best_acc_0.ckpt"
     saved = load_checkpoint(str(best))["best_history_res"]["easy"]
     capsys.readouterr()
