@@ -14,6 +14,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --tsrn-only              # phases 1 and 14 alone
   python3 chip_smoke.py --zoo-only               # phases 1 and 15 alone
   python3 chip_smoke.py --chinese-only           # phases 1 and 16 alone
+  python3 chip_smoke.py --data-tail-only         # phases 1 and 17 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -117,6 +118,26 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      batch of the collate over the 3965-symbol alphabet, the CTC decode
      (argmax on the card against on the host) and the filter; ``cli.run --CHNSR --tpg OPT`` for 4 steps, then
      ``--go_test`` of its best checkpoint against the summary saved with it
+ 17. the data long tail, with no OpenCV: ``data/imgproc.py`` and
+     ``data/degradation.py`` against OpenCV's outputs kept in
+     ``tests/torch_cv2_golden.npz`` (``scripts/torch_cv2_golden.py``), at
+     the tolerances it states; an epoch of ``--syn`` and of ``--mixed``
+     batches byte-equal with 1 and 4 loader threads, and the next epoch's
+     draws different; the recipe through ``cli.run`` at full width, batch
+     64, on LMDBs of 256 crops, plain, under ``--syn`` and under
+     ``--mixed``, each with 1 and 4 loader threads (images/s, launches a
+     step 10/10/4/2, finite losses), the loader's host ms a batch alone
+     with 1 and 4 threads, and the share of a one-thread ``--syn`` batch
+     spent on ``images_pseudo_lr``; ``--go_test
+     --badset`` and ``--go_test --ic15sr`` over folders of 128 crops
+     (image count, finite PSNR / SSIM, images/s, launches); the
+     degradation mission (two full-width ``tsrn`` generators, no STN): a
+     batch-8 step card vs CPU leaf by leaf, kernels #1 and #2 at its
+     lengths (L=32 R=8192, L=128 R=2048) forward and backward against
+     their twins, timed beside their bound and ``nn.GRU``, launches a step
+     (20/20/0/0) and images/s at batch 64; the host ms a sample of each
+     augmenter of the blur ensemble, the manmade degradation and
+     ``canny_weight_mask``; and ``cv2`` never imported
 The last line is the JSON object the chip check reads; the line before
 it the kernels, and before that the whole run's seconds.  Imports no JAX.
 """
@@ -127,10 +148,12 @@ import argparse
 import ast
 import contextlib
 import copy
+import importlib.util
 import io
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -155,7 +178,9 @@ from tatt_tpu_torch.core.checkpoint import (  # noqa: E402
 from tatt_tpu_torch.core.config import Config, Flags  # noqa: E402
 from tatt_tpu_torch.core.convert import from_jax, load_npz  # noqa: E402
 from tatt_tpu_torch.core.device import set_cuda_flags  # noqa: E402
-from tatt_tpu_torch.data.lmdb_dataset import LmdbTextDataset  # noqa: E402
+from tatt_tpu_torch.data import degradation, imgproc  # noqa: E402
+from tatt_tpu_torch.data.lmdb_dataset import LmdbTextDataset, MixDataset, sample_key  # noqa: E402
+from tatt_tpu_torch.data.variants import canny_weight_mask  # noqa: E402
 from tatt_tpu_torch.data.loader import DataLoader  # noqa: E402
 from tatt_tpu_torch.data.lmdb_lite import write_lmdb  # noqa: E402
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset  # noqa: E402
@@ -189,6 +214,8 @@ from tatt_tpu_torch.train.pretrain import (  # noqa: E402
     encode_ctc_targets, hr_crops, pretrain_recognizer, word_accuracy,
 )
 from tatt_tpu_torch.losses.image import image_loss  # noqa: E402
+from tatt_tpu_torch.train.degrade import degrade_step  # noqa: E402
+from tatt_tpu_torch.train.state import make_optimizer  # noqa: E402
 from tatt_tpu_torch.train.steps import (  # noqa: E402
     StepConfig, eval_step, plain_train_step, train_step,
 )
@@ -386,6 +413,16 @@ CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 40, 4
 # faults on the card, TF32 convolutions and matmuls and one BatchNorm's eps
 # doubled (FeatureExtraction.conv0_1_bn, 1e-5 -> 2e-5), must read above it
 STUDENT_LEAF_TOL = 3e-2
+# phase 17, the data long tail: LMDBs of a few hundred crops; the recipe
+# through the CLI under --syn, under --mixed and on the plain LMDBs (a
+# warm-up call, then timed steps with the loader's 4 threads); --go_test
+# over --badset / --ic15sr folders; the degradation mission's two tsrn
+# generators, forward and backward each a step (10 BiGRUs a forward)
+TAIL_TRAIN_N, TAIL_VAL_N, TAIL_WARM, TAIL_STEPS, TAIL_WORKERS = 256, 128, 3, 6, 4
+TAIL_RUNS = {"plain": [], "syn": ["--syn"], "mixed": ["--mixed"]}
+DEGRADE_LAUNCHES = {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
+DEGRADE_WARM, DEGRADE_STEPS = 3, 10
+AUGMENTER_SAMPLES = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -2199,6 +2236,309 @@ def chinese_phase(smi: str) -> list:
     return fwd_rows
 
 
+def _tail_folders(tmp: str) -> dict:
+    """The eval corpora of --badset (``idx_label_x.png`` crops, LR = HR)
+    and --ic15sr (a TEST/ tree of HR / LR / ANNOTATION PGMs), from
+    synthetic crops."""
+    ds = SyntheticTextDataset(n=TAIL_VAL_N, seed=23)
+    bad = os.path.join(tmp, "bad")
+    ic15 = os.path.join(tmp, "TEST", "ic15")
+    os.makedirs(bad)
+    for sub in ("HR", "LR", "ANNOTATION"):
+        os.makedirs(os.path.join(ic15, sub))
+    for i in range(TAIL_VAL_N):
+        hr, lr, label = ds[i]
+        word = str_filt(label, "lower") or "x"
+        hr.save(os.path.join(bad, f"{i:04d}_{word}_x.png"))
+        for sub, img, tag in (("HR", hr, "hr"), ("LR", lr, "lr")):
+            gray = np.asarray(img.convert("L"))
+            with open(os.path.join(ic15, sub, f"test-{tag}-{i + 1:04d}.pgm"), "wb") as fh:
+                fh.write(b"P5\n%d %d\n255\n" % (gray.shape[1], gray.shape[0]) + gray.tobytes())
+        with open(os.path.join(ic15, "ANNOTATION", f"test-annot-{i + 1:04d}.txt"), "w") as fh:
+            fh.write(label + "\n")
+    return {"badset": bad, "ic15sr": ic15}
+
+
+def _same_batches(a, b) -> bool:
+    fields = ("images_hr", "images_lr", "images_pseudo_lr", "label_vecs", "ctc_ids",
+              "ctc_targets", "ctc_lengths", "weighted_tics")
+    return len(a) == len(b) and all(
+        x.label_strs == y.label_strs and all(
+            (getattr(x, f) is None and getattr(y, f) is None)
+            or (getattr(x, f) is not None and getattr(y, f) is not None
+                and getattr(x, f).tobytes() == getattr(y, f).tobytes()) for f in fields)
+        for x, y in zip(a, b))
+
+
+def _golden_gate() -> None:
+    """imgproc and degradation against OpenCV's outputs kept in
+    tests/torch_cv2_golden.npz, at the tolerances the file states."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_cv2_golden", os.path.join(HERE, "scripts", "torch_cv2_golden.py"))
+    golden_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(golden_mod)
+    golden = np.load(os.path.join(HERE, "tests", "torch_cv2_golden.npz"))
+    rows = golden_mod.compare(golden, golden_mod.port_outputs(golden))
+    exact = [r[0] for r in rows if r[1] == 0]
+    print(f"[tail] OpenCV golden file: {len(exact)} of {len(rows)} cases exact; the others "
+          + json.dumps({r[0]: {"max": r[1], "share": round(r[2], 6), "allowed": [r[3], r[4]]}
+                        for r in rows if r[1] != 0}))
+    bad = [r for r in rows if not r[-1]]
+    if bad:
+        fail(f"the port against OpenCV's golden outputs: {bad}")
+
+
+def augmenter_host_ms(smi: str) -> None:
+    """Host ms a sample of each of the blur ensemble's 7 augmenters (on the
+    --syn collate's 64x16 crops, their parameters drawn as the ensemble
+    draws them), the manmade degradation and canny_weight_mask (32x128)."""
+    ds = SyntheticTextDataset(n=AUGMENTER_SAMPLES, seed=29)
+    lrs, hrs = [], []
+    for i in range(AUGMENTER_SAMPLES):
+        hr, lr, _ = ds[i]
+        lrs.append(np.asarray(lr.resize((lr.width // 2, lr.height // 2), Image.BICUBIC)
+                              .resize((64, 16), Image.BICUBIC)))
+        hrs.append(np.asarray(hr))
+    rng = random.Random(0)
+    augmenters = {
+        "gaussian": lambda a: imgproc.gaussian_blur(a, 5, rng.uniform(0.0, 3.0) + 1e-6),
+        "average": lambda a: imgproc.box_blur(a, rng.choice([1, 3, 5])),
+        "median": lambda a: imgproc.median_blur(a, rng.choice([3, 5, 7])),
+        "bilateral": lambda a: imgproc.bilateral_filter(a, rng.choice([3, 5, 7, 9]),
+                                                        rng.uniform(10, 250), rng.uniform(10, 250)),
+        "motion": lambda a: degradation._motion_blur(a, 3, rng),
+        "meanshift": lambda a: imgproc.mean_shift_filter(a, rng.uniform(5.0, 40.0),
+                                                         rng.uniform(5.0, 40.0)),
+        "superpixels": lambda a: degradation._superpixels(a, rng.randint(1, 7),
+                                                          rng.uniform(0.1, 0.5), rng),
+    }
+    out = {}
+    for name, fn in augmenters.items():
+        t0 = time.perf_counter()
+        for a in lrs:
+            fn(a)
+        out[name] = (time.perf_counter() - t0) * 1e3 / len(lrs)
+    t0 = time.perf_counter()
+    for k, a in enumerate(hrs):
+        degradation.manmade_degradation(a, random.Random(k), np.random.RandomState(k))
+    out["manmade_degradation (32x128)"] = (time.perf_counter() - t0) * 1e3 / len(hrs)
+    t0 = time.perf_counter()
+    for a in hrs:
+        canny_weight_mask(a)
+    out["canny_weight_mask (32x128)"] = (time.perf_counter() - t0) * 1e3 / len(hrs)
+    print(f"[tail] host ms a sample, one thread, over {AUGMENTER_SAMPLES} crops ({smi}): "
+          + json.dumps({k: round(v, 3) for k, v in out.items()}))
+
+
+def degrade_mission(smi: str) -> tuple:
+    """The degradation mission (train/degrade.py): two full-width tsrn
+    generators of the factory (no STN) on 4-channel crops.  A batch-8 step
+    card vs CPU leaf by leaf, kernels #1 and #2 at its new lengths against
+    their twins, launches a step, images/s at batch 64.  Returns the
+    forward and backward kernel rows."""
+    cfg = Config(args=Flags(arch="tsrn", mask=True))
+    models_cpu = [init_parameters(build_generator("tsrn", cfg), 31 + i) for i in range(2)]
+    sds = SyntheticTextDataset(n=STEP_BATCH, seed=25)
+    b = collate([sds[i] for i in range(STEP_BATCH)])
+    grads = {}
+    for run, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        models = [copy.deepcopy(m).to(dev).train() for m in models_cpu]
+        opt = torch.optim.SGD([p for m in models for p in m.parameters()], lr=1.0)
+        batch = {k: torch.from_numpy(getattr(b, k)).to(dev) for k in ("images_hr", "images_lr")}
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = degrade_step(*models, opt, batch)
+        counts = read_counts()
+        grads[run] = [{k: p.grad.double().cpu() for k, p in m.named_parameters()} for m in models]
+        print(f"[degrade] {run} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps({k: v.item() for k, v in metrics.items()})} launches {json.dumps(counts)}")
+    if counts != DEGRADE_LAUNCHES:
+        fail(f"degrade step launches {counts} (want {DEGRADE_LAUNCHES})")
+    for i, (name, model) in enumerate(zip(("degrader", "deblurrer"), models_cpu)):
+        card = leaf_errors(grads["cpu"][i], grads["card"][i])
+        rnn = rnn_leaves(model)
+        for what, keys, tol in (("BiGRU", rnn, RNN_LEAF_TOL), ("other", set(card) - rnn, LEAF_TOL)):
+            worst = sorted(keys, key=lambda k: -card[k])
+            print(f"[degrade] {name}, {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| (tol {tol}): "
+                  + "; ".join(f"{card[k]:.3e} {k}" for k in worst[:3]))
+            bad = {k: card[k] for k in worst if not card[k] <= tol}
+            if bad:
+                fail(f"degrade {name} {what} gradients card vs CPU above {tol}: {bad}")
+
+    # kernels #1 and #2 at the degrader's lengths: its SRBs scan the HR map
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        fwd = [check_gru("degrader gru1 (HR height scan)", 32, BATCH * 128, 64, 64, 32, gen),
+               check_gru("degrader gru2 (HR width scan)", 128, BATCH * 32, 64, 64, 32, gen)]
+    bwd = [check_gru_bwd("degrader gru1 (HR height scan)", 32, BATCH * 128, 64, 64, 32, gen),
+           check_gru_bwd("degrader gru2 (HR width scan)", 128, BATCH * 32, 64, 64, 32, gen)]
+    for row in fwd:
+        print("[kernel] " + json.dumps(row))
+        print_gru(row)
+        if not row["max_abs_err"] <= KERNEL_ATOL:
+            fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
+    for row in bwd:
+        print("[kernel-bwd] " + json.dumps(row))
+        print_bwd_split("gru-bwd", row, GRU_BWD_ENTRIES)
+        if not row["ok"]:
+            fail(f"backward kernel {row['shape']}: {row}")
+    for f, bk in zip(fwd, bwd):
+        print(f"[degrade] {f['shape']} L={f['L']} R={f['R']} ({smi}): bigru_fwd {f['kernel_ms']:.4f} ms "
+              f"(bound {f['bound_ms']:.4f} {f['bound_by']}, plain {f['plain_ms']:.3f}, nn.GRU "
+              f"{f['library_ms']:.4f}); bigru_bwd {bk['kernel_ms']:.4f} ms (bound {bk['bound_ms']:.4f} "
+              f"{bk['bound_by']}, plain {bk['plain_ms']:.3f}, nn.GRU forward + backward "
+              f"{bk['library_ms']:.4f})")
+
+    # the mission at batch 64: images/s and launches a step
+    models = [copy.deepcopy(m).to(DEV).train() for m in models_cpu]
+    opt = make_optimizer([p for m in models for p in m.parameters()], 1e-3)
+    sds = SyntheticTextDataset(n=BATCH, seed=26)
+    b = collate([sds[i] for i in range(BATCH)])
+    batch = {k: torch.from_numpy(getattr(b, k)).to(DEV) for k in ("images_hr", "images_lr")}
+    losses = [degrade_step(*models, opt, batch)["loss_total"] for _ in range(DEGRADE_WARM)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses += [degrade_step(*models, opt, batch)["loss_total"] for _ in range(DEGRADE_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {k: v / DEGRADE_STEPS for k, v in read_counts().items()}
+    losses = [v.item() for v in losses]
+    print(f"[degrade] mission at batch {BATCH} ({smi}): {DEGRADE_STEPS * BATCH / wall:.1f} images/s, "
+          f"{wall / DEGRADE_STEPS * 1e3:.2f} ms a step, launches a step {json.dumps(per_step)}, "
+          f"loss_total {[round(v, 4) for v in losses]}")
+    if per_step != {k: float(v) for k, v in DEGRADE_LAUNCHES.items()}:
+        fail(f"degrade mission launches a step {per_step} (want {DEGRADE_LAUNCHES})")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"degrade mission losses {losses}")
+    return fwd, bwd
+
+
+def data_tail_phase(smi: str) -> tuple:
+    """Phase 17: the data long tail (checks and numbers in the module
+    docstring).  Returns the degradation mission's kernel rows."""
+    t_phase = time.perf_counter()
+    _golden_gate()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = write_textzoom(os.path.join(tmp, "train"), TAIL_TRAIN_N, 41, corrupt=(10,))
+        val = write_textzoom(os.path.join(tmp, "val"), TAIL_VAL_N, 42)
+        folders = _tail_folders(tmp)
+
+        def yaml_for(val_dir: str) -> str:
+            path = os.path.join(tmp, f"tail_{os.path.basename(val_dir)}.yaml")
+            with open(path, "w") as fh:
+                fh.write("TRAIN:\n"
+                         f"  train_data_dir: ['{train}']\n"
+                         f"  batch_size: {BATCH}\n  workers: {TAIL_WORKERS}\n"
+                         f"  saveInterval: 0\n  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n"
+                         "  VAL:\n"
+                         f"    val_data_dir: ['{val_dir}']\n    valInterval: 0\n"
+                         "    crnn_pretrained: ''\n")
+            return path
+
+        # ---- determinism: --syn and --mixed batches with 1 and 4 loader threads
+        syn_ds = LmdbTextDataset(train)
+        mix_ds = MixDataset(LmdbTextDataset(train))
+        for name, ds, syn in (("syn", syn_ds, True), ("mixed", mix_ds, False)):
+            epochs = {w: [list(DataLoader(ds, BATCH, num_workers=w, syn=syn, seed=5))] for w in (1, 4)}
+            same = _same_batches(epochs[1][0], epochs[4][0])
+            print(f"[tail] --{name}: an epoch of {len(epochs[1][0])} batches, 1 and 4 loader threads "
+                  f"byte-equal: {same}")
+            if not same:
+                fail(f"--{name} batches differ between 1 and 4 loader threads")
+        samples = [syn_ds[i] for i in range(BATCH)]
+        e0, e1 = (collate(samples, syn=True, seed=sample_key(5, e, 0)).images_pseudo_lr for e in (0, 1))
+        changed_syn = float(np.mean([not np.array_equal(x, y) for x, y in zip(e0, e1)]))
+        mix_ds.set_epoch(0)
+        lr0 = [np.asarray(mix_ds[i][1]) for i in range(BATCH)]
+        mix_ds.set_epoch(1)
+        lr1 = [np.asarray(mix_ds[i][1]) for i in range(BATCH)]
+        changed_mix = float(np.mean([not np.array_equal(x, y) for x, y in zip(lr0, lr1)]))
+        print(f"[tail] the next epoch's draws: --syn pseudo-LR crops changed {changed_syn:.3f}, "
+              f"--mixed LR crops changed {changed_mix:.3f} (of {BATCH} samples)")
+        if not (changed_syn > 0 and changed_mix > 0):
+            fail("the next epoch's augmentation draws do not differ")
+
+        # ---- the recipe through the CLI at full width, batch 64
+        yaml = yaml_for(val)
+        ips, loader_ms = {}, {}
+        for name, flags in TAIL_RUNS.items():
+            code, trainer = cli.run(RECIPE + flags + ["--config", yaml, "--max_iters", str(TAIL_WARM)])
+            torch.cuda.synchronize()
+            if code != 0:
+                fail(f"cli.run {name}: exit {code}")
+            for workers in (1, TAIL_WORKERS):
+                trainer.loader.num_workers = workers
+                reset_counts()
+                t0 = time.perf_counter()
+                result = trainer.train(max_iters=trainer.iters + TAIL_STEPS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ips[f"{name}, {workers} threads"] = TAIL_STEPS * BATCH / wall
+                per_step = {k: v / TAIL_STEPS for k, v in read_counts().items()}
+                finite = all(math.isfinite(v) for m in result["metrics"].values() for v in m)
+                print(f"[tail] train {name}, {workers} loader threads: {TAIL_STEPS * BATCH / wall:.1f} "
+                      f"images/s ({TAIL_STEPS} steps at batch {BATCH}), launches a step "
+                      f"{json.dumps(per_step)}, loss_sr "
+                      f"{[round(v, 3) for v in result['metrics']['loss_sr']]}")
+                if per_step != {k: float(v) for k, v in STEP_LAUNCHES.items()} or not finite:
+                    fail(f"train {name}: launches a step {per_step}, finite {finite}")
+                loader = DataLoader(trainer.loader.dataset, BATCH, num_workers=workers,
+                                    syn=trainer.loader.syn)
+                t0 = time.perf_counter()
+                n = sum(1 for _ in loader)
+                loader_ms[f"{name}, {workers} threads"] = (time.perf_counter() - t0) * 1e3 / n
+            del trainer
+        print(f"[tail] host ms a batch of the loader alone ({BATCH} a batch, {smi}): "
+              + json.dumps({k: round(v, 2) for k, v in loader_ms.items()}))
+        print(f"[tail] train images/s ({smi}): " + json.dumps({k: round(v, 1) for k, v in ips.items()}))
+        # one thread's batch of --syn: the reads, and the collate with and
+        # without --syn (its pseudo-LR crops: the halving and the blur
+        # ensemble), medians of 3 in turns
+        def median_ms(fn):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+
+        read_ms = median_ms(lambda: [syn_ds[i] for i in range(BATCH)])
+        plain_ms = median_ms(lambda: collate(samples))
+        syn_ms = median_ms(lambda: collate(samples, syn=True, seed=1))
+        print(f"[tail] one --syn batch on one thread ({smi}): reads {read_ms:.2f} ms, collate "
+              f"{plain_ms:.2f} ms plain and {syn_ms:.2f} ms under --syn: images_pseudo_lr "
+              f"{(syn_ms - plain_ms) / (read_ms + syn_ms):.3f} of the batch")
+
+        # ---- --go_test over the --badset and --ic15sr corpora
+        for flag, folder in folders.items():
+            out = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(["--arch=tatt", "--mask", "--go_test", f"--{flag}", "--config",
+                                 yaml_for(folder)])
+            counts = read_counts()
+            lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[")]
+            got = ast.literal_eval(lines[-1].split(" ", 1)[1]) if lines else {}
+            n_batches = math.ceil(TAIL_VAL_N / BATCH)
+            print(f"[tail] --go_test --{flag}: images {got.get('images')} psnr {got.get('psnr_avg')} "
+                  f"ssim {got.get('ssim_avg')} acc {got.get('accuracy')}, {got.get('fps', 0):.1f} "
+                  f"images/s ({smi}), launches {json.dumps(counts)}")
+            if (code != 0 or got.get("images") != TAIL_VAL_N
+                    or not all(math.isfinite(got[k]) for k in ("psnr_avg", "ssim_avg"))):
+                fail(f"--go_test --{flag}: exit {code}, {out.getvalue()[-500:]}")
+            if counts != {"bigru_fwd": 10 * n_batches, "bigru_bwd": 0,
+                          "bilstm_fwd": 8 * n_batches, "bilstm_bwd": 0}:
+                fail(f"--go_test --{flag} launches {counts}")
+
+    rows = degrade_mission(smi)
+    augmenter_host_ms(smi)
+    if "cv2" in sys.modules:
+        fail("OpenCV was imported")
+    print(f"[tail] no OpenCV imported; phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -2231,6 +2571,9 @@ def main(argv=None) -> int:
     ap.add_argument("--chinese-only", action="store_true",
                     help="run phases 1 and 16 alone (the Chinese path, --CHNSR --tpg OPT); prints "
                          "no result line")
+    ap.add_argument("--data-tail-only", action="store_true",
+                    help="run phases 1 and 17 alone (the data long tail: --syn, --mixed, "
+                         "--badset, --ic15sr, the degradation mission); prints no result line")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -2291,6 +2634,10 @@ def main(argv=None) -> int:
         return 0
     if args.chinese_only:
         chinese_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.data_tail_only:
+        data_tail_phase(smi)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -2477,6 +2824,9 @@ def main(argv=None) -> int:
     # ---- 16. the Chinese path: the TPG recognizer, --CHNSR --tpg OPT
     chinese_lstm_rows = chinese_phase(smi)
 
+    # ---- 17. the data long tail: --syn, --mixed, --badset, --ic15sr, the degradation mission
+    degrade_fwd_rows, degrade_bwd_rows = data_tail_phase(smi)
+
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the
     # student's and the teacher's rnn0 and rnn1 forward, the student's backward)
@@ -2489,9 +2839,9 @@ def main(argv=None) -> int:
     kernels = []
     for name, src, rep, rows, checked in (
         ("bigru_fwd", "tatt_tpu_torch/csrc/bigru_fwd.cu", "tatt_tpu/kernels/pallas_gru.py:63",
-         gru_rows[2:4], gru_rows),
+         gru_rows[2:4], gru_rows + degrade_fwd_rows),
         ("bigru_bwd", "tatt_tpu_torch/csrc/bigru_bwd.cu", "tatt_tpu/kernels/pallas_gru.py:132",
-         gru_bwd_rows[:2], gru_bwd_rows),
+         gru_bwd_rows[:2], gru_bwd_rows + degrade_bwd_rows),
         ("bilstm_fwd", "tatt_tpu_torch/csrc/bilstm_fwd.cu", "tatt_tpu/kernels/pallas_lstm.py:22",
          lstm_rows[:2], lstm_rows + judge_lstm_rows + chinese_lstm_rows),
         ("bilstm_bwd", "tatt_tpu_torch/csrc/bilstm_bwd.cu", "tatt_tpu/kernels/pallas_lstm.py:53",

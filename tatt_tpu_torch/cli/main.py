@@ -84,10 +84,24 @@ there is nothing to train or to checkpoint (the JAX CLI accepts it and
 fails in every mode: its ``TrainState`` reads the absent ``params``,
 ``tatt_tpu/train/state.py:36``).  ``tranSR_v4``, which the factory builds,
 is not among the JAX CLI's choices: argparse refuses it (exit code 2).
-Refused with "not ported yet": ``--dtype bfloat16`` and the data flags of
-``data/variants.py``, any other flag, and a YAML the port does not serve;
-nothing is silently ignored.  Without weights the generators and the
-students / teacher start from initial weights seeded by
+The data long tail, as the JAX CLI wires it (``tatt_tpu/cli/main.py:195-231``):
+``--syn`` collates the train batches as ``alignCollate_syn`` (the LR
+halved again, unspread labels, the pseudo-LR blur ensemble), ``--mixed``
+wraps each train LMDB in ``MixDataset`` (half of the LR crops replaced by
+the manmade degradation of HR), and ``--badset`` / ``--ic15sr`` read each
+``TRAIN.VAL.val_data_dir`` as a folder of ``name_label_*.png`` crops /
+an IC15 TextSR tree of PGMs (``data/variants.py``).  Under ``--synthetic``
+the JAX CLI ignores ``--mixed``, ``--badset`` and ``--ic15sr``; the port
+does too, with a warning.  ``--device_collate`` is accepted and changes
+nothing (the port always ships uint8 crops and normalizes them on the
+card, ``data/device_pipeline.py``), and ``--test_data_dir``, which the JAX
+CLI parses and reads nowhere, is accepted with a warning.  No OpenCV is
+needed: ``data/imgproc.py`` computes its image operations.
+
+Refused with "not ported yet": ``--dtype bfloat16``, any other flag
+(``--dp_devices``, ``--bn_per_replica``, ...), and a YAML the port does
+not serve; nothing is silently ignored.  Without weights the generators
+and the students / teacher start from initial weights seeded by
 ``TRAIN.manualSeed``.
 """
 
@@ -107,8 +121,9 @@ from tatt_tpu_torch.core.checkpoint import resume_models
 from tatt_tpu_torch.core.config import Config, Flags, load_config
 from tatt_tpu_torch.core.convert import load_reference_pth, load_weights
 from tatt_tpu_torch.core.device import resolve_device, set_cuda_flags
-from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset
+from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset, MixDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+from tatt_tpu_torch.data.variants import BadSetFolderDataset, IC15TextSRDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.factory import (
@@ -165,6 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_distorted_fusing", type=int, default=0)
     p.add_argument("--rotate_test", type=float, default=0.0)
     p.add_argument("--results_rotate_angle", type=float, default=5.0)
+    for flag in ("syn", "mixed", "ic15sr", "badset", "device_collate"):
+        p.add_argument(f"--{flag}", action="store_true")
+    p.add_argument("--test_data_dir", type=str, default=None)
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     p.add_argument("--max_iters", type=int, default=None)
     for flag in STEP_FLAGS:
@@ -232,6 +250,23 @@ def warn_dead_flags(cfg: Config) -> None:
     for flag in dead:
         print(f"WARNING: {flag} is dead code in the reference and has no effect here "
               "(accepted for CLI compatibility)", file=sys.stderr)
+    if a.test_data_dir is not None:
+        print("WARNING: --test_data_dir is parsed by the JAX CLI and read nowhere; it has no "
+              "effect here (accepted for CLI compatibility)", file=sys.stderr)
+    if a.device_collate:
+        print("WARNING: --device_collate changes nothing here: the port always ships uint8 "
+              "crops and normalizes them on the card", file=sys.stderr)
+
+
+def warn_synthetic_ignores(cfg: Config, synthetic: int) -> None:
+    """``--synthetic`` takes the place of the YAML's LMDBs, so the flags
+    that choose their readers act on nothing (the JAX CLI ignores them
+    there silently, ``tatt_tpu/cli/main.py:195-199``)."""
+    a = cfg.args
+    for flag, on in (("--mixed", a.mixed), ("--badset", a.badset), ("--ic15sr", a.ic15sr)):
+        if on and synthetic > 0:
+            print(f"WARNING: {flag} has no effect with --synthetic (it chooses how the YAML's "
+                  "LMDBs are read)", file=sys.stderr)
 
 
 def weights_path(kind: str, cfg: Config, cli: argparse.Namespace) -> str:
@@ -250,17 +285,20 @@ def load_judge(kind: str, path: str, voc_type: str, device):
 
 def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
     """(train set, {name: val set}) from ``--synthetic N`` or the YAML's
-    LMDB directories, or None when there are neither."""
+    directories, or None when there are neither: each train LMDB, in a
+    ``MixDataset`` under ``--mixed``; each val directory read by
+    ``--badset``'s or ``--ic15sr``'s reader, else as an LMDB."""
     if synthetic > 0:
         return (SyntheticTextDataset(n=synthetic, seed=1),
                 {"easy": SyntheticTextDataset(n=max(synthetic // 4, 8), seed=2)})
     if not cfg.TRAIN.train_data_dir:
         return None
-    voc = cfg.TRAIN.voc_type
-    train = ConcatDataset([LmdbTextDataset(d, voc_type=voc) for d in cfg.TRAIN.train_data_dir])
-    vals = {os.path.basename(d.rstrip("/")): LmdbTextDataset(d, voc_type=voc)
+    a, voc = cfg.args, cfg.TRAIN.voc_type
+    train = [LmdbTextDataset(d, voc_type=voc) for d in cfg.TRAIN.train_data_dir]
+    reader = BadSetFolderDataset if a.badset else IC15TextSRDataset if a.ic15sr else LmdbTextDataset
+    vals = {os.path.basename(d.rstrip("/")): reader(d, voc_type=voc, test=True)
             for d in cfg.TRAIN.VAL.val_data_dir}
-    return train, vals
+    return ConcatDataset([MixDataset(d) for d in train] if a.mixed else train), vals
 
 
 def build_models(cfg: Config, crnn_path: str):
@@ -305,6 +343,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
     """:func:`main`, also returning the trainer of a training run."""
     cfg, cli = parse_config(argv)
     warn_dead_flags(cfg)
+    warn_synthetic_ignores(cfg, cli.synthetic)
     device = resolve_device(cli.device)
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
 

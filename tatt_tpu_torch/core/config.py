@@ -109,6 +109,16 @@ class Flags:
     tpg: str = "CRNN"  # the recognizer: CRNN | OPT (the NAVER TPG)
     CHNSR: bool = False  # the Chinese path: the 3965-character table
     tiny_tpg: bool = False
+    # the data long tail (``tatt_tpu/core/config.py:117-142``): the --syn
+    # collate, the --mixed train wrapper, the --ic15sr / --badset val readers
+    syn: bool = False
+    mixed: bool = False
+    ic15sr: bool = False
+    badset: bool = False
+    # parsed by the JAX CLI and read nowhere (cli/main.py:warn_dead_flags)
+    test_data_dir: Optional[str] = None
+    # the JAX package's uint8 collate; the port always ships uint8
+    device_collate: bool = False
     # eval extras (``tatt_tpu/core/config.py``'s defaults)
     rec: str = "crnn"  # --test's recognizer: crnn | aster | moran
     test: bool = False

@@ -1,6 +1,6 @@
 """Collate: PIL samples -> stacked uint8 crops and the label tensors
 (``tatt_tpu/data/collate.py`` in its ``raw=True`` form, plus its label
-fields and ``--y_domain``'s ``YCbCr`` crops).
+fields and ``--y_domain``'s ``YCbCr`` crops and ``--syn``'s pseudo-LR crops).
 
 HR is resized to 128x32 and LR to 64x16 (the default geometry, scale 2)
 with PIL BICUBIC where the source size differs (``resizeNormalize``,
@@ -21,10 +21,19 @@ JAX): the
 [B, 26] (the '-' padding is id 0, the blank) with ``ctc_lengths`` counted
 from the one-hots' occupancy, and ``weighted_tics``.  ``--use_label``
 reads the last three.
+
+``syn`` is ``alignCollate_syn`` (``tatt_tpu/data/collate.py:141-220``):
+each LR crop is halved again with PIL BICUBIC (through
+:func:`~tatt_tpu_torch.data.degradation.srmd_degradation` too with
+``srmd``) before the resize to 64x16, the labels are not '-'-spread and
+the ``word[2]='e'`` perturbation is on; ``images_pseudo_lr`` holds the
+blur ensemble of each halved LR resized to 64x16, drawn from
+``random.Random(seed)`` (no train step reads it, in JAX either).
 """
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -32,6 +41,7 @@ import numpy as np
 from PIL import Image
 
 from tatt_tpu_torch.core.charset import CRNN_ALPHABET, encode_label_vecs
+from tatt_tpu_torch.data.degradation import blur_ensemble, srmd_degradation
 
 HR_SIZE = (128, 32)  # (width, height), TRAIN.width/height defaults
 LR_SIZE = (64, 16)  # HR / down_sample_scale 2
@@ -57,21 +67,31 @@ class Batch:
     weighted_tics: np.ndarray  # [B] int32
     images_hr_y: Optional[np.ndarray] = None  # [B, H, W, 3] uint8 YCbCr
     images_lr_y: Optional[np.ndarray] = None
+    images_pseudo_lr: Optional[np.ndarray] = None  # [B, H/s, W/s, 3] uint8, under syn
 
 
 def collate(samples: Sequence[tuple[Image.Image, Image.Image, str]], y_domain: bool = False,
-            alphabet: str = CRNN_ALPHABET) -> Batch:
+            alphabet: str = CRNN_ALPHABET, syn: bool = False, srmd: bool = False,
+            seed: Optional[int] = None) -> Batch:
     """``samples``: iterable of (img_HR, img_lr, label)."""
     hrs, lrs, labels = zip(*samples)
-    label_vecs, ctc_ids, tics = encode_label_vecs(labels, alphabet, LABEL_LEN)
+    extra = {}
+    if syn:
+        rng = random.Random(seed)
+        lrs = [lr.resize((lr.width // 2, lr.height // 2), Image.BICUBIC) for lr in lrs]
+        if srmd:
+            lrs = [srmd_degradation(lr) for lr in lrs]
+        extra["images_pseudo_lr"] = batch_u8(
+            [blur_ensemble(lr.resize(LR_SIZE, Image.BICUBIC), rng) for lr in lrs], LR_SIZE)
+    label_vecs, ctc_ids, tics = encode_label_vecs(labels, alphabet, LABEL_LEN, eval_perturb=syn,
+                                                  spread=not syn)
     lengths = (label_vecs.sum(axis=1)[:, 0, :] > 0).sum(axis=1).astype(np.int32)
     ctc_targets = np.zeros((len(labels), LABEL_LEN), dtype=np.int32)
     ends = np.cumsum(lengths)
     for i, (n, end) in enumerate(zip(lengths, ends)):
         ctc_targets[i, :n] = ctc_ids[end - n : end]
-    y = {}
     if y_domain:
-        y = {"images_hr_y": batch_u8([im.convert("YCbCr") for im in hrs], HR_SIZE),
-             "images_lr_y": batch_u8([im.convert("YCbCr") for im in lrs], LR_SIZE)}
+        extra["images_hr_y"] = batch_u8([im.convert("YCbCr") for im in hrs], HR_SIZE)
+        extra["images_lr_y"] = batch_u8([im.convert("YCbCr") for im in lrs], LR_SIZE)
     return Batch(batch_u8(hrs, HR_SIZE), batch_u8(lrs, LR_SIZE), list(labels), label_vecs,
-                 ctc_ids, ctc_targets, lengths, tics, **y)
+                 ctc_ids, ctc_targets, lengths, tics, **extra)

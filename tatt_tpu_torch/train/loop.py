@@ -15,8 +15,9 @@ HR triptychs, and the TP-Interpreter's attention tiles (``att_``), under
 :class:`~tatt_tpu_torch.core.config.Config`: the step's flags
 (:func:`step_config`), ``n_sr`` generators and ``n_stu`` students
 (:func:`copies`, ``loop.py:168-174``) under one Adam, seeded shuffled
-batches (``TRAIN.workers`` threads), one step each with a generator seeded
-from the run's seed and the step number: :func:`train_step` for an arch
+batches (``TRAIN.workers`` threads; ``--syn``'s collate under that
+flag), one step each with a generator seeded from the run's seed and the
+step number: :func:`train_step` for an arch
 of ``ABLATION_SET``, else :func:`plain_train_step` (the students then
 carry no loss, as in JAX's ``TrainState``), as
 :func:`~tatt_tpu_torch.models.factory.arch_steps` says; a log
@@ -275,7 +276,8 @@ class Trainer:
         workers, spec = max(cfg.TRAIN.workers, 1), recognizer_spec(cfg)
         self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
                                  seed=cfg.TRAIN.manualSeed, num_workers=workers,
-                                 y_domain=cfg.args.y_domain, alphabet=spec.alphabet)
+                                 y_domain=cfg.args.y_domain, alphabet=spec.alphabet,
+                                 syn=cfg.args.syn)
         self.evaluator = Evaluator(
             self.generators, self.students, judge or teacher, device,
             cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers, cfg.args.stu_iter,

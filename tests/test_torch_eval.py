@@ -151,12 +151,12 @@ def test_cli_go_test_on_cpu(capsys):
 
 @pytest.mark.parametrize(
     "argv",
-    # the TSRN family, --color_loss, --mse_fuse, the zoo, --tpg OPT and
-    # --CHNSR are served now: their cases hold data flags of
-    # data/variants.py and a zoo arch with the recipe's flags and a
-    # multi-device flag (DDP)
-    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--ic15sr"],
-     ["--synthetic", "8", "--syn"], ["--go_test", "--mixed"],
+    # the TSRN family, --color_loss, --mse_fuse, the zoo, --tpg OPT,
+    # --CHNSR and the data flags of data/variants.py are served now: their
+    # cases hold the flags that still wait (bf16 and DDP's) and a zoo arch
+    # with the recipe's flags and a multi-device flag
+    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--dp_devices", "2"],
+     ["--synthetic", "8", "--bn_per_replica"], ["--go_test", "--dtype", "bfloat16"],
      # a zoo arch with a text prior under --bn_per_replica, and the recipe
      # under --dp_devices (in the Chinese path's place)
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",
