@@ -125,9 +125,11 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      batches byte-equal with 1 and 4 loader threads, and the next epoch's
      draws different; the recipe through ``cli.run`` at full width, batch
      64, on LMDBs of 256 crops, plain, under ``--syn`` and under
-     ``--mixed``, each with 1 and 4 loader threads (images/s, launches a
-     step 10/10/4/2, finite losses), the loader's host ms a batch alone
-     with 1 and 4 threads, and the share of a one-thread ``--syn`` batch
+     ``--mixed``, each with one loader thread (images/s, launches a step
+     10/10/4/2, finite losses), the loader's host ms a batch alone with 1
+     and 4 threads (an epoch of 4 batches: a smoke reading; the thread
+     counts are compared by ``scripts/loader_threads_torch.py`` over a
+     larger LMDB), and the share of a one-thread ``--syn`` batch
      spent on ``images_pseudo_lr``; ``--go_test
      --badset`` and ``--go_test --ic15sr`` over folders of 128 crops
      (image count, finite PSNR / SSIM, images/s, launches); the
@@ -415,7 +417,8 @@ CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 40, 4
 STUDENT_LEAF_TOL = 3e-2
 # phase 17, the data long tail: LMDBs of a few hundred crops; the recipe
 # through the CLI under --syn, under --mixed and on the plain LMDBs (a
-# warm-up call, then timed steps with the loader's 4 threads); --go_test
+# warm-up call with the loader's 4 threads, then timed steps with one);
+# --go_test
 # over --badset / --ic15sr folders; the degradation mission's two tsrn
 # generators, forward and backward each a step (10 BiGRUs a forward)
 TAIL_TRAIN_N, TAIL_VAL_N, TAIL_WARM, TAIL_STEPS, TAIL_WORKERS = 256, 128, 3, 6, 4
@@ -2467,22 +2470,21 @@ def data_tail_phase(smi: str) -> tuple:
             torch.cuda.synchronize()
             if code != 0:
                 fail(f"cli.run {name}: exit {code}")
+            trainer.loader.num_workers = 1
+            reset_counts()
+            t0 = time.perf_counter()
+            result = trainer.train(max_iters=trainer.iters + TAIL_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ips[name] = TAIL_STEPS * BATCH / wall
+            per_step = {k: v / TAIL_STEPS for k, v in read_counts().items()}
+            finite = all(math.isfinite(v) for m in result["metrics"].values() for v in m)
+            print(f"[tail] train {name}, one loader thread: {ips[name]:.1f} images/s ({TAIL_STEPS} "
+                  f"steps at batch {BATCH}), launches a step {json.dumps(per_step)}, loss_sr "
+                  f"{[round(v, 3) for v in result['metrics']['loss_sr']]}")
+            if per_step != {k: float(v) for k, v in STEP_LAUNCHES.items()} or not finite:
+                fail(f"train {name}: launches a step {per_step}, finite {finite}")
             for workers in (1, TAIL_WORKERS):
-                trainer.loader.num_workers = workers
-                reset_counts()
-                t0 = time.perf_counter()
-                result = trainer.train(max_iters=trainer.iters + TAIL_STEPS)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                ips[f"{name}, {workers} threads"] = TAIL_STEPS * BATCH / wall
-                per_step = {k: v / TAIL_STEPS for k, v in read_counts().items()}
-                finite = all(math.isfinite(v) for m in result["metrics"].values() for v in m)
-                print(f"[tail] train {name}, {workers} loader threads: {TAIL_STEPS * BATCH / wall:.1f} "
-                      f"images/s ({TAIL_STEPS} steps at batch {BATCH}), launches a step "
-                      f"{json.dumps(per_step)}, loss_sr "
-                      f"{[round(v, 3) for v in result['metrics']['loss_sr']]}")
-                if per_step != {k: float(v) for k, v in STEP_LAUNCHES.items()} or not finite:
-                    fail(f"train {name}: launches a step {per_step}, finite {finite}")
                 loader = DataLoader(trainer.loader.dataset, BATCH, num_workers=workers,
                                     syn=trainer.loader.syn)
                 t0 = time.perf_counter()
@@ -2491,7 +2493,8 @@ def data_tail_phase(smi: str) -> tuple:
             del trainer
         print(f"[tail] host ms a batch of the loader alone ({BATCH} a batch, {smi}): "
               + json.dumps({k: round(v, 2) for k, v in loader_ms.items()}))
-        print(f"[tail] train images/s ({smi}): " + json.dumps({k: round(v, 1) for k, v in ips.items()}))
+        print(f"[tail] train images/s, one loader thread ({smi}): "
+              + json.dumps({k: round(v, 1) for k, v in ips.items()}))
         # one thread's batch of --syn: the reads, and the collate with and
         # without --syn (its pseudo-LR crops: the halving and the blur
         # ensemble), medians of 3 in turns

@@ -49,8 +49,6 @@ CASES = [
     ("motion_10", "motion", "lr", [10.0], 0, 0),
     ("motion_45", "motion", "lr", [45.0], 0, 0),
     ("motion_100", "motion", "lr", [100.0], 0, 0),
-    # OpenCV's DFT correlation against a float64 sum: ~1e-5 apart
-    ("srmd_wrap", "srmd_filter", "lr_f32", [], 1e-4, 1.0),
     ("meanshift_10_20", "mean_shift_filter", "lr", [10.0, 20.0], 0, 0),
     ("meanshift_25_35", "mean_shift_filter", "lr", [25.0, 35.0], 0, 0),
     ("meanshift_39_8", "mean_shift_filter", "lr", [39.0, 8.0], 0, 0),
@@ -98,8 +96,6 @@ def make_golden(data: dict | None = None) -> dict:
         "median_blur": lambda a, k: cv2.medianBlur(a, k),
         "bilateral_filter": lambda a, d, sc, ss: cv2.bilateralFilter(a, d, sc, ss),
         "motion": lambda a, ang: cv2.filter2D(a, -1, motion_kernel(3, ang)),
-        "srmd_filter": lambda a: cv2.filter2D(a, -1, jdeg.fspecial_gaussian(15, 1.0),
-                                              borderType=cv2.BORDER_WRAP),
         "mean_shift_filter": lambda a, sp, sr: cv2.pyrMeanShiftFiltering(a, sp, sr),
         "rgb_to_lab": lambda a: cv2.cvtColor(a, cv2.COLOR_RGB2LAB),
         "rgb_to_gray": lambda a: cv2.cvtColor(a, cv2.COLOR_RGB2GRAY),
@@ -133,7 +129,6 @@ def port_outputs(golden) -> dict:
         "gaussian_blur": ip.gaussian_blur, "box_blur": ip.box_blur, "median_blur": ip.median_blur,
         "bilateral_filter": ip.bilateral_filter,
         "motion": lambda a, ang: ip.filter2d(a, deg.motion_kernel(3, ang)),
-        "srmd_filter": lambda a: ip.filter2d(a, deg.fspecial_gaussian(15, 1.0), border="wrap"),
         "mean_shift_filter": ip.mean_shift_filter, "rgb_to_lab": ip.rgb_to_lab,
         "rgb_to_gray": ip.rgb_to_gray,
         "canny": lambda a, lo, hi: ip.canny(ip.rgb_to_gray(a), lo, hi),

@@ -296,7 +296,7 @@ def datasets(cfg: Config, synthetic: int) -> Optional[tuple]:
     a, voc = cfg.args, cfg.TRAIN.voc_type
     train = [LmdbTextDataset(d, voc_type=voc) for d in cfg.TRAIN.train_data_dir]
     reader = BadSetFolderDataset if a.badset else IC15TextSRDataset if a.ic15sr else LmdbTextDataset
-    vals = {os.path.basename(d.rstrip("/")): reader(d, voc_type=voc, test=True)
+    vals = {os.path.basename(d.rstrip("/")): reader(d, voc_type=voc)
             for d in cfg.TRAIN.VAL.val_data_dir}
     return ConcatDataset([MixDataset(d) for d in train] if a.mixed else train), vals
 

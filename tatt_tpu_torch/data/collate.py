@@ -23,9 +23,8 @@ from the one-hots' occupancy, and ``weighted_tics``.  ``--use_label``
 reads the last three.
 
 ``syn`` is ``alignCollate_syn`` (``tatt_tpu/data/collate.py:141-220``):
-each LR crop is halved again with PIL BICUBIC (through
-:func:`~tatt_tpu_torch.data.degradation.srmd_degradation` too with
-``srmd``) before the resize to 64x16, the labels are not '-'-spread and
+each LR crop is halved again with PIL BICUBIC before the resize to
+64x16, the labels are not '-'-spread and
 the ``word[2]='e'`` perturbation is on; ``images_pseudo_lr`` holds the
 blur ensemble of each halved LR resized to 64x16, drawn from
 ``random.Random(seed)`` (no train step reads it, in JAX either).
@@ -41,7 +40,7 @@ import numpy as np
 from PIL import Image
 
 from tatt_tpu_torch.core.charset import CRNN_ALPHABET, encode_label_vecs
-from tatt_tpu_torch.data.degradation import blur_ensemble, srmd_degradation
+from tatt_tpu_torch.data.degradation import blur_ensemble
 
 HR_SIZE = (128, 32)  # (width, height), TRAIN.width/height defaults
 LR_SIZE = (64, 16)  # HR / down_sample_scale 2
@@ -71,7 +70,7 @@ class Batch:
 
 
 def collate(samples: Sequence[tuple[Image.Image, Image.Image, str]], y_domain: bool = False,
-            alphabet: str = CRNN_ALPHABET, syn: bool = False, srmd: bool = False,
+            alphabet: str = CRNN_ALPHABET, syn: bool = False,
             seed: Optional[int] = None) -> Batch:
     """``samples``: iterable of (img_HR, img_lr, label)."""
     hrs, lrs, labels = zip(*samples)
@@ -79,8 +78,6 @@ def collate(samples: Sequence[tuple[Image.Image, Image.Image, str]], y_domain: b
     if syn:
         rng = random.Random(seed)
         lrs = [lr.resize((lr.width // 2, lr.height // 2), Image.BICUBIC) for lr in lrs]
-        if srmd:
-            lrs = [srmd_degradation(lr) for lr in lrs]
         extra["images_pseudo_lr"] = batch_u8(
             [blur_ensemble(lr.resize(LR_SIZE, Image.BICUBIC), rng) for lr in lrs], LR_SIZE)
     label_vecs, ctc_ids, tics = encode_label_vecs(labels, alphabet, LABEL_LEN, eval_perturb=syn,

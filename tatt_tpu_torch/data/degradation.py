@@ -22,24 +22,6 @@ from PIL import Image
 from tatt_tpu_torch.data import imgproc
 
 
-def fspecial_gaussian(size: int = 15, sigma: float = 1.0) -> np.ndarray:
-    """Matlab-style Gaussian kernel (``utils/utils_deblur.fspecial``)."""
-    ax = np.arange(size) - (size - 1) / 2.0
-    xx, yy = np.meshgrid(ax, ax)
-    k = np.exp(-(xx**2 + yy**2) / (2.0 * sigma**2))
-    return k / k.sum()
-
-
-def srmd_degradation(img: Image.Image, kernel: np.ndarray | None = None, sf: int = 3) -> Image.Image:
-    """SRMD blur (wrapped border) + bicubic downsample by ``sf``
-    (``utils/utils_sisr.srmd_degradation``, ``dataset.py:1678-1694``)."""
-    if kernel is None:
-        kernel = fspecial_gaussian(15, 1.0)
-    blurred = imgproc.filter2d(np.asarray(img).astype(np.float32), kernel, border="wrap")
-    out = Image.fromarray(np.clip(blurred, 0, 255).astype(np.uint8))
-    return out.resize((img.width // sf, img.height // sf), Image.BICUBIC)
-
-
 def gauss_unsharp_mask(rgb: np.ndarray, k: int, sigma: float, gain: float):
     lf = imgproc.gaussian_blur(rgb, k, sigma)
     hf = rgb - lf

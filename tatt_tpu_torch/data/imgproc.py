@@ -17,9 +17,7 @@ and, where ``cv2`` is absent, against ``tests/torch_cv2_golden.npz``:
   columns of a row in another order (1 ulp apart there);
 - ``bilateral_filter``: 1 level off on ~1e-5 of the values (a weighted
   mean whose float32 sum OpenCV orders otherwise lands on the other side
-  of a half);
-- ``filter2d`` on float32 with ``border="wrap"``: OpenCV correlates the
-  15x15 kernel through a DFT, here a direct float64 sum (~1e-5 apart).
+  of a half).
 """
 
 from __future__ import annotations
@@ -168,24 +166,22 @@ def bilateral_filter(img: np.ndarray, d: int, sigma_color: float, sigma_space: f
     return out[..., 0] if squeeze else out
 
 
-def filter2d(img: np.ndarray, kernel: np.ndarray, border: str = REFLECT_101) -> np.ndarray:
-    """``cv2.filter2D(img, -1, kernel, borderType=...)``: correlation with
-    the anchor at the kernel's centre.  uint8: a float32 sum over the
-    non-zero taps in row-major order, rounded; float32: a float64 sum,
-    returned as float32.  ``border``: a numpy pad mode (``"reflect"`` is
-    ``BORDER_REFLECT_101``, ``"wrap"`` is ``BORDER_WRAP``)."""
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel)`` on uint8: correlation with the
+    anchor at the kernel's centre, a float32 sum over the non-zero taps in
+    row-major order, rounded."""
     a, squeeze = _hwc(np.asarray(img))
     kh, kw = kernel.shape
     h, w = a.shape[:2]
-    acc_t = np.float32 if a.dtype == np.uint8 else np.float64
     ay, ax = kh // 2, kw // 2
-    p = np.pad(a.astype(acc_t), ((ay, kh - 1 - ay), (ax, kw - 1 - ax), (0, 0)), mode=border)
-    s = np.zeros(a.shape, acc_t)
+    p = np.pad(a.astype(np.float32), ((ay, kh - 1 - ay), (ax, kw - 1 - ax), (0, 0)),
+               mode=REFLECT_101)
+    s = np.zeros(a.shape, np.float32)
     for i in range(kh):
         for j in range(kw):
             if kernel[i, j] != 0:
-                s = s + acc_t(kernel[i, j]) * p[i:i + h, j:j + w]
-    out = np.rint(s).clip(0, 255).astype(np.uint8) if a.dtype == np.uint8 else s.astype(np.float32)
+                s = s + np.float32(kernel[i, j]) * p[i:i + h, j:j + w]
+    out = np.rint(s).clip(0, 255).astype(np.uint8)
     return out[..., 0] if squeeze else out
 
 

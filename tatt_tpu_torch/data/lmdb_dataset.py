@@ -60,16 +60,14 @@ def open_lmdb(root: str) -> tuple[LmdbEnv, int]:
 
 
 class LmdbTextDataset:
-    """``ds[i] -> (img_hr, img_lr, label)`` over one TextZoom LMDB.
-    ``max_len`` is kept for the reference's signature; nothing reads it."""
+    """``ds[i] -> (img_hr, img_lr, label)`` over one TextZoom LMDB; a
+    ``test`` set takes no ``cutblur``."""
 
-    def __init__(self, root: str, voc_type: str = "all", max_len: int = 100,
-                 manmade_degrade: bool = False, cutblur: bool = False, test: bool = False,
-                 seed: int = 0):
+    def __init__(self, root: str, voc_type: str = "all", manmade_degrade: bool = False,
+                 cutblur: bool = False, test: bool = False, seed: int = 0):
         self.env, self.n_samples = open_lmdb(root)
         self.root = root
         self.voc_type = voc_type
-        self.max_len = max_len
         self.manmade_degrade = manmade_degrade
         self.cutblur = cutblur
         self.test = test
@@ -126,10 +124,9 @@ class LmdbRecognitionDataset:
     ``label-%09d`` and ``image_hr-%09d`` or ``image-%09d``;
     ``ds[i] -> (img, label)``, the label unfiltered."""
 
-    def __init__(self, root: str, voc_type: str = "all", max_len: int = 100):
+    def __init__(self, root: str, voc_type: str = "all"):
         self.env, self.n_samples = open_lmdb(root)
         self.voc_type = voc_type
-        self.max_len = max_len
 
     def __len__(self) -> int:
         return self.n_samples

@@ -42,11 +42,10 @@ class BadSetFolderDataset:
     """Folder of hard-case images, the label from the file name
     (``name_label_*.png``); LR = HR copy (``dataset.py:62-126``)."""
 
-    def __init__(self, root: str, voc_type: str = "all", test: bool = False):
+    def __init__(self, root: str, voc_type: str = "all"):
         self.root = root
         self.imlist = sorted(os.listdir(root))
         self.voc_type = voc_type
-        self.test = test
 
     def __len__(self) -> int:
         return len(self.imlist)
@@ -88,7 +87,7 @@ class IC15TextSRDataset:
     """IC15 TextSR pairs: HR / LR / ANNOTATION dirs of .pgm crops and txt
     labels (``dataset.py:877-964``); the split from the parent dir's name."""
 
-    def __init__(self, root: str, voc_type: str = "all", test: bool = False):
+    def __init__(self, root: str, voc_type: str = "all"):
         mode = "train" if os.path.basename(os.path.dirname(root.rstrip("/"))) == "TRAIN" else "test"
         hr_dir = os.path.join(root, "HR")
         n = len(os.listdir(hr_dir))
@@ -146,10 +145,9 @@ class IC15RecognitionSRDataset:
     HR (``lmdbDataset_realIC15``, ``dataset.py:1023-1115``); crops under
     4 px skipped."""
 
-    def __init__(self, root: str, voc_type: str = "all", max_len: int = 100, test: bool = False):
+    def __init__(self, root: str, voc_type: str = "all"):
         self.env, self.n_samples = open_lmdb(root)
         self.voc_type = voc_type
-        self.max_len = max_len
 
     def __len__(self) -> int:
         return self.n_samples
@@ -173,7 +171,7 @@ class CSVTRDataset:
     tab-separated ``filter_train_test.list`` (``dataset.py:1118-1157``);
     labels are not filtered."""
 
-    def __init__(self, root: str, voc_type: str = "chinese", test: bool = False):
+    def __init__(self, root: str):
         self.imdir = os.path.join(root, "filter_dir")
         self.gt_pairs = []
         with open(os.path.join(root, "filter_train_test.list")) as fh:
@@ -181,7 +179,6 @@ class CSVTRDataset:
                 items = line.rstrip("\n").split("\t")
                 if len(items) >= 4:
                     self.gt_pairs.append((os.path.join(self.imdir, items[2]), items[3]))
-        self.voc_type = voc_type
 
     def __len__(self) -> int:
         return len(self.gt_pairs)
@@ -228,7 +225,7 @@ class CHNSynPklDataset:
     ``key.jpg`` images; LR = the 5x5, sigma 1 Gaussian blur of HR
     (``dataset.py:821-874``).  The pickles are the corpus's own files."""
 
-    def __init__(self, root: str, voc_type: str = "chinese", test: bool = False):
+    def __init__(self, root: str, voc_type: str = "chinese"):
         self.root = root
         self.database: dict[str, str] = {}
         for f in sorted(os.listdir(root)):
@@ -281,8 +278,8 @@ class MaskedLmdbDataset:
     """TextZoom and each sample's canny weight mask as a fourth element
     (``lmdbDatasetWithMask_real``, ``dataset.py:1538-1594``)."""
 
-    def __init__(self, root: str, voc_type: str = "all", test: bool = False):
-        self.base = LmdbTextDataset(root, voc_type=voc_type, test=test)
+    def __init__(self, root: str, voc_type: str = "all"):
+        self.base = LmdbTextDataset(root, voc_type=voc_type)
 
     def __len__(self) -> int:
         return len(self.base)
@@ -298,8 +295,8 @@ class W2VLmdbDataset:
     (``cc.en.300.bin``); here the caller passes ``embed_fn(label) -> [D]``."""
 
     def __init__(self, root: str, embed_fn: Optional[Callable[[str], np.ndarray]] = None,
-                 voc_type: str = "all", test: bool = False):
-        self.base = LmdbTextDataset(root, voc_type=voc_type, test=test)
+                 voc_type: str = "all"):
+        self.base = LmdbTextDataset(root, voc_type=voc_type)
         if embed_fn is None:
             raise ValueError("W2VLmdbDataset needs embed_fn (e.g. a fasttext model's "
                              "get_numpy_vector); the reference uses cc.en.300.bin")
@@ -318,8 +315,7 @@ class GlobalSRDataset:
     and ``get_Syn_800K_with_words``, ``dataset.py:173-441``), cut out by
     :func:`~tatt_tpu_torch.data.prep_tools.iter_synthtext_crops`; LR = HR."""
 
-    def __init__(self, root: str, voc_type: str = "all", test: bool = False,
-                 limit: Optional[int] = None):
+    def __init__(self, root: str, voc_type: str = "all", limit: Optional[int] = None):
         self.samples = []
         for img, label in iter_synthtext_crops(os.path.join(root, "gt.mat"), root):
             self.samples.append((img, label))
