@@ -15,6 +15,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --zoo-only               # phases 1 and 15 alone
   python3 chip_smoke.py --chinese-only           # phases 1 and 16 alone
   python3 chip_smoke.py --data-tail-only         # phases 1 and 17 alone
+  python3 chip_smoke.py --bf16-only              # phases 1 and 18 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -140,8 +141,26 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      (20/20/0/0) and images/s at batch 64; the host ms a sample of each
      augmenter of the blur ensemble, the manmade degradation and
      ``canny_weight_mask``; and ``cv2`` never imported
+ 18. bf16 training (``--dtype bfloat16``): each kernel's bf16
+     instantiation at the recipe's shapes (gru1 L=16 R=8192, gru2 L=64
+     R=2048, H=32; the student's BiLSTM L=26 R=64 H=256, In 512 / 256),
+     forward and backward, against its plain twin on the card (bf16
+     outputs within one bf16 ulp or the f32 tolerance, f32 gradients
+     within 1e-4 scaled), one launch each by the bf16 counters, timed in
+     turns with the f32 instantiation, beside the bound at 2 bytes an
+     element, the twin and one cuDNN bf16 call; a batch-8 bf16 recipe step
+     on the card against the port's CPU bf16 step (every conv, dense and
+     recurrence in bf16 by forward hooks; 10/10/4/2 bf16 launches),
+     repeated, and with two faults planted on the card (cuBLAS's bf16
+     reduced-precision reduction, an f32-promoting PReLU); the recipe at
+     batch 64 through the CLI's parser and ``Trainer`` in bf16 and f32 in
+     turns (images/s, peak memory, bf16 launches a step, the
+     falling-``loss_sr`` gate over 45 steps, ``--bf16-repeats`` runs for
+     its margin, a profiled bf16 window); ``--go_test --dtype bfloat16``
+     equal to float32's summary
 The last line is the JSON object the chip check reads; the line before
-it the kernels, and before that the whole run's seconds.  Imports no JAX.
+it the kernels (each kernel's f32 and bf16 instantiation), and before
+that the whole run's seconds.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -426,6 +445,25 @@ TAIL_RUNS = {"plain": [], "syn": ["--syn"], "mixed": ["--mixed"]}
 DEGRADE_LAUNCHES = {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
 DEGRADE_WARM, DEGRADE_STEPS = 3, 10
 AUGMENTER_SAMPLES = 64
+# phase 18, bf16 training (--dtype bfloat16): each kernel pair's bf16
+# instantiations at the recipe's shapes (name, kind, L, R, In, the GRU's
+# folded 1x1 conv width, H), then the step card vs CPU and the recipe
+BF16 = torch.bfloat16
+BF16_SHAPES = (
+    ("gru1, fused train batch 2B", "gru", 16, 2 * BATCH * 64, 128, 64, 32),
+    ("gru2, fused train batch 2B", "gru", 64, 2 * BATCH * 16, 64, 64, 32),
+    ("student rnn0", "lstm", 26, BATCH, 512, None, 256),
+    ("student rnn1", "lstm", 26, BATCH, 256, None, 256),
+)
+# the recipe at batch 64 in bf16 and f32, each warmed up, then two windows
+# of each in turns: 45 bf16 steps for the falling-loss_sr gate
+BF16_WARM, BF16_STEPS = 5, 20
+BF16_CARD_REPEATS = 2
+# the batch-8 bf16 step, card vs CPU: the generator's and the student's
+# whole-model gradient gaps, with cuDNN's deterministic algorithms
+# 3.555e-3 and 0.0919 in every run on an H100 80GB HBM3 at 700 W, an
+# f32-promoting PReLU 4.92e-3 (scripts/bf16_step_gate.py)
+BF16_STEP_TOL, BF16_STUDENT_TOL = 4.2e-3, 0.15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -450,24 +488,27 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(kind: str, length: int, rows: int, hid: int, backward: bool = False):
+def bound(kind: str, length: int, rows: int, hid: int, backward: bool = False, elsize: int = 4):
     """Least time (ms) for one launch, and what sets it: each input read
     once and each output written once at the HBM rate, or the float32
     operations (matvec multiply-adds as 2, each gate nonlinearity and
     elementwise op as 1) at the f32 peak.  Forward: gates in, h out (and
     weights).  Backward: gates, h, dy (and the LSTM's c) in, d(gates) out,
     weights in and their gradients out; per row-step three matvec-sized
-    products (the gate recompute, W^T d(gates), d(gates) h_prev^T)."""
+    products (the gate recompute, W^T d(gates), d(gates) h_prev^T).
+    ``elsize``: bytes an element of the streamed tensors and the weights (2
+    for the bf16 instantiations, whose arithmetic is f32 all the same); the
+    weight and bias gradients are float32."""
     g = (3 if kind == "gru" else 4) * hid
     seq = length * rows * 2 * hid  # one [.., 2H] sequence
     weights = 2 * g * hid + 2 * g
     if backward:
         n_seq = 2 if kind == "gru" else 3  # h, dy (, c)
-        nbytes = 4 * (2 * 2 * length * rows * g + n_seq * seq + 2 * weights
-                      + (2 * g if kind == "gru" else 0))  # the GRU's input-bias grad
+        nbytes = (elsize * (2 * 2 * length * rows * g + n_seq * seq + weights)
+                  + 4 * (weights + (2 * g if kind == "gru" else 0)))  # the GRU's input-bias grad
         per_row_step = 3 * 2 * g * hid + (30 if kind == "gru" else 24) * hid
     else:
-        nbytes = 4 * (2 * length * rows * g + seq + weights)
+        nbytes = elsize * (2 * length * rows * g + seq + weights)
         per_row_step = 2 * g * hid + (14 if kind == "gru" else 12) * hid
     flops = 2 * length * rows * per_row_step
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
@@ -476,11 +517,17 @@ def bound(kind: str, length: int, rows: int, hid: int, backward: bool = False):
 
 def reset_counts() -> None:
     for fn in COUNTERS.values():
-        fn.launches = 0
+        fn.launches = fn.bf16_launches = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def read_bf16_counts() -> dict:
+    """The launches of the bf16 instantiations alone (``read_counts`` has
+    both)."""
+    return {name: fn.bf16_launches for name, fn in COUNTERS.items()}
 
 
 def scaled_err(got, want) -> float:
@@ -2542,6 +2589,362 @@ def data_tail_phase(smi: str) -> tuple:
     return rows
 
 
+def bf16_close(got, want, atol: float) -> dict:
+    """bf16 outputs of a kernel against its plain twin's: the largest
+    difference in bf16 ulps (the ulp at the larger magnitude of the two),
+    and the entries beyond both one ulp and ``atol`` (the f32
+    instantiation's tolerance: an entry near 0 that a sum in another order
+    moves by more than its own ulp)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return {"max_ulps": (diff / ulp).max().item(),
+            "beyond": int(((diff > ulp) & (diff > atol)).sum().item()),
+            "max_abs_err": diff.max().item()}
+
+
+def _library_ms(make, what: str):
+    """The time of one cuDNN bf16 call (a yardstick): None, with the reason
+    printed, where cuDNN refuses bf16 for the RNN."""
+    try:
+        return make()
+    except RuntimeError as exc:
+        print(f"[bf16-kernel] {what}: cuDNN bf16 refused: {str(exc).splitlines()[0]}")
+        return None
+
+
+def check_bf16(name, kind, length, rows, cin, cmid, hid, gen):
+    """Phase 18: a kernel pair's bf16 instantiations against their plain
+    twins on the card (bf16 inputs, f32 arithmetic), one launch each (by the
+    bf16 counters), timed in turns with the f32 instantiations on the same
+    values, beside the bound at 2 bytes an element, the plain twins and one
+    cuDNN bf16 call of the same function.  Returns (forward row, backward
+    row)."""
+    gru = kind == "gru"
+    if gru:
+        x, w_ih, b_ih, w_hh, b_hh, gates = _gru_weights(length, rows, cin, cmid, hid, gen)
+        fwd, bwd = bigru_recurrence, bigru_recurrence_bwd
+        ref, bwd_ref = bigru_recurrence_ref, bigru_recurrence_bwd_ref
+        names, lib_cls = ("bigru_fwd", "bigru_bwd"), torch.nn.GRU
+        plans = (bigru_fwd_plan, bigru_bwd_plan)
+    else:
+        x, w_ih, w_hh, b_ih, b_hh, gates = _lstm_weights(length, rows, cin, hid, gen)
+        fwd, bwd = bilstm_recurrence, bilstm_recurrence_bwd
+        ref, bwd_ref = bilstm_recurrence_ref, bilstm_recurrence_bwd_ref
+        names, lib_cls = ("bilstm_fwd", "bilstm_bwd"), torch.nn.LSTM
+        plans = (bilstm_fwd_plan, bilstm_bwd_plan)
+    f32_in = (gates.contiguous(), w_hh, b_hh)
+    bf_in = tuple(t.to(BF16) for t in f32_in)
+    reset_counts()
+    got = fwd(*bf_in) if gru else fwd(*bf_in, with_cs=True)
+    fwd_launches = read_bf16_counts()[names[0]]
+    want = ref(*bf_in) if gru else ref(*bf_in, with_cs=True)
+    got, want = (got,) if gru else got, (want,) if gru else want
+    fwd_err = [bf16_close(g, w, KERNEL_ATOL) for g, w in zip(got, want)]
+    saved = want  # the backward reads the plain twin's h (and c)
+    dout = torch.randn(saved[0].shape, generator=gen).to(DEV, BF16)
+    reset_counts()
+    dgot = bwd(*bf_in, *saved, dout)
+    bwd_launches = read_bf16_counts()[names[1]]
+    dwant = bwd_ref(*bf_in, *saved, dout)
+    torch.cuda.synchronize()
+    dg_err = bf16_close(dgot[0], dwant[0], DGATES_TOL * max(1.0, dwant[0].float().abs().max().item()))
+    grad_errs = [scaled_err(g, w) for g, w in zip(dgot[1:], dwant[1:])]
+    # in turns with the f32 instantiations on the same (bf16-rounded) values
+    f32_saved, dout32 = tuple(t.float() for t in saved), dout.float()
+    turns = {"fwd_bf16": [], "fwd_f32": [], "bwd_bf16": [], "bwd_f32": []}
+    for _ in range(2):
+        turns["fwd_bf16"].append(kernel_time(lambda: fwd(*bf_in), names[0])["ms"])
+        turns["fwd_f32"].append(kernel_time(lambda: fwd(*f32_in), names[0])["ms"])
+        turns["bwd_bf16"].append(timed_ms(lambda: bwd(*bf_in, *saved, dout), 20))
+        turns["bwd_f32"].append(timed_ms(lambda: bwd(*f32_in, *f32_saved, dout32), 20))
+    lib = _library_rnn(lib_cls, cin, hid, w_ih, w_hh, b_ih, b_hh).to(BF16)
+    x16 = x.to(BF16)
+    dy16 = (dout.permute(2, 0, 1) if gru else dout).contiguous()
+    lib_fwd = _library_ms(lambda: timed_ms(lambda: lib(x16), 20), f"{name} forward")
+    lib_fb = _library_ms(lambda: timed_ms(lambda: _library_fwd_bwd(lib, x16, dy16), 20),
+                         f"{name} forward + backward")
+    common = dict(shape=name, L=length, R=rows, H=hid, In=cin)
+    frow = dict(common, max_abs_err=max(e["max_abs_err"] for e in fwd_err),
+                max_ulps=max(e["max_ulps"] for e in fwd_err),
+                beyond=sum(e["beyond"] for e in fwd_err), launches=fwd_launches,
+                kernel_ms=min(turns["fwd_bf16"]), f32_kernel_ms=min(turns["fwd_f32"]),
+                turns={k: turns[k] for k in ("fwd_bf16", "fwd_f32")},
+                plain_ms=timed_ms(lambda: ref(*bf_in), 3), library_ms=lib_fwd)
+    frow["bound_ms"], frow["bound_by"] = bound(kind, length, rows, hid, elsize=2)
+    frow["f32_bound_ms"] = bound(kind, length, rows, hid)[0]
+    frow["plan"], frow["f32_plan"] = (plans[0](hid, rows, dt) for dt in (BF16, torch.float32))
+    frow["ok"] = fwd_launches == 1 and frow["beyond"] == 0
+    brow = dict(common, max_abs_err=max((g.float() - w.float()).abs().max().item()
+                                        for g, w in zip(dgot, dwant)),
+                dgates=dg_err, scaled_err=dict(zip(("dw_hh", "db_hh", "dbx"), grad_errs)),
+                launches=bwd_launches, kernel_ms=min(turns["bwd_bf16"]),
+                f32_kernel_ms=min(turns["bwd_f32"]),
+                turns={k: turns[k] for k in ("bwd_bf16", "bwd_f32")},
+                plain_ms=timed_ms(lambda: bwd_ref(*bf_in, *saved, dout), 1), library_ms=lib_fb)
+    brow["bound_ms"], brow["bound_by"] = bound(kind, length, rows, hid, backward=True, elsize=2)
+    brow["f32_bound_ms"] = bound(kind, length, rows, hid, backward=True)[0]
+    brow["plan"], brow["f32_plan"] = (plans[1](hid, rows, dt) for dt in (BF16, torch.float32))
+    brow["ok"] = (bwd_launches == 1 and dg_err["beyond"] == 0 and max(grad_errs) <= DW_TOL
+                  and dgot[0].dtype == BF16 and all(g.dtype == torch.float32 for g in dgot[1:]))
+    return frow, brow
+
+
+def _dtype_hooks(models) -> tuple:
+    """Forward hooks that record every conv, dense and recurrence of
+    ``models`` whose input or output is not bf16; returns (the handles,
+    the list they fill)."""
+    from tatt_tpu_torch.models.common import Conv2d, ConvTranspose2d, Dense
+    bad = []
+
+    def hook(module, inputs, output):
+        outs = output if isinstance(output, tuple) else (output,)
+        for t in [a for a in inputs if torch.is_tensor(a)][:1] + [o for o in outs if torch.is_tensor(o)]:
+            if t.dtype != BF16:
+                bad.append((type(module).__name__, str(t.dtype)))
+
+    handles = [m.register_forward_hook(hook) for model in models for m in model.modules()
+               if isinstance(m, (Conv2d, ConvTranspose2d, Dense, BiGRU, BiLSTM))]
+    return handles, bad
+
+
+def _bf16_step(models_cpu, dev, b, rot, hooks: bool = False):
+    """One bf16 recipe step (dropout off, rotation pinned) on ``dev`` from
+    copies of ``models_cpu`` (generator, student, teacher): each trainable
+    model's gradients, the bf16 launches, the metrics, and with ``hooks``
+    the layers that were not bf16.  On the card cuDNN runs its
+    deterministic algorithms here (not the autotuned ones), so that the
+    reading repeats from call to call."""
+    models = [copy.deepcopy(m).to(dev) for m in models_cpu]
+    handles, bad = _dtype_hooks(models) if hooks else ([], [])
+    hr, lr = to_device(b, torch.device(dev), True)
+    batch = {"images_hr": hr, "images_lr": lr, **{k: v.to(dev) for k, v in rot.items()}}
+    opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1.0)
+    reset_counts()
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        metrics = train_step([models[0].train()], [models[1].train()], models[2].eval(), opt,
+                             batch, StepConfig(compute_dtype="bfloat16"),
+                             torch.Generator(device=dev).manual_seed(0))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        set_cuda_flags()
+    for h in handles:
+        h.remove()
+    grads = [{k: p.grad.double().cpu() for k, p in m.named_parameters()} for m in models[:2]]
+    return grads, read_bf16_counts(), {k: v.item() for k, v in metrics.items()}, bad
+
+
+def _step_gaps(cpu, card) -> dict:
+    """Card vs CPU of a step's gradients, per model: the whole model
+    (||card - CPU|| / ||CPU|| over all its leaves) and the worst leaf (phase
+    8's ||card - CPU|| / max(||CPU||, floor))."""
+    out = {}
+    for name, c, g in zip(("generator", "student"), cpu, card):
+        whole = math.sqrt(sum((g[k] - v).norm().item() ** 2 for k, v in c.items()))
+        whole /= math.sqrt(sum(v.norm().item() ** 2 for v in c.values()))
+        out[name] = {"whole": whole, "worst_leaf": max(leaf_errors(c, g).values())}
+    return out
+
+
+def bf16_step_readings(batch: int, repeats: int) -> dict:
+    """The bf16 recipe step at full width and ``batch`` on the card (the
+    bf16 kernels) against the port's own CPU bf16 step (the plain twins),
+    ``repeats`` times, then with each of two faults planted on the card:
+    cuBLAS's bf16 reduced-precision reduction left on, and a PReLU whose f32
+    slope promotes its output to f32.  Each reading: the gradient gaps of
+    :func:`_step_gaps`, the loss gap, and for a fault also its gaps against
+    the sound card step (card vs card).  Fails on a layer that is not bf16
+    or on launches other than the recipe's bf16 ones."""
+    from tatt_tpu_torch.models import common as model_common
+
+    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True, dropout=0.0)
+    models_cpu = [init_parameters(tatt, 7), init_parameters(CRNN(), 8), init_parameters(CRNN(), 9)]
+    sds = SyntheticTextDataset(n=batch, seed=5)
+    b = collate([sds[i] for i in range(batch)])
+    rot = {"rot_arc": torch.linspace(-0.08, 0.08, batch),
+           "rot_offs": torch.linspace(0.1, 0.9, batch)}
+    t0 = time.perf_counter()
+    cpu, _, cpu_metrics, cpu_bad = _bf16_step(models_cpu, "cpu", b, rot, hooks=True)
+    out = {"batch": batch, "cpu_s": time.perf_counter() - t0, "sound": [], "faults": {}}
+
+    def reading(card, metrics):
+        gap = abs(metrics["loss_total"] - cpu_metrics["loss_total"]) / abs(cpu_metrics["loss_total"])
+        return {**_step_gaps(cpu, card), "loss": gap}
+
+    sound_card = None
+    for r in range(repeats):
+        card, counts, metrics, bad = _bf16_step(models_cpu, DEV, b, rot, hooks=r == 0)
+        if counts != STEP_LAUNCHES:
+            fail(f"bf16 card step launches {counts} (want {STEP_LAUNCHES} of the bf16 kernels)")
+        if r == 0 and (bad or cpu_bad):
+            fail(f"bf16 step: layers not in bf16: card {bad[:5]} CPU {cpu_bad[:5]}")
+        sound_card = sound_card or card
+        out["sound"].append({**reading(card, metrics),
+                             "vs_first_card": _step_gaps(sound_card, card)["generator"]["whole"]})
+
+    sound_leaves = leaf_errors(cpu[0], sound_card[0])
+
+    def faulted(what):
+        card, _, metrics, _ = _bf16_step(models_cpu, DEV, b, rot)
+        leaves = leaf_errors(cpu[0], card[0])
+        moved = sorted(leaves, key=lambda k: sound_leaves[k] - leaves[k])[:5]
+        out["faults"][what] = {**reading(card, metrics),
+                               "vs_sound_card": _step_gaps(sound_card, card),
+                               "generator_leaves_moved_most": {
+                                   k: [sound_leaves[k], leaves[k]] for k in moved}}
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        faulted("bf16 reduced-precision reduction")
+    finally:
+        set_cuda_flags()
+    prelu = model_common.PReLU.forward
+    model_common.PReLU.forward = lambda self, x: torch.where(x >= 0, x, self.weight * x)
+    try:
+        faulted("PReLU promotes to f32")
+    finally:
+        model_common.PReLU.forward = prelu
+    return out
+
+
+def bf16_card_vs_cpu() -> None:
+    """Phase 18's step gate: :func:`bf16_step_readings` at batch 8, the
+    generator's whole-model gap within ``BF16_STEP_TOL`` and the student's
+    within ``BF16_STUDENT_TOL`` on every sound run; the f32-promoting PReLU
+    must exceed the gate.  The reduced-precision reduction moves the card's
+    gradients without moving them away from the CPU's (scripts/
+    bf16_step_gate.py), so it is read, not gated: ``set_cuda_flags`` keeps
+    it off."""
+    readings = bf16_step_readings(STEP_BATCH, BF16_CARD_REPEATS)
+    print(f"[bf16-step] CPU bf16 step at batch {STEP_BATCH}: {readings['cpu_s']:.1f} s")
+    for r, sound in enumerate(readings["sound"]):
+        print(f"[bf16-step] card run {r}: {json.dumps(sound)}")
+    for what, fault in readings["faults"].items():
+        print(f"[bf16-step] planted fault, {what}: {json.dumps(fault)} (gate "
+              f"{BF16_STEP_TOL}: {'exceeds' if fault['generator']['whole'] > BF16_STEP_TOL else 'within'})")
+    for sound in readings["sound"]:
+        if not (sound["generator"]["whole"] <= BF16_STEP_TOL
+                and sound["student"]["whole"] <= BF16_STUDENT_TOL):
+            fail(f"bf16 step card vs CPU above {BF16_STEP_TOL} / {BF16_STUDENT_TOL}: {sound}")
+    if not readings["faults"]["PReLU promotes to f32"]["generator"]["whole"] > BF16_STEP_TOL:
+        fail(f"the bf16 step gate {BF16_STEP_TOL} misses an f32-promoting PReLU")
+
+
+def bf16_train(smi: str, repeats: int):
+    """Phase 18's slice at full width: the recipe's flags with ``--dtype
+    bfloat16`` at batch 64 through the CLI's parser and ``Trainer``, beside
+    the same recipe in f32, in turns: images/s, peak memory, launches a step
+    (of the bf16 instantiations alone), the falling-loss_sr gate over 45
+    steps (with ``repeats`` > 1, that many bf16 runs from other seeds for
+    the gate's margin), one profiled bf16 window.  Returns the bf16
+    windows' launches."""
+    train_ds = SyntheticTextDataset(n=8 * BATCH, seed=1)
+    for i in range(len(train_ds)):
+        train_ds[i]
+
+    def trainer_for(dtype: str, seed: int):
+        cfg, _ = cli.parse_config(RECIPE + ["--dtype", dtype, "--batch_size", str(BATCH)])
+        cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+        cfg.TRAIN.displayInterval = 10**9
+        tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True)
+        return Trainer(cfg, [init_parameters(tatt, seed).to(DEV)],
+                       [init_parameters(CRNN(), seed + 1).to(DEV)],
+                       init_parameters(CRNN(), seed + 2).to(DEV), train_ds, DEV)
+
+    torch.manual_seed(0)
+    trainers = {"bf16": trainer_for("bfloat16", 1234), "f32": trainer_for("float32", 1234)}
+    loss_sr = {k: t.train(max_iters=BF16_WARM)["metrics"]["loss_sr"] for k, t in trainers.items()}
+    torch.cuda.synchronize()
+    ips, mem, launches = {k: [] for k in trainers}, {k: [] for k in trainers}, {}
+    for _ in range(2):
+        for tag, trainer in trainers.items():
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = trainer.train(max_iters=trainer.iters + BF16_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, bf16_counts = read_counts(), read_bf16_counts()
+            ips[tag].append(BF16_STEPS * BATCH / wall)
+            mem[tag].append(torch.cuda.max_memory_allocated() / 2**30)
+            loss_sr[tag] += res["metrics"]["loss_sr"]
+            want = {k: v * BF16_STEPS for k, v in STEP_LAUNCHES.items()}
+            if counts != want or bf16_counts != (want if tag == "bf16" else dict.fromkeys(want, 0)):
+                fail(f"{tag} recipe launches {counts}, bf16 {bf16_counts} (want {want})")
+            if tag == "bf16":
+                launches = {k: launches.get(k, 0) + v for k, v in bf16_counts.items()}
+            if not all(math.isfinite(v) for m in res["metrics"].values() for v in m):
+                fail(f"{tag} recipe: non-finite metrics")
+    ratios = []
+    for r in range(repeats):
+        sr = loss_sr["bf16"] if r == 0 else (
+            lambda t: t.train(max_iters=BF16_WARM + 2 * BF16_STEPS)["metrics"]["loss_sr"])(
+                trainer_for("bfloat16", 1234 + 10 * r))
+        ratios.append(float(np.median(sr[-5:]) / np.median(sr[1:4])))
+        if r == 0:
+            print(f"[bf16-train] bf16 loss_sr by step {[round(v, 4) for v in sr]}")
+    print(f"[bf16-train] the recipe at batch {BATCH}, {BF16_STEPS} steps a window, in turns: images/s "
+          f"bf16 {[round(v, 1) for v in ips['bf16']]} f32 {[round(v, 1) for v in ips['f32']]}; peak "
+          f"GiB bf16 {[round(v, 2) for v in mem['bf16']]} f32 {[round(v, 2) for v in mem['f32']]}; "
+          f"bf16 launches a step {json.dumps({k: v / (2 * BF16_STEPS) for k, v in launches.items()})} "
+          f"(all of the bf16 instantiations); loss_sr median of the last 5 / of steps 2-4: "
+          f"{[round(v, 3) for v in ratios]} over {repeats} run(s) ({smi})")
+    if not ratios[0] < 1.0:
+        fail(f"bf16 recipe: loss_sr did not fall (last 5 / steps 2-4 = {ratios[0]})")
+    t16 = trainers["bf16"]
+    profile_window(lambda: t16.train(max_iters=t16.iters + PROFILE_STEPS),
+                   f"{PROFILE_STEPS} bf16 train steps")
+    return launches
+
+
+def bf16_eval_check() -> None:
+    """``--go_test --dtype bfloat16`` evaluates in float32, as the JAX CLI
+    does: its summary equals ``--dtype float32``'s to the bit (all but the
+    ``fps`` it times)."""
+    outs, summaries = {}, {}
+    for dt in ("float32", "bfloat16"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            code = cli.main(["--go_test", "--synthetic", str(BATCH), "--mask", "--batch_size",
+                             str(BATCH), "--dtype", dt])
+        outs[dt] = buf.getvalue().strip()
+        if code != 0:
+            fail(f"--go_test --dtype {dt}: exit {code}")
+        summaries[dt] = {line.split(" ", 1)[0]: ast.literal_eval(line.split(" ", 1)[1])
+                         for line in outs[dt].splitlines() if line.startswith("[")}
+        for summary in summaries[dt].values():
+            summary.pop("fps")
+    print(f"[bf16-eval] --go_test --dtype bfloat16: {outs['bfloat16']}")
+    if summaries["bfloat16"] != summaries["float32"] or not summaries["float32"]:
+        fail(f"--go_test under --dtype bfloat16 differs from float32: {outs}")
+
+
+def bf16_phase(smi: str, repeats: int = 1):
+    """Phase 18: bf16 training.  Returns (forward rows, backward rows, the
+    bf16 recipe's launches)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(18)
+    rows = [check_bf16(*shape, gen) for shape in BF16_SHAPES]
+    for frow, brow in rows:
+        for tag, row in (("fwd", frow), ("bwd", brow)):
+            print(f"[bf16-kernel] {tag} " + json.dumps(row))
+            print(f"[bf16-kernel] {row['shape']} {tag}: bf16 {row['kernel_ms']:.4f} ms, f32 "
+                  f"{row['f32_kernel_ms']:.4f} ms in turns {json.dumps(row['turns'])}; bound "
+                  f"{row['bound_ms']:.4f} ms at 2 bytes ({row['bound_by']}; f32 "
+                  f"{row['f32_bound_ms']:.4f}); plain twin {row['plain_ms']:.3f} ms; cuDNN bf16 "
+                  f"{row['library_ms']} ms; plan {json.dumps(row['plan'])} (f32 "
+                  f"{json.dumps(row['f32_plan'])}) ({smi})")
+            if not row["ok"]:
+                fail(f"bf16 {tag} kernel {row['shape']}: {row}")
+    bf16_card_vs_cpu()
+    launches = bf16_train(smi, repeats)
+    bf16_eval_check()
+    print(f"[bf16] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return [f for f, _ in rows], [b for _, b in rows], launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -2577,6 +2980,12 @@ def main(argv=None) -> int:
     ap.add_argument("--data-tail-only", action="store_true",
                     help="run phases 1 and 17 alone (the data long tail: --syn, --mixed, "
                          "--badset, --ic15sr, the degradation mission); prints no result line")
+    ap.add_argument("--bf16-only", action="store_true",
+                    help="run phases 1 and 18 alone (bf16 training, --dtype bfloat16); prints no "
+                         "result line")
+    ap.add_argument("--bf16-repeats", type=int, default=1, metavar="N",
+                    help="phase 18's falling-loss_sr gate over N bf16 runs from other seeds (its "
+                         "margin; the run itself gates the first)")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -2641,6 +3050,10 @@ def main(argv=None) -> int:
         return 0
     if args.data_tail_only:
         data_tail_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.bf16_only:
+        bf16_phase(smi, args.bf16_repeats)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -2830,12 +3243,15 @@ def main(argv=None) -> int:
     # ---- 17. the data long tail: --syn, --mixed, --badset, --ic15sr, the degradation mission
     degrade_fwd_rows, degrade_bwd_rows = data_tail_phase(smi)
 
+    # ---- 18. bf16 training: the kernels' bf16 instantiations, the step, the recipe, eval
+    bf16_fwd_rows, bf16_bwd_rows, bf16_launches = bf16_phase(smi, args.bf16_repeats)
+
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the
     # student's and the teacher's rnn0 and rnn1 forward, the student's backward)
     def mix(rows):
-        out = {k: float(np.mean([r[k] for r in rows])) for k in
-               ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        out = {k: (None if any(r[k] is None for r in rows) else float(np.mean([r[k] for r in rows])))
+               for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
         out["bound_by"] = rows[int(np.argmax([r["bound_ms"] for r in rows]))]["bound_by"]
         return out
 
@@ -2855,6 +3271,18 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": train_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": m["kernel_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+        # the bf16 instantiation, from phase 18: its launches are the bf16
+        # recipe's (counted from 0 just before those windows)
+        bf_rows = [r for r in (bf16_bwd_rows if name.endswith("bwd") else bf16_fwd_rows)
+                   if (r["H"] == 32) == name.startswith("bigru")]
+        m = mix(bf_rows)
+        kernels.append({
+            "name": name + "_bf16", "route": "cuda", "source": src, "replaces": rep,
+            "launches": bf16_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in bf_rows),
             "ms": m["kernel_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })

@@ -98,9 +98,17 @@ card, ``data/device_pipeline.py``), and ``--test_data_dir``, which the JAX
 CLI parses and reads nowhere, is accepted with a warning.  No OpenCV is
 needed: ``data/imgproc.py`` computes its image operations.
 
-Refused with "not ported yet": ``--dtype bfloat16``, any other flag
-(``--dp_devices``, ``--bn_per_replica``, ...), and a YAML the port does
-not serve; nothing is silently ignored.  Without weights the generators
+``--dtype bfloat16`` trains the TATT step in bf16 (``train/steps.py``;
+the four recurrence kernels' bf16 instantiations on the card), as the JAX
+CLI does for ``--arch=tatt`` with the CRNN recognizer; the other archs
+of the TATT step and ``--tpg OPT`` are refused under it, as not ported
+yet.  As in the JAX package the flag acts in that step alone: the plain
+step's archs train, and ``--go_test`` / ``--test`` / ``--demo`` evaluate,
+in float32 (with a warning).
+
+Refused with "not ported yet": any other flag (``--dp_devices``,
+``--bn_per_replica``, ...), and a YAML the port does not serve; nothing
+is silently ignored.  Without weights the generators
 and the students / teacher start from initial weights seeded by
 ``TRAIN.manualSeed``.
 """
@@ -127,7 +135,7 @@ from tatt_tpu_torch.data.variants import BadSetFolderDataset, IC15TextSRDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.factory import (
-    ABLATION_SET, arch_steps, build_generator, recognizer_spec,
+    ABLATION_SET, BF16_ARCHS, arch_steps, build_generator, recognizer_spec,
 )
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import crnn_widths
@@ -190,7 +198,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused_tssim", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--stu_iter", type=int, default=1)
     p.add_argument("--rotate_train", type=float, default=0.0)
-    p.add_argument("--dtype", default="float32")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--val_batch_size", type=int, default=None)
     p.add_argument("--learning_rate", "--lr", dest="lr", type=float, default=None)
@@ -220,9 +228,12 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
         raise SystemExit(BICUBIC_REFUSAL)
     if args.CHNSR and args.tpg != "OPT":
         raise SystemExit(CHNSR_CRNN_REFUSAL)
+    bf16_train = args.dtype == "bfloat16" and not (args.go_test or args.test or args.demo)
     refused = [
         (bool(unknown), " ".join(unknown)),
-        (args.dtype != "float32", f"--dtype={args.dtype} (the port runs float32)"),
+        (bf16_train and args.arch in ABLATION_SET and args.arch not in BF16_ARCHS,
+         f"--dtype bfloat16 with --arch={args.arch}"),
+        (bf16_train and args.tpg == "OPT", "--dtype bfloat16 with --tpg OPT"),
         (args.CHNSR and args.arch in ABLATION_SET and args.arch != "tatt",
          f"--CHNSR with --arch={args.arch} (only tatt takes the 3965-wide prior)"),
     ]
@@ -256,6 +267,10 @@ def warn_dead_flags(cfg: Config) -> None:
     if a.device_collate:
         print("WARNING: --device_collate changes nothing here: the port always ships uint8 "
               "crops and normalizes them on the card", file=sys.stderr)
+    if a.dtype == "bfloat16" and (a.go_test or a.test or a.demo or a.arch not in ABLATION_SET):
+        what = "evaluation" if a.go_test or a.test or a.demo else f"--arch={a.arch}'s plain step"
+        print(f"WARNING: --dtype bfloat16 acts in the TATT train step only; {what} runs in "
+              "float32, as in the JAX package", file=sys.stderr)
 
 
 def warn_synthetic_ignores(cfg: Config, synthetic: int) -> None:

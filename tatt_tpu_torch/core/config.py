@@ -105,6 +105,7 @@ class Flags:
     srb: int = 5
     hd_u: int = 32
     lr: Optional[float] = None
+    # the TATT step's compute dtype: float32 | bfloat16 (train/steps.py)
     dtype: str = "float32"
     tpg: str = "CRNN"  # the recognizer: CRNN | OPT (the NAVER TPG)
     CHNSR: bool = False  # the Chinese path: the 3965-character table

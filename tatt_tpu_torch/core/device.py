@@ -1,4 +1,4 @@
-"""Device selection and float32 policy for the port's entry points."""
+"""Device selection and reduced-precision policy for the port's entry points."""
 
 from __future__ import annotations
 
@@ -25,10 +25,13 @@ def set_cuda_flags() -> None:
     convolutions in TF32 by default, which keeps about three decimal
     digits, and the JAX package's precision audit
     (``tests/test_precision_audit.py``) pins SSIM windows, resize
-    matrices, attention logits/softmax and BatchNorm in f32.  cuDNN
+    matrices, attention logits/softmax and BatchNorm in f32.  Under
+    ``--dtype bfloat16`` every bf16 GEMM sums in f32 as XLA's do: PyTorch
+    lets cuBLAS add split-K partial sums in bf16 by default.  cuDNN
     autotunes its convolution algorithms (all of them f32 here): the eval
     path runs fixed shapes, and without TF32 the heuristic picks slow FFT
     algorithms for the 9x9 convolutions."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.benchmark = True

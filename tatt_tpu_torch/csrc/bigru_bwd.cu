@@ -17,13 +17,21 @@
 // and over all (t, row): dW_hh = sum d(gh) h_prev^T, db_hh = sum d(gh), and
 // the input-bias gradient dbx = sum d(gates_x).
 //
-// Layouts (float32, contiguous), those of csrc/bigru_fwd.cu:
+// Layouts (contiguous), those of csrc/bigru_fwd.cu:
 //   gates, dgates [2, L, 3H, R]   (rows minor, gate order r, z, n)
 //   w_hh [2, 3H, H], b_hh [2, 3H]; out, dy [L, 2H, R]
-//   scratch: dghn [2, L, H, R] (dn r), bias_part [2, S, 4H],
+//   scratch (float32): dghn [2, L, H, R] (dn r), bias_part [2, S, 4H],
 //            dw_part [2, S, 3H, H]
-//   dw_hh [2, 3H, H]; bias4 [2, 4H] = sums of [dr, dz, dn r, dn]
+//   dw_hh [2, 3H, H]; bias4 [2, 4H] = sums of [dr, dz, dn r, dn] (float32)
 //     (db_hh = bias4[:, :3H]; dbx = bias4[:, :2H] ++ bias4[:, 3H:])
+// gates, w_hh, b_hh, out, dy and dgates are float32, or bfloat16 in the
+// bf16 instantiation (entry bigru_bwd_bf16), the TPU kernel under --dtype
+// bfloat16: every input widened to f32 as it is loaded (W_hh f32 in shared
+// memory, so the plans are the f32 kernel's), the dh carry and every sum in
+// f32, d(gates) stored rounded to bf16 and, unrounded, into a float32
+// scratch dg32 [2, L, 3H, R] that the weight-gradient pass reads in the
+// place of dgates: dW_hh, db_hh and dbx are sums of the f32 d(gates), as the
+// TPU kernel's are.
 //
 // What bounds it on an H100.  Not the bytes it must move (gates, h and dy
 // in, dgates out: 0.080 ms at HBM rate at gru1 and gru2 of the fused 2B=128
@@ -72,6 +80,7 @@
 //
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -79,6 +88,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -109,6 +119,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// the streamed element types: loads widen to f32, stores round to nearest
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+// 1 or 4 elements into shared memory as f32: asynchronous copies for f32,
+// a load (8 bytes for 4) and a conversion for bf16
+__device__ __forceinline__ void stage1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void stage1(float* dst, const __nv_bfloat16* src) { *dst = to_f(*src); }
+__device__ __forceinline__ void stage4(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // N consecutive floats of shared memory (N = 1 or 2; 4N-byte aligned)
 template <int N>
 __device__ __forceinline__ void load_n(const float* src, float (&v)[N]) {
@@ -137,12 +167,14 @@ __device__ __forceinline__ void store_n(float* dst, const float (&v)[N]) {
 // step s-1's products.  Step s itself is then the chain alone: dh ->
 // d(gates) into shared memory, one barrier, dh_carry = dh z + W^T d(gh).
 // h_prev and d(gh) are double-buffered, so that barrier is the only one.
-template <int JT, int RT>
+// dg32: the f32 copy of d(gates) (bf16 only; null for f32).
+template <typename T, int JT, int RT>
 __global__ void __launch_bounds__(kMaxThreads)
-bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
-                     const float* __restrict__ b_hh, const float* __restrict__ out,
-                     const float* __restrict__ dy, float* __restrict__ dgates,
-                     float* __restrict__ dghn, int L, int H, int R, int kp) {
+bigru_bwd_rec_kernel(const T* __restrict__ gates, const T* __restrict__ w_hh,
+                     const T* __restrict__ b_hh, const T* __restrict__ out,
+                     const T* __restrict__ dy, T* __restrict__ dgates,
+                     float* __restrict__ dg32, float* __restrict__ dghn, int L, int H, int R,
+                     int kp) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
   const int G = 3 * H;
@@ -159,12 +191,12 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
   const int row0 = blockIdx.x * RB + p * RT;  // this thread's rows: row0 .. row0 + RT - 1
   const size_t RS = (size_t)R;
 
-  const float* w_d = w_hh + (size_t)dir * G * H;
+  const T* w_d = w_hh + (size_t)dir * G * H;
   for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
     const int g = i / kp, k = i % kp;
-    w_s[i] = k < H ? w_d[(size_t)g * H + k] : 0.0f;
+    w_s[i] = k < H ? to_f(w_d[(size_t)g * H + k]) : 0.0f;
   }
-  for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[dir * G + i];
+  for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = to_f(b_hh[dir * G + i]);
   for (int i = threadIdx.x; i < 2 * H4 * RB; i += blockDim.x) hp_s[i] = 0.0f;
   __syncthreads();  // the zeros land before any copy into hp_s
 
@@ -190,7 +222,7 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
   const auto copy_hp = [&](int s, int buf) {
     const int t = t_of(s), tp = dir == 0 ? t - 1 : t + 1;
     const bool copy = tp >= 0 && tp < L;
-    const float* src = out + ((size_t)(copy ? tp : 0) * 2 * H + (size_t)dir * H) * RS + row0;
+    const T* src = out + ((size_t)(copy ? tp : 0) * 2 * H + (size_t)dir * H) * RS + row0;
     float* hb = hp_s + buf * H4 * RB;
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
@@ -198,7 +230,7 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
         float* d = const_cast<float*>(hp_at(hb, jc[u], i));
-        if (copy && rv[i]) cp_async4(d, src + (size_t)jc[u] * RS + i);
+        if (copy && rv[i]) stage1(d, src + (size_t)jc[u] * RS + i);
         else *d = 0.0f;
       }
     }
@@ -206,18 +238,18 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
   float xr[JT][RT], xz[JT][RT], xn[JT][RT], dyn[JT][RT];  // step s+1's inputs
   const auto load_x = [&](int s) {
     const int t = t_of(s);
-    const float* gx = gates + (size_t)(dir * L + t) * G * RS + row0;
-    const float* dyg = dy + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row0;
+    const T* gx = gates + (size_t)(dir * L + t) * G * RS + row0;
+    const T* dyg = dy + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row0;
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
       const size_t j = (size_t)jc[u];
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
         const bool ok = jv[u] && rv[i];
-        xr[u][i] = ok ? gx[j * RS + i] : 0.0f;
-        xz[u][i] = ok ? gx[(H + j) * RS + i] : 0.0f;
-        xn[u][i] = ok ? gx[(2 * H + j) * RS + i] : 0.0f;
-        dyn[u][i] = ok ? dyg[j * RS + i] : 0.0f;
+        xr[u][i] = ok ? to_f(gx[j * RS + i]) : 0.0f;
+        xz[u][i] = ok ? to_f(gx[(H + j) * RS + i]) : 0.0f;
+        xn[u][i] = ok ? to_f(gx[(2 * H + j) * RS + i]) : 0.0f;
+        dyn[u][i] = ok ? to_f(dyg[j * RS + i]) : 0.0f;
       }
     }
   };
@@ -308,7 +340,8 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
     __syncthreads();      // d(gh) of step s and h_prev of step s+1 are complete
     {
       const int t = t_of(s);
-      float* dgo = dgates + (size_t)(dir * L + t) * G * RS + row0;
+      const size_t base = (size_t)(dir * L + t) * G * RS + row0;
+      T* dgo = dgates + base;
       float* dno = dghn + (size_t)(dir * L + t) * H * RS + row0;
 #pragma unroll
       for (int u = 0; u < JT; ++u) {
@@ -317,9 +350,15 @@ bigru_bwd_rec_kernel(const float* __restrict__ gates, const float* __restrict__ 
 #pragma unroll
         for (int i = 0; i < RT; ++i) {
           if (!rv[i]) continue;
-          dgo[j * RS + i] = dr[u][i];
-          dgo[(H + j) * RS + i] = dz[u][i];
-          dgo[(2 * H + j) * RS + i] = dn[u][i];
+          dgo[j * RS + i] = from_f<T>(dr[u][i]);
+          dgo[(H + j) * RS + i] = from_f<T>(dz[u][i]);
+          dgo[(2 * H + j) * RS + i] = from_f<T>(dn[u][i]);
+          if constexpr (!std::is_same_v<T, float>) {
+            float* d32 = dg32 + base;
+            d32[j * RS + i] = dr[u][i];
+            d32[(H + j) * RS + i] = dz[u][i];
+            d32[(2 * H + j) * RS + i] = dn[u][i];
+          }
           dno[j * RS + i] = dnr[u][i];
         }
       }
@@ -374,10 +413,11 @@ __host__ __device__ constexpr int dw_chunk(int tm) { return tm == 3 ? 64 : tm ==
 // two stages take ~87 KB at every H.  Up to H = 64 two blocks share an SM
 // (at most 128 registers a thread); the taller register tiles of H > 64
 // would spill there, and take one.
-template <int TM>
+// dgates: the f32 d(gates) (the bf16 instantiation's dg32); out: h in T.
+template <int TM, typename T>
 __global__ void __launch_bounds__(kDwThreads, TM <= 6 ? 2 : 1)
 bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ dghn,
-                    const float* __restrict__ out, float* __restrict__ dw_part,
+                    const T* __restrict__ out, float* __restrict__ dw_part,
                     float* __restrict__ bias_part, int L, int H, int R, int S, bool vec) {
   constexpr int KC = dw_chunk(TM);
   constexpr int KS = KC + 4;  // row stride: 8 neighbouring rows on 8 bank groups
@@ -425,7 +465,7 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
       // of KC / 4 float4 (32-bit offsets within one step of a tensor)
       const float* gb = dgates + step * G * RS + r0;
       const float* nb = dghn + step * H * RS + r0;
-      const float* hb = out + ((size_t)(prev ? tp : 0) * 2 * H + (size_t)dir * H + k0) * RS + r0;
+      const T* hb = out + ((size_t)(prev ? tp : 0) * 2 * H + (size_t)dir * H + k0) * RS + r0;
       constexpr int n4 = KC / 4;
 #pragma unroll
       for (int j = 0; j < kMaxSlots; ++j) {
@@ -440,7 +480,7 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
           else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         } else if (prev && m < rows_a + rows_b) {
           float* d = stage + (MA + m - rows_a) * KS + c4;
-          if (in) cp_async16(d, hb + (m - rows_a) * R + c4);
+          if (in) stage4(d, hb + (m - rows_a) * R + c4);
           else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
       }
@@ -448,19 +488,20 @@ bigru_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ 
       const int nb = prev ? rows_b : 0;
       for (int i = threadIdx.x; i < (rows_a + nb) * KC; i += blockDim.x) {
         const int m = i / KC, cc = i % KC;
-        const float* src;
-        float* d;
+        const bool in = r0 + cc < R;
         if (m < rows_a) {
           bool n_slot;
           const int g = a_src(m, &n_slot);
-          src = n_slot ? dghn + (step * H + g) * RS : dgates + (step * G + g) * RS;
-          d = stage + m * KS + cc;
+          const float* src = n_slot ? dghn + (step * H + g) * RS : dgates + (step * G + g) * RS;
+          float* d = stage + m * KS + cc;
+          if (in) cp_async4(d, src + r0 + cc);
+          else *d = 0.0f;
         } else {
-          src = out + ((size_t)tp * 2 * H + (size_t)dir * H + k0 + (m - rows_a)) * RS;
-          d = stage + (MA + m - rows_a) * KS + cc;
+          const T* src = out + ((size_t)tp * 2 * H + (size_t)dir * H + k0 + (m - rows_a)) * RS;
+          float* d = stage + (MA + m - rows_a) * KS + cc;
+          if (in) stage1(d, src + r0 + cc);
+          else *d = 0.0f;
         }
-        if (r0 + cc < R) cp_async4(d, src + r0 + cc);
-        else *d = 0.0f;
       }
     }
   };
@@ -577,12 +618,14 @@ struct Plan {
   size_t smem;
 };
 
-using RecKernel = void (*)(const float*, const float*, const float*, const float*,
-                           const float*, float*, float*, int, int, int, int);
+template <typename T>
+using RecKernel = void (*)(const T*, const T*, const T*, const T*, const T*, T*, float*, float*,
+                           int, int, int, int);
 
-RecKernel kernel_of(const Plan& p) {
-  if (p.jt == 8) return bigru_bwd_rec_kernel<8, 1>;
-  return p.rt == 2 ? bigru_bwd_rec_kernel<4, 2> : bigru_bwd_rec_kernel<4, 1>;
+template <typename T>
+RecKernel<T> kernel_of(const Plan& p) {
+  if (p.jt == 8) return bigru_bwd_rec_kernel<T, 8, 1>;
+  return p.rt == 2 ? bigru_bwd_rec_kernel<T, 4, 2> : bigru_bwd_rec_kernel<T, 4, 1>;
 }
 
 // shared memory of a recurrence block: W_hh, two h_prev and two d(gh)
@@ -610,8 +653,9 @@ bool block_plan(int H, int jt, int rt, int p, int smem_max, Plan* out) {
 }
 
 // Blocks of plan p that the card runs at once.
+template <typename T>
 int resident_blocks(const Plan& p, int device, cudaError_t* e) {
-  const RecKernel kernel = kernel_of(p);
+  const RecKernel<T> kernel = kernel_of<T>(p);
   *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   int sms = 0, n = 0;
   if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -628,6 +672,7 @@ int resident_blocks(const Plan& p, int device, cudaError_t* e) {
 // then the most rows a block.  Tiles of at least 8 row groups, so a block
 // holds whole warps at H=32.  (8 units of 2 rows a thread needs 255
 // registers and spills: not a candidate.)
+template <typename T>
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   int smem_max = 0;
   *e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -638,7 +683,7 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
     for (int p = 32; p >= 8; p /= 2) {
       Plan plan;
       if (!block_plan(H, jr.first, jr.second, p, smem_max, &plan)) continue;
-      const int resident = resident_blocks(plan, device, e);
+      const int resident = resident_blocks<T>(plan, device, e);
       if (*e != cudaSuccess) return false;
       if (resident == 0) continue;
       const int blocks = 2 * ((R + plan.rows - 1) / plan.rows);
@@ -655,10 +700,10 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   return found;
 }
 
-// Plans already made, by (device, H, R): the occupancy queries stay off
-// every launch but the first of a shape.
+// Plans already made, by (device, H, R, element size): the occupancy
+// queries stay off every launch but the first of a shape.
 std::mutex plans_mu;
-std::map<std::tuple<int, int, int>, Plan> plans;
+std::map<std::tuple<int, int, int, int>, Plan> plans;
 
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
@@ -672,50 +717,53 @@ int clear_and_return(cudaError_t e) {
 constexpr int kNoFit = -1;
 
 // The plan for hidden size H and R rows on the current device, made once.
+template <typename T>
 int plan_of(int H, int R, Plan* p, int* device) {
   cudaError_t e = cudaGetDevice(device);
   if (e != cudaSuccess) return clear_and_return(e);
   std::lock_guard<std::mutex> lock(plans_mu);
-  const auto key = std::make_tuple(*device, H, R);
+  const auto key = std::make_tuple(*device, H, R, (int)sizeof(T));
   const auto it = plans.find(key);
   if (it != plans.end()) {
     *p = it->second;
     return 0;
   }
-  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  if (!make_plan<T>(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
   plans[key] = *p;
   return 0;
 }
 
-cudaError_t launch_rec(const Plan& p, const float* gates, const float* w_hh, const float* b_hh,
-                       const float* out, const float* dy, float* dgates, float* dghn, int L,
-                       int H, int R, cudaStream_t stream) {
-  const RecKernel kernel = kernel_of(p);
+template <typename T>
+cudaError_t launch_rec(const Plan& p, const T* gates, const T* w_hh, const T* b_hh, const T* out,
+                       const T* dy, T* dgates, float* dg32, float* dghn, int L, int H, int R,
+                       cudaStream_t stream) {
+  const RecKernel<T> kernel = kernel_of<T>(p);
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3((R + p.rows - 1) / p.rows, 2), dim3(p.threads), p.smem, stream>>>(
-      gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, p.kp);
+      gates, w_hh, b_hh, out, dy, dgates, dg32, dghn, L, H, R, p.kp);
   return cudaGetLastError();
 }
 
 // The weight-gradient pass: TM = 3 ceil(H / 32) rows a thread, KC rows of
 // a step a chunk (64 at H <= 32, fewer where A is taller), shared memory
 // for two stages (~87 KB at every H).
-cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, float* dw_part,
+template <typename T>
+cudaError_t launch_dw(const float* dgates, const float* dghn, const T* out, float* dw_part,
                       float* bias_part, int L, int H, int R, int S, cudaStream_t stream) {
   const int tm = 3 * ((H + 31) / 32);
   const size_t smem =
       sizeof(float) * 2 * (std::max(4 * H, 32 * tm) + 32) * (dw_chunk(tm) + 4);
-  const auto aligned = [](const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
   // 16-byte copies need R % 4 == 0 and aligned rows; their slots hold
   // 32-bit offsets within one step of a tensor (3H * R elements)
   const bool vec = R % 4 == 0 && aligned(dgates) && aligned(dghn) && aligned(out) &&
                    (size_t)3 * H * R < (size_t)1 << 30;
-  const auto kernel = tm == 3   ? bigru_bwd_dw_kernel<3>
-                      : tm == 6 ? bigru_bwd_dw_kernel<6>
-                      : tm == 9 ? bigru_bwd_dw_kernel<9>
-                                : bigru_bwd_dw_kernel<12>;
+  const auto kernel = tm == 3   ? bigru_bwd_dw_kernel<3, T>
+                      : tm == 6 ? bigru_bwd_dw_kernel<6, T>
+                      : tm == 9 ? bigru_bwd_dw_kernel<9, T>
+                                : bigru_bwd_dw_kernel<12, T>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -724,20 +772,23 @@ cudaError_t launch_dw(const float* dgates, const float* dghn, const float* out, 
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
-                         const float* out, const float* dy, float* dgates, float* dghn,
-                         float* bias_part, float* dw_part, float* dw_hh, float* bias4,
-                         int L, int H, int R, int S, cudaStream_t stream) {
+// The recurrence, the weight-gradient pass over the f32 d(gates) (dgates
+// itself for f32, dg32 for bf16) and the two fixed-order sums.
+template <typename T>
+int launch(const T* gates, const T* w_hh, const T* b_hh, const T* out, const T* dy, T* dgates,
+           float* dg32, float* dghn, float* bias_part, float* dw_part, float* dw_hh,
+           float* bias4, int L, int H, int R, int S, cudaStream_t stream) {
   Plan p;
   int device = 0;
-  const int err = plan_of(H, R, &p, &device);
+  const int err = plan_of<T>(H, R, &p, &device);
   if (err != 0) return err;  // before any launch
-  // the recurrence, the weight-gradient pass and the two fixed-order sums
-  cudaError_t e = launch_rec(p, gates, w_hh, b_hh, out, dy, dgates, dghn, L, H, R, stream);
+  cudaError_t e =
+      launch_rec<T>(p, gates, w_hh, b_hh, out, dy, dgates, dg32, dghn, L, H, R, stream);
   if (e != cudaSuccess) return clear_and_return(e);
-  e = launch_dw(dgates, dghn, out, dw_part, bias_part, L, H, R, S, stream);
+  const float* d32;
+  if constexpr (std::is_same_v<T, float>) d32 = dgates;
+  else d32 = dg32;
+  e = launch_dw<T>(d32, dghn, out, dw_part, bias_part, L, H, R, S, stream);
   if (e != cudaSuccess) return clear_and_return(e);
   const int nw = 3 * H * H;
   const int threads = kSumOuts * kSumSegs;
@@ -748,19 +799,46 @@ extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_h
   return (int)cudaGetLastError();
 }
 
-// The recurrence's launch for hidden size H and R rows, for logs: plan[0..6]
-// = units and rows a thread, rows, threads and shared-memory bytes of a
-// block, blocks of the grid, blocks the card runs at once.  Launches nothing.
-extern "C" int bigru_bwd_plan(int H, int R, int* plan) {
+template <typename T>
+int plan_query(int H, int R, int* plan) {
   Plan p;
   int device = 0;
-  const int err = plan_of(H, R, &p, &device);
+  const int err = plan_of<T>(H, R, &p, &device);
   if (err != 0) return err;
   cudaError_t e;
-  const int resident = resident_blocks(p, device, &e);
+  const int resident = resident_blocks<T>(p, device, &e);
   if (e != cudaSuccess) return clear_and_return(e);
   const int values[7] = {p.jt, p.rt, p.rows, p.threads, (int)p.smem,
                          2 * ((R + p.rows - 1) / p.rows), resident};
   for (int i = 0; i < 7; ++i) plan[i] = values[i];
   return 0;
+}
+
+}  // namespace
+
+extern "C" int bigru_bwd(const float* gates, const float* w_hh, const float* b_hh,
+                         const float* out, const float* dy, float* dgates, float* dghn,
+                         float* bias_part, float* dw_part, float* dw_hh, float* bias4,
+                         int L, int H, int R, int S, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, dy, dgates, nullptr, dghn, bias_part, dw_part, dw_hh,
+                bias4, L, H, R, S, stream);
+}
+
+// dg32 [2, L, 3H, R] float32: the unrounded d(gates) for the weight gradient
+extern "C" int bigru_bwd_bf16(const __nv_bfloat16* gates, const __nv_bfloat16* w_hh,
+                              const __nv_bfloat16* b_hh, const __nv_bfloat16* out,
+                              const __nv_bfloat16* dy, __nv_bfloat16* dgates, float* dg32,
+                              float* dghn, float* bias_part, float* dw_part, float* dw_hh,
+                              float* bias4, int L, int H, int R, int S, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, dy, dgates, dg32, dghn, bias_part, dw_part, dw_hh, bias4,
+                L, H, R, S, stream);
+}
+
+// The recurrence's launch for hidden size H and R rows, for logs: plan[0..6]
+// = units and rows a thread, rows, threads and shared-memory bytes of a
+// block, blocks of the grid, blocks the card runs at once.  Launches nothing.
+extern "C" int bigru_bwd_plan(int H, int R, int* plan) { return plan_query<float>(H, R, plan); }
+
+extern "C" int bigru_bwd_bf16_plan(int H, int R, int* plan) {
+  return plan_query<__nv_bfloat16>(H, R, plan);
 }

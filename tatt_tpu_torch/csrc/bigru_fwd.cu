@@ -11,10 +11,14 @@
 // t = 0 .. L-1, direction 1 walks t = L-1 .. 0 through mirrored indices and
 // writes each output at its forward-time slot: no flipped copy exists.
 //
-// Layouts (float32, contiguous):
+// Layouts (contiguous; float32, or bfloat16 in the bf16 instantiation):
 //   gates [2, L, 3H, R]   (rows minor, gate order r, z, n)
 //   w_hh  [2, 3H, H],  b_hh [2, 3H]
 //   out   [L, 2H, R]      (direction d at channels d*H .. d*H+H-1)
+// The bf16 instantiation (entry bigru_fwd_bf16) is the TPU kernel under
+// --dtype bfloat16: bf16 gates, W_hh and b_hh converted to f32 as they are
+// loaded (W_hh stays f32 in shared memory, so the plans are the f32
+// kernel's), the h carry and every sum in f32, h stored rounded to bf16.
 //
 // What bounds it on an H100.  Not the bytes (gates in, h out: 0.040 ms at
 // HBM rate at gru1 and gru2 of the fused 2B=128 batch, H=32) nor the f32
@@ -52,12 +56,14 @@
 //
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace {
 
@@ -76,16 +82,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// the streamed element types: loads widen to f32, stores round to nearest
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+// one element into shared memory as f32: an asynchronous copy for f32, a
+// load and a conversion for bf16
+__device__ __forceinline__ void stage1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void stage1(float* dst, const __nv_bfloat16* src) { *dst = to_f(*src); }
+
 // One block per (tile of RB rows, direction).  A thread owns JT hidden
 // units (JT = 2 or 4) of RT rows (RT = 1, 2 or 4): Q = ceil(H / JT) unit
 // groups times P row groups, RB = P * RT, thread (q, p) = threadIdx.x / P,
 // % P; its rows are blockIdx.x * RB + i * P + p (i < RT), so a warp's lanes
 // walk neighbouring rows.  kp: the row stride of W_hh in shared memory (a
 // multiple of 4, at least H4).
-template <int JT, int RT>
+template <typename T, int JT, int RT>
 __global__ void __launch_bounds__(kMaxThreads)
-bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
-                 const float* __restrict__ b_hh, float* __restrict__ out,
+bigru_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ w_hh,
+                 const T* __restrict__ b_hh, T* __restrict__ out,
                  int L, int H, int R, int kp) {
   extern __shared__ __align__(16) float smem[];
   const int H4 = (H + 3) & ~3;  // hidden axis padded to a float4 multiple
@@ -104,12 +123,12 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
 
   // W_hh[d] and b_hh[d] by asynchronous copies, all in flight at once;
   // element i = g * kp + k of w_s, (g, k) advanced without a division
-  const float* w_d = w_hh + (size_t)dir * G * H;
+  const T* w_d = w_hh + (size_t)dir * G * H;
   {
     int g = threadIdx.x / kp, k = threadIdx.x - g * kp;
     const int sg = blockDim.x / kp, sk = blockDim.x - sg * kp;
     for (int i = threadIdx.x; i < G * kp; i += blockDim.x) {
-      if (k < H) cp_async4(w_s + i, w_d + g * H + k);
+      if (k < H) stage1(w_s + i, w_d + g * H + k);
       else w_s[i] = 0.0f;
       g += sg;
       k += sk;
@@ -119,7 +138,7 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
       }
     }
   }
-  for (int i = threadIdx.x; i < G; i += blockDim.x) cp_async4(b_s + i, b_hh + dir * G + i);
+  for (int i = threadIdx.x; i < G; i += blockDim.x) stage1(b_s + i, b_hh + dir * G + i);
   for (int i = threadIdx.x; i < H4 * RB; i += blockDim.x) h_s[i] = 0.0f;  // h before step 0
 
   // this thread's units and rows; out-of-range units clamp to H-1 for their
@@ -139,7 +158,7 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
   float xr[JT][RT], xz[JT][RT], xn[JT][RT];
   const auto load_x = [&](int s) {
     const int t = dir == 0 ? s : L - 1 - s;
-    const float* gx = gates + (size_t)(dir * L + t) * G * RS + row0;
+    const T* gx = gates + (size_t)(dir * L + t) * G * RS + row0;
 #pragma unroll
     for (int u = 0; u < JT; ++u) {
       const size_t j = (size_t)jc[u];
@@ -147,9 +166,9 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
       for (int i = 0; i < RT; ++i) {
         const bool ok = jv[u] && rv[i];
         const size_t o = j * RS + (size_t)i * P;
-        xr[u][i] = ok ? gx[o] : 0.0f;
-        xz[u][i] = ok ? gx[o + (size_t)H * RS] : 0.0f;
-        xn[u][i] = ok ? gx[o + (size_t)2 * H * RS] : 0.0f;
+        xr[u][i] = ok ? to_f(gx[o]) : 0.0f;
+        xz[u][i] = ok ? to_f(gx[o + (size_t)H * RS]) : 0.0f;
+        xn[u][i] = ok ? to_f(gx[o + (size_t)2 * H * RS]) : 0.0f;
       }
     }
   };
@@ -230,12 +249,12 @@ bigru_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh
               make_float2(h_own[0][i], h_own[1][i]);
       }
     }
-    float* o = out + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row0;
+    T* o = out + ((size_t)t * 2 * H + (size_t)dir * H) * RS + row0;
 #pragma unroll
     for (int u = 0; u < JT; ++u)
 #pragma unroll
       for (int i = 0; i < RT; ++i)
-        if (jv[u] && rv[i]) o[(size_t)jc[u] * RS + (size_t)i * P] = h_own[u][i];
+        if (jv[u] && rv[i]) o[(size_t)jc[u] * RS + (size_t)i * P] = from_f<T>(h_own[u][i]);
     __syncthreads();  // this step's h is complete
   }
 }
@@ -247,16 +266,17 @@ struct Plan {
   size_t smem;
 };
 
-using FwdKernel = void (*)(const float*, const float*, const float*, float*, int, int, int,
-                           int);
+template <typename T>
+using FwdKernel = void (*)(const T*, const T*, const T*, T*, int, int, int, int);
 
 // (units, rows) a thread that a plan may take
 constexpr int kShapes[4][2] = {{2, 4}, {4, 2}, {2, 2}, {2, 1}};
 
-FwdKernel kernel_of(const Plan& p) {
-  if (p.jt == 4) return bigru_fwd_kernel<4, 2>;
-  return p.rt == 4 ? bigru_fwd_kernel<2, 4> : p.rt == 2 ? bigru_fwd_kernel<2, 2>
-                                                        : bigru_fwd_kernel<2, 1>;
+template <typename T>
+FwdKernel<T> kernel_of(const Plan& p) {
+  if (p.jt == 4) return bigru_fwd_kernel<T, 4, 2>;
+  return p.rt == 4 ? bigru_fwd_kernel<T, 2, 4> : p.rt == 2 ? bigru_fwd_kernel<T, 2, 2>
+                                                           : bigru_fwd_kernel<T, 2, 1>;
 }
 
 // shared memory of a block: W_hh, the h of `rows` rows, the bias
@@ -284,8 +304,9 @@ bool block_plan(int H, int jt, int rt, int p, int smem_max, Plan* out) {
 }
 
 // Blocks of plan p that the card runs at once.
+template <typename T>
 int resident_blocks(const Plan& p, int device, cudaError_t* e) {
-  const FwdKernel kernel = kernel_of(p);
+  const FwdKernel<T> kernel = kernel_of<T>(p);
   *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   int sms = 0, n = 0;
   if (*e == cudaSuccess) *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -302,6 +323,7 @@ int resident_blocks(const Plan& p, int device, cudaError_t* e) {
 // fast shared memory hands words to the lanes: a warp-wide 16-byte load
 // takes four cycles of the SM's, broadcast or not, so past two warps a
 // scheduler more warps add nothing and fewer loads an FMA do.
+template <typename T>
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   int smem_max = 0, sms = 0;
   *e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -313,7 +335,7 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
     for (int p = 32; p >= 8; p /= 2) {
       Plan plan;
       if (!block_plan(H, jr[0], jr[1], p, smem_max, &plan)) continue;
-      const int resident = resident_blocks(plan, device, e);
+      const int resident = resident_blocks<T>(plan, device, e);
       if (*e != cudaSuccess) return false;
       if (resident == 0) continue;
       const int blocks = 2 * ((R + plan.rows - 1) / plan.rows);
@@ -333,10 +355,10 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   return found;
 }
 
-// Plans already made, by (device, H, R): the occupancy queries stay off
-// every launch but the first of a shape.
+// Plans already made, by (device, H, R, element size): the occupancy
+// queries stay off every launch but the first of a shape.
 std::mutex plans_mu;
-std::map<std::tuple<int, int, int>, Plan> plans;
+std::map<std::tuple<int, int, int, int>, Plan> plans;
 
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
@@ -350,30 +372,30 @@ int clear_and_return(cudaError_t e) {
 constexpr int kNoFit = -1;
 
 // The plan for hidden size H and R rows on the current device, made once.
+template <typename T>
 int plan_of(int H, int R, Plan* p, int* device) {
   cudaError_t e = cudaGetDevice(device);
   if (e != cudaSuccess) return clear_and_return(e);
   std::lock_guard<std::mutex> lock(plans_mu);
-  const auto key = std::make_tuple(*device, H, R);
+  const auto key = std::make_tuple(*device, H, R, (int)sizeof(T));
   const auto it = plans.find(key);
   if (it != plans.end()) {
     *p = it->second;
     return 0;
   }
-  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  if (!make_plan<T>(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
   plans[key] = *p;
   return 0;
 }
 
-}  // namespace
-
-extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_hh,
-                         float* out, int L, int H, int R, cudaStream_t stream) {
+template <typename T>
+int launch(const T* gates, const T* w_hh, const T* b_hh, T* out, int L, int H, int R,
+           cudaStream_t stream) {
   Plan p;
   int device = 0;
-  const int err = plan_of(H, R, &p, &device);
+  const int err = plan_of<T>(H, R, &p, &device);
   if (err != 0) return err;  // before any launch
-  const FwdKernel kernel = kernel_of(p);
+  const FwdKernel<T> kernel = kernel_of<T>(p);
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
@@ -382,19 +404,39 @@ extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_h
   return (int)cudaGetLastError();
 }
 
-// The launch for hidden size H and R rows, for logs: plan[0..6] = units and
-// rows a thread, rows, threads and shared-memory bytes of a block, blocks of
-// the grid, blocks the card runs at once.  Launches nothing.
-extern "C" int bigru_fwd_plan(int H, int R, int* plan) {
+template <typename T>
+int plan_query(int H, int R, int* plan) {
   Plan p;
   int device = 0;
-  const int err = plan_of(H, R, &p, &device);
+  const int err = plan_of<T>(H, R, &p, &device);
   if (err != 0) return err;
   cudaError_t e;
-  const int resident = resident_blocks(p, device, &e);
+  const int resident = resident_blocks<T>(p, device, &e);
   if (e != cudaSuccess) return clear_and_return(e);
   const int values[7] = {p.jt, p.rt, p.rows, p.threads, (int)p.smem,
                          2 * ((R + p.rows - 1) / p.rows), resident};
   for (int i = 0; i < 7; ++i) plan[i] = values[i];
   return 0;
+}
+
+}  // namespace
+
+extern "C" int bigru_fwd(const float* gates, const float* w_hh, const float* b_hh,
+                         float* out, int L, int H, int R, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, L, H, R, stream);
+}
+
+extern "C" int bigru_fwd_bf16(const __nv_bfloat16* gates, const __nv_bfloat16* w_hh,
+                              const __nv_bfloat16* b_hh, __nv_bfloat16* out, int L, int H,
+                              int R, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, L, H, R, stream);
+}
+
+// The launch for hidden size H and R rows, for logs: plan[0..6] = units and
+// rows a thread, rows, threads and shared-memory bytes of a block, blocks of
+// the grid, blocks the card runs at once.  Launches nothing.
+extern "C" int bigru_fwd_plan(int H, int R, int* plan) { return plan_query<float>(H, R, plan); }
+
+extern "C" int bigru_fwd_bf16_plan(int H, int R, int* plan) {
+  return plan_query<__nv_bfloat16>(H, R, plan);
 }

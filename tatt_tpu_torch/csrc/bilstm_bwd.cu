@@ -15,10 +15,18 @@
 //   dgates = [di, df, dg, do];  dh_carry = W_hh[d]^T dgates;  dc_carry = dc f
 // and afterwards dW_hh[d] = sum_{t,r} dgates h_prev^T, db_hh[d] = sum dgates.
 //
-// Layouts (float32, contiguous), those of csrc/bilstm_fwd.cu:
+// Layouts (contiguous), those of csrc/bilstm_fwd.cu:
 //   gates, dgates [2, R, L, 4H]   (input projections / their gradient)
-//   w_hh [2, 4H, H], b_hh [2, 4H]; dw_hh [2, 4H, H], db_hh [2, 4H]
+//   w_hh [2, 4H, H], b_hh [2, 4H]; dw_hh [2, 4H, H], db_hh [2, 4H] (float32)
 //   out, cseq, dy [R, L, 2H]       (the forward's h and c, and dL/dout)
+// gates, w_hh, b_hh, out, cseq, dy and dgates are float32, or bfloat16 in
+// the bf16 instantiation (entry bilstm_bwd_bf16), the TPU kernel under
+// --dtype bfloat16: every input widened to f32 as it is loaded (W_hh f32 in
+// shared memory, so the plans are the f32 kernel's), the carries and every
+// sum in f32.  Its activations and f32 d(gates) live in a float32 scratch
+// dg32 [2, R, L, 4H] (where the f32 kernel uses dgates itself); the
+// recurrence also stores d(gates) rounded to bf16 into dgates, and the
+// weight gradient sums the f32 ones, as the TPU kernel's does.
 //
 // What bounds it on an H100: the dh carry is serial in t.  Its least time
 // by operations (three [4H x H] matvec-sized products a row-step at the
@@ -72,6 +80,7 @@
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -79,6 +88,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -107,16 +117,41 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// GR floats (1 or 4) of shared memory copied from src, or zeros where the
-// source is cut off
-template <int GR>
-__device__ __forceinline__ void copy_or_zero(float* dst, const float* src, bool ok) {
-  if constexpr (GR == 4) {
-    if (ok) cp_async16(dst, src);
-    else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// the streamed element types: loads widen to f32, stores round to nearest
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+// four consecutive elements as f32 (16 or 8 bytes, aligned to that)
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// GR elements (1 or 4) into shared memory as f32, or zeros where the source
+// is cut off: asynchronous copies for f32, loads and conversions for bf16
+template <int GR, typename T>
+__device__ __forceinline__ void copy_or_zero(float* dst, const T* src, bool ok) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (GR == 4) {
+      if (ok) cp_async16(dst, src);
+      else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      if (ok) cp_async4(dst, src);
+      else *dst = 0.0f;
+    }
+  } else if constexpr (GR == 4) {
+    *reinterpret_cast<float4*>(dst) = ok ? load4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   } else {
-    if (ok) cp_async4(dst, src);
-    else *dst = 0.0f;
+    *dst = ok ? to_f(*src) : 0.0f;
   }
 }
 
@@ -134,10 +169,10 @@ __device__ __forceinline__ void copy_or_zero(float* dst, const float* src, bool 
 // Row m = row * L + t of h_prev is row m -/+ 1 of `out` (direction 0 / 1),
 // zero at the direction's first step.  VEC: 16-byte copies (H % 4 == 0).
 constexpr int kGM = 64, kGN = 32, kGK = 32, kGKS = kGK + 4, kGThreads = 128;
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(kGThreads)
-bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
-                        const float* __restrict__ b_hh, const float* __restrict__ out,
+bilstm_bwd_gates_kernel(const T* __restrict__ gates, const T* __restrict__ w_hh,
+                        const T* __restrict__ b_hh, const T* __restrict__ out,
                         float* __restrict__ act, int L, int H, int R) {
   constexpr int GR = VEC ? 4 : 1;                    // floats a copy
   constexpr int PER_ROW = kGK / GR;                  // copies a row of a chunk
@@ -152,8 +187,8 @@ bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict
   const size_t H2 = 2 * (size_t)H;
   // this thread's copy slots: rows crow + STRIDE j of each tile, column ccol
   const int crow = threadIdx.x / PER_ROW, ccol = (threadIdx.x % PER_ROW) * GR;
-  const float* hsrc[HSLOTS];
-  const float* wsrc[WSLOTS];
+  const T* hsrc[HSLOTS];
+  const T* wsrc[WSLOTS];
   bool hok[HSLOTS], wok[WSLOTS];
 #pragma unroll
   for (int j = 0; j < HSLOTS; ++j) {
@@ -215,13 +250,13 @@ bilstm_bwd_gates_kernel(const float* __restrict__ gates, const float* __restrict
     const int n = n0 + tn + 8 * j;
     if (n >= G) continue;
     const bool cell = n / H == 2;  // the g gate: tanh
-    const float bias = b_hh[dir * G + n];
+    const float bias = to_f(b_hh[dir * G + n]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + tm + 16 * i;
       if (m >= M) continue;
       const size_t o = ((size_t)dir * M + m) * G + n;
-      const float a = acc[i][j] + gates[o] + bias;
+      const float a = acc[i][j] + to_f(gates[o]) + bias;
       act[o] = cell ? tanhf(a) : sigm(a);
     }
   }
@@ -253,11 +288,14 @@ __device__ __forceinline__ void cluster_wait() {
 // store the partials; unit threads turn the next step's loads into
 // coefficients; the cluster barrier, split around the global d(gates)
 // stores; unit threads sum their cs * kg partials in a fixed order.
-template <int RT, bool kCluster>
+//
+// dgates: the f32 activations, overwritten in place with the f32 d(gates);
+// dg_out: the d(gates) rounded to bf16 (bf16 only; null for f32).
+template <typename T, int RT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
-bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ cseq,
-                      const float* __restrict__ dy, float* __restrict__ dgates, int L, int H,
-                      int R, int kg) {
+bilstm_bwd_rec_kernel(const T* __restrict__ w_hh, const T* __restrict__ cseq,
+                      const T* __restrict__ dy, float* __restrict__ dgates,
+                      T* __restrict__ dg_out, int L, int H, int R, int kg) {
   const int cs = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
   const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int U = H / cs;
@@ -273,19 +311,18 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
   const int tile = blockIdx.x / cs;
   const size_t H2 = 2 * (size_t)H;
 
-  const float* w_d = w_hh + (size_t)dir * G * H;
+  const T* w_d = w_hh + (size_t)dir * G * H;
   if ((H & 3) == 0) {
     const int h4 = H / 4;
     for (int i = tid; i < 4 * U * h4; i += blockDim.x) {
       const int gu = i / h4, k = (i % h4) * 4;
       const int src = (gu / U) * H + rank * U + gu % U;
-      *reinterpret_cast<float4*>(w_s + (size_t)gu * H + k) =
-          *reinterpret_cast<const float4*>(w_d + (size_t)src * H + k);
+      *reinterpret_cast<float4*>(w_s + (size_t)gu * H + k) = load4(w_d + (size_t)src * H + k);
     }
   } else {
     for (int i = tid; i < 4 * U * H; i += blockDim.x) {
       const int gu = i / H, k = i % H;
-      w_s[i] = w_d[(size_t)((gu / U) * H + rank * U + gu % U) * H + k];
+      w_s[i] = to_f(w_d[(size_t)((gu / U) * H + rank * U + gu % U) * H + k]);
     }
   }
 
@@ -313,9 +350,10 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
 #pragma unroll
     for (int g = 0; g < 4; ++g) xa[g] = ax[g * H];
     const size_t o = ((size_t)row * L + t) * H2 + (size_t)dir * H + unit;
-    xc = cseq[o];
-    xdy = dy[o];
-    xcp = tp >= 0 && tp < L ? cseq[((size_t)row * L + tp) * H2 + (size_t)dir * H + unit] : 0.0f;
+    xc = to_f(cseq[o]);
+    xdy = to_f(dy[o]);
+    xcp = tp >= 0 && tp < L ? to_f(cseq[((size_t)row * L + tp) * H2 + (size_t)dir * H + unit])
+                            : 0.0f;
   };
   // a step's coefficients, so that with dh = dh_carry + dy:
   //   dc = dc_carry + dh kc;  d(gates) = [dc ci, dc cf, dc cg, dh ko];  dc_carry = dc f
@@ -382,9 +420,13 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
     // d(gates) stores, which no block waits on, go between arrive and wait.
     if constexpr (kCluster) cluster_arrive();
     if (live) {
-      float* dgo = dgates + (((size_t)dir * R + row) * L + t_of(s)) * G + unit;
+      const size_t o = (((size_t)dir * R + row) * L + t_of(s)) * G + unit;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) dgo[g * H] = d[g];
+      for (int g = 0; g < 4; ++g) dgates[o + g * H] = d[g];
+      if constexpr (!std::is_same_v<T, float>) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dg_out[o + g * H] = from_f<T>(d[g]);
+      }
     }
     if constexpr (kCluster) cluster_wait();
     else __syncthreads();
@@ -409,9 +451,10 @@ bilstm_bwd_rec_kernel(const float* __restrict__ w_hh, const float* __restrict__ 
 // runs are added in order at the end.  No atomics: each output is one
 // block's, summed in a fixed order.  VEC: 16-byte copies (H % 4 == 0).
 constexpr int kWM = 64, kWN = 64, kWK = 32, kWThreads = 256;
-template <bool VEC>
+// dgates: the f32 d(gates); out: h in T.
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(kWThreads)
-bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__ out,
+bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const T* __restrict__ out,
                      float* __restrict__ dw_hh, float* __restrict__ db_hh, int L, int H, int R) {
   constexpr int GR = VEC ? 4 : 1;                  // floats a copy
   constexpr int PER_ROW = kWM / GR;                // copies a row of a chunk
@@ -429,7 +472,7 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   const int crow = threadIdx.x / PER_ROW, ccol = (threadIdx.x % PER_ROW) * GR;
   const bool a_in = n0 + ccol < G, b_in = k0 + ccol < H;
   const float* abase = dgates + (size_t)dir * M * G + n0 + ccol;
-  const float* bbase = out + (size_t)dir * H + k0 + ccol;
+  const T* bbase = out + (size_t)dir * H + k0 + ccol;
   // the pair of each copy slot, and its t; a chunk moves both on by kWK
   int pm[SLOTS], pt[SLOTS];
 #pragma unroll
@@ -511,7 +554,7 @@ bilstm_bwd_dw_kernel(const float* __restrict__ dgates, const float* __restrict__
   }
 }
 
-bool aligned(const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
+bool aligned(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
 
 // A refused call also sets the runtime's last error; clear it so that the
 // next launch's cudaGetLastError() reports only its own.
@@ -545,15 +588,17 @@ struct Plan {
   size_t smem;
 };
 
-using RecKernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int);
+template <typename T>
+using RecKernel = void (*)(const T*, const T*, const T*, float*, T*, int, int, int, int);
 
-RecKernel kernel_of(const Plan& p) {
+template <typename T>
+RecKernel<T> kernel_of(const Plan& p) {
   const bool c = p.cs > 1;
   switch (p.rt) {
-    case 4: return c ? bilstm_bwd_rec_kernel<4, true> : bilstm_bwd_rec_kernel<4, false>;
-    case 8: return c ? bilstm_bwd_rec_kernel<8, true> : bilstm_bwd_rec_kernel<8, false>;
-    case 12: return c ? bilstm_bwd_rec_kernel<12, true> : bilstm_bwd_rec_kernel<12, false>;
-    default: return c ? bilstm_bwd_rec_kernel<16, true> : bilstm_bwd_rec_kernel<16, false>;
+    case 4: return c ? bilstm_bwd_rec_kernel<T, 4, true> : bilstm_bwd_rec_kernel<T, 4, false>;
+    case 8: return c ? bilstm_bwd_rec_kernel<T, 8, true> : bilstm_bwd_rec_kernel<T, 8, false>;
+    case 12: return c ? bilstm_bwd_rec_kernel<T, 12, true> : bilstm_bwd_rec_kernel<T, 12, false>;
+    default: return c ? bilstm_bwd_rec_kernel<T, 16, true> : bilstm_bwd_rec_kernel<T, 16, false>;
   }
 }
 
@@ -594,8 +639,9 @@ cudaLaunchConfig_t launch_config(const Plan& p, dim3 grid, cudaLaunchAttribute* 
 }
 
 // Clusters (single blocks at cs = 1) of plan p that the card runs at once.
+template <typename T>
 int resident_clusters(const Plan& p, int device, cudaError_t* e) {
-  const RecKernel kernel = kernel_of(p);
+  const RecKernel<T> kernel = kernel_of<T>(p);
   *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (*e != cudaSuccess) return 0;
   int n = 0;
@@ -617,6 +663,7 @@ int resident_clusters(const Plan& p, int device, cudaError_t* e) {
 // for and shared memory.  rt: the fewest rows per cluster (4, 8, 12 or 16)
 // with which all 2 * ceil(R / rt) clusters run at once, or else the most
 // that fit.  False (and *e unset) for an H the forward does not serve.
+template <typename T>
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   *e = cudaSuccess;
   if (!forward_serves(H)) return false;
@@ -628,7 +675,7 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
       if (!block_plan(H, cs, rt, &p)) break;  // more rows need more threads and memory
       *out = p;
       found = true;
-      const int resident = resident_clusters(p, device, e);
+      const int resident = resident_clusters<T>(p, device, e);
       if (*e != cudaSuccess) return false;
       if (2 * ((R + rt - 1) / rt) <= resident) break;
     }
@@ -637,24 +684,79 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   return false;
 }
 
-// Plans already made, by (device, H, R): the occupancy queries stay off
-// every launch but the first of a shape.
+// Plans already made, by (device, H, R, element size): the occupancy
+// queries stay off every launch but the first of a shape.
 std::mutex plans_mu;
-std::map<std::tuple<int, int, int>, Plan> plans;
+std::map<std::tuple<int, int, int, int>, Plan> plans;
 
 // The plan for hidden size H and R rows on the current device, made once.
+template <typename T>
 int plan_of(int H, int R, Plan* p, int* device) {
   cudaError_t e = cudaGetDevice(device);
   if (e != cudaSuccess) return clear_and_return(e);
   std::lock_guard<std::mutex> lock(plans_mu);
-  const auto key = std::make_tuple(*device, H, R);
+  const auto key = std::make_tuple(*device, H, R, (int)sizeof(T));
   const auto it = plans.find(key);
   if (it != plans.end()) {
     *p = it->second;
     return 0;
   }
-  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  if (!make_plan<T>(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
   plans[key] = *p;
+  return 0;
+}
+
+// The gate activations into the f32 work buffer (dgates itself for f32,
+// dg32 for bf16), then the recurrence over them, then the weight gradient.
+template <typename T>
+int launch(const T* gates, const T* w_hh, const T* b_hh, const T* out, const T* cseq,
+           const T* dy, T* dgates, float* dg32, float* dw_hh, float* db_hh, int L, int H, int R,
+           cudaStream_t stream) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of<T>(H, R, &p, &device);
+  if (err != 0) return err;  // before any launch
+  float* work;
+  T* dg_out = nullptr;
+  if constexpr (std::is_same_v<T, float>) {
+    work = dgates;
+  } else {
+    work = dg32;
+    dg_out = dgates;
+  }
+  const bool vec = H % 4 == 0 && aligned(gates) && aligned(w_hh) && aligned(out) &&
+                   aligned(work) && aligned(dw_hh);
+  const dim3 ggrid((4 * H + kGN - 1) / kGN, (R * L + kGM - 1) / kGM, 2);
+  if (vec) bilstm_bwd_gates_kernel<true, T><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, work, L, H, R);
+  else bilstm_bwd_gates_kernel<false, T><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, work, L, H, R);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return clear_and_return(e);
+  const RecKernel<T> kernel = kernel_of<T>(p);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return clear_and_return(e);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs * ((R + p.rt - 1) / p.rt), 2), &attr);
+  cfg.stream = stream;
+  e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, work, dg_out, L, H, R, p.kg);
+  if (e != cudaSuccess) return clear_and_return(e);
+  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2);
+  if (vec) bilstm_bwd_dw_kernel<true, T><<<wgrid, kWThreads, 0, stream>>>(work, out, dw_hh, db_hh, L, H, R);
+  else bilstm_bwd_dw_kernel<false, T><<<wgrid, kWThreads, 0, stream>>>(work, out, dw_hh, db_hh, L, H, R);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int plan_query(int H, int R, int* plan) {
+  Plan p;
+  int device = 0;
+  const int err = plan_of<T>(H, R, &p, &device);
+  if (err != 0) return err;
+  cudaError_t e;
+  const int resident = resident_clusters<T>(p, device, &e);
+  if (e != cudaSuccess) return clear_and_return(e);
+  const int values[7] = {p.cs, p.rt, p.kg, p.threads, (int)p.smem, 2 * ((R + p.rt - 1) / p.rt),
+                         resident};
+  for (int i = 0; i < 7; ++i) plan[i] = values[i];
   return 0;
 }
 
@@ -664,47 +766,24 @@ extern "C" int bilstm_bwd(const float* gates, const float* w_hh, const float* b_
                           const float* out, const float* cseq, const float* dy,
                           float* dgates, float* dw_hh, float* db_hh,
                           int L, int H, int R, cudaStream_t stream) {
-  Plan p;
-  int device = 0;
-  const int err = plan_of(H, R, &p, &device);
-  if (err != 0) return err;  // before any launch
-  // the gate activations into dgates, then the recurrence over them, then
-  // the weight gradient
-  const bool vec = H % 4 == 0 && aligned(gates) && aligned(w_hh) && aligned(out) &&
-                   aligned(dgates) && aligned(dw_hh);
-  const dim3 ggrid((4 * H + kGN - 1) / kGN, (R * L + kGM - 1) / kGM, 2);
-  if (vec) bilstm_bwd_gates_kernel<true><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, dgates, L, H, R);
-  else bilstm_bwd_gates_kernel<false><<<ggrid, kGThreads, 0, stream>>>(gates, w_hh, b_hh, out, dgates, L, H, R);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return clear_and_return(e);
-  const RecKernel kernel = kernel_of(p);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (e != cudaSuccess) return clear_and_return(e);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(p, dim3(p.cs * ((R + p.rt - 1) / p.rt), 2), &attr);
-  cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, kernel, w_hh, cseq, dy, dgates, L, H, R, p.kg);
-  if (e != cudaSuccess) return clear_and_return(e);
-  const dim3 wgrid((4 * H + kWM - 1) / kWM, (H + kWN - 1) / kWN, 2);
-  if (vec) bilstm_bwd_dw_kernel<true><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
-  else bilstm_bwd_dw_kernel<false><<<wgrid, kWThreads, 0, stream>>>(dgates, out, dw_hh, db_hh, L, H, R);
-  return (int)cudaGetLastError();
+  return launch(gates, w_hh, b_hh, out, cseq, dy, dgates, nullptr, dw_hh, db_hh, L, H, R, stream);
+}
+
+// dg32 [2, R, L, 4H] float32: the activations and the unrounded d(gates)
+extern "C" int bilstm_bwd_bf16(const __nv_bfloat16* gates, const __nv_bfloat16* w_hh,
+                               const __nv_bfloat16* b_hh, const __nv_bfloat16* out,
+                               const __nv_bfloat16* cseq, const __nv_bfloat16* dy,
+                               __nv_bfloat16* dgates, float* dg32, float* dw_hh, float* db_hh,
+                               int L, int H, int R, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, cseq, dy, dgates, dg32, dw_hh, db_hh, L, H, R, stream);
 }
 
 // The recurrence's launch for hidden size H and R rows, for logs: plan[0..6]
 // = cluster size, rows per cluster, k groups, threads and shared-memory
 // bytes of a block, clusters of the grid, clusters the card runs at once.
 // Launches nothing.
-extern "C" int bilstm_bwd_plan(int H, int R, int* plan) {
-  Plan p;
-  int device = 0;
-  const int err = plan_of(H, R, &p, &device);
-  if (err != 0) return err;
-  cudaError_t e;
-  const int resident = resident_clusters(p, device, &e);
-  if (e != cudaSuccess) return clear_and_return(e);
-  const int values[7] = {p.cs, p.rt, p.kg, p.threads, (int)p.smem, 2 * ((R + p.rt - 1) / p.rt),
-                         resident};
-  for (int i = 0; i < 7; ++i) plan[i] = values[i];
-  return 0;
+extern "C" int bilstm_bwd_plan(int H, int R, int* plan) { return plan_query<float>(H, R, plan); }
+
+extern "C" int bilstm_bwd_bf16_plan(int H, int R, int* plan) {
+  return plan_query<__nv_bfloat16>(H, R, plan);
 }

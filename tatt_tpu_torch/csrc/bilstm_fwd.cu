@@ -15,13 +15,18 @@
 // the backward pass (csrc/bilstm_bwd.cu), as the JAX kernel stores it
 // (pallas_lstm.py:50).  Inference passes null and writes no extra bytes.
 //
-// Layouts (float32, contiguous):
+// Layouts (contiguous; float32, or bfloat16 in the bf16 instantiation):
 //   gates [2, R, L, 4H]   (gates minor: the matmul x @ W_ih^T writes this
 //                          layout directly, with no transpose)
 //   w_hh  [2, 4H, H],  b_hh [2, 4H]
 //   out   [R, L, 2H]      (the public BiLSTM layout; direction d at
 //                          channels d*H .. d*H+H-1)
 //   cseq  [R, L, 2H] or null
+// The bf16 instantiation (entry bilstm_fwd_bf16) is the TPU kernel under
+// --dtype bfloat16: bf16 gates, W_hh and b_hh widened to f32 as they are
+// loaded (W_hh stays f32 in shared memory, so the plans are the f32
+// kernel's), the h and c carries and every sum in f32, h and c stored
+// rounded to bf16.
 //
 // What bounds it.  The recurrence is serial in t: each step needs the whole
 // previous h of its rows.  Its least time by bytes or by operations (the
@@ -71,12 +76,14 @@
 // No tensor cores and no reduced precision: every product is an f32 FMA.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -88,6 +95,25 @@ constexpr int kMaxKGroups = 16;
 constexpr int kMaxRows = 16;  // rows per cluster
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// the streamed element types: loads widen to f32, stores round to nearest
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+// four consecutive elements as f32 (16 or 8 bytes, aligned to that)
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 // The two halves of a cluster barrier (cg's cluster.sync() is both back to
 // back): arrive releases this thread's earlier stores, distributed shared
@@ -101,11 +127,11 @@ __device__ __forceinline__ void cluster_wait() {
 
 // RT rows per cluster, each thread's products cover all of them;
 // kCluster: cs > 1 blocks share h through distributed shared memory.
-template <int RT, bool kCluster>
+template <typename T, int RT, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
-bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_hh,
-                  const float* __restrict__ b_hh, float* __restrict__ out,
-                  float* __restrict__ cseq, int L, int H, int R, int kg) {
+bilstm_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ w_hh,
+                  const T* __restrict__ b_hh, T* __restrict__ out,
+                  T* __restrict__ cseq, int L, int H, int R, int kg) {
   const int cs = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
   const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
   const int U = H / cs;
@@ -121,13 +147,12 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
 
   // this block's 4U rows of W_hh[dir] as [k][u][g]: a thread reads 16 bytes
   // of one row along k and writes four neighbours' words (no bank conflict)
-  const float* w_d = w_hh + (size_t)dir * G * H;
+  const T* w_d = w_hh + (size_t)dir * G * H;
   if ((H & 3) == 0) {
 #pragma unroll 4
     for (int i = tid; i < U * H; i += blockDim.x) {  // (k4, u, g), g fastest
       const int gu = i % (4 * U), k = 4 * (i / (4 * U));
-      const float4 v = *reinterpret_cast<const float4*>(
-          w_d + (size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k);
+      const float4 v = load4(w_d + (size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k);
       float* dst = w_s + (size_t)k * 4 * U + gu;
       dst[0] = v.x;
       dst[4 * U] = v.y;
@@ -137,7 +162,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   } else {
     for (int i = tid; i < 4 * U * H; i += blockDim.x) {
       const int gu = i % (4 * U), k = i / (4 * U);
-      w_s[(size_t)k * 4 * U + gu] = w_d[(size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k];
+      w_s[(size_t)k * 4 * U + gu] =
+          to_f(w_d[(size_t)((gu & 3) * H + rank * U + (gu >> 2)) * H + k]);
     }
   }
   for (int i = tid; i < H * RT; i += blockDim.x) h_s[i] = 0.0f;  // h_0 = 0
@@ -156,7 +182,7 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
   const bool live = fin && row < R;
   float bias[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = fin ? b_hh[dir * G + g * H + funit] : 0.0f;
+  for (int g = 0; g < 4; ++g) bias[g] = fin ? to_f(b_hh[dir * G + g * H + funit]) : 0.0f;
   float c = 0.0f;
   if constexpr (kCluster) cg::this_cluster().sync();  // every block runs and holds h_0
   else __syncthreads();
@@ -170,9 +196,9 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
     // this step's input projection: issued now, used after the products
     float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (live) {
-      const float* gx = gates + (((size_t)dir * R + row) * L + t) * G + funit;
+      const T* gx = gates + (((size_t)dir * R + row) * L + t) * G + funit;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) x[g] = gx[g * H];
+      for (int g = 0; g < 4; ++g) x[g] = to_f(gx[g * H]);
     }
 
     // 1. partial products over this thread's k slice
@@ -233,8 +259,8 @@ bilstm_fwd_kernel(const float* __restrict__ gates, const float* __restrict__ w_h
     if constexpr (kCluster) cluster_arrive();
     if (live) {
       const size_t o = ((size_t)row * L + t) * 2 * H + (size_t)dir * H + funit;
-      out[o] = hn;
-      if (cseq != nullptr) cseq[o] = c;
+      out[o] = from_f<T>(hn);
+      if (cseq != nullptr) cseq[o] = from_f<T>(c);
     }
     if constexpr (kCluster) cluster_wait();
     else __syncthreads();
@@ -256,15 +282,16 @@ struct Plan {
   size_t smem;
 };
 
-using Kernel = void (*)(const float*, const float*, const float*, float*, float*, int, int,
-                        int, int);
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, T*, T*, int, int, int, int);
 
-Kernel kernel_of(const Plan& p) {
+template <typename T>
+Kernel<T> kernel_of(const Plan& p) {
   switch (p.rt) {
-    case 4: return p.cs > 1 ? bilstm_fwd_kernel<4, true> : bilstm_fwd_kernel<4, false>;
-    case 8: return p.cs > 1 ? bilstm_fwd_kernel<8, true> : bilstm_fwd_kernel<8, false>;
-    case 12: return p.cs > 1 ? bilstm_fwd_kernel<12, true> : bilstm_fwd_kernel<12, false>;
-    default: return p.cs > 1 ? bilstm_fwd_kernel<16, true> : bilstm_fwd_kernel<16, false>;
+    case 4: return p.cs > 1 ? bilstm_fwd_kernel<T, 4, true> : bilstm_fwd_kernel<T, 4, false>;
+    case 8: return p.cs > 1 ? bilstm_fwd_kernel<T, 8, true> : bilstm_fwd_kernel<T, 8, false>;
+    case 12: return p.cs > 1 ? bilstm_fwd_kernel<T, 12, true> : bilstm_fwd_kernel<T, 12, false>;
+    default: return p.cs > 1 ? bilstm_fwd_kernel<T, 16, true> : bilstm_fwd_kernel<T, 16, false>;
   }
 }
 
@@ -304,8 +331,9 @@ cudaLaunchConfig_t launch_config(const Plan& p, int H, dim3 grid, cudaLaunchAttr
 }
 
 // Clusters of plan p that the card runs at once.
+template <typename T>
 int resident_clusters(const Plan& p, int H, int device, cudaError_t* e) {
-  const Kernel kernel = kernel_of(p);
+  const Kernel<T> kernel = kernel_of<T>(p);
   *e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (*e != cudaSuccess) return 0;
   int n = 0;
@@ -326,6 +354,7 @@ int resident_clusters(const Plan& p, int H, int device, cudaError_t* e) {
 // that divides H and whose block fits.  rt: the fewest rows per cluster (4,
 // 8, 12 or 16) with which all 2 * ceil(R / rt) clusters run at once, or
 // else the most that fit.  False (and *e unset) when no cluster size fits.
+template <typename T>
 bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   *e = cudaSuccess;
   for (int cs = 1; cs <= 8; cs *= 2) {
@@ -336,7 +365,7 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
       if (!block_plan(H, cs, rt, &p)) break;  // more rows need more threads and memory
       *out = p;
       found = true;
-      const int resident = resident_clusters(p, H, device, e);
+      const int resident = resident_clusters<T>(p, H, device, e);
       if (*e != cudaSuccess) return false;
       if (2 * ((R + rt - 1) / rt) <= resident) break;
     }
@@ -345,36 +374,36 @@ bool make_plan(int H, int R, int device, Plan* out, cudaError_t* e) {
   return false;
 }
 
-// Plans already made, by (device, H, R): the occupancy queries stay off
-// every launch but the first of a shape.
+// Plans already made, by (device, H, R, element size): the occupancy
+// queries stay off every launch but the first of a shape.
 std::mutex plans_mu;
-std::map<std::tuple<int, int, int>, Plan> plans;
+std::map<std::tuple<int, int, int, int>, Plan> plans;
 
 // The plan for hidden size H and R rows on the current device, made once.
+template <typename T>
 int plan_of(int H, int R, Plan* p, int* device) {
   cudaError_t e = cudaGetDevice(device);
   if (e != cudaSuccess) return clear_and_return(e);
   std::lock_guard<std::mutex> lock(plans_mu);
-  const auto key = std::make_tuple(*device, H, R);
+  const auto key = std::make_tuple(*device, H, R, (int)sizeof(T));
   const auto it = plans.find(key);
   if (it != plans.end()) {
     *p = it->second;
     return 0;
   }
-  if (!make_plan(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
+  if (!make_plan<T>(H, R, *device, p, &e)) return e != cudaSuccess ? clear_and_return(e) : kNoFit;
   plans[key] = *p;
   return 0;
 }
 
-}  // namespace
-
-extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
-                          float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
+template <typename T>
+int launch(const T* gates, const T* w_hh, const T* b_hh, T* out, T* cseq, int L, int H, int R,
+           cudaStream_t stream) {
   Plan p;
   int device = 0;
-  const int err = plan_of(H, R, &p, &device);
+  const int err = plan_of<T>(H, R, &p, &device);
   if (err != 0) return err;  // before any launch
-  const Kernel kernel = kernel_of(p);
+  const Kernel<T> kernel = kernel_of<T>(p);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return clear_and_return(e);
@@ -386,18 +415,38 @@ extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_
   return (int)cudaGetLastError();
 }
 
-// The launch for hidden size H and R rows, for logs: plan[0..5] = cluster
-// size, rows per cluster, k groups, threads and shared-memory bytes of a
-// block, clusters the card runs at once.  Launches nothing.
-extern "C" int bilstm_fwd_plan(int H, int R, int* plan) {
+template <typename T>
+int plan_query(int H, int R, int* plan) {
   Plan p;
   int device = 0;
-  const int err = plan_of(H, R, &p, &device);
+  const int err = plan_of<T>(H, R, &p, &device);
   if (err != 0) return err;
   cudaError_t e;
-  const int resident = resident_clusters(p, H, device, &e);
+  const int resident = resident_clusters<T>(p, H, device, &e);
   if (e != cudaSuccess) return clear_and_return(e);
   const int values[6] = {p.cs, p.rt, p.kg, threads_of(p, H), (int)p.smem, resident};
   for (int i = 0; i < 6; ++i) plan[i] = values[i];
   return 0;
+}
+
+}  // namespace
+
+extern "C" int bilstm_fwd(const float* gates, const float* w_hh, const float* b_hh,
+                          float* out, float* cseq, int L, int H, int R, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, cseq, L, H, R, stream);
+}
+
+extern "C" int bilstm_fwd_bf16(const __nv_bfloat16* gates, const __nv_bfloat16* w_hh,
+                               const __nv_bfloat16* b_hh, __nv_bfloat16* out,
+                               __nv_bfloat16* cseq, int L, int H, int R, cudaStream_t stream) {
+  return launch(gates, w_hh, b_hh, out, cseq, L, H, R, stream);
+}
+
+// The launch for hidden size H and R rows, for logs: plan[0..5] = cluster
+// size, rows per cluster, k groups, threads and shared-memory bytes of a
+// block, clusters the card runs at once.  Launches nothing.
+extern "C" int bilstm_fwd_plan(int H, int R, int* plan) { return plan_query<float>(H, R, plan); }
+
+extern "C" int bilstm_fwd_bf16_plan(int H, int R, int* plan) {
+  return plan_query<__nv_bfloat16>(H, R, plan);
 }

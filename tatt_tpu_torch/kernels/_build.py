@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``csrc/`` with ``nvcc`` and bind them.
 
-Each ``csrc/<name>.cu`` has a plain C entry point, is compiled on first
-use into ``tatt_tpu_torch/_build/lib<name>.so`` (git-ignored) and loaded
-with ``ctypes``.  Every pointer and the stream go over as ``c_void_p``,
+Each ``csrc/<name>.cu`` has plain C entry points (``<name>`` for float32,
+``<name>_bf16`` for bfloat16, and their ``_plan`` queries), is compiled on
+first use into ``tatt_tpu_torch/_build/lib<name>.so`` (git-ignored) and
+loaded with ``ctypes``.  Every pointer and the stream go over as ``c_void_p``,
 each int as ``c_int``; every entry point returns ``cudaGetLastError()``
 and :func:`check` raises when it is non-zero.  Nothing here runs at
 import time.
@@ -28,6 +29,7 @@ KERNELS = ("bigru_fwd", "bigru_bwd", "bilstm_fwd", "bilstm_bwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple, object] = {}
 # ptxas register / shared-memory report of each build, for the smoke log
 ptxas_report: dict[str, str] = {}
 
@@ -88,21 +90,20 @@ def build(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built if needed), with the
-    argument types of its entry point ``name`` declared."""
-    lib = _libs.get(name)
-    if lib is None:
-        build((name,))
-        with _lock:
-            lib = _libs.get(name)
-            if lib is None:
-                lib = ctypes.CDLL(_lib_path(name))
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _libs[name] = lib
-    return lib
+def entry(name: str, fn: str, argtypes: list):
+    """Entry point ``fn`` of kernel ``name``'s library (built and loaded
+    if needed), its argument types declared and its result an int."""
+    func = _entries.get((name, fn))
+    if func is None:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            with _lock:
+                lib = _libs.setdefault(name, ctypes.CDLL(_lib_path(name)))
+        func = getattr(lib, fn)
+        func.argtypes, func.restype = argtypes, ctypes.c_int
+        _entries[(name, fn)] = func
+    return func
 
 
 def check(err: int, what: str) -> None:

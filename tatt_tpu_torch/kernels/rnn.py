@@ -19,6 +19,12 @@ its projection GEMMs (``pallas_gru.py:360-375``).  Wider recurrences — the
 TP-Interpreter's query GRU, hidden 512 — run :func:`bigru_apply`, a plain
 loop under autograd, as JAX keeps it on ``lax.scan`` (``rnn.py:211-218``).
 :func:`gru_cell` is one plain GRU step, as in JAX.
+
+Every layer follows its input's dtype, as JAX's do under ``--dtype
+bfloat16``: the float32 parameters are cast to it, the projection runs in
+it, and a bf16 input reaches the kernels' bf16 instantiations (f32 carries
+inside); the plain loops carry h in the input's dtype, as ``lax.scan``
+does (``rnn.py:85, 128``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ def bigru_apply(x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     [2, 3H].  Returns [R, L, 2H]."""
     rows, length, _ = x.shape
     hid = w_hh.shape[-1]
+    w_ih, w_hh, b_ih, b_hh = (t.to(x.dtype) for t in (w_ih, w_hh, b_ih, b_hh))
     gx = torch.einsum("drli,dgi->drlg", _stack_bidir(x), w_ih) + b_ih[:, None, None]
     w_t = w_hh.transpose(1, 2)
     h = x.new_zeros(2, rows, hid)
@@ -71,6 +78,7 @@ def bilstm_apply(x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     gate rows in torch order (i, f, g, o)."""
     rows, length, _ = x.shape
     hid = w_hh.shape[-1]
+    w_ih, w_hh, b_ih, b_hh = (t.to(x.dtype) for t in (w_ih, w_hh, b_ih, b_hh))
     gx = torch.einsum("drli,dgi->drlg", _stack_bidir(x), w_ih) + b_ih[:, None, None]
     w_t = w_hh.transpose(1, 2)
     h = x.new_zeros(2, rows, hid)
@@ -111,6 +119,7 @@ def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     ``h`` [B, H], ``w_ih`` [3H, In], ``w_hh`` [3H, H].  The attention
     decoders of ASTER and MORAN take one such step per decoded symbol."""
     hid = h.shape[-1]
+    w_ih, w_hh, b_ih, b_hh = (t.to(x.dtype) for t in (w_ih, w_hh, b_ih, b_hh))
     gx = torch.addmm(b_ih, x, w_ih.T)
     gh = torch.addmm(b_hh, h, w_hh.T)
     r = torch.sigmoid(gx[:, :hid] + gh[:, :hid])
@@ -194,13 +203,15 @@ class BiGRU(_BiRNN):
         if self.hidden > gru_kernel.MAX_HIDDEN:
             return bigru_apply(x, w_eff, w_hh, b_eff, b_hh)
         # one matmul for all timesteps of both directions, emitted in the
-        # kernel's [2, L, 3H, R] layout (rows minor)
-        xw = torch.einsum("rli,dgi->dlgr", x, w_eff)
+        # kernel's [2, L, 3H, R] layout (rows minor), in x's dtype; the
+        # recurrence casts the biases and W_hh to it
+        xw = torch.einsum("rli,dgi->dlgr", x, w_eff.to(x.dtype))
         if _wants_grad(xw, b_eff, w_hh, b_hh):
             y = gru_kernel.BiGRURecurrence.apply(xw, b_eff, w_hh, b_hh)
         else:
-            gates = (xw + b_eff[:, None, :, None]).contiguous()
-            y = gru_kernel.bigru_recurrence(gates, w_hh, b_hh)
+            dt = x.dtype
+            gates = (xw + b_eff.to(dt)[:, None, :, None]).contiguous()
+            y = gru_kernel.bigru_recurrence(gates, w_hh.to(dt), b_hh.to(dt))
         return y.permute(2, 0, 1)  # [L, 2H, R] -> [R, L, 2H]
 
 
@@ -226,6 +237,8 @@ class BiLSTM(_BiRNN):
         if wide != hid:
             BiLSTM.padded_layers += 1
             w_ih, w_hh, b_ih, b_hh = _pad_lstm_hidden(wide, w_ih, w_hh, b_ih, b_hh)
+        # every weight in x's dtype (``bilstm_pallas``, ``pallas_lstm.py:205-210``)
+        w_ih, w_hh, b_ih, b_hh = (t.to(x.dtype) for t in (w_ih, w_hh, b_ih, b_hh))
         # one matmul for all timesteps of both directions, emitted in the
         # kernel's [2, R, L, 4H] layout (gates minor)
         gates = torch.matmul(x, w_ih.transpose(1, 2)[:, None]) + b_ih[:, None, None]

@@ -4,6 +4,13 @@ NCHW at module boundaries, OIHW conv weights, torch-default
 initialization drawn from an explicit ``torch.Generator``
 (:func:`init_parameters`).  Parameter names follow the reference PyTorch
 modules, so a model's ``state_dict`` has the reference layout.
+
+Every layer follows its input's dtype, as the JAX layers do under
+``--dtype bfloat16`` (``common.py:236-271, 547, 562-565``): the float32
+parameters are cast to it (their gradients come back in float32), and
+BatchNorm takes its statistics and normalizes in float32 and returns the
+input's dtype (``:384-536``).  So a bf16 input stays bf16 through every
+layer, and no float32 parameter promotes an activation back to float32.
 """
 
 from __future__ import annotations
@@ -81,7 +88,8 @@ class Conv2d(nn.Module):
             _uniform(self.bias, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
 
 
 class ConvTranspose2d(nn.Module):
@@ -108,7 +116,7 @@ class ConvTranspose2d(nn.Module):
         _uniform(self.weight, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight, None, self.stride, self.padding)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
 
 
 class _BatchNorm(nn.Module):
@@ -191,7 +199,7 @@ class PReLU(nn.Module):
         self.weight.fill_(0.25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.weight * x)
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 class Dense(nn.Module):
@@ -209,7 +217,8 @@ class Dense(nn.Module):
             _uniform(self.bias, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class JaxNamed(nn.Module):

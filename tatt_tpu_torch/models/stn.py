@@ -7,7 +7,9 @@ blocks pooling down to 1x2, then fc1 + BatchNorm1d + ReLU and fc2 to 20
 control points, fc2 starting at the identity border grid.  Module names follow the reference (``stn_head.stn_convnet.{0,2,..,10}``,
 ``stn_fc1``, ``stn_fc2``; ``torch_import.py:264-281``).  ``tps_transform``
 solves the TPS mapping from precomputed numpy matrices in f32 (TF32 off,
-``core/device.py``) and samples bilinearly.
+``core/device.py``) and samples bilinearly at those f32 positions, whatever
+the images' dtype (a deliberate difference from the JAX package, which
+rounds the grid to the compute dtype: ROADMAP C.3).
 """
 
 from __future__ import annotations
@@ -73,7 +75,10 @@ def tps_transform(
     """Warp ``images`` [N, C, H, W] by the TPS that maps the border control
     points to ``source_ctrl`` [N, K, 2] (``tps_spatial_transformer.py:97-112``).
     The solve stays in full f32: the inverse kernel's entries reach +-87
-    and cancel down to coordinates in [0, 1] (``stn.py:94-97``)."""
+    and cancel down to coordinates in [0, 1] (``stn.py:94-97``).  The grid
+    stays f32 too: bf16 images are sampled in f32 at those positions and
+    the result returned in bf16 (JAX's bf16 grid moves a sample by up to
+    ~0.19 px, ``ADVICE.md``)."""
     n, k = source_ctrl.shape[:2]
     th, tw = output_size
     inv_k, coord_repr = (
@@ -83,6 +88,8 @@ def tps_transform(
     mapping = torch.einsum("ab,nbc->nac", inv_k, padded)
     source_coord = torch.einsum("ha,nac->nhc", coord_repr, mapping)  # [N, HW, 2] in [0, 1]
     grid = source_coord.reshape(n, th, tw, 2).clamp(0.0, 1.0) * 2.0 - 1.0
+    if images.dtype == torch.bfloat16:
+        return grid_sample_bilinear(images.float(), grid).to(images.dtype)
     return grid_sample_bilinear(images, grid.to(images.dtype))
 
 
@@ -150,5 +157,6 @@ class STNHead(nn.Module):
         for layer in self.stn_convnet:
             x = layer(x, copies)
         x = self.stn_fc1(x.flatten(1), copies)  # NCHW flatten, as fc1's weight expects
-        pts = torch.nn.functional.linear(0.1 * x, self.stn_fc2.weight, self.stn_fc2.bias)
+        pts = torch.nn.functional.linear(0.1 * x, self.stn_fc2.weight.to(x.dtype),
+                                         self.stn_fc2.bias.to(x.dtype))
         return pts.reshape(x.shape[0], self.num_ctrlpoints, 2)

@@ -12,7 +12,9 @@ by the batch; ``reference`` reproduces the reference's batch_first quirk
 (the scan runs across the batch), needed for reference checkpoints.
 The query GRU has hidden 512 and stays on the plain path.  Dropout
 (``rate`` with a generator) runs at the JAX sites, the positional encoding
-itself included (``tp_interpreter.py:76-79``).
+itself included (``tp_interpreter.py:76-79``).  The image features' dtype
+is the compute dtype: the prior, the positional table and the query table
+are cast to it (``tp_interpreter.py:69-71, 75, 96``).
 """
 
 from __future__ import annotations
@@ -89,11 +91,12 @@ class TPInterpreter(nn.Module):
             d_model, nhead, num_encoder_layers, num_decoder_layers, fh
         )
 
-    def query_pos(self, n: int) -> torch.Tensor:
-        """[N, H*W, C] query positions from the BiGRU-smoothed table."""
+    def query_pos(self, n: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """[N, H*W, C] query positions from the BiGRU-smoothed table, in
+        ``dtype``."""
         fh, fw = self.output_size
         c = self.d_model
-        table = self.init_factor.weight.reshape(fh, fw, c)
+        table = self.init_factor.weight.to(dtype).reshape(fh, fw, c)
         cols = table.permute(1, 0, 2).reshape(fw, 1, fh * c)
         gru = self.transformer.gru_encoding
         if self.query_gru_mode == "reference":
@@ -114,12 +117,12 @@ class TPInterpreter(nn.Module):
         t = x.shape[1]
         pos = torch.as_tensor(
             positional_encoding_table(t, self.d_model), device=x.device
-        )[None]
+        ).to(x.dtype)[None]
         pos = dropout(pos, rate, gen)
         memory = x
         for layer in self.transformer.encoder.layers:
             memory = layer(memory, pos, rate, gen)
-        query_pos = self.query_pos(n)
+        query_pos = self.query_pos(n, x.dtype)
         tgt = image_feature.reshape(n, c_i, h * w).transpose(1, 2)
         norm = self.transformer.decoder.norm
         out, weights, total = tgt, None, 0.0

@@ -5,7 +5,10 @@
 Batch-first [B, L, C].  Attention keeps torch ``nn.MultiheadAttention``'s
 packed ``in_proj`` [3C, C] layout and is written out in plain ops: the
 caller needs the head-averaged weights (``aux["pr_weights"]``), which a
-fused attention call does not return.  Logits and softmax run in f32.
+fused attention call does not return.  The projections run in the input's
+dtype; logits accumulate and softmax normalizes in f32, and the weights
+meet ``v`` in its dtype (``transformer.py:93-109``); LayerNorm computes in
+f32 and returns the input's dtype.
 Dropout runs at the JAX sites (attention weights, ``transformer.py:107``;
 the residual branches and the FFN, ``:153,185,233``) when the caller
 passes a rate and a generator, and is the identity otherwise (eval).
@@ -56,7 +59,8 @@ def attend(q, k, v, nhead: int, rate: float = 0.0, gen=None, need_weights: bool 
     q = q.reshape(b, lq, nhead, hd).transpose(1, 2)
     k = k.reshape(b, lk, nhead, hd).transpose(1, 2)
     v = v.reshape(b, lk, nhead, hd).transpose(1, 2)
-    logits = torch.matmul(q.float() * (1.0 / math.sqrt(hd)), k.float().transpose(-1, -2))
+    # the scaled q in its own dtype, the products accumulated in f32
+    logits = torch.matmul((q * (1.0 / math.sqrt(hd))).float(), k.float().transpose(-1, -2))
     weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
     out = torch.matmul(weights.to(v.dtype), v)
     return out.transpose(1, 2).reshape(b, lq, c), weights.mean(dim=1) if need_weights else None
@@ -78,9 +82,9 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias.zero_()
 
     def forward(self, query, key, value, rate: float = 0.0, gen=None):
-        c = self.d_model
-        wq, wk, wv = self.in_proj_weight.split(c)
-        bq, bk, bv = self.in_proj_bias.split(c)
+        c, dt = self.d_model, query.dtype
+        wq, wk, wv = self.in_proj_weight.to(dt).split(c)
+        bq, bk, bv = self.in_proj_bias.to(dt).split(c)
         out, weights = attend(F.linear(query, wq, bq), F.linear(key, wk, bk),
                               F.linear(value, wv, bv), self.nhead, rate, gen)
         return self.out_proj(out), weights

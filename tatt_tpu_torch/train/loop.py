@@ -129,7 +129,7 @@ def step_config(args: Flags) -> StepConfig:
         learning_STN=args.learning_STN, color_loss=args.color_loss, gradient=args.gradient,
         ssim_loss=args.ssim_loss, tssim_loss=args.tssim_loss, fused_tssim=args.fused_tssim,
         mse_fuse=args.mse_fuse, rotate_train=args.rotate_train,
-        training_stablize=args.training_stablize, mask=args.mask,
+        training_stablize=args.training_stablize, compute_dtype=args.dtype, mask=args.mask,
     )
 
 

@@ -14,7 +14,13 @@ labels; then one backward, per-copy clipping of the SR gradients and one
 Adam step over every copy.  ``y_domain`` trains the SR losses on the
 ``YCbCr`` crops and reads the recognizer priors from the raw RGB.  With
 ``fused_tssim`` the counter-rotated copy runs in the same 2B forward with
-per-copy BatchNorm statistics (``steps.py:230-250``).
+per-copy BatchNorm statistics (``steps.py:230-250``).  Under
+``compute_dtype="bfloat16"`` the step casts where ``make_train_step``
+casts (``steps.py:155-171, 207, 221, 245, 254, 330``): the recognizers'
+luma, the prior and the generator's input go in as bf16, so the models
+run in bf16 (their layers follow the input's dtype, the parameters stay
+float32 masters), and the logits and SR come back to float32 before
+every loss; clipping, the gradient norms and Adam stay float32.
 
 :func:`eval_step` is ``make_eval_step`` (``steps.py:553-610``) including
 the ``stu_iter`` cascade of ``model_inference`` and ``for_cascading``.
@@ -46,8 +52,9 @@ from tatt_tpu_torch.train.state import clip_grads_per_model
 @dataclass(frozen=True)
 class StepConfig:
     """The JAX ``StepConfig`` (``steps.py:30-59``) with its defaults, the
-    canonical recipe, but for ``compute_dtype`` (the port runs float32).
-    ``color_loss`` and ``mse_fuse`` act in the plain step only, as in JAX.
+    canonical recipe.  ``compute_dtype`` ("float32" or "bfloat16") acts in
+    :func:`train_step` only, as in JAX; ``color_loss`` and ``mse_fuse`` act
+    in the plain step only, as in JAX.
     ``fused_tssim`` runs sr and the counter-rotated sr_ret in one 2B
     forward (else two forwards); ``mask`` is the mask channel of the
     uint8 image leaves the step normalizes."""
@@ -69,7 +76,23 @@ class StepConfig:
     rotate_train: float = 5.0
     training_stablize: bool = False
     grad_clip: float = 0.25
+    compute_dtype: str = "float32"
     mask: bool = True
+
+
+def _caster(compute_dtype: str) -> Callable:
+    """The cast of a model input to ``compute_dtype``: none for "float32"
+    (so the CPU float64 step stays float64), bf16 for "bfloat16"."""
+    if compute_dtype == "float32":
+        return lambda t: t
+    if compute_dtype == "bfloat16":
+        return lambda t: t.to(torch.bfloat16)
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype!r}")
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A model output back to float32 for the losses (a bf16 one only)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def loss_stablize(loss_set: torch.Tensor, keep: float = 0.7) -> torch.Tensor:
@@ -158,11 +181,12 @@ def train_step(
         images_lr_ret = images_lr
     if not cfg.y_domain:
         hr_raw, lr_raw = images_hr, images_lr
+    cast = _caster(cfg.compute_dtype)
 
     with torch.no_grad():  # the frozen teacher's prior from HR
-        teacher_logits = teacher(parse_fn(hr_raw[:, :3])).float()
+        teacher_logits = teacher(cast(parse_fn(hr_raw[:, :3]))).float()
         label_vecs_hr = torch.softmax(teacher_logits, dim=-1)
-    lr_luma = parse_fn(lr_raw[:, :3])
+    lr_luma = cast(parse_fn(lr_raw[:, :3]))
     fused = cfg.tssim_loss and cfg.fused_tssim
 
     loss_img = loss_distill = 0.0
@@ -175,19 +199,21 @@ def train_step(
         if cfg.for_cascading and i > 0:
             prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
             cascade = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
-        stage_luma = lr_luma if i == 0 or cfg.y_domain else parse_fn(cascade[:, :3])
+        stage_luma = lr_luma if i == 0 or cfg.y_domain else cast(parse_fn(cascade[:, :3]))
         label_vecs = torch.softmax(student(stage_luma).float(), dim=-1)  # [T, B, C]
-        prior = label_vecs.permute(1, 2, 0)[:, :, None, :].detach()  # [B, C, 1, T]
+        prior = cast(label_vecs.permute(1, 2, 0)[:, :, None, :].detach())  # [B, C, 1, T]
         main_input = cascade if cfg.for_cascading else images_lr
         if fused:
-            sr_all, aux = generator(torch.cat([main_input, images_lr_ret]), torch.cat([prior, prior]),
-                                    copies=2, gen=gen)
+            sr_all, aux = generator(cast(torch.cat([main_input, images_lr_ret])),
+                                    torch.cat([prior, prior]), copies=2, gen=gen)
+            sr_all = _widen(sr_all)
             sr, sr_ret = sr_all[:nb], sr_all[nb:]
             # keep the main copy of the packed aux features (steps.py:263-270)
             aux = {k: v[:nb] if torch.is_tensor(v) and v.dim() and v.shape[0] == 2 * nb else v
                    for k, v in aux.items()}
         else:
-            sr, aux = generator(main_input, prior, gen=gen)
+            sr, aux = generator(cast(main_input), prior, gen=gen)
+            sr = _widen(sr)
         cascade = sr
 
         if cfg.use_label:  # CTC of the HR teacher logits on the spread labels
@@ -217,7 +243,7 @@ def train_step(
             metrics["loss_ssim"] = s
         if cfg.tssim_loss:
             if not fused:
-                sr_ret, _ = generator(images_lr_ret, prior, gen=gen)
+                sr_ret = _widen(generator(cast(images_lr_ret), prior, gen=gen)[0])
             if cfg.rotate_train:
                 sr_ret = rotate_batch(sr_ret, arc, offs)
             ts = (1.0 - tri_ssim(sr_ret, sr, images_hr)) * 10.0

@@ -169,11 +169,11 @@ def test_cli_accepts_the_step_flags(argv, copies, capsys):
 
 
 # --color_loss and --mse_fuse are served now (the plain step; no-ops in the
-# TATT step, as in JAX), the zoo and --tpg OPT: their cases hold other
-# refusals (--dp_devices for --tpg OPT, --bn_per_replica for --badset,
-# which is served now)
+# TATT step, as in JAX), the zoo, --tpg OPT and --dtype bfloat16: their
+# cases hold other refusals (--dp_devices for --tpg OPT, --bn_per_replica
+# for --badset, which is served now, --steps_per_dispatch for bf16)
 @pytest.mark.parametrize("flag", [["--arch=srcnn", "--bn_per_replica"], ["--dp_devices", "2"],
-                                  ["--dtype", "bfloat16"]])
+                                  ["--steps_per_dispatch", "2"]])
 def test_cli_still_refuses_what_waits(flag):
     from tatt_tpu_torch.cli import main as cli
 

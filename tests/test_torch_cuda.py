@@ -598,3 +598,83 @@ def test_cli_trains_on_the_card_by_default(cuda, capsys):
     assert cli.main(argv) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("[train] iters 2 "), line
+
+
+def _bf16_close(got, want, atol: float) -> bool:
+    """Each bf16 entry within one bf16 ulp of the plain twin's (the ulp at
+    the larger magnitude), or within ``atol`` (an entry near 0 that a sum in
+    another order moves by more than its own ulp)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126))) - 7)
+    return bool(((diff <= ulp) | (diff <= atol)).all())
+
+
+# the bf16 instantiations (--dtype bfloat16) at the recipe's shapes, ragged
+# rows and odd H: bf16 in and out, f32 inside, counted like the f32 ones
+@pytest.mark.parametrize("length,rows,hid", [(16, 8192, 32), (64, 2048, 32), (7, 45, 33), (3, 10, 5)])
+def test_bigru_bf16_kernels_match_plain(cuda, length, rows, hid):
+    from tatt_tpu_torch.kernels.gru import (
+        bigru_recurrence, bigru_recurrence_bwd, bigru_recurrence_bwd_ref, bigru_recurrence_ref,
+    )
+
+    ins = [t.to(torch.bfloat16) for t in
+           _recurrence_inputs((2, length, 3 * hid, rows), 3 * hid, hid, cuda, seed=5)]
+    before = bigru_recurrence.bf16_launches, bigru_recurrence_bwd.bf16_launches
+    out, ref = bigru_recurrence(*ins), bigru_recurrence_ref(*ins)
+    assert out.dtype == torch.bfloat16 and _bf16_close(out, ref, ATOL)
+    dout = torch.randn_like(ref)
+    got = bigru_recurrence_bwd(*ins, ref, dout)
+    want = bigru_recurrence_bwd_ref(*ins, ref, dout)
+    torch.cuda.synchronize()
+    assert (bigru_recurrence.bf16_launches, bigru_recurrence_bwd.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    assert _bf16_close(got[0], want[0], DGATES_TOL * max(1.0, want[0].float().abs().max().item()))
+    assert all(_scaled_err(g, w) <= DW_TOL for g, w in zip(got[1:], want[1:]))
+
+
+@pytest.mark.parametrize("length,rows,hid", [(26, 64, 256), (26, 61, 256), (7, 13, 64), (5, 7, 111)])
+def test_bilstm_bf16_kernels_match_plain(cuda, length, rows, hid):
+    from tatt_tpu_torch.kernels.lstm import (
+        bilstm_recurrence, bilstm_recurrence_bwd, bilstm_recurrence_bwd_ref, bilstm_recurrence_ref,
+    )
+
+    ins = [t.to(torch.bfloat16) for t in
+           _recurrence_inputs((2, rows, length, 4 * hid), 4 * hid, hid, cuda, seed=6)]
+    before = bilstm_recurrence.bf16_launches, bilstm_recurrence_bwd.bf16_launches
+    (out, cs), (ref, ref_cs) = (f(*ins, with_cs=True) for f in (bilstm_recurrence, bilstm_recurrence_ref))
+    assert out.dtype == cs.dtype == torch.bfloat16
+    assert _bf16_close(out, ref, ATOL) and _bf16_close(cs, ref_cs, ATOL)
+    dout = torch.randn_like(ref)
+    got = bilstm_recurrence_bwd(*ins, ref, ref_cs, dout)
+    want = bilstm_recurrence_bwd_ref(*ins, ref, ref_cs, dout)
+    torch.cuda.synchronize()
+    assert (bilstm_recurrence.bf16_launches, bilstm_recurrence_bwd.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    assert _bf16_close(got[0], want[0], DGATES_TOL * max(1.0, want[0].float().abs().max().item()))
+    assert all(_scaled_err(g, w) <= DW_TOL for g, w in zip(got[1:], want[1:]))
+
+
+def test_bf16_modules_train_through_the_bf16_kernels(cuda):
+    """BiGRU and BiLSTM on a bf16 input under autograd launch the bf16
+    instantiations forward and backward (no cast around the f32 kernels),
+    and the parameters' gradients come back float32."""
+    from tatt_tpu_torch.kernels import gru, lstm
+    from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM
+    from tatt_tpu_torch.models.common import init_parameters
+
+    for cls, fwd, bwd in ((BiGRU, gru.bigru_recurrence, gru.bigru_recurrence_bwd),
+                          (BiLSTM, lstm.bilstm_recurrence, lstm.bilstm_recurrence_bwd)):
+        layer = init_parameters(cls(24, 32), 3).to(cuda)
+        x = torch.randn(40, 9, 24, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        before = fwd.bf16_launches, bwd.bf16_launches, fwd.launches
+        y = layer(x)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
+        assert (fwd.bf16_launches, bwd.bf16_launches, fwd.launches) == (
+            before[0] + 1, before[1] + 1, before[2] + 1)
+        assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
+                   for p in layer.parameters())

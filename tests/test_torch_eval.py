@@ -152,11 +152,12 @@ def test_cli_go_test_on_cpu(capsys):
 @pytest.mark.parametrize(
     "argv",
     # the TSRN family, --color_loss, --mse_fuse, the zoo, --tpg OPT,
-    # --CHNSR and the data flags of data/variants.py are served now: their
-    # cases hold the flags that still wait (bf16 and DDP's) and a zoo arch
-    # with the recipe's flags and a multi-device flag
-    [["--synthetic", "8", "--dtype", "bfloat16"], ["--arch=srcnn", "--go_test", "--dp_devices", "2"],
-     ["--synthetic", "8", "--bn_per_replica"], ["--go_test", "--dtype", "bfloat16"],
+    # --CHNSR, the data flags of data/variants.py and --dtype bfloat16 are
+    # served now: their cases hold the flags that still wait (DDP's and
+    # --steps_per_dispatch) and a zoo arch with the recipe's flags and a
+    # multi-device flag
+    [["--synthetic", "8", "--steps_per_dispatch", "4"], ["--arch=srcnn", "--go_test", "--dp_devices", "2"],
+     ["--synthetic", "8", "--bn_per_replica"], ["--go_test", "--dp_devices", "2"],
      # a zoo arch with a text prior under --bn_per_replica, and the recipe
      # under --dp_devices (in the Chinese path's place)
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--rotate_train=5.0",

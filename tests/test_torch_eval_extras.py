@@ -339,8 +339,8 @@ def test_cli_judges_need_weights(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--rec=moran requires MORAN weights"):
         cli.main(["--test", "--rec=moran"] + base[1:])
     assert cli.main(base + ["--test_model=MORAN", "--moran_pretrained", "missing.pth"]) == 2
-    # --tpg OPT, --badset, --syn and --test_data_dir are served now: the
-    # flags that still wait hold their places
-    for argv in (["--bn_per_replica"], ["--dp_devices", "2"], ["--dtype", "bfloat16"]):
+    # --tpg OPT, --badset, --syn, --test_data_dir and --dtype bfloat16 are
+    # served now: the flags that still wait hold their places
+    for argv in (["--bn_per_replica"], ["--dp_devices", "2"], ["--steps_per_dispatch", "2"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main(base + argv)
