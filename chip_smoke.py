@@ -16,6 +16,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --chinese-only           # phases 1 and 16 alone
   python3 chip_smoke.py --data-tail-only         # phases 1 and 17 alone
   python3 chip_smoke.py --bf16-only              # phases 1 and 18 alone
+  python3 chip_smoke.py --geometry-only          # phases 1 and 19 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -118,7 +119,15 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      TF32 and one BatchNorm's eps doubled, must exceed); the host ms a
      batch of the collate over the 3965-symbol alphabet, the CTC decode
      (argmax on the card against on the host) and the filter; ``cli.run --CHNSR --tpg OPT`` for 4 steps, then
-     ``--go_test`` of its best checkpoint against the summary saved with it
+     ``--go_test`` of its best checkpoint against the summary saved with it;
+     then two more text-prior archs at the 3965-wide prior,
+     ``tsrn_tl_cascade`` (the fused 2B step, 10/10/0/0 launches a step)
+     and ``pcan_tl`` (two forwards of B, 20/20/0/0): a batch-8 step each
+     card against CPU, leaf by leaf (the student against the CPU float64
+     step within 3e-2, which TF32 planted in ``tsrn_tl_cascade``'s step
+     must exceed), and ``cli.run --arch=<arch> --CHNSR --tpg OPT`` at full
+     width, batch 64, 20 timed steps (images/s, peak memory, launches a
+     step)
  17. the data long tail, with no OpenCV: ``data/imgproc.py`` and
      ``data/degradation.py`` against OpenCV's outputs kept in
      ``tests/torch_cv2_golden.npz`` (``scripts/torch_cv2_golden.py``), at
@@ -158,6 +167,20 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      falling-``loss_sr`` gate over 45 steps, ``--bf16-repeats`` runs for
      its margin, a profiled bf16 window); ``--go_test --dtype bfloat16``
      equal to float32's summary
+ 19. the YAML's geometry (``TRAIN.width`` / ``height`` /
+     ``down_sample_scale``): kernels #1 and #2, f32 and bf16, at the new
+     lengths of a fused 2B batch of 64 (256x64: gru1 L=32 R=16384, gru2
+     L=128 R=4096; scale 4: gru1 L=8 R=4096, gru2 L=32 R=1024) against
+     their plain twins, timed beside the bound, the twin and ``nn.GRU``,
+     with their launch plans; the TP Interpreter's query GRU (a plain
+     loop, hidden 512 over 64 steps at 128x32, 1024 over 128 at 256x64)
+     forward and forward + backward; the recipe through ``cli.run`` at
+     256x64 and ``tsrn`` at scale 4 (no ``--STN``: refused there), batch
+     64 (images/s, peak memory, launches a step 10/10/4/2 and 20/20/0/0,
+     the HR crops' size, finite metrics); a batch-8 recipe step at 256x64
+     and a batch-8 ``tsrn`` step at scale 4 (as the CLI run trains it)
+     card against CPU, leaf by leaf; #1 and #2 also at that run's own
+     lengths (two forwards of B: gru1 L=8 R=2048, gru2 L=32 R=512)
 The last line is the JSON object the chip check reads; the line before
 it the kernels (each kernel's f32 and bf16 instantiation), and before
 that the whole run's seconds.  Imports no JAX.
@@ -179,6 +202,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -422,6 +446,15 @@ N_CHINESE = 3965
 CHINESE_CHECK_BATCH = 8
 CHINESE_LAUNCHES = {"bigru_fwd": 10, "bigru_bwd": 10, "bilstm_fwd": 0, "bilstm_bwd": 0}
 CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 40, 4
+# phase 16's other text-prior archs at the 3965-wide prior, through the
+# CLI at full width, batch 64: tsrn_tl_cascade's fused 2B step (10 BiGRUs
+# a forward, as TATT), pcan_tl's two forwards of B (10 GruBlocks each);
+# warm-up steps, then timed ones
+CHINESE_ARCHS = {
+    "tsrn_tl_cascade": CHINESE_LAUNCHES,
+    "pcan_tl": {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0},
+}
+CHINESE_ARCH_WARM, CHINESE_ARCH_STEPS = 2, 20
 # the batch-8 step's student: its gradient comes from the distillation
 # loss, whose margin term's sign flips where the seeded teacher's and
 # student's near-uniform probabilities over 3965 classes (~2.5e-4) differ
@@ -433,7 +466,9 @@ CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 40, 4
 # CPU's float64 step within the fixed STUDENT_LEAF_TOL, and two planted
 # faults on the card, TF32 convolutions and matmuls and one BatchNorm's eps
 # doubled (FeatureExtraction.conv0_1_bn, 1e-5 -> 2e-5), must read above it
+# in tatt's step, and the TF32 fault in tsrn_tl_cascade's
 STUDENT_LEAF_TOL = 3e-2
+STUDENT_FAULTS = {"tatt": ("fault: tf32", "fault: bn eps"), "tsrn_tl_cascade": ("fault: tf32",)}
 # phase 17, the data long tail: LMDBs of a few hundred crops; the recipe
 # through the CLI under --syn, under --mixed and on the plain LMDBs (a
 # warm-up call with the loader's 4 threads, then timed steps with one);
@@ -464,6 +499,32 @@ BF16_CARD_REPEATS = 2
 # 3.555e-3 and 0.0919 in every run on an H100 80GB HBM3 at 700 W, an
 # f32-promoting PReLU 4.92e-3 (scripts/bf16_step_gate.py)
 BF16_STEP_TOL, BF16_STUDENT_TOL = 4.2e-3, 0.15
+# phase 19, the YAML's geometry: the recipe through the CLI at 256x64
+# (scale 2, LR 32x128: 4x the pixels; the STN's fc1 reads 2048 inputs) and
+# tsrn at scale 4 (LR 8x32; without --STN, which the CLI refuses there:
+# the STN head pools an 8-row crop to nothing), each warmed up, then timed
+# steps with launches a step; a batch-8 recipe step at 256x64 and a
+# batch-8 tsrn step at scale 4 card vs CPU; kernels #1 and #2, f32 and
+# bf16, at the new lengths of the fused 2B batch of 64 and at those of
+# tsrn's two forwards of B at scale 4, the shapes the CLI run launches
+# (name, L, R, In, the GRU's folded 1x1 conv width, H); the TP
+# Interpreter's query GRU (plain loop) at both LR sizes
+GEOMETRIES = {"256x64": {"width": 256, "height": 64, "down_sample_scale": 2},
+              "scale4": {"width": 128, "height": 32, "down_sample_scale": 4}}
+GEOMETRY_RUNS = {
+    "recipe at 256x64": (RECIPE, "256x64", STEP_LAUNCHES),
+    "tsrn at scale 4": (["--arch=tsrn", "--mask", "--gradient", "--sr_share", "--tssim_loss",
+                         "--rotate_train=5.0"], "scale4", PLAIN_LAUNCHES),
+}
+GEOMETRY_WARM, GEOMETRY_STEPS = 2, 20
+GEOMETRY_SHAPES = (
+    ("256x64 gru1 (height scan), fused 2B", 32, 2 * BATCH * 128, 128, 64, 32),
+    ("256x64 gru2 (width scan), fused 2B", 128, 2 * BATCH * 32, 64, 64, 32),
+    ("scale 4 gru1 (height scan), fused 2B", 8, 2 * BATCH * 32, 128, 64, 32),
+    ("scale 4 gru2 (width scan), fused 2B", 32, 2 * BATCH * 8, 64, 64, 32),
+    ("scale 4 tsrn gru1 (height scan), B", 8, BATCH * 32, 128, 64, 32),
+    ("scale 4 tsrn gru2 (width scan), B", 32, BATCH * 8, 64, 64, 32),
+)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -925,21 +986,25 @@ def backward_kernels(gen, lstm_only: bool = False):
 
 
 def card_vs_cpu_step(tag: str, cfg: StepConfig, n_sr: int, n_stu: int, want_launches: dict,
-                     with_f64: bool = True) -> None:
+                     with_f64: bool = True, geometry: Optional[dict] = None) -> None:
     """One full-width train step under ``cfg`` at batch 8 with ``n_sr``
     generators and ``n_stu`` students (dropout off, rotation pinned): the
     card (kernels) against the CPU (plain twins), each trainable model's
     gradient leaf by leaf with the two-tier gate; with ``with_f64`` the CPU
     step also in float64 (how far float32 rounding alone moves each
-    gradient)."""
-    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True, dropout=0.0)
+    gradient).  ``geometry``: the YAML's ``width``, ``height`` and
+    ``down_sample_scale`` (default 128, 32, 2)."""
+    geometry = geometry or {"width": 128, "height": 32, "down_sample_scale": 2}
+    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True, dropout=0.0,
+                width=geometry["width"], height=geometry["height"],
+                scale_factor=geometry["down_sample_scale"])
     models_cpu = ([init_parameters(copy.deepcopy(tatt), 7 + 10 * i) for i in range(n_sr)]
                   + [init_parameters(CRNN(), 8 + 10 * i) for i in range(n_stu)]
                   + [init_parameters(CRNN(), 9)])
     names = [f"generator {i}" for i in range(n_sr)] + [f"student {i}" for i in range(n_stu)]
     n_train = n_sr + n_stu
     sds = SyntheticTextDataset(n=STEP_BATCH, seed=5)
-    b = collate([sds[i] for i in range(STEP_BATCH)])
+    b = collate([sds[i] for i in range(STEP_BATCH)], **geometry)
     rot = {"rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
            "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
     grads = {}
@@ -1683,14 +1748,22 @@ def judges_phase(smi: str) -> list:
     return rows
 
 
-def plain_card_vs_cpu_step() -> None:
-    """One full-width tsrn step at batch 8 with --tssim_loss --mse_fuse
-    (rotation pinned, SGD at lr 1): the card (kernels) against the CPU
-    (plain twins), each gradient leaf with phase 8's two-tier gate."""
-    cfg = StepConfig(tssim_loss=True, mse_fuse=True)
-    model_cpu = init_parameters(TSRN(stn=True, mask=True), 17)
+def plain_card_vs_cpu_step(geometry: Optional[dict] = None) -> None:
+    """One full-width tsrn step at batch 8 (rotation pinned, SGD at lr 1):
+    the card (kernels) against the CPU (plain twins), each gradient leaf
+    with phase 8's two-tier gate.  At 128x32 with --STN --tssim_loss
+    --mse_fuse; at ``geometry`` (the YAML's ``width``, ``height``,
+    ``down_sample_scale``) as phase 19's CLI run trains it: without the
+    STN, --tssim_loss."""
+    if geometry is None:
+        tag, cfg, want = "tsrn-step", StepConfig(tssim_loss=True, mse_fuse=True), PLAIN_MSE_FUSE_LAUNCHES
+        model_cpu = init_parameters(TSRN(stn=True, mask=True), 17)
+    else:
+        tag, cfg, want = "geometry-tsrn-step", StepConfig(tssim_loss=True), PLAIN_LAUNCHES
+        model_cpu = init_parameters(TSRN(mask=True, width=geometry["width"], height=geometry["height"],
+                                         scale_factor=geometry["down_sample_scale"]), 17)
     sds = SyntheticTextDataset(n=STEP_BATCH, seed=15)
-    b = collate([sds[i] for i in range(STEP_BATCH)])
+    b = collate([sds[i] for i in range(STEP_BATCH)], **(geometry or {}))
     rot = {"rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
            "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
     grads, stats = {}, {}
@@ -1707,24 +1780,24 @@ def plain_card_vs_cpu_step() -> None:
         counts = read_counts()
         grads[run] = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
         stats[run] = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
-        print(f"[tsrn-step] {run} ({time.perf_counter() - t0:.1f} s): "
+        print(f"[{tag}] {run} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps({k: v.item() for k, v in metrics.items()})} launches {json.dumps(counts)}")
-    if counts != PLAIN_MSE_FUSE_LAUNCHES:
-        fail(f"tsrn step launches {counts} (want {PLAIN_MSE_FUSE_LAUNCHES})")
+    if counts != want:
+        fail(f"{tag} launches {counts} (want {want})")
     card = leaf_errors(grads["cpu"], grads["card"])
     rnn = rnn_leaves(model_cpu)
     for what, keys, tol in (("BiGRU", rnn, RNN_LEAF_TOL), ("other", set(card) - rnn, LEAF_TOL)):
         worst = sorted(keys, key=lambda k: -card[k])
-        print(f"[tsrn-step] {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| (tol {tol}): "
+        print(f"[{tag}] {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| (tol {tol}): "
               + "; ".join(f"{card[k]:.3e} {k}" for k in worst[:3]))
         bad = {k: card[k] for k in worst if not card[k] <= tol}
         if bad:
-            fail(f"tsrn {what} gradients card vs CPU above {tol}: {bad}")
+            fail(f"{tag}: {what} gradients card vs CPU above {tol}: {bad}")
     stat_err = max(scaled_err(stats["card"][k], v) for k, v in stats["cpu"].items())
-    print(f"[tsrn-step] BN running statistics after three forwards, card vs CPU: {stat_err:.3e} "
+    print(f"[{tag}] BN running statistics after the step's forwards, card vs CPU: {stat_err:.3e} "
           f"(tol {LEAF_TOL})")
     if not stat_err <= LEAF_TOL:
-        fail(f"tsrn BN running statistics card vs CPU {stat_err}")
+        fail(f"{tag}: BN running statistics card vs CPU {stat_err}")
 
 
 def tsrn_phase(smi: str) -> None:
@@ -2065,27 +2138,30 @@ def tpg_card_vs_cpu(gen) -> None:
     del bilstm, attn, card
 
 
-def chinese_card_vs_cpu_step() -> None:
-    """One full-width ``--CHNSR --tpg OPT`` step at batch 8 with the recipe's
-    flags (rotation pinned, dropout off, SGD at lr 1): the card (kernels)
-    against the CPU (plain twins), each trainable model's gradient leaf
-    by leaf with phase 8's two-tier gate, but the student's against the
-    CPU step in float64 within STUDENT_LEAF_TOL, which the planted faults
+def chinese_card_vs_cpu_step(arch: str = "tatt") -> None:
+    """One full-width ``--CHNSR --tpg OPT`` step of ``arch`` at batch 8 with
+    the recipe's flags (rotation pinned, dropout off, SGD at lr 1), the
+    arch's step from ``arch_steps``: the card (kernels) against the CPU
+    (plain twins), each trainable model's gradient leaf by leaf with phase
+    8's two-tier gate, but the student's against the CPU step in float64
+    within STUDENT_LEAF_TOL, which the planted faults of STUDENT_FAULTS
     (TF32, one BatchNorm's eps doubled) must exceed."""
-    cfg = Config(args=Flags(CHNSR=True, tpg="OPT", **TSRN_RECIPE))
-    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True,
-                text_emb=N_CHINESE, dropout=0.0)
-    spec = recognizer_spec(cfg)
-    models_cpu = [init_parameters(tatt, 7), init_parameters(spec.build(), 8),
+    cfg = Config(args=Flags(arch=arch, CHNSR=True, tpg="OPT", **TSRN_RECIPE))
+    generator = (TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True,
+                      text_emb=N_CHINESE, dropout=0.0) if arch == "tatt"
+                 else build_generator(arch, cfg))
+    spec, (train_fn, _) = recognizer_spec(cfg), arch_steps(cfg)
+    want_launches = CHINESE_LAUNCHES if arch == "tatt" else CHINESE_ARCHS[arch]
+    models_cpu = [init_parameters(generator, 7), init_parameters(spec.build(), 8),
                   init_parameters(spec.build(), 9)]
     ds = chinese_dataset(STEP_BATCH, 5)
     b = collate([ds[i] for i in range(STEP_BATCH)], alphabet=spec.alphabet)
     rot = {"rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
            "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
     grads, counts = {}, {}
+    faults = STUDENT_FAULTS.get(arch, ())
     for run, dev, dt in (("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64),
-                         ("card", DEV, torch.float32), ("fault: tf32", DEV, torch.float32),
-                         ("fault: bn eps", DEV, torch.float32)):
+                         ("card", DEV, torch.float32), *((f, DEV, torch.float32) for f in faults)):
         models = [copy.deepcopy(m).to(dev, dt) for m in models_cpu]
         if run == "fault: bn eps":
             models[1].FeatureExtraction.conv0_1_bn.eps = 2e-5
@@ -2096,16 +2172,15 @@ def chinese_card_vs_cpu_step() -> None:
         opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1.0)
         reset_counts()
         t0 = time.perf_counter()
-        metrics = train_step([models[0].train()], [models[1].train()], models[2].eval(), opt, batch,
-                             StepConfig(), torch.Generator(device=dev).manual_seed(0),
-                             spec.parse_fn)
+        metrics = train_fn([models[0].train()], [models[1].train()], models[2].eval(), opt, batch,
+                           StepConfig(), torch.Generator(device=dev).manual_seed(0))
         counts[run] = read_counts()
         grads[run] = [{k: p.grad.double().cpu() for k, p in m.named_parameters()} for m in models[:2]]
-        print(f"[chinese-step] {run} ({time.perf_counter() - t0:.1f} s): "
+        print(f"[chinese-step] {arch} {run} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps({k: v.item() for k, v in metrics.items()})} launches {json.dumps(counts[run])}")
     set_cuda_flags()
-    if counts["card"] != CHINESE_LAUNCHES:
-        fail(f"card --CHNSR step launches {counts['card']} (want {CHINESE_LAUNCHES})")
+    if counts["card"] != want_launches:
+        fail(f"card --CHNSR {arch} step launches {counts['card']} (want {want_launches})")
     for i, (name, model) in enumerate(zip(("generator", "student"), models_cpu)):
         card = leaf_errors(grads["cpu"][i], grads["card"][i])
         f32 = leaf_errors(grads["cpu64"][i], grads["cpu"][i])
@@ -2117,15 +2192,15 @@ def chinese_card_vs_cpu_step() -> None:
                                        ("other", set(card) - rnn, other)):
             worst = sorted(keys, key=lambda k: -err[k])
             gated = "card vs CPU float64" if err is card64 else "card vs CPU"
-            print(f"[chinese-step] {name}, {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| (tol "
-                  f"{tol} on {gated}; CPU float32 vs float64; card vs CPU float64):")
+            print(f"[chinese-step] {arch} {name}, {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| "
+                  f"(tol {tol} on {gated}; CPU float32 vs float64; card vs CPU float64):")
             for k in worst[:3]:
                 print(f"[chinese-step]   {card[k]:.3e}  ({f32[k]:.3e}; {card64[k]:.3e})  {k}")
             bad = {k: err[k] for k in worst if not err[k] <= tol}
             if bad:
-                fail(f"--CHNSR step: {name} {what} gradients card vs CPU above {tol}: {bad}")
+                fail(f"--CHNSR {arch} step: {name} {what} gradients card vs CPU above {tol}: {bad}")
     passed = []
-    for run in ("fault: tf32", "fault: bn eps"):
+    for run in faults:
         err = leaf_errors(grads["cpu64"][1], grads[run][1])
         worst = max(err, key=err.get)
         print(f"[chinese-step] planted {run}: the student's largest leaf error against the CPU "
@@ -2134,7 +2209,7 @@ def chinese_card_vs_cpu_step() -> None:
         if not err[worst] > STUDENT_LEAF_TOL:
             passed.append(run)
     if passed:
-        fail(f"--CHNSR step: the student gate {STUDENT_LEAF_TOL} passes the planted {passed}")
+        fail(f"--CHNSR {arch} step: the student gate {STUDENT_LEAF_TOL} passes the planted {passed}")
 
 
 def chinese_host_costs() -> None:
@@ -2281,9 +2356,63 @@ def chinese_phase(smi: str) -> list:
                 and abs(got["ssim_avg"] - best["ssim_avg"]) <= GO_TEST_SSIM_TOL
                 and got["accuracy"] == best["accuracy"] and abs(got["ned"] - best["ned"]) <= 1e-9):
             fail(f"--go_test --CHNSR summary {got} differs from the saved {best}")
+    chinese_archs(smi)
     print(f"[chinese] train images/s at batch {BATCH} {ips:.1f}, max memory {mem:.2f} GiB ({smi}); "
           f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
     return fwd_rows
+
+
+def cli_train_window(argv: list, warm: int, steps: int) -> tuple:
+    """``cli.run(argv)`` for ``warm`` steps, then ``steps`` timed steps of
+    its ``Trainer`` with the launches counted from 0: (images/s, launches a
+    step, the timed steps' metrics, peak GiB, the trainer)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        code, trainer = cli.run(argv + ["--max_iters", str(warm)])
+    if code != 0:
+        fail(f"cli.run {' '.join(argv)}: exit {code}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(max_iters=warm + steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {k: v / steps for k, v in read_counts().items()}
+    return (steps * trainer.cfg.batch_size / wall, per_step, result["metrics"],
+            torch.cuda.max_memory_allocated() / 2**30, trainer)
+
+
+def chinese_archs(smi: str) -> None:
+    """Phase 16's other text-prior archs under ``--CHNSR --tpg OPT``
+    (CHINESE_ARCHS): a batch-8 step card vs CPU each, then the CLI's
+    ``Trainer`` at batch 64: images/s, peak memory, launches a step,
+    finite metrics."""
+    for arch, want in CHINESE_ARCHS.items():
+        chinese_card_vs_cpu_step(arch)
+        with tempfile.TemporaryDirectory() as tmp:
+            yaml = os.path.join(tmp, "chnsr.yaml")
+            with open(yaml, "w") as fh:
+                fh.write(f"TRAIN:\n  batch_size: {BATCH}\n  voc_type: chinese\n  saveInterval: 0\n"
+                         f"  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n  VAL:\n    valInterval: 0\n"
+                         "    crnn_pretrained: ''\n")
+            argv = [f"--arch={arch}"] + RECIPE[1:] + [
+                "--CHNSR", "--tpg", "OPT", "--config", yaml, "--log_dir", "",
+                "--synthetic", str((CHINESE_ARCH_WARM + CHINESE_ARCH_STEPS) * BATCH)]
+            ips, per_step, metrics, mem, trainer = cli_train_window(
+                argv, CHINESE_ARCH_WARM, CHINESE_ARCH_STEPS)
+        text_emb = recognizer_spec(trainer.cfg).num_class
+        print(f"[chinese] cli.run --arch={arch} --CHNSR --tpg OPT (text_emb {text_emb}), recipe "
+              f"flags: {CHINESE_ARCH_STEPS} steps at batch {BATCH} after {CHINESE_ARCH_WARM}: "
+              f"images/s {ips:.1f}, max memory {mem:.2f} GiB; launches per step "
+              f"{json.dumps(per_step)} (want {json.dumps(want)}); loss_sr "
+              f"{[round(v, 4) for v in metrics['loss_sr']]} ({smi})")
+        if per_step != {k: float(v) for k, v in want.items()} or text_emb != N_CHINESE:
+            fail(f"--CHNSR --arch={arch}: launches per step {per_step} (want {want}), "
+                 f"text_emb {text_emb}")
+        if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
+            fail(f"--CHNSR --arch={arch}: non-finite training metrics")
+        del trainer
 
 
 def _tail_folders(tmp: str) -> dict:
@@ -2945,6 +3074,105 @@ def bf16_phase(smi: str, repeats: int = 1):
     return [f for f, _ in rows], [b for _, b in rows], launches
 
 
+def query_gru_ms(geometry: dict) -> tuple:
+    """The TP Interpreter's query GRU (``query_pos``: the BiGRU over the
+    query table's columns, hidden lr_h * 32, a plain loop) of the
+    full-width TATT at ``geometry``, batch 64 on the card: (forward ms,
+    forward + backward ms, hidden, steps)."""
+    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True,
+                width=geometry["width"], height=geometry["height"],
+                scale_factor=geometry["down_sample_scale"])
+    interp = init_parameters(tatt, 3).infoGen.to(DEV)
+    fh, fw = interp.output_size
+
+    def fwd_bwd():
+        interp.zero_grad(set_to_none=True)
+        interp.query_pos(BATCH).sum().backward()
+
+    with torch.no_grad():
+        fwd = timed_ms(lambda: interp.query_pos(BATCH), 5)
+    return fwd, timed_ms(fwd_bwd, 5), fh * 32, fw
+
+
+def geometry_phase(smi: str) -> tuple:
+    """Phase 19: the YAML's geometry (checks and numbers in the module
+    docstring).  Returns the f32 and bf16 kernel rows at the new lengths
+    (forward, backward, bf16 forward, bf16 backward)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(19)
+    fwd, bwd, bf_fwd, bf_bwd = [], [], [], []
+    for name, length, rows, cin, cmid, hid in GEOMETRY_SHAPES:
+        with torch.no_grad():
+            fwd.append(check_gru(name, length, rows, cin, cmid, hid, gen))
+        bwd.append(check_gru_bwd(name, length, rows, cin, cmid, hid, gen))
+        f16, b16 = check_bf16(name, "gru", length, rows, cin, cmid, hid, gen)
+        bf_fwd.append(f16)
+        bf_bwd.append(b16)
+        print(f"[build] bigru_fwd plan at H={hid} R={rows}: {json.dumps(fwd[-1]['plan'])}; bf16 "
+              f"{json.dumps(f16['plan'])}")
+        print(f"[build] bigru_bwd plan at H={hid} R={rows}: {json.dumps(bwd[-1]['plan'])}; bf16 "
+              f"{json.dumps(b16['plan'])}")
+    for f, bk, f16, b16 in zip(fwd, bwd, bf_fwd, bf_bwd):
+        for tag, row in (("kernel", f), ("kernel-bwd", bk), ("bf16-kernel", f16),
+                         ("bf16-kernel-bwd", b16)):
+            print(f"[geometry-{tag}] " + json.dumps(row))
+        print_gru(f)
+        print_bwd_split("gru-bwd", bk, GRU_BWD_ENTRIES)
+        print(f"[geometry] {f['shape']} L={f['L']} R={f['R']} ({smi}): bigru_fwd {f['kernel_ms']:.4f} "
+              f"ms (bound {f['bound_ms']:.4f} {f['bound_by']}, plain {f['plain_ms']:.3f}, nn.GRU "
+              f"{f['library_ms']:.4f}); bigru_bwd {bk['kernel_ms']:.4f} ms (bound {bk['bound_ms']:.4f} "
+              f"{bk['bound_by']}, plain {bk['plain_ms']:.3f}, nn.GRU forward + backward "
+              f"{bk['library_ms']:.4f}); bf16 {f16['kernel_ms']:.4f} / {b16['kernel_ms']:.4f} ms "
+              f"(f32 in turns {f16['f32_kernel_ms']:.4f} / {b16['f32_kernel_ms']:.4f}; bound "
+              f"{f16['bound_ms']:.4f} / {b16['bound_ms']:.4f}; plain {f16['plain_ms']:.3f} / "
+              f"{b16['plain_ms']:.3f}; nn.GRU bf16 {f16['library_ms']} / {b16['library_ms']})")
+        if not f["max_abs_err"] <= KERNEL_ATOL:
+            fail(f"kernel {f['shape']}: err {f['max_abs_err']} > {KERNEL_ATOL}")
+        if not (bk["ok"] and f16["ok"] and b16["ok"]):
+            fail(f"kernel {f['shape']}: backward {bk['scaled_err']}, bf16 {f16} / {b16}")
+
+    # the TP Interpreter's query GRU at the default LR and at 256x64's
+    for geo in ({"width": 128, "height": 32, "down_sample_scale": 2}, GEOMETRIES["256x64"]):
+        q_fwd, q_fb, q_hid, q_len = query_gru_ms(geo)
+        print(f"[geometry] query GRU at {geo['width']}x{geo['height']} (hidden {q_hid} over {q_len} "
+              f"steps, plain loop) at batch {BATCH}: forward {q_fwd:.3f} ms, forward + backward "
+              f"{q_fb:.3f} ms ({smi})")
+
+    # the recipe at 256x64 and tsrn at scale 4 through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (flags, geo, want) in GEOMETRY_RUNS.items():
+            yaml = os.path.join(tmp, f"{geo}.yaml")
+            with open(yaml, "w") as fh:
+                fh.write(f"TRAIN:\n  batch_size: {BATCH}\n  saveInterval: 0\n"
+                         + "".join(f"  {k}: {v}\n" for k, v in GEOMETRIES[geo].items())
+                         + f"  ckpt_dir: '{os.path.join(tmp, 'ckpt')}'\n  VAL:\n"
+                         "    valInterval: 0\n    crnn_pretrained: ''\n")
+            argv = flags + ["--config", yaml, "--log_dir", "", "--synthetic",
+                            str((GEOMETRY_WARM + GEOMETRY_STEPS) * BATCH)]
+            ips, per_step, metrics, mem, trainer = cli_train_window(argv, GEOMETRY_WARM,
+                                                                     GEOMETRY_STEPS)
+            hr = next(iter(trainer.loader)).images_hr.shape
+            print(f"[geometry] cli.run {name} (HR {hr[2]}x{hr[1]}): {GEOMETRY_STEPS} steps at batch "
+                  f"{BATCH} after {GEOMETRY_WARM}: images/s {ips:.1f}, max memory {mem:.2f} GiB; "
+                  f"launches per step {json.dumps(per_step)} (want {json.dumps(want)}); loss_sr "
+                  f"{[round(v, 4) for v in metrics['loss_sr']]} ({smi})")
+            g = GEOMETRIES[geo]
+            if per_step != {k: float(v) for k, v in want.items()} or hr[1:3] != (g["height"],
+                                                                                   g["width"]):
+                fail(f"{name}: launches per step {per_step} (want {want}), HR {hr}")
+            if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
+                fail(f"{name}: non-finite training metrics")
+            del trainer
+
+    # one recipe step at 256x64, batch 8: card against CPU, leaf by leaf
+    card_vs_cpu_step("geometry-step", StepConfig(), 1, 1, STEP_LAUNCHES, with_f64=False,
+                     geometry=GEOMETRIES["256x64"])
+    # one tsrn step at scale 4, batch 8, as the CLI run above trains it
+    plain_card_vs_cpu_step(GEOMETRIES["scale4"])
+    print(f"[geometry] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return fwd, bwd, bf_fwd, bf_bwd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -2986,6 +3214,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16-repeats", type=int, default=1, metavar="N",
                     help="phase 18's falling-loss_sr gate over N bf16 runs from other seeds (its "
                          "margin; the run itself gates the first)")
+    ap.add_argument("--geometry-only", action="store_true",
+                    help="run phases 1 and 19 alone (the YAML's geometry: 256x64, scale 4); "
+                         "prints no result line")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -3054,6 +3285,10 @@ def main(argv=None) -> int:
         return 0
     if args.bf16_only:
         bf16_phase(smi, args.bf16_repeats)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.geometry_only:
+        geometry_phase(smi)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -3246,6 +3481,9 @@ def main(argv=None) -> int:
     # ---- 18. bf16 training: the kernels' bf16 instantiations, the step, the recipe, eval
     bf16_fwd_rows, bf16_bwd_rows, bf16_launches = bf16_phase(smi, args.bf16_repeats)
 
+    # ---- 19. the YAML's geometry: 256x64, scale 4; kernels #1 and #2 at their new lengths
+    geo_fwd, geo_bwd, geo_bf_fwd, geo_bf_bwd = geometry_phase(smi)
+
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the
     # student's and the teacher's rnn0 and rnn1 forward, the student's backward)
@@ -3256,11 +3494,12 @@ def main(argv=None) -> int:
         return out
 
     kernels = []
+    geo_bf = {"bigru_fwd": geo_bf_fwd, "bigru_bwd": geo_bf_bwd}
     for name, src, rep, rows, checked in (
         ("bigru_fwd", "tatt_tpu_torch/csrc/bigru_fwd.cu", "tatt_tpu/kernels/pallas_gru.py:63",
-         gru_rows[2:4], gru_rows + degrade_fwd_rows),
+         gru_rows[2:4], gru_rows + degrade_fwd_rows + geo_fwd),
         ("bigru_bwd", "tatt_tpu_torch/csrc/bigru_bwd.cu", "tatt_tpu/kernels/pallas_gru.py:132",
-         gru_bwd_rows[:2], gru_bwd_rows + degrade_bwd_rows),
+         gru_bwd_rows[:2], gru_bwd_rows + degrade_bwd_rows + geo_bwd),
         ("bilstm_fwd", "tatt_tpu_torch/csrc/bilstm_fwd.cu", "tatt_tpu/kernels/pallas_lstm.py:22",
          lstm_rows[:2], lstm_rows + judge_lstm_rows + chinese_lstm_rows),
         ("bilstm_bwd", "tatt_tpu_torch/csrc/bilstm_bwd.cu", "tatt_tpu/kernels/pallas_lstm.py:53",
@@ -3282,7 +3521,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name + "_bf16", "route": "cuda", "source": src, "replaces": rep,
             "launches": bf16_launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in bf_rows),
+            "max_abs_err": max(r["max_abs_err"] for r in bf_rows + geo_bf.get(name, [])),
             "ms": m["kernel_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })

@@ -71,13 +71,13 @@ alphabet, and the ``chinese`` accuracy filter, as
       --mask --use_distill --gradient --sr_share --stu_iter=1 \\
       --rotate_train=5.0 --tssim_loss --synthetic 512 --max_iters 100
 
-``--tiny_tpg`` shrinks the TPG to ``output_channel`` 64, hidden 32.  Three
+Every arch of ``ABLATION_SET`` trains on that path, its prior 3965 wide.
+``--tiny_tpg`` shrinks the TPG to ``output_channel`` 64, hidden 32.  Two
 combinations are refused with the JAX package's reason, because it fails on
 them: ``--CHNSR`` without ``--tpg OPT`` (the 37-class CRNN's prior meets a
-generator built for 3965 classes), ``--tpg OPT`` with a teacher file
+generator built for 3965 classes) and ``--tpg OPT`` with a teacher file
 (``--crnn_pretrained`` or the YAML's: JAX reads it as a CRNN and hands the
-CRNN's variables to the TPG), and ``--CHNSR`` with a text-prior arch other
-than ``tatt`` ("not ported yet": only ``tatt`` takes the 3965-wide prior).
+CRNN's variables to the TPG).
 
 ``--arch=bicubic`` is refused in every mode: BICUBIC has no parameters, so
 there is nothing to train or to checkpoint (the JAX CLI accepts it and
@@ -106,9 +106,16 @@ yet.  As in the JAX package the flag acts in that step alone: the plain
 step's archs train, and ``--go_test`` / ``--test`` / ``--demo`` evaluate,
 in float32 (with a warning).
 
+The YAML's ``TRAIN.width``, ``TRAIN.height`` and ``TRAIN.down_sample_scale``
+set the crops, the generators and the evaluation, as in JAX.  Two of their
+combinations are refused with the JAX package's reason: ``pcan`` /
+``pcan_tl`` at an LR crop below 15 rows or columns (HOTA pools it to
+nothing, and JAX fails), and training with ``--STN`` at an LR crop below
+16 rows or 32 columns (the STN head pools it to nothing, and JAX trains it
+to NaN), as the recipe at ``down_sample_scale: 4`` of a 32-row crop.
+
 Refused with "not ported yet": any other flag (``--dp_devices``,
-``--bn_per_replica``, ...), and a YAML the port does not serve; nothing
-is silently ignored.  Without weights the generators
+``--bn_per_replica``, ...); nothing is silently ignored.  Without weights the generators
 and the students / teacher start from initial weights seeded by
 ``TRAIN.manualSeed``.
 """
@@ -135,14 +142,16 @@ from tatt_tpu_torch.data.variants import BadSetFolderDataset, IC15TextSRDataset
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.factory import (
-    ABLATION_SET, BF16_ARCHS, arch_steps, build_generator, recognizer_spec,
+    ABLATION_SET, BF16_ARCHS, STN_ARCHS, arch_steps, build_generator, recognizer_spec,
 )
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer
 from tatt_tpu_torch.models.recognizers.crnn import crnn_widths
 from tatt_tpu_torch.models.recognizers.moran import MORAN
+from tatt_tpu_torch.models.stn import pooled_map
+from tatt_tpu_torch.models.zoo.pcan import hota_pooled
 from tatt_tpu_torch.train.demo import run_demo
 from tatt_tpu_torch.train.judge import make_judge
-from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies
+from tatt_tpu_torch.train.loop import Evaluator, Trainer, copies, geometry_of
 
 STEP_FLAGS = ("STN", "mask", "gradient", "use_distill", "use_label", "ssim_loss", "tssim_loss",
               "sr_share", "tpg_share", "for_cascading", "y_domain", "learning_STN",
@@ -166,6 +175,18 @@ OPT_TEACHER_REFUSAL = (
     "--tpg OPT with a teacher file ({path}): the file is read as a CRNN, and CRNN weights do "
     "not fit the TPG recognizer (the JAX package imports it with import_crnn and fails too: "
     "'Could not find parameter named \"kernel\" in scope \"/FeatureExtraction/conv0_1_conv\"')")
+# the YAML's geometries the JAX package cannot run: an LR crop that a
+# module pools to nothing (models/stn.py:pooled_map, models/zoo/pcan.py:hota_pooled)
+STN_LR_REFUSAL = (
+    "--STN with an LR crop of {h}x{w} (TRAIN.height / width over down_sample_scale): the STN "
+    "head pools it to nothing (it needs 16 rows and 32 columns), and the JAX package trains it "
+    "to NaN: its BatchNorm over the empty maps gives NaN gradients, which the per-model "
+    "clipping spreads to every generator weight at the first step")
+HOTA_LR_REFUSAL = (
+    "--arch={arch} with an LR crop of {h}x{w} (TRAIN.height / width over down_sample_scale): "
+    "HOTA's 8x8 pool takes no window of the halved crop (it needs 15 rows and columns), so "
+    "there is nothing to resize back (the JAX package fails on it too: 'IndexError: index -1 is "
+    "out of bounds for axis 1 with size 0')")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -222,7 +243,9 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     """(the config tree, the parsed namespace with the extras that are
     not ``Flags``: ``synthetic``, ``max_iters``, the ``*_pretrained``
     paths, ``device``).  Raises SystemExit("not ported yet: ..."),
-    SystemExit(BICUBIC_REFUSAL) and SystemExit(CHNSR_CRNN_REFUSAL)."""
+    SystemExit(BICUBIC_REFUSAL), SystemExit(CHNSR_CRNN_REFUSAL), and for a
+    geometry the JAX package cannot run SystemExit(HOTA_LR_REFUSAL) or
+    SystemExit(STN_LR_REFUSAL)."""
     args, unknown = build_parser().parse_known_args(argv)
     if args.arch == "bicubic":
         raise SystemExit(BICUBIC_REFUSAL)
@@ -234,18 +257,19 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
         (bf16_train and args.arch in ABLATION_SET and args.arch not in BF16_ARCHS,
          f"--dtype bfloat16 with --arch={args.arch}"),
         (bf16_train and args.tpg == "OPT", "--dtype bfloat16 with --tpg OPT"),
-        (args.CHNSR and args.arch in ABLATION_SET and args.arch != "tatt",
-         f"--CHNSR with --arch={args.arch} (only tatt takes the 3965-wide prior)"),
     ]
     for bad, what in refused:
         if bad:
             raise SystemExit(f"not ported yet: {what}")
     names = {f.name for f in dataclasses.fields(Flags)}
     flags = Flags(**{k: v for k, v in vars(args).items() if k in names})
-    try:
-        cfg = load_config(args.config, flags)
-    except ValueError as exc:  # a YAML the port does not serve
-        raise SystemExit(str(exc)) from exc
+    cfg = load_config(args.config, flags)
+    h, w = (getattr(cfg.TRAIN, k) // cfg.scale_factor for k in ("height", "width"))
+    if args.arch in ("pcan", "pcan_tl") and 0 in hota_pooled((h, w)):
+        raise SystemExit(HOTA_LR_REFUSAL.format(arch=args.arch, h=h, w=w))
+    training = not (args.go_test or args.test or args.demo)
+    if training and args.STN and args.arch in STN_ARCHS and 0 in pooled_map((h, w)):
+        raise SystemExit(STN_LR_REFUSAL.format(h=h, w=w))
     return cfg, args
 
 
@@ -434,7 +458,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
             workers=max(cfg.TRAIN.workers, 1), stu_iter=a.stu_iter, for_cascading=a.for_cascading,
             lpips=lpips, n_vis=cfg.TRAIN.VAL.n_vis if a.vis else 0,
             vis_root=os.path.join("demo", cfg.vis_dir), sr_fn=sr_fn,
-            spec=recognizer_spec(cfg),
+            spec=recognizer_spec(cfg), **geometry_of(cfg),
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")

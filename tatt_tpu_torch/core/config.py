@@ -12,10 +12,11 @@ reads only ``text_emb``, the recognizer's class count, which follows
 ``--tpg`` and ``--CHNSR`` choose is read in one place,
 ``tatt_tpu_torch.models.factory.recognizer_spec``.
 
-:func:`load_config` refuses, with "not ported yet", a YAML whose geometry
-differs from what the port's collate serves (``width`` 128, ``height``
-32, ``down_sample_scale`` 2).  ``voc_type`` filters the LMDB labels;
-``chinese`` reads the 3965-character table.
+``TRAIN.width``, ``TRAIN.height`` and ``TRAIN.down_sample_scale`` (the HR
+crop and the scale; the LR crop is ``width // scale`` x ``height //
+scale``) reach the collate, the generators, the STN and the evaluator,
+as in JAX.  ``voc_type`` filters the LMDB labels; ``chinese`` reads the
+3965-character table.
 """
 
 from __future__ import annotations
@@ -25,9 +26,6 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import yaml
-
-# what the port's collate serves (data/collate.py: HR_SIZE, LR_SIZE)
-PORTED_GEOMETRY = {"width": 128, "height": 32, "down_sample_scale": 2}
 
 
 @dataclass
@@ -190,8 +188,7 @@ _NESTED = {"ValConfig": ValConfig}
 
 def load_config(yaml_path: Optional[str] = None, flags: Optional[Flags] = None) -> Config:
     """The reference YAML schema into the typed tree, ``flags`` as
-    ``Config.args``.  Raises ``ValueError("not ported yet: ...")`` for a
-    YAML the port does not serve."""
+    ``Config.args``."""
     cfg = Config()
     if yaml_path:
         with open(yaml_path) as fh:
@@ -200,8 +197,4 @@ def load_config(yaml_path: Optional[str] = None, flags: Optional[Flags] = None) 
                      TEST=_coerce(TestConfig, raw.get("TEST")))
     if flags is not None:
         cfg.args = flags
-    bad = [f"TRAIN.{k}={getattr(cfg.TRAIN, k)} (only {v})"
-           for k, v in PORTED_GEOMETRY.items() if getattr(cfg.TRAIN, k) != v]
-    if bad:
-        raise ValueError(f"not ported yet: {', '.join(bad)}")
     return cfg

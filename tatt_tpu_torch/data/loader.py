@@ -4,8 +4,10 @@
 es of ``batch_size``, shuffled per epoch by ``np.random.default_rng(seed +
 epoch)`` as the JAX loader shuffles (the same seed gives the same batches),
 the last short batch dropped when ``drop_last``; ``y_domain`` adds the
-``YCbCr`` crops to each batch, ``syn`` collates as ``--syn`` does, and
-``alphabet`` is the one the label fields are encoded over
+``YCbCr`` crops to each batch, ``syn`` collates as ``--syn`` does (without
+the pseudo-LR crops, which no step reads), ``alphabet`` is the one the
+label fields are encoded over and ``width``, ``height`` and
+``down_sample_scale`` the crops' geometry, ``TRAIN``'s
 (:func:`~tatt_tpu_torch.data.collate.collate`).  The collate's draws come
 from a seed of (seed, epoch, batch index) (``tatt_tpu/data/loader.py:61-71``),
 and the dataset's from its own per-sample keys (``set_epoch``).
@@ -35,7 +37,8 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 1234, num_workers: int = 1,
                  prefetch: int = 2, y_domain: bool = False, alphabet: str = CRNN_ALPHABET,
-                 syn: bool = False):
+                 syn: bool = False, width: int = 128, height: int = 32,
+                 down_sample_scale: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -46,6 +49,7 @@ class DataLoader:
         self.y_domain = y_domain
         self.alphabet = alphabet
         self.syn = syn
+        self.geometry = dict(width=width, height=height, down_sample_scale=down_sample_scale)
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -54,7 +58,8 @@ class DataLoader:
 
     def _build(self, sel: np.ndarray, batch_idx: int, epoch: int) -> Batch:
         return collate([self.dataset[int(i)] for i in sel], self.y_domain, self.alphabet,
-                       syn=self.syn, seed=sample_key(self.seed, epoch, batch_idx))
+                       syn=self.syn, seed=sample_key(self.seed, epoch, batch_idx),
+                       pseudo_lr=False, **self.geometry)
 
     def __iter__(self) -> Iterator[Batch]:
         idx = np.arange(len(self.dataset))

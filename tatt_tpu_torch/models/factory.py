@@ -70,6 +70,9 @@ THREE_CHANNEL_ARCHS = ("srcnn", "rdn", "vdsr", "edsr", "lapsrn", "han")
 # bn_copies field (loop.py:240-253; TATT, TSRN_TL, TSRN_TL_SFT), every other
 # arch of ABLATION_SET takes two forwards of B
 FUSED_TSSIM_ARCHS = ("tatt", "tsrn_tl_cascade", "tsrn_tl_cascade_sft")
+# the archs whose generator has the STN head that --STN turns on (the
+# trunk of models/tsrn.py); the zoo's ignore the flag, as in JAX
+STN_ARCHS = ("tatt", "tsrn", "sem_tsrn", "tsrn_c2f", "tsrn_tl_cascade", "tsrn_tl_cascade_sft")
 # the archs of ABLATION_SET whose bf16 TATT step (``--dtype bfloat16``) is
 # held against the JAX package's (tests/test_torch_bf16_step.py); the CLI
 # refuses the others under the flag, as not ported yet (ROADMAP A.7b)
@@ -208,11 +211,18 @@ def _geometry(cfg: Config) -> dict:
     return dict(width=cfg.TRAIN.width, height=cfg.TRAIN.height)
 
 
+def _prior(cfg: Config) -> dict:
+    """A text-prior arch's ``text_emb``, the prior's width: the
+    recognizer's classes, 37 or 3965 under ``--CHNSR`` (flax infers it
+    from the prior; a torch layer is sized by it)."""
+    return dict(text_emb=recognizer_spec(cfg).num_class)
+
+
 @register("tatt")
 def _tatt(cfg: Config):
     # the TP decoder uses the stem features as queries, so the prior width
-    # is 2 * hidden_units; its input, the recognizer's classes
-    return TATT(**_trunk_args(cfg), **_geometry(cfg), text_emb=recognizer_spec(cfg).num_class,
+    # is 2 * hidden_units
+    return TATT(**_trunk_args(cfg), **_geometry(cfg), **_prior(cfg),
                 out_text_channels=2 * cfg.args.hd_u)
 
 
@@ -223,24 +233,25 @@ def _tsrn(cfg: Config):
 
 @register("tsrn_tl_cascade")
 def _tsrn_tl(cfg: Config):
-    # text_emb 37 and out_text_channels 64: the constructors' defaults are
-    # the JAX package's ModelConfig defaults (tatt_tpu/core/config.py:71-72)
-    return TSRN_TL(**_trunk_args(cfg), **_geometry(cfg))
+    # out_text_channels 64: the constructor's default is the JAX package's
+    # ModelConfig default (tatt_tpu/core/config.py:72)
+    return TSRN_TL(**_trunk_args(cfg), **_geometry(cfg), **_prior(cfg))
 
 
 @register("tsrn_tl_cascade_sft")
 def _tsrn_tl_sft(cfg: Config):
-    return TSRN_TL_SFT(**_trunk_args(cfg), **_geometry(cfg), out_text_channels=2 * cfg.args.hd_u)
+    return TSRN_TL_SFT(**_trunk_args(cfg), **_geometry(cfg), **_prior(cfg),
+                       out_text_channels=2 * cfg.args.hd_u)
 
 
 @register("tsrn_c2f")
 def _tsrn_c2f(cfg: Config):
-    return TSRN_C2F(**_trunk_args(cfg))
+    return TSRN_C2F(**_trunk_args(cfg), **_geometry(cfg))  # the port's STN head needs it
 
 
 @register("sem_tsrn")
 def _sem_tsrn(cfg: Config):
-    return SEM_TSRN(**_trunk_args(cfg))
+    return SEM_TSRN(**_trunk_args(cfg), **_geometry(cfg))
 
 
 def _planes(cfg: Config) -> int:
@@ -260,30 +271,34 @@ def _zoo_trunk(cfg: Config) -> dict:
 # lapsrn and han 3 channels whatever --mask says (THREE_CHANNEL_ARCHS)
 _ZOO: dict[str, Callable[[Config], nn.Module]] = {
     "srcnn": lambda c: SRCNN(scale_factor=c.scale_factor, in_planes=3),
-    "srcnn_tl": lambda c: SRCNN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c)),
+    "srcnn_tl": lambda c: SRCNN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c),
+                                   **_prior(c)),
     "vdsr": lambda c: VDSR(scale_factor=c.scale_factor, in_planes=3),
-    "vdsr_tl": lambda c: VDSR_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c)),
+    "vdsr_tl": lambda c: VDSR_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c),
+                                 **_prior(c)),
     "scgan": lambda c: SCGAN(scale_factor=c.scale_factor, in_planes=_planes(c)),
-    "scgan_tl": lambda c: SCGAN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c)),
+    "scgan_tl": lambda c: SCGAN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_hr(c),
+                                   **_prior(c)),
     "bicubic": lambda c: BICUBIC(scale_factor=c.scale_factor),
     "srres": lambda c: SRResNet(scale_factor=c.scale_factor, mask=c.args.mask),
-    "srresnet_tl": lambda c: SRResNet_TL(scale_factor=c.scale_factor, mask=c.args.mask, **_hr(c)),
+    "srresnet_tl": lambda c: SRResNet_TL(scale_factor=c.scale_factor, mask=c.args.mask, **_hr(c),
+                                         **_prior(c)),
     "edsr": lambda c: EDSR(scale_factor=c.scale_factor),
     "lapsrn": lambda c: LapSRN(scale_factor=c.scale_factor, in_planes=3),
     "rdn": lambda c: RDN(scale_factor=c.scale_factor, in_planes=3),
-    "rdn_tl": lambda c: RDN_TL(scale_factor=c.scale_factor, in_planes=_planes(c)),
+    "rdn_tl": lambda c: RDN_TL(scale_factor=c.scale_factor, in_planes=_planes(c), **_prior(c)),
     "esrgan": lambda c: RRDBNet(scale_factor=c.scale_factor, in_nc=_planes(c), out_nc=_planes(c)),
     "esrgan_tl": lambda c: RRDBNet_TL(scale_factor=c.scale_factor, in_nc=_planes(c),
-                                      out_nc=_planes(c)),
+                                      out_nc=_planes(c), **_prior(c)),
     "han": lambda c: HAN(scale=c.scale_factor),
     "pcan": lambda c: PCAN(**_zoo_trunk(c)),
-    "pcan_tl": lambda c: PCAN_TL(**_zoo_trunk(c)),
+    "pcan_tl": lambda c: PCAN_TL(**_zoo_trunk(c), **_prior(c)),
     # the reference CLI lists tbsrn but its factory lacks the branch
     # (base.py:368-369); the JAX package wires it as evidently intended
     "tbsrn": lambda c: TBSRN(**_zoo_trunk(c)),
-    "tbsrn_tl": lambda c: TBSRN_TL(**_zoo_trunk(c)),
+    "tbsrn_tl": lambda c: TBSRN_TL(**_zoo_trunk(c), **_prior(c)),
     "tranSR_v4": lambda c: SRTransformerV4(
-        scale_factor=c.scale_factor, in_planes=_planes(c),
+        scale_factor=c.scale_factor, in_planes=_planes(c), **_prior(c),
         lr_size=(c.TRAIN.height // c.scale_factor, c.TRAIN.width // c.scale_factor)),
 }
 for _name, _build in _ZOO.items():

@@ -4,7 +4,10 @@
 ``STNHead`` is ``model/stn_head.py`` (the generator's, 16x64 in) or
 ``model/recognizer/stn_head.py`` (ASTER's, 32x64 in): six conv-BN-ReLU
 blocks pooling down to 1x2, then fc1 + BatchNorm1d + ReLU and fc2 to 20
-control points, fc2 starting at the identity border grid.  Module names follow the reference (``stn_head.stn_convnet.{0,2,..,10}``,
+control points, fc2 starting at the identity border grid.  fc1 reads the
+pooled map of the head's ``input_size`` (flax infers it from the input):
+512 inputs at 16x64, 2048 at 32x128, none at 8x32, whose map pools to no
+rows, as in JAX.  Module names follow the reference (``stn_head.stn_convnet.{0,2,..,10}``,
 ``stn_fc1``, ``stn_fc2``; ``torch_import.py:264-281``).  ``tps_transform``
 solves the TPS mapping from precomputed numpy matrices in f32 (TF32 off,
 ``core/device.py``) and samples bilinearly at those f32 positions, whatever
@@ -15,6 +18,7 @@ rounds the grid to the compute dtype: ROADMAP C.3).
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -131,29 +135,53 @@ class _FC2(nn.Module):
         self.bias.copy_(torch.from_numpy(ctrl.reshape(-1)))
 
 
+# each head's pools (None: no pool after that block) and input size
+_POOLS = {v: ((2, 2), (2, 2), (2, 2), (2, 2), last, None)
+          for v, last in (("generator", (1, 2)), ("aster", (2, 2)))}
+_INPUT = {"generator": (16, 64), "aster": (32, 64)}
+
+
+def pooled_map(input_size: tuple[int, int], variant: str = "generator") -> tuple[int, int]:
+    """The (H, W) of the head's last map for ``input_size`` images, pooled
+    as JAX's VALID windows pool (``common.py:586``): (1, 2) at 16x64, (2,
+    4) at 32x128, (0, 1) at 8x32, a map of nothing."""
+    h, w = input_size
+    for pool in _POOLS[variant]:
+        if pool is not None:
+            h, w = max((h - pool[0]) // pool[0] + 1, 0), max((w - pool[1]) // pool[1] + 1, 0)
+    return h, w
+
+
 class STNHead(nn.Module):
     """``stn.py:124-178``: [N, C, H, W] -> control points [N, K, 2].
     ``variant='generator'`` pools like the TATT generator's head (16x64
     input -> 1x2), ``variant='aster'`` like the ASTER recognizer's (five
-    2x2 pools, 32x64 input -> 1x2, ``model/recognizer/stn_head.py:33-44``)."""
+    2x2 pools, 32x64 input -> 1x2, ``model/recognizer/stn_head.py:33-44``).
+    ``input_size`` (H, W): the images it reads (None: the variant's), whose
+    :func:`pooled_map` fc1 reads; the generator's reads the LR crop.  A
+    map pooled to nothing gives fc1 no inputs, as in JAX; it is built (a
+    checkpoint holds it) but not run: JAX's BatchNorm over the empty maps
+    makes NaN gradients there (ROADMAP C.4), and torch refuses the conv."""
 
-    def __init__(self, in_planes: int, num_ctrlpoints: int = 20, variant: str = "generator"):
+    def __init__(self, in_planes: int, num_ctrlpoints: int = 20, variant: str = "generator",
+                 input_size: Optional[tuple[int, int]] = None):
         super().__init__()
         chans = (32, 64, 128, 256, 256, 256)
-        last = {"generator": (1, 2), "aster": (2, 2)}[variant]
-        pools = ((2, 2), (2, 2), (2, 2), (2, 2), last, None)
         layers, cin = [], in_planes
-        for c, pool in zip(chans, pools):
+        for c, pool in zip(chans, _POOLS[variant]):
             layers.append(_LayerBN(Conv2d(cin, c), BatchNorm2d(c)))
             if pool is not None:
                 layers.append(_Pool(pool))
             cin = c
+        h, w = self.pooled = pooled_map(input_size or _INPUT[variant], variant)
         self.num_ctrlpoints = num_ctrlpoints
         self.stn_convnet = nn.ModuleList(layers)
-        self.stn_fc1 = _LayerBN(Dense(2 * chans[-1], 512), BatchNorm1d(512))
+        self.stn_fc1 = _LayerBN(Dense(chans[-1] * h * w, 512), BatchNorm1d(512))
         self.stn_fc2 = _FC2(512, num_ctrlpoints)
 
     def forward(self, x: torch.Tensor, copies: int = 1) -> torch.Tensor:
+        if 0 in self.pooled:
+            raise ValueError(f"the STN head pools its {tuple(x.shape[2:])} input to nothing")
         for layer in self.stn_convnet:
             x = layer(x, copies)
         x = self.stn_fc1(x.flatten(1), copies)  # NCHW flatten, as fc1's weight expects

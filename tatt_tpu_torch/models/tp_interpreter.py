@@ -1,16 +1,20 @@
 """TP Interpreter: text prior -> spatial prior map by cross-attention
 (counterpart of ``tatt_tpu/models/tp_interpreter.py``).
 
-  text prior [N, 37, 1, 26] --fc_in + PReLU--> [N, 26, 64] text tokens
-  1 encoder layer over the 26 tokens (sinusoidal PE as pos)
-  learned query table (1024 x 64) smoothed by a BiGRU, used as query_pos
+  text prior [N, text_emb, 1, T] --fc_in + PReLU--> [N, T, 64] text tokens
+    (text_emb 37, or 3965 under --CHNSR; T 26, or the TPG's 129)
+  1 encoder layer over the T tokens (sinusoidal PE as pos)
+  learned query table (lr_h * lr_w x 64; 1024 x 64 at the 16x64 LR)
+    smoothed by a BiGRU, used as query_pos
   2 cross-attention decoder layers with tgt = flattened image features
-  mean over the normed decoder outputs -> [N, 64, 16, 64] prior map
+  mean over the normed decoder outputs -> [N, 64, lr_h, lr_w] prior map
 
 ``query_gru_mode``: ``width`` (default) scans the table along W, shared
 by the batch; ``reference`` reproduces the reference's batch_first quirk
 (the scan runs across the batch), needed for reference checkpoints.
-The query GRU has hidden 512 and stays on the plain path.  Dropout
+The query GRU reads lr_h * 64 wide columns with hidden lr_h * 32 over lr_w
+steps (512 over 64 at the 16x64 LR, 1024 over 128 at 32x128) and stays on
+the plain path.  Dropout
 (``rate`` with a generator) runs at the JAX sites, the positional encoding
 itself included (``tp_interpreter.py:76-79``).  The image features' dtype
 is the compute dtype: the prior, the positional table and the query table

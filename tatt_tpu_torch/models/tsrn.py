@@ -223,10 +223,11 @@ class _Trunk(nn.Module):
         lr_size: Optional[tuple[int, int]] = None,
     ) -> None:
         """``scale_factor`` None: no tail (the encoder).  ``lr_size``: the
-        STN's output size (None: the input's)."""
+        LR crop, the STN's input and output size (None: 16x64 in, the
+        input's size out)."""
         self.srb_nums, self.lr_size = srb_nums, lr_size
         if stn:
-            self.stn_head = STNHead(in_planes)
+            self.stn_head = STNHead(in_planes, input_size=lr_size)
         self.block1 = nn.Sequential(Conv2d(in_planes, ch, (9, 9), (4, 4)), PReLU())
         for i in range(srb_nums):
             setattr(self, f"block{i + 2}", make_block())
@@ -372,14 +373,16 @@ class TSRN_C2F(_Trunk):
     ``model/tsrn.py:696-761``; arch ``tsrn_c2f``): a coarse 9x9 projection
     of the trunk (``coarse_proj``) is concatenated onto it before the tail,
     whose blocks are ``2 * hidden_units + in_planes`` wide.  Returns
-    ``(out, coarse)``."""
+    ``(out, coarse)``.  ``width`` / ``height`` (the HR crop) size the STN
+    head's fc1, which flax infers from the input."""
 
     def __init__(self, scale_factor: int = 2, stn: bool = False, srb_nums: int = 5,
-                 mask: bool = True, hidden_units: int = 32):
+                 mask: bool = True, hidden_units: int = 32, width: int = 128, height: int = 32):
         super().__init__()
         ch, in_planes = 2 * hidden_units, 4 if mask else 3
         self._build_trunk(in_planes, ch, srb_nums, stn, lambda: RecurrentResidualBlock(ch),
-                          scale_factor, tail_channels=ch + in_planes)
+                          scale_factor, tail_channels=ch + in_planes,
+                          lr_size=(height // scale_factor, width // scale_factor))
         self.coarse_proj = Conv2d(ch, in_planes, (9, 9), (4, 4))
 
     def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None
@@ -418,14 +421,17 @@ class SEM_TSRN(_Trunk):
     ``model/tsrn.py:764-848``; arch ``sem_tsrn``): before each
     :class:`ReasoningResidualBlock` a linear head (``w2v_proj``) predicts a
     word vector from the pooled features.  Returns ``(out, pred_vecs)``;
-    the plain step reads ``out`` alone."""
+    the plain step reads ``out`` alone.  ``width`` / ``height``: as
+    :class:`TSRN_C2F`'s."""
 
     def __init__(self, scale_factor: int = 2, stn: bool = False, srb_nums: int = 5,
-                 mask: bool = True, hidden_units: int = 32, word_vec_d: int = 300):
+                 mask: bool = True, hidden_units: int = 32, word_vec_d: int = 300,
+                 width: int = 128, height: int = 32):
         super().__init__()
         ch = 2 * hidden_units
         self._build_trunk(4 if mask else 3, ch, srb_nums, stn,
-                          lambda: ReasoningResidualBlock(ch), scale_factor)
+                          lambda: ReasoningResidualBlock(ch), scale_factor,
+                          lr_size=(height // scale_factor, width // scale_factor))
         self.w2v_proj = Dense(ch, word_vec_d)
 
     def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None
@@ -441,8 +447,9 @@ class SEM_TSRN(_Trunk):
 class TATT(_Trunk):
     """The TATT generator (``tsrn.py:563-675``).
 
-    Input [N, 4, 16, 64] (RGB + mask) and the text prior [N, 37, 1, 26];
-    output [N, 4, 32, 128] in tanh range plus an aux dict."""
+    Input [N, 4, height / scale, width / scale] (RGB + mask; 16x64 by
+    default) and the text prior [N, text_emb, 1, T] (37 x 26 with the
+    CRNN); output [N, 4, height, width] in tanh range plus an aux dict."""
 
     def __init__(
         self,

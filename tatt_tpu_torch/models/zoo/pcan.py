@@ -40,6 +40,15 @@ class FeatureSelection(nn.Module):
         return x * torch.sigmoid(self.fc2(y))[:, :, None, None]
 
 
+def hota_pooled(lr_size: tuple[int, int]) -> tuple[int, int]:
+    """The (H, W) of HOTA's pooled map over an LR crop: its stride-2 convs
+    halve the crop (rounding up), then the 8x8 / 4 pool takes VALID
+    windows.  (1, 7) at 16x64; (0, 3) at 8x32, a map of nothing, whose
+    bilinear resize back fails in JAX (``tatt_tpu/kernels/resize.py:89``)
+    and whose pool torch refuses."""
+    return tuple(max((-(-n // 2) - 8) // 4 + 1, 0) for n in lr_size)
+
+
 class HOTA(nn.Module):
     """High-order attention (``pcan.py:40-83``): six stride-2 separable
     convolutions (vertical 3x1 and horizontal 1x3 kernels, dilations 1, 2,

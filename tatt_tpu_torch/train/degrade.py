@@ -30,9 +30,9 @@ def _first(out):
 
 def degrade_step(degrader: nn.Module, deblurrer: nn.Module, optimizer: torch.optim.Optimizer,
                  batch: dict, mask: bool = True) -> dict:
-    """``batch``: ``images_hr`` [B, 32, 128, 3] / ``images_lr`` [B, 16, 64, 3]
-    uint8 crops (normalized here, with the mask channel when ``mask``) or
-    float [B, C, H, W]; ``optimizer`` over both models, which are in
+    """``batch``: ``images_hr`` [B, H, W, 3] / ``images_lr`` [B, H/s, W/s, 3]
+    uint8 crops of any geometry (normalized here, with the mask channel
+    when ``mask``) or float [B, C, H, W]; ``optimizer`` over both models, which are in
     training mode.  Returns ``loss_total``, ``loss_degrade`` and
     ``loss_deblur`` as device scalars."""
     batch = prep_image_batch(batch, mask)

@@ -120,6 +120,13 @@ def copies(args: Flags) -> tuple[int, int]:
     return (1 if args.sr_share or n == 1 else n), (1 if args.tpg_share or n == 1 else n)
 
 
+def geometry_of(cfg: Config) -> dict:
+    """``TRAIN``'s crop geometry as the collate's keywords (JAX's
+    ``loop.py:365-367, 723-725``)."""
+    t = cfg.TRAIN
+    return dict(width=t.width, height=t.height, down_sample_scale=t.down_sample_scale)
+
+
 def step_config(args: Flags) -> StepConfig:
     """The train step's options from the flags (``loop.py:194-213``)."""
     return StepConfig(
@@ -135,7 +142,8 @@ def step_config(args: Flags) -> StepConfig:
 
 class Evaluator:
     """The ``--go_test`` protocol over a dataset of (HR, LR, label)
-    samples at the default geometry (HR 128x32, LR 64x16).  Models must
+    samples, collated at ``width`` x ``height`` (HR) and that over
+    ``down_sample_scale`` (LR): ``TRAIN``'s geometry.  Models must
     already sit on ``device`` in eval mode; ``generators`` / ``students``
     hold one module or one per ``stu_iter`` iteration.  ``judge`` reads
     images into strings (:func:`~tatt_tpu_torch.train.judge.make_judge`; a
@@ -166,6 +174,9 @@ class Evaluator:
         vis_root: str = os.path.join("demo", "demo"),
         sr_fn: Optional[Callable] = None,
         spec: RecognizerSpec = CRNN_SPEC,
+        width: int = 128,
+        height: int = 32,
+        down_sample_scale: int = 2,
     ):
         self.generators = list(generators)
         self.students = list(students)
@@ -179,11 +190,12 @@ class Evaluator:
         self.workers = workers
         self.lpips = lpips
         self.n_vis, self.vis_root = n_vis, vis_root
+        self.geometry = dict(width=width, height=height, down_sample_scale=down_sample_scale)
 
     def batches(self, dataset):
         """(HR, LR, labels) per batch, images normalized on the device."""
         for b in DataLoader(dataset, self.batch_size, shuffle=False, drop_last=False,
-                            num_workers=self.workers):
+                            num_workers=self.workers, **self.geometry):
             yield (*to_device(b, self.device, self.mask), b.label_strs)
 
     @torch.no_grad()
@@ -273,16 +285,16 @@ class Trainer:
             itertools.chain(*(m.parameters() for m in self.generators + self.students)),
             cfg.lr, cfg.TRAIN.beta1,
         )
-        workers, spec = max(cfg.TRAIN.workers, 1), recognizer_spec(cfg)
+        workers, spec, geometry = max(cfg.TRAIN.workers, 1), recognizer_spec(cfg), geometry_of(cfg)
         self.loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
                                  seed=cfg.TRAIN.manualSeed, num_workers=workers,
                                  y_domain=cfg.args.y_domain, alphabet=spec.alphabet,
-                                 syn=cfg.args.syn)
+                                 syn=cfg.args.syn, **geometry)
         self.evaluator = Evaluator(
             self.generators, self.students, judge or teacher, device,
             cfg.args.val_batch_size or cfg.batch_size, cfg.args.mask, workers, cfg.args.stu_iter,
             cfg.args.for_cascading, lpips, cfg.TRAIN.VAL.n_vis if cfg.args.vis else 0,
-            os.path.join("demo", cfg.vis_dir), sr_fn, spec,
+            os.path.join("demo", cfg.vis_dir), sr_fn, spec, **geometry,
         )
         self.val_datasets = val_datasets or {}
         self.ckpt_dir = os.path.join(cfg.TRAIN.ckpt_dir, cfg.vis_dir)

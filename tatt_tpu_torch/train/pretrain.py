@@ -40,11 +40,15 @@ import torch.nn.functional as F
 
 from tatt_tpu_torch.core.charset import CRNN_ALPHABET, ctc_greedy_decode, str_filt
 from tatt_tpu_torch.core.device import resolve_device, set_cuda_flags
-from tatt_tpu_torch.data.collate import HR_SIZE, batch_u8
+from tatt_tpu_torch.data.collate import batch_u8
 from tatt_tpu_torch.kernels.ctc import ctc_loss
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 
 T_LOGIT = 26  # the CRNN emits [26, B, C] (model/crnn/crnn.py:76-92)
+# the HR crops' size, whatever the YAML's TRAIN geometry: JAX's pretraining
+# stacks the dataset's crops as they come (tatt_tpu/train/pretrain.py:115-128),
+# which are 128x32; the CRNN reads a 32x100 resize of any size
+HR_SIZE = (128, 32)
 
 
 def encode_ctc_targets(labels, alphabet: str = CRNN_ALPHABET, max_len: int = 16):

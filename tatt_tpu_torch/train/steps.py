@@ -156,8 +156,9 @@ def train_step(
     (``stu_iter`` copies where ``sr_share`` / ``tpg_share`` is off), all in
     training mode;
     ``teacher`` in eval mode; ``optimizer`` over every copy.  ``batch`` on
-    the device: ``images_hr`` [B, 4, 32, 128] and ``images_lr`` [B, 4, 16,
-    64] (float, or uint8 NHWC crops normalized here), with ``y_domain``
+    the device: ``images_hr`` [B, 4, H, W] and ``images_lr`` [B, 4, H/s,
+    W/s] (float, or uint8 NHWC crops normalized here; 32x128 and 16x64 at
+    the default geometry), with ``y_domain``
     ``images_hr_y`` / ``images_lr_y``, with ``use_label`` ``ctc_targets``,
     ``ctc_lengths`` and ``weighted_tics``, optionally ``rot_arc`` /
     ``rot_offs``.  ``gen``: a generator on the device for the rotation and
@@ -347,7 +348,7 @@ def plain_train_step(
 
 @torch.no_grad()
 def plain_eval_step(generator: nn.Module, images_lr: torch.Tensor, channels: int = 4):
-    """``images_lr`` [N, 4, 16, 64] -> (SR of ``images_lr[:, :channels]``,
+    """``images_lr`` [N, 4, H/s, W/s] -> (SR of ``images_lr[:, :channels]``,
     {}): the plain archs' evaluation (``loop.py:318-329``), no prior, the
     first output of a model that returns several."""
     out = generator(images_lr[:, :channels])
@@ -363,7 +364,7 @@ def eval_step(
     for_cascading: bool = False,
     parse_fn: Callable = parse_crnn_input,
 ):
-    """``images_lr`` [N, 4, 16, 64] -> (SR of the last iteration, aux).
+    """``images_lr`` [N, 4, H/s, W/s] -> (SR of the last iteration, aux).
 
     ``generators`` / ``students`` hold one shared module (``--sr_share`` /
     ``--tpg_share``) or one per iteration.  At iteration i > 0 the student

@@ -17,9 +17,10 @@ tatt_tpu (JAX, CPU), at small widths (TATT ``srb 1``, ``hidden 4``; the
 - ``Evaluator`` (the teacher TPG as judge, the ``chinese`` filter) against
   JAX ``Trainer.evaluate`` on the same weights: PSNR within 0.01 dB, SSIM
   within 1e-3, accuracy and NED equal;
-- the CLI trains, saves and ``--go_test``s the path, refuses the
-  combinations the JAX package fails on with its reason, and a TPG
-  checkpoint does not load into a CRNN run, nor the reverse.
+- the CLI trains, saves and ``--go_test``s the path, trains it with
+  another text-prior arch, refuses the combinations the JAX package fails
+  on with its reason, and a TPG checkpoint does not load into a CRNN run,
+  nor the reverse.
 
 The student's gradient is held within 3e-2 of its largest entry: it comes
 from the distillation loss, whose margin term |teacher - student| has the
@@ -313,7 +314,6 @@ def test_cli_trains_and_go_tests_the_chinese_path(tmp_path, monkeypatch, capsys)
 
 @pytest.mark.parametrize("argv, reason", [
     (["--CHNSR"], "--CHNSR needs --tpg OPT"),
-    (["--CHNSR", "--tpg", "OPT", "--arch=tsrn_tl_cascade"], "not ported yet"),
     (["--tpg", "OPT", "--crnn_pretrained", "{crnn}"], "--tpg OPT with a teacher file"),
 ])
 def test_cli_refuses_what_jax_cannot_run(tmp_path, argv, reason):
@@ -324,6 +324,28 @@ def test_cli_refuses_what_jax_cannot_run(tmp_path, argv, reason):
     argv = [a.replace("{crnn}", str(crnn)) for a in argv]
     with pytest.raises(SystemExit, match=reason):
         cli.main(RECIPE[1:] + argv + ["--synthetic", "8", "--max_iters", "1"] + SHRUNK)
+
+
+def test_cli_serves_chnsr_with_another_text_prior_arch(tmp_path, monkeypatch):
+    """``--CHNSR --tpg OPT --arch=tsrn_tl_cascade`` (once refused as not
+    ported) trains through the CLI, its generator at the JAX factory's
+    3965-wide prior (tests/test_torch_chnsr_archs.py holds its step)."""
+    from tatt_tpu.core.config import Config as JConfig
+    from tatt_tpu.core.config import Flags as JFlags
+    from tatt_tpu.models import factory as jfactory
+
+    monkeypatch.chdir(tmp_path)
+    code, trainer = cli.run(["--arch=tsrn_tl_cascade", "--CHNSR", "--tpg", "OPT"] + RECIPE[1:]
+                            + ["--synthetic", "8", "--max_iters", "1"] + SHRUNK)
+    assert code == 0 and trainer.iters == 1 and isinstance(trainer.teacher, TPGModel)
+    jmodel = jfactory.build_generator("tsrn_tl_cascade", JConfig(args=JFlags(
+        arch="tsrn_tl_cascade", mask=True, STN=True, srb=1, hd_u=4)))
+    shapes = jax.eval_shape(lambda k: jmodel.init(k, jnp.zeros((2, 4, 16, 64)),
+                                                  jnp.zeros((2, N_CLASS, 1, 129)), train=True),
+                            jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in from_jax(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes), "tsrn_tl_cascade").items()}
+    assert {k: tuple(v.shape) for k, v in trainer.generators[0].state_dict().items()} == want
 
 
 @pytest.mark.parametrize("saved_tpg", [True, False], ids=["tpg-into-crnn", "crnn-into-tpg"])

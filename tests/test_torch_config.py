@@ -1,7 +1,8 @@
 """The port's YAML config (CPU) against the JAX package's ``load_config``:
 the same ``TRAIN`` / ``TEST`` trees (``dataclasses.asdict``, exact), the
-same flag-over-YAML properties, and a refusal of what the port's collate
-does not serve."""
+same flag-over-YAML properties, and a YAML of another geometry or
+vocabulary served (``tests/test_torch_geometry.py`` holds the geometry
+against JAX)."""
 
 import dataclasses
 import os
@@ -68,15 +69,19 @@ def test_flag_precedence_matches(tmp_path, flags_set):
 @pytest.mark.parametrize(
     "line", ["  width: 256", "  height: 64", "  down_sample_scale: 4", "  voc_type: chinese"]
 )
-def test_unserved_yaml_is_refused(tmp_path, line):
+def test_unserved_yaml_is_refused(tmp_path, line, capsys):
+    """Each YAML once refused is served: it loads as the JAX package loads
+    it (since the Chinese path for ``voc_type: chinese``, since the
+    geometry for ``width``, ``height`` and ``down_sample_scale``), and
+    ``--go_test`` evaluates at its geometry."""
     from tatt_tpu_torch.cli import main as cli
 
-    path = _yaml(tmp_path, f"TRAIN:\n{line}\n")
-    jload_config(path)  # the JAX package reads it
-    if "chinese" in line:  # served since the Chinese path (--CHNSR): it loads
-        assert load_config(path).TRAIN.voc_type == jload_config(path).TRAIN.voc_type == "chinese"
+    path = _yaml(tmp_path, f"TRAIN:\n{line}\n  VAL:\n    crnn_pretrained: ''\n")
+    ours, theirs = load_config(path), jload_config(path)
+    assert dataclasses.asdict(ours.TRAIN) == dataclasses.asdict(theirs.TRAIN)
+    if "chinese" in line:
+        assert ours.TRAIN.voc_type == "chinese"
         return
-    with pytest.raises(ValueError, match="not ported yet"):
-        load_config(path)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--go_test", "--synthetic", "8", "--config", path, "--device", "cpu"])
+    assert cli.main(["--go_test", "--mask", "--synthetic", "8", "--config", path, "--srb", "1",
+                     "--hd_u", "4", "--tiny_tpg", "--batch_size", "4", "--device", "cpu"]) == 0
+    assert "'images': 8" in capsys.readouterr().out

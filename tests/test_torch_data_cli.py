@@ -42,9 +42,8 @@ def test_syn_and_mixed_train_through_the_cli(tmp_path, capsys, flags):
     assert trainer.loader.syn == syn
     assert all(isinstance(d, MixDataset) == mixed for d in trainer.loader.dataset.datasets)
     batch = next(iter(trainer.loader))
-    assert (batch.images_pseudo_lr is not None) == syn
-    if syn:
-        assert batch.images_pseudo_lr.shape == (4, 16, 64, 3)
+    # no train step reads --syn's pseudo-LR crops: the train loader skips them
+    assert batch.images_pseudo_lr is None and batch.images_lr.shape == (4, 16, 64, 3)
     assert ("--device_collate changes nothing" in err) == ("--device_collate" in flags)
     assert ("--test_data_dir is parsed by the JAX CLI" in err) == ("--test_data_dir" in flags)
 

@@ -256,11 +256,16 @@ def test_blur_ensemble_matches(lr_crops, monkeypatch, p):
 
 # ---- the --syn collate and the seeded loader -------------------------------
 
-def _assert_batches_equal(b, jb, mask: bool = True):
+def _assert_batches_equal(b, jb, mask: bool = True, pseudo_lr: bool = True):
     """The port's uint8 batch, normalized as the card does, bit for bit
-    the JAX host collate's float batch; the label fields equal."""
+    the JAX host collate's float batch; the label fields equal.  Without
+    ``pseudo_lr`` (the train loader's batches) the port's batch has no
+    pseudo-LR crops where JAX's has them."""
     for name in ("images_hr", "images_lr", "images_pseudo_lr"):
         ours, theirs = getattr(b, name), getattr(jb, name)
+        if name == "images_pseudo_lr" and not pseudo_lr:
+            assert ours is None and theirs is not None
+            continue
         assert (ours is None) == (theirs is None), name
         if ours is not None:
             np.testing.assert_array_equal(host_normalize_u8(ours, mask), theirs, err_msg=name)
@@ -284,7 +289,8 @@ def test_syn_collate_matches_the_jax_collate(seed):
 def test_seeded_syn_loader_matches_the_jax_loader(tmp_path, pil_decode_in_jax, workers):  # noqa: F811
     """Two shuffled epochs of ``--syn`` batches over an LMDB (odd sizes,
     a corrupt record): the per-batch collate seed of (seed, epoch, batch
-    index) gives the JAX loader's batches for any worker count."""
+    index) gives the JAX loader's batches for any worker count, but for
+    the pseudo-LR crops, which the port's train loader does not build."""
     root = write_textzoom(str(tmp_path / "tz"), 10, seed=2)
     ours = DataLoader(LmdbTextDataset(root), 4, seed=7, num_workers=workers, syn=True)
     theirs = JDataLoader(JLmdbText(root), 4, seed=7, collate_kwargs=dict(syn=True))
@@ -292,7 +298,7 @@ def test_seeded_syn_loader_matches_the_jax_loader(tmp_path, pil_decode_in_jax, w
         got, want = list(ours), list(theirs)
         assert len(got) == len(want) == 2
         for b, jb in zip(got, want):
-            _assert_batches_equal(b, jb)
+            _assert_batches_equal(b, jb, pseudo_lr=False)
 
 
 # ---- the golden file the card's machine compares with --------------------
