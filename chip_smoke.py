@@ -85,7 +85,8 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      Trainer steps at batch 64 for tsrn, tsrn_c2f and sem_tsrn (the plain
      step) and tsrn_tl_cascade and tsrn_tl_cascade_sft (the TATT step),
      images/s and launches per step, falling loss_sr for tsrn and
-     tsrn_tl_cascade; one batch-8 tsrn step with --tssim_loss --mse_fuse,
+     tsrn_tl_cascade over 45 steps (the other three 12 steps, ungated);
+     one batch-8 tsrn step with --tssim_loss --mse_fuse,
      card against CPU, leaf by leaf; Evaluator images/s for tsrn; and
      ``cli.run --arch=tsrn`` for 4 steps, then ``--go_test`` of its best
      checkpoint against the summary saved with it
@@ -123,10 +124,9 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      then two more text-prior archs at the 3965-wide prior,
      ``tsrn_tl_cascade`` (the fused 2B step, 10/10/0/0 launches a step)
      and ``pcan_tl`` (two forwards of B, 20/20/0/0): a batch-8 step each
-     card against CPU, leaf by leaf (the student against the CPU float64
-     step within 3e-2, which TF32 planted in ``tsrn_tl_cascade``'s step
-     must exceed), and ``cli.run --arch=<arch> --CHNSR --tpg OPT`` at full
-     width, batch 64, 20 timed steps (images/s, peak memory, launches a
+     card against CPU, the generator leaf by leaf (the student's step is
+     ``tatt``'s, checked above), and ``cli.run --arch=<arch> --CHNSR --tpg OPT`` at full
+     width, batch 64, 10 timed steps (images/s, peak memory, launches a
      step)
  17. the data long tail, with no OpenCV: ``data/imgproc.py`` and
      ``data/degradation.py`` against OpenCV's outputs kept in
@@ -157,16 +157,25 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      outputs within one bf16 ulp or the f32 tolerance, f32 gradients
      within 1e-4 scaled), one launch each by the bf16 counters, timed in
      turns with the f32 instantiation, beside the bound at 2 bytes an
-     element, the twin and one cuDNN bf16 call; a batch-8 bf16 recipe step
-     on the card against the port's CPU bf16 step (every conv, dense and
-     recurrence in bf16 by forward hooks; 10/10/4/2 bf16 launches),
-     repeated, and with two faults planted on the card (cuBLAS's bf16
-     reduced-precision reduction, an f32-promoting PReLU); the recipe at
-     batch 64 through the CLI's parser and ``Trainer`` in bf16 and f32 in
-     turns (images/s, peak memory, bf16 launches a step, the
-     falling-``loss_sr`` gate over 45 steps, ``--bf16-repeats`` runs for
-     its margin, a profiled bf16 window); ``--go_test --dtype bfloat16``
-     equal to float32's summary
+     element, the twin and one cuDNN bf16 call; batch-8 bf16 steps on the
+     card against the port's CPU bf16 step (every conv, dense, BatchNorm,
+     PReLU and recurrence in bf16 by forward hooks), repeated, each with
+     faults planted on the card that a gate on the generator's or the
+     student's whole-model gradient gap must see: the recipe (10/10/4/2
+     bf16 launches; cuBLAS's bf16 reduced-precision reduction, read, and
+     an f32-promoting PReLU), ``srresnet_tl`` with the CRNN (0/0/4/2; the
+     PReLU) and ``tatt --CHNSR --tpg OPT`` (10/10/0/0; TF32, and the TPG's
+     BatchNorms promoting to f32); ``--stu_iter=2 --for_cascading`` with
+     separate copies through ``Trainer`` at batch 64 (20/20/6/4 bf16
+     launches a step, no f32 ones); train windows at batch 64 through the
+     CLI's parser and ``Trainer``, bf16 and f32 in turns (images/s, ms a
+     step, peak memory, bf16 launches a step): the recipe (the
+     falling-``loss_sr`` gate over 25 steps, ``--bf16-repeats`` runs for
+     its margin, a profiled bf16 window), the Chinese recipe (10/10/0/0,
+     its own falling-``loss_sr`` gate) and ``srresnet_tl`` (0/0/4/2);
+     ``--go_test --dtype bfloat16`` equal to float32's summary; and
+     ``cli.main --arch=tsrn_tl_cascade --dtype bfloat16`` refused with the
+     JAX package's reason
  19. the YAML's geometry (``TRAIN.width`` / ``height`` /
      ``down_sample_scale``): kernels #1 and #2, f32 and bf16, at the new
      lengths of a fused 2B batch of 64 (256x64: gru1 L=32 R=16384, gru2
@@ -251,6 +260,7 @@ from tatt_tpu_torch.models.factory import (  # noqa: E402
 )
 from tatt_tpu_torch.models.recognizers.tpg import TPGModel  # noqa: E402
 from tatt_tpu_torch.models.tsrn import TATT, TSRN  # noqa: E402
+from tatt_tpu_torch.models.zoo.resnets import SRResNet_TL  # noqa: E402
 from tatt_tpu_torch.train.judge import make_judge  # noqa: E402
 from tatt_tpu_torch.train.loop import (  # noqa: E402
     Evaluator, Trainer, copies, make_summary_writer, step_config, to_device,
@@ -317,6 +327,8 @@ RECIPE = ["--arch=tatt", "--STN", "--mask", "--use_distill", "--gradient", "--sr
           "--stu_iter=1", "--rotate_train=5.0", "--tssim_loss", "--test_model=CRNN"]
 DATA_TRAIN_N, DATA_VAL_N = 160, 100
 DATA_ITERS, DATA_INTERVAL, DATA_WORKERS = 8, 4, 4
+# LMDB train images/s by loader threads: steps a window, four windows in turns
+DATA_IPS_STEPS = 10
 RESUME_LR = 2e-4
 # the resumed run against the uninterrupted one: the first step's forward
 # reads only restored weights and the kernels are bitwise-repeatable; the
@@ -347,11 +359,13 @@ JUDGE_STEPS, JUDGE_RUN_STEPS, JUDGE_TRAIN_N, JUDGE_RENDER_S = 4000, 480, 16384, 
 # fused 2B forward once per stu_iter iteration (10 BiGRU forward and
 # backward each), the teacher's two BiLSTMs forward, each iteration's
 # student two forward (with c) and, where a loss reaches it, two backward.
-# 45 timed steps: after 30 the falling-loss_sr gate's last-5 median of
-# training_stablize + ssim_loss read 0.54-0.96x that of steps 2-4 over 5
-# runs of the whole script, and under 0.7x after 45 in every run of
-# scripts/loss_gate_margins.py
-FLAG_WARM, FLAG_STEPS = 2, 45
+# 33 timed steps (35 in all), 45 for training_stablize + ssim_loss: after
+# 30 the falling-loss_sr gate's last-5 median of that set read 0.54-0.96x
+# that of steps 2-4 over 5 runs of the whole script, 0.62-0.79x at 35 and
+# under 0.7x after 45 in every run of scripts/loss_gate_margins.py; the
+# other sets read at most 0.64x at 35 over 3 runs each
+FLAG_WARM, FLAG_STEPS = 2, 33
+FLAG_LONG, FLAG_LONG_STEPS = ("training_stablize + ssim_loss",), 45
 FLAG_SETS = {
     "recipe": ({}, STEP_LAUNCHES),
     "use_label": ({"use_label": True}, STEP_LAUNCHES),
@@ -390,6 +404,8 @@ JUDGE_TOL = 1e-3
 # 0.75x / 0.92x that of steps 2-4 over 5 runs, after 45 up to 0.67x /
 # 0.55x (scripts/loss_gate_margins.py)
 TSRN_WARM, TSRN_STEPS = 5, 40
+# the other three archs carry no gate: a short window each
+TSRN_GATED, TSRN_UNGATED_WARM, TSRN_UNGATED_STEPS = ("tsrn", "tsrn_tl_cascade"), 2, 10
 PLAIN_LAUNCHES = {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0}
 TSRN_ARCHS = {
     "tsrn": PLAIN_LAUNCHES,
@@ -429,7 +445,7 @@ ZOO_ARCHS = {
 # steps pcan_tl's last-5 median read 6.0-9.3 over 5 runs against 12.3-14.0
 # for steps 2-4, and once 12.36 against 12.27 (a run the gate stopped);
 # after 45 it read 4.2-5.3 (scripts/loss_gate_margins.py)
-ZOO_WARM, ZOO_STEPS = 2, 3
+ZOO_WARM, ZOO_STEPS = 1, 2
 ZOO_GATED, ZOO_GATED_WARM, ZOO_GATED_STEPS = ("pcan", "pcan_tl"), 5, 40
 ZOO_CLI_ITERS = 4
 # HAN at the YAML's lr 1e-3 diverges after its first Adam step, in the JAX
@@ -441,11 +457,14 @@ ZOO_LR = {"han": 1e-4}
 # its card-vs-CPU checks on 8 images (a full-width CPU forward of 64 takes
 # tens of seconds); launches per train step: the generator's fused 2B
 # forward and backward (10 BiGRUs each), no recurrence in the TPG (its
-# default sequence stage is "None"); Trainer steps as phase 14's
+# default sequence stage is "None"); Trainer steps as phase 14's, 25 in
+# all: the falling-loss_sr gate's last-5 median read 0.41-0.54x that of
+# steps 2-4 at 25 steps over 4 runs (0.37-0.45x at 45;
+# scripts/loss_gate_margins.py --chinese)
 N_CHINESE = 3965
 CHINESE_CHECK_BATCH = 8
 CHINESE_LAUNCHES = {"bigru_fwd": 10, "bigru_bwd": 10, "bilstm_fwd": 0, "bilstm_bwd": 0}
-CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 40, 4
+CHINESE_WARM, CHINESE_STEPS, CHINESE_CLI_ITERS = 5, 20, 4
 # phase 16's other text-prior archs at the 3965-wide prior, through the
 # CLI at full width, batch 64: tsrn_tl_cascade's fused 2B step (10 BiGRUs
 # a forward, as TATT), pcan_tl's two forwards of B (10 GruBlocks each);
@@ -454,7 +473,7 @@ CHINESE_ARCHS = {
     "tsrn_tl_cascade": CHINESE_LAUNCHES,
     "pcan_tl": {"bigru_fwd": 20, "bigru_bwd": 20, "bilstm_fwd": 0, "bilstm_bwd": 0},
 }
-CHINESE_ARCH_WARM, CHINESE_ARCH_STEPS = 2, 20
+CHINESE_ARCH_WARM, CHINESE_ARCH_STEPS = 2, 10
 # the batch-8 step's student: its gradient comes from the distillation
 # loss, whose margin term's sign flips where the seeded teacher's and
 # student's near-uniform probabilities over 3965 classes (~2.5e-4) differ
@@ -466,9 +485,9 @@ CHINESE_ARCH_WARM, CHINESE_ARCH_STEPS = 2, 20
 # CPU's float64 step within the fixed STUDENT_LEAF_TOL, and two planted
 # faults on the card, TF32 convolutions and matmuls and one BatchNorm's eps
 # doubled (FeatureExtraction.conv0_1_bn, 1e-5 -> 2e-5), must read above it
-# in tatt's step, and the TF32 fault in tsrn_tl_cascade's
+# in tatt's step (the other archs' steps check the generator alone)
 STUDENT_LEAF_TOL = 3e-2
-STUDENT_FAULTS = {"tatt": ("fault: tf32", "fault: bn eps"), "tsrn_tl_cascade": ("fault: tf32",)}
+STUDENT_FAULTS = {"tatt": ("fault: tf32", "fault: bn eps")}
 # phase 17, the data long tail: LMDBs of a few hundred crops; the recipe
 # through the CLI under --syn, under --mixed and on the plain LMDBs (a
 # warm-up call with the loader's 4 threads, then timed steps with one);
@@ -490,15 +509,57 @@ BF16_SHAPES = (
     ("student rnn0", "lstm", 26, BATCH, 512, None, 256),
     ("student rnn1", "lstm", 26, BATCH, 256, None, 256),
 )
-# the recipe at batch 64 in bf16 and f32, each warmed up, then two windows
-# of each in turns: 45 bf16 steps for the falling-loss_sr gate
-BF16_WARM, BF16_STEPS = 5, 20
+# the train windows at batch 64 in bf16 and f32, each warmed up, then two
+# windows of each in turns: (the CLI's flags, the crops, warm-up steps,
+# steps a window, bf16 launches a step, the falling-loss_sr gate over the
+# bf16 run's 25 steps): the recipe, the Chinese recipe (--CHNSR --tpg OPT:
+# TATT's BiGRUs, none in the TPG) and srresnet_tl with the CRNN (the
+# student's and the teacher's BiLSTMs, two forwards of B).  The gates'
+# last-5 median over that of steps 2-4 read at 25 steps at most 0.65x for
+# the recipe over 3 runs and 0.66x for the Chinese recipe over 5
+# (scripts/loss_gate_margins.py --bf16-windows)
+BF16_WARM, BF16_STEPS = 5, 10
+BF16_WINDOWS = {
+    "recipe": (RECIPE, "synthetic", BF16_WARM, BF16_STEPS, STEP_LAUNCHES, True),
+    "chinese": (RECIPE + ["--CHNSR", "--tpg", "OPT"], "chinese", BF16_WARM, BF16_STEPS,
+                CHINESE_LAUNCHES, True),
+    "srresnet_tl": (["--arch=srresnet_tl"] + RECIPE[1:], "synthetic", 2, 5, ZOO_TL, False),
+}
+BF16_STU_ITER_STEPS = 3
 BF16_CARD_REPEATS = 2
-# the batch-8 bf16 step, card vs CPU: the generator's and the student's
-# whole-model gradient gaps, with cuDNN's deterministic algorithms
-# 3.555e-3 and 0.0919 in every run on an H100 80GB HBM3 at 700 W, an
-# f32-promoting PReLU 4.92e-3 (scripts/bf16_step_gate.py)
-BF16_STEP_TOL, BF16_STUDENT_TOL = 4.2e-3, 0.15
+# the batch-8 bf16 steps, card vs CPU, with cuDNN's deterministic
+# algorithms: (arch, --tpg, --CHNSR, bf16 launches a step, the planted
+# faults, the gates: on the generator's and the student's whole-model
+# gradient gaps, the faults that must exceed one of them, and the faults
+# that the dtype hooks must see).  Readings on an H100 80GB HBM3 at 700 W
+# (scripts/bf16_step_gate.py), each the same in every run of a call:
+# - the recipe: generator 3.555e-3, student 0.0919; an f32-promoting
+#   PReLU 4.92e-3;
+# - srresnet_tl: generator 2.7250e-3, student 0.0919 (the recipe's: the
+#   student's step reads neither the generator nor its gradient) in 5
+#   runs over 2 calls; the PReLU 2.9111e-3 in both calls, TF32 2.7446e-3
+#   and the reduced-precision reduction 2.7696e-3 (read, not gated): bf16
+#   rounding card vs CPU is as large as these faults, and the readings
+#   repeat to five digits, so the gate sits between the sound reading and
+#   the PReLU's, and the hooks gate the PReLU too;
+# - the Chinese recipe: generator 3.020e-3, the TPG student 0.3731 (its
+#   train-mode bf16 gradient is ill-conditioned, ROADMAP C.4); TF32
+#   3.714e-2 / 0.5219, the TPG's BatchNorms promoting to f32 3.046e-3 /
+#   0.4449
+BF16_STEP_CASES = {
+    "recipe": ("tatt", "CRNN", False, STEP_LAUNCHES,
+               ("bf16 reduced-precision reduction", "PReLU promotes to f32"),
+               {"generator": 4.2e-3, "student": 0.15, "faults": ("PReLU promotes to f32",),
+                "hooked": ("PReLU promotes to f32",)}),
+    "srresnet_tl": ("srresnet_tl", "CRNN", False, ZOO_TL,
+                    ("PReLU promotes to f32", "tf32", "bf16 reduced-precision reduction"),
+                    {"generator": 2.8e-3, "student": 0.15, "faults": ("PReLU promotes to f32",),
+                     "hooked": ("PReLU promotes to f32",)}),
+    "chinese": ("tatt", "OPT", True, CHINESE_LAUNCHES, ("tf32", "TPG BatchNorm promotes to f32"),
+                {"generator": 6e-3, "student": 0.41,
+                 "faults": ("tf32", "TPG BatchNorm promotes to f32"),
+                 "hooked": ("TPG BatchNorm promotes to f32",)}),
+}
 # phase 19, the YAML's geometry: the recipe through the CLI at 256x64
 # (scale 2, LR 32x128: 4x the pixels; the STN's fc1 reads 2048 inputs) and
 # tsrn at scale 4 (LR 8x32; without --STN, which the CLI refuses there:
@@ -516,7 +577,7 @@ GEOMETRY_RUNS = {
     "tsrn at scale 4": (["--arch=tsrn", "--mask", "--gradient", "--sr_share", "--tssim_loss",
                          "--rotate_train=5.0"], "scale4", PLAIN_LAUNCHES),
 }
-GEOMETRY_WARM, GEOMETRY_STEPS = 2, 20
+GEOMETRY_WARM, GEOMETRY_STEPS = 2, 10
 GEOMETRY_SHAPES = (
     ("256x64 gru1 (height scan), fused 2B", 32, 2 * BATCH * 128, 128, 64, 32),
     ("256x64 gru2 (width scan), fused 2B", 128, 2 * BATCH * 32, 64, 64, 32),
@@ -1206,10 +1267,10 @@ def data_phase(synthetic_ips) -> None:
             trainer.loader.num_workers = workers
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            trainer.train(max_iters=trainer.iters + TRAIN_STEPS)
+            trainer.train(max_iters=trainer.iters + DATA_IPS_STEPS)
             torch.cuda.synchronize()
-            lmdb_ips[workers].append(TRAIN_STEPS * BATCH / (time.perf_counter() - t0))
-        print(f"[data] train images/s on the LMDBs by loader threads ({TRAIN_STEPS} steps at batch "
+            lmdb_ips[workers].append(DATA_IPS_STEPS * BATCH / (time.perf_counter() - t0))
+        print(f"[data] train images/s on the LMDBs by loader threads ({DATA_IPS_STEPS} steps at batch "
               f"{BATCH} each, in turns {DATA_WORKERS},1,1,{DATA_WORKERS}): "
               + json.dumps({w: [round(v, 1) for v in r] for w, r in lmdb_ips.items()})
               + "; synthetic (phase 7, this call) "
@@ -1498,20 +1559,21 @@ def flags_phase(smi: str, synthetic_ips) -> None:
         gens = [init_parameters(copy.deepcopy(tatt), 1234 + 3 * i).to(DEV) for i in range(n_sr)]
         stus = [init_parameters(CRNN(), 1235 + 3 * i).to(DEV) for i in range(n_stu)]
         trainer = Trainer(cfg, gens, stus, init_parameters(CRNN(), 1236).to(DEV), train_ds, DEV)
+        steps = FLAG_LONG_STEPS if name in FLAG_LONG else FLAG_STEPS
         first = trainer.train(max_iters=FLAG_WARM)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        timed = trainer.train(max_iters=FLAG_WARM + FLAG_STEPS)
+        timed = trainer.train(max_iters=FLAG_WARM + steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        per_step = {k: v / FLAG_STEPS for k, v in read_counts().items()}
+        per_step = {k: v / steps for k, v in read_counts().items()}
         metrics = {k: first["metrics"][k] + timed["metrics"][k] for k in timed["metrics"]}
-        ips[name] = FLAG_STEPS * BATCH / wall
+        ips[name] = steps * BATCH / wall
         sr = metrics["loss_sr"]
         new = [k for k in ("sr_mean", "sr_min", "sr_max", "gnorm/srb2", "gnorm/stn_head",
                            "loss_distill_each", "loss_ssim") if k in metrics]
-        print(f"[flags] {name}: {FLAG_STEPS} steps at batch {BATCH}, images/s {ips[name]:.1f}; "
+        print(f"[flags] {name}: {steps} steps at batch {BATCH}, images/s {ips[name]:.1f}; "
               f"launches per step {json.dumps(per_step)} (want {json.dumps(want)}); loss_sr "
               f"{[round(v, 4) for v in sr]}; new metrics {new}"
               + (f"; loss_distill (CTC term, not gated) {[f'{v:.4g}' for v in metrics['loss_distill']]}"
@@ -1650,14 +1712,12 @@ def judges_phase(smi: str) -> list:
         for fn in (None, lpips):
             ev = Evaluator([generator], [student], judges[kind], DEV, JUDGE_BATCH, True, lpips=fn)
             ev.evaluate(ev_ds)  # the tail batch's shapes autotuned too
-            rates = []
-            for _ in range(2):
-                torch.cuda.synchronize()
-                reset_counts()
-                t0 = time.perf_counter()
-                summary = ev.evaluate(ev_ds)
-                torch.cuda.synchronize()
-                rates.append(JUDGE_EVAL_N / (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            summary = ev.evaluate(ev_ds)
+            torch.cuda.synchronize()
+            rate = JUDGE_EVAL_N / (time.perf_counter() - t0)
             counts = read_counts()
             # 10 GruBlocks a generator forward; the student's 2 BiLSTMs and
             # each judge call's (on SR, LR and HR)
@@ -1666,7 +1726,7 @@ def judges_phase(smi: str) -> list:
             lp = (f", LPIPS SR {summary['lpips_vgg_sr']:.4f} LR {summary['lpips_vgg_lr']:.4f}"
                   if fn else "")
             print(f"[judges] Evaluator, {kind} judge{' + LPIPS' if fn else ''}: {JUDGE_EVAL_N} images at "
-                  f"batch {JUDGE_BATCH}, images/s {rates[0]:.1f} / {rates[1]:.1f} (two passes); launches a batch "
+                  f"batch {JUDGE_BATCH}, images/s {rate:.1f} (a pass after the warm-up); launches a batch "
                   f"{json.dumps({k: v / n_batches for k, v in counts.items()})}; psnr "
                   f"{summary['psnr_avg']:.4f} ssim {summary['ssim_avg']:.5f} acc SR "
                   f"{summary['accuracy']:.4f} HR {summary['accuracy_hr']:.4f}{lp} ({smi})")
@@ -1815,20 +1875,22 @@ def tsrn_phase(smi: str) -> None:
         generator = init_parameters(build_generator(arch, cfg), 1234).to(DEV)
         trainer = Trainer(cfg, [generator], [init_parameters(CRNN(), 1235).to(DEV)],
                           init_parameters(CRNN(), 1236).to(DEV), train_ds, DEV)
-        first = trainer.train(max_iters=TSRN_WARM)
+        warm, steps = ((TSRN_WARM, TSRN_STEPS) if arch in TSRN_GATED
+                       else (TSRN_UNGATED_WARM, TSRN_UNGATED_STEPS))
+        first = trainer.train(max_iters=warm)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        timed = trainer.train(max_iters=TSRN_WARM + TSRN_STEPS)
+        timed = trainer.train(max_iters=warm + steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        per_step = {k: v / TSRN_STEPS for k, v in read_counts().items()}
+        per_step = {k: v / steps for k, v in read_counts().items()}
         metrics = {k: first["metrics"][k] + timed["metrics"][k] for k in timed["metrics"]}
-        ips[arch] = TSRN_STEPS * BATCH / wall
+        ips[arch] = steps * BATCH / wall
         sr = metrics["loss_sr"]
         step = "TATT" if arch in ABLATION_SET else "plain"
-        print(f"[tsrn] {arch} ({step} step): {TSRN_STEPS} steps at batch {BATCH}, images/s "
-              f"{ips[arch]:.1f}, {wall / TSRN_STEPS * 1e3:.1f} ms a step; launches per step "
+        print(f"[tsrn] {arch} ({step} step): {steps} steps at batch {BATCH} after {warm}, images/s "
+              f"{ips[arch]:.1f}, {wall / steps * 1e3:.1f} ms a step; launches per step "
               f"{json.dumps(per_step)} (want {json.dumps(want)}); metrics {sorted(metrics)}; "
               f"loss_sr {[round(v, 4) for v in sr]} ({smi})")
         if per_step != {k: float(v) for k, v in want.items()}:
@@ -1836,7 +1898,7 @@ def tsrn_phase(smi: str) -> None:
         if not all(math.isfinite(v) for vals in metrics.values() for v in vals):
             fail(f"{arch}: non-finite metrics")
         # phase 12's gate: the median of the last 5 steps below that of steps 2-4
-        if arch in ("tsrn", "tsrn_tl_cascade") and not np.median(sr[-5:]) < np.median(sr[1:4]):
+        if arch in TSRN_GATED and not np.median(sr[-5:]) < np.median(sr[1:4]):
             fail(f"{arch}: loss_sr did not fall: {sr[1:4]} -> {sr[-5:]}")
         if arch == "tsrn":
             tsrn_gen, tsrn_teacher = generator, trainer.teacher
@@ -2142,10 +2204,14 @@ def chinese_card_vs_cpu_step(arch: str = "tatt") -> None:
     """One full-width ``--CHNSR --tpg OPT`` step of ``arch`` at batch 8 with
     the recipe's flags (rotation pinned, dropout off, SGD at lr 1), the
     arch's step from ``arch_steps``: the card (kernels) against the CPU
-    (plain twins), each trainable model's gradient leaf by leaf with phase
-    8's two-tier gate, but the student's against the CPU step in float64
-    within STUDENT_LEAF_TOL, which the planted faults of STUDENT_FAULTS
-    (TF32, one BatchNorm's eps doubled) must exceed."""
+    (plain twins), the generator's gradient leaf by leaf with phase 8's
+    two-tier gate.  In ``tatt``'s step also the student's, against the CPU
+    step in float64 within STUDENT_LEAF_TOL, which the planted faults of
+    STUDENT_FAULTS (TF32, one BatchNorm's eps doubled) must exceed: the
+    student's step reads neither the generator nor its gradient, and its
+    leaves read the same to four digits in every arch's step (faults
+    included), so the other archs' steps skip the float64 step and the
+    faults."""
     cfg = Config(args=Flags(arch=arch, CHNSR=True, tpg="OPT", **TSRN_RECIPE))
     generator = (TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True,
                       text_emb=N_CHINESE, dropout=0.0) if arch == "tatt"
@@ -2160,12 +2226,17 @@ def chinese_card_vs_cpu_step(arch: str = "tatt") -> None:
            "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
     grads, counts = {}, {}
     faults = STUDENT_FAULTS.get(arch, ())
-    for run, dev, dt in (("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64),
+    student = arch == "tatt"
+    for run, dev, dt in (("cpu", "cpu", torch.float32),
+                         *((("cpu64", "cpu", torch.float64),) if student else ()),
                          ("card", DEV, torch.float32), *((f, DEV, torch.float32) for f in faults)):
         models = [copy.deepcopy(m).to(dev, dt) for m in models_cpu]
         if run == "fault: bn eps":
             models[1].FeatureExtraction.conv0_1_bn.eps = 2e-5
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = run == "fault: tf32"
+        # a planted fault runs without cuDNN's autotuning: TF32 would tune
+        # every conv shape anew (~20 s), and the faults read far above the gate
+        torch.backends.cudnn.benchmark = not run.startswith("fault")
         hr, lr = to_device(b, torch.device(dev), True)
         batch = {"images_hr": hr.to(dt), "images_lr": lr.to(dt),
                  **{k: v.to(dev, dt) for k, v in rot.items()}}
@@ -2181,10 +2252,10 @@ def chinese_card_vs_cpu_step(arch: str = "tatt") -> None:
     set_cuda_flags()
     if counts["card"] != want_launches:
         fail(f"card --CHNSR {arch} step launches {counts['card']} (want {want_launches})")
-    for i, (name, model) in enumerate(zip(("generator", "student"), models_cpu)):
+    for i, (name, model) in enumerate(zip(("generator", "student")[:1 + student], models_cpu)):
         card = leaf_errors(grads["cpu"][i], grads["card"][i])
-        f32 = leaf_errors(grads["cpu64"][i], grads["cpu"][i])
-        card64 = leaf_errors(grads["cpu64"][i], grads["card"][i])
+        f32 = leaf_errors(grads["cpu64"][i], grads["cpu"][i]) if student else {}
+        card64 = leaf_errors(grads["cpu64"][i], grads["card"][i]) if student else {}
         rnn = rnn_leaves(model)
         # the student's other leaves: the card against the float64 step
         other = (card64, STUDENT_LEAF_TOL) if name == "student" else (card, LEAF_TOL)
@@ -2193,9 +2264,11 @@ def chinese_card_vs_cpu_step(arch: str = "tatt") -> None:
             worst = sorted(keys, key=lambda k: -err[k])
             gated = "card vs CPU float64" if err is card64 else "card vs CPU"
             print(f"[chinese-step] {arch} {name}, {len(keys)} {what} leaves, ||card - CPU|| / ||CPU|| "
-                  f"(tol {tol} on {gated}; CPU float32 vs float64; card vs CPU float64):")
+                  f"(tol {tol} on {gated}" + ("; CPU float32 vs float64; card vs CPU float64):"
+                                              if student else "):"))
             for k in worst[:3]:
-                print(f"[chinese-step]   {card[k]:.3e}  ({f32[k]:.3e}; {card64[k]:.3e})  {k}")
+                print(f"[chinese-step]   {card[k]:.3e}  "
+                      + (f"({f32[k]:.3e}; {card64[k]:.3e})  " if student else "") + k)
             bad = {k: err[k] for k in worst if not err[k] <= tol}
             if bad:
                 fail(f"--CHNSR {arch} step: {name} {what} gradients card vs CPU above {tol}: {bad}")
@@ -2821,10 +2894,12 @@ def check_bf16(name, kind, length, rows, cin, cmid, hid, gen):
 
 
 def _dtype_hooks(models) -> tuple:
-    """Forward hooks that record every conv, dense and recurrence of
-    ``models`` whose input or output is not bf16; returns (the handles,
-    the list they fill)."""
-    from tatt_tpu_torch.models.common import Conv2d, ConvTranspose2d, Dense
+    """Forward hooks that record every conv, dense, BatchNorm, PReLU and
+    recurrence of ``models`` whose input or output is not bf16; returns
+    (the handles, the list they fill)."""
+    from tatt_tpu_torch.models.common import (
+        BatchNorm1d, BatchNorm2d, Conv2d, ConvTranspose2d, Dense, PReLU,
+    )
     bad = []
 
     def hook(module, inputs, output):
@@ -2833,29 +2908,35 @@ def _dtype_hooks(models) -> tuple:
             if t.dtype != BF16:
                 bad.append((type(module).__name__, str(t.dtype)))
 
+    layers = (Conv2d, ConvTranspose2d, Dense, BatchNorm1d, BatchNorm2d, PReLU, BiGRU, BiLSTM)
     handles = [m.register_forward_hook(hook) for model in models for m in model.modules()
-               if isinstance(m, (Conv2d, ConvTranspose2d, Dense, BiGRU, BiLSTM))]
+               if isinstance(m, layers)]
     return handles, bad
 
 
-def _bf16_step(models_cpu, dev, b, rot, hooks: bool = False):
-    """One bf16 recipe step (dropout off, rotation pinned) on ``dev`` from
-    copies of ``models_cpu`` (generator, student, teacher): each trainable
+def _bf16_step(case: dict, models_cpu, dev, b, rot, hooks: bool = False, fault=None):
+    """One bf16 step of ``case`` (BF16_STEP_CASES; dropout off, rotation
+    pinned) on ``dev`` from copies of ``models_cpu`` (generator, student,
+    teacher), through the arch's step from ``arch_steps``: each trainable
     model's gradients, the bf16 launches, the metrics, and with ``hooks``
-    the layers that were not bf16.  On the card cuDNN runs its
-    deterministic algorithms here (not the autotuned ones), so that the
-    reading repeats from call to call."""
+    the layers that were not bf16.  ``fault(models)`` plants a fault in
+    the copies.  On the card cuDNN runs its deterministic algorithms here
+    (not the autotuned ones), so that the reading repeats from call to
+    call."""
     models = [copy.deepcopy(m).to(dev) for m in models_cpu]
+    if fault is not None:
+        fault(models)
     handles, bad = _dtype_hooks(models) if hooks else ([], [])
     hr, lr = to_device(b, torch.device(dev), True)
     batch = {"images_hr": hr, "images_lr": lr, **{k: v.to(dev) for k, v in rot.items()}}
     opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1.0)
+    train_fn, _ = arch_steps(case["cfg"])
     reset_counts()
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
     try:
-        metrics = train_step([models[0].train()], [models[1].train()], models[2].eval(), opt,
-                             batch, StepConfig(compute_dtype="bfloat16"),
-                             torch.Generator(device=dev).manual_seed(0))
+        metrics = train_fn([models[0].train()], [models[1].train()], models[2].eval(), opt,
+                           batch, StepConfig(compute_dtype="bfloat16"),
+                           torch.Generator(device=dev).manual_seed(0))
     finally:
         torch.backends.cudnn.deterministic = False
         set_cuda_flags()
@@ -2877,26 +2958,78 @@ def _step_gaps(cpu, card) -> dict:
     return out
 
 
-def bf16_step_readings(batch: int, repeats: int) -> dict:
-    """The bf16 recipe step at full width and ``batch`` on the card (the
-    bf16 kernels) against the port's own CPU bf16 step (the plain twins),
-    ``repeats`` times, then with each of two faults planted on the card:
-    cuBLAS's bf16 reduced-precision reduction left on, and a PReLU whose f32
-    slope promotes its output to f32.  Each reading: the gradient gaps of
-    :func:`_step_gaps`, the loss gap, and for a fault also its gaps against
-    the sound card step (card vs card).  Fails on a layer that is not bf16
-    or on launches other than the recipe's bf16 ones."""
-    from tatt_tpu_torch.models import common as model_common
+def _promote_prelu(models) -> None:
+    """The planted fault: every PReLU of the models returns f32 (its f32
+    slope promotes the product), so every layer after it runs in f32."""
+    from tatt_tpu_torch.models.common import PReLU
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, PReLU):
+                m.forward = lambda x, m=m: torch.where(x >= 0, x, m.weight * x)
 
-    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True, dropout=0.0)
-    models_cpu = [init_parameters(tatt, 7), init_parameters(CRNN(), 8), init_parameters(CRNN(), 9)]
-    sds = SyntheticTextDataset(n=batch, seed=5)
-    b = collate([sds[i] for i in range(batch)])
+
+def _promote_tpg_bn(models) -> None:
+    """The planted fault: every BatchNorm of the TPG student and teacher
+    returns f32, so the recognizer runs in f32 after its first one."""
+    from tatt_tpu_torch.models.common import BatchNorm2d
+    for model in models[1:]:
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.forward = lambda x, copies=1, f=m.forward: f(x, copies).float()
+
+
+def _reduced_precision(models) -> None:
+    """The planted fault: cuBLAS's bf16 reduced-precision reduction on
+    (``_bf16_step`` turns it off again with ``set_cuda_flags``)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+
+
+def _tf32(models) -> None:
+    """The planted fault: TF32 in the f32 convolutions and matmuls that
+    the bf16 step keeps (the attention logits, the losses' windows)."""
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+
+
+BF16_FAULTS = {"bf16 reduced-precision reduction": _reduced_precision,
+               "PReLU promotes to f32": _promote_prelu, "tf32": _tf32,
+               "TPG BatchNorm promotes to f32": _promote_tpg_bn}
+
+
+def bf16_step_case(name: str, batch: int) -> tuple:
+    """Phase 18's step ``name`` (BF16_STEP_CASES) at full width: (the case,
+    [generator, student, teacher] seeded on the CPU, the collated batch,
+    the pinned rotation)."""
+    arch, tpg, chnsr, launches, faults, gates = BF16_STEP_CASES[name]
+    cfg = Config(args=Flags(arch=arch, tpg=tpg, CHNSR=chnsr, **TSRN_RECIPE))
+    spec = recognizer_spec(cfg)
+    if arch == "tatt":
+        generator = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True,
+                         text_emb=spec.num_class, dropout=0.0)
+    else:
+        generator = SRResNet_TL(mask=True, text_emb=spec.num_class, dropout=0.0)
+    models_cpu = [init_parameters(generator, 7), init_parameters(spec.build(), 8),
+                  init_parameters(spec.build(), 9)]
+    sds = chinese_dataset(batch, 5) if chnsr else SyntheticTextDataset(n=batch, seed=5)
+    b = collate([sds[i] for i in range(batch)], alphabet=spec.alphabet)
     rot = {"rot_arc": torch.linspace(-0.08, 0.08, batch),
            "rot_offs": torch.linspace(0.1, 0.9, batch)}
+    case = {"name": name, "cfg": cfg, "launches": launches, "faults": faults, "gates": gates}
+    return case, models_cpu, b, rot
+
+
+def bf16_step_readings(batch: int, repeats: int, name: str = "recipe") -> dict:
+    """Phase 18's bf16 step ``name`` (BF16_STEP_CASES) at full width and
+    ``batch`` on the card (the bf16 kernels) against the port's own CPU
+    bf16 step (the plain twins), ``repeats`` times, then with each of the
+    case's planted faults on the card.  Each reading: the gradient gaps of
+    :func:`_step_gaps`, the loss gap, and for a fault also its gaps against
+    the sound card step (card vs card).  Fails on a layer that is not bf16
+    or on launches other than the case's bf16 ones."""
+    case, models_cpu, b, rot = bf16_step_case(name, batch)
     t0 = time.perf_counter()
-    cpu, _, cpu_metrics, cpu_bad = _bf16_step(models_cpu, "cpu", b, rot, hooks=True)
-    out = {"batch": batch, "cpu_s": time.perf_counter() - t0, "sound": [], "faults": {}}
+    cpu, _, cpu_metrics, cpu_bad = _bf16_step(case, models_cpu, "cpu", b, rot, hooks=True)
+    out = {"case": name, "batch": batch, "cpu_s": time.perf_counter() - t0, "sound": [],
+           "faults": {}}
 
     def reading(card, metrics):
         gap = abs(metrics["loss_total"] - cpu_metrics["loss_total"]) / abs(cpu_metrics["loss_total"])
@@ -2904,128 +3037,192 @@ def bf16_step_readings(batch: int, repeats: int) -> dict:
 
     sound_card = None
     for r in range(repeats):
-        card, counts, metrics, bad = _bf16_step(models_cpu, DEV, b, rot, hooks=r == 0)
-        if counts != STEP_LAUNCHES:
-            fail(f"bf16 card step launches {counts} (want {STEP_LAUNCHES} of the bf16 kernels)")
+        card, counts, metrics, bad = _bf16_step(case, models_cpu, DEV, b, rot, hooks=r == 0)
+        if counts != case["launches"]:
+            fail(f"bf16 {name} card step launches {counts} (want {case['launches']} of the bf16 "
+                 "kernels)")
         if r == 0 and (bad or cpu_bad):
-            fail(f"bf16 step: layers not in bf16: card {bad[:5]} CPU {cpu_bad[:5]}")
+            fail(f"bf16 {name} step: layers not in bf16: card {bad[:5]} CPU {cpu_bad[:5]}")
         sound_card = sound_card or card
         out["sound"].append({**reading(card, metrics),
                              "vs_first_card": _step_gaps(sound_card, card)["generator"]["whole"]})
 
     sound_leaves = leaf_errors(cpu[0], sound_card[0])
-
-    def faulted(what):
-        card, _, metrics, _ = _bf16_step(models_cpu, DEV, b, rot)
+    for what in case["faults"]:
+        card, _, metrics, bad = _bf16_step(case, models_cpu, DEV, b, rot, hooks=True,
+                                           fault=BF16_FAULTS[what])
         leaves = leaf_errors(cpu[0], card[0])
         moved = sorted(leaves, key=lambda k: sound_leaves[k] - leaves[k])[:5]
-        out["faults"][what] = {**reading(card, metrics),
+        out["faults"][what] = {**reading(card, metrics), "layers_not_bf16": len(bad),
                                "vs_sound_card": _step_gaps(sound_card, card),
                                "generator_leaves_moved_most": {
                                    k: [sound_leaves[k], leaves[k]] for k in moved}}
-
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-    try:
-        faulted("bf16 reduced-precision reduction")
-    finally:
-        set_cuda_flags()
-    prelu = model_common.PReLU.forward
-    model_common.PReLU.forward = lambda self, x: torch.where(x >= 0, x, self.weight * x)
-    try:
-        faulted("PReLU promotes to f32")
-    finally:
-        model_common.PReLU.forward = prelu
     return out
 
 
-def bf16_card_vs_cpu() -> None:
-    """Phase 18's step gate: :func:`bf16_step_readings` at batch 8, the
-    generator's whole-model gap within ``BF16_STEP_TOL`` and the student's
-    within ``BF16_STUDENT_TOL`` on every sound run; the f32-promoting PReLU
-    must exceed the gate.  The reduced-precision reduction moves the card's
-    gradients without moving them away from the CPU's (scripts/
-    bf16_step_gate.py), so it is read, not gated: ``set_cuda_flags`` keeps
-    it off."""
-    readings = bf16_step_readings(STEP_BATCH, BF16_CARD_REPEATS)
-    print(f"[bf16-step] CPU bf16 step at batch {STEP_BATCH}: {readings['cpu_s']:.1f} s")
+def bf16_card_vs_cpu(name: str) -> None:
+    """Phase 18's step gate of case ``name``: :func:`bf16_step_readings` at
+    batch 8, the generator's and the student's whole-model gaps within the
+    case's gates on every sound run; each fault of the case's ``faults``
+    must exceed its gate on the generator or the student, and each of its
+    ``hooked`` must show the dtype hooks a layer that is not bf16 (a fault
+    the case reads but does not gate is printed)."""
+    readings = bf16_step_readings(STEP_BATCH, BF16_CARD_REPEATS, name)
+    gates = BF16_STEP_CASES[name][5]
+    print(f"[bf16-step] {name}: CPU bf16 step at batch {STEP_BATCH}: {readings['cpu_s']:.1f} s")
     for r, sound in enumerate(readings["sound"]):
-        print(f"[bf16-step] card run {r}: {json.dumps(sound)}")
+        print(f"[bf16-step] {name} card run {r}: {json.dumps(sound)}")
+    missed = []
     for what, fault in readings["faults"].items():
-        print(f"[bf16-step] planted fault, {what}: {json.dumps(fault)} (gate "
-              f"{BF16_STEP_TOL}: {'exceeds' if fault['generator']['whole'] > BF16_STEP_TOL else 'within'})")
+        over = [m for m in ("generator", "student") if fault[m]["whole"] > gates[m]]
+        print(f"[bf16-step] {name} planted fault, {what}: {json.dumps(fault)} (gates "
+              f"{json.dumps({m: gates[m] for m in ('generator', 'student')})}: "
+              f"{'exceeds on ' + ', '.join(over) if over else 'within'}"
+              f"{'' if what in gates['faults'] else ', not gated'}; {fault['layers_not_bf16']} "
+              f"layer calls not bf16{'' if what in gates['hooked'] else ', not gated'})")
+        if (what in gates["faults"] and not over
+                or what in gates["hooked"] and not fault["layers_not_bf16"]):
+            missed.append(what)
     for sound in readings["sound"]:
-        if not (sound["generator"]["whole"] <= BF16_STEP_TOL
-                and sound["student"]["whole"] <= BF16_STUDENT_TOL):
-            fail(f"bf16 step card vs CPU above {BF16_STEP_TOL} / {BF16_STUDENT_TOL}: {sound}")
-    if not readings["faults"]["PReLU promotes to f32"]["generator"]["whole"] > BF16_STEP_TOL:
-        fail(f"the bf16 step gate {BF16_STEP_TOL} misses an f32-promoting PReLU")
+        if not all(sound[m]["whole"] <= gates[m] for m in ("generator", "student")):
+            fail(f"bf16 {name} step card vs CPU above {gates}: {sound}")
+    if missed:
+        fail(f"the bf16 {name} step gates {gates} miss the planted {missed}")
 
 
-def bf16_train(smi: str, repeats: int):
-    """Phase 18's slice at full width: the recipe's flags with ``--dtype
-    bfloat16`` at batch 64 through the CLI's parser and ``Trainer``, beside
-    the same recipe in f32, in turns: images/s, peak memory, launches a step
-    (of the bf16 instantiations alone), the falling-loss_sr gate over 45
-    steps (with ``repeats`` > 1, that many bf16 runs from other seeds for
-    the gate's margin), one profiled bf16 window.  Returns the bf16
-    windows' launches."""
-    train_ds = SyntheticTextDataset(n=8 * BATCH, seed=1)
+def cli_trainer(argv: list, seed: int, train_ds):
+    """A ``Trainer`` as the CLI's parser configures it from ``argv`` (the
+    arch, ``--tpg`` / ``--CHNSR``, ``--dtype``), at batch 64 without
+    validation or checkpoints, its generator from the factory and its
+    students and teacher from the recognizer spec, seeded from ``seed``."""
+    cfg, _ = cli.parse_config(argv + ["--batch_size", str(BATCH)])
+    cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+    cfg.TRAIN.displayInterval = 10**9
+    spec = recognizer_spec(cfg)
+    gen = init_parameters(build_generator(cfg.args.arch, cfg), seed).to(DEV)
+    return Trainer(cfg, [gen], [init_parameters(spec.build(), seed + 1).to(DEV)],
+                   init_parameters(spec.build(), seed + 2).to(DEV), train_ds, DEV)
+
+
+def bf16_windows(smi: str, name: str, repeats: int = 1, profile: bool = False) -> dict:
+    """One of phase 18's train windows (BF16_WINDOWS) at full width, batch
+    64, through the CLI's parser and ``Trainer``: bf16 and f32 in turns,
+    each warmed up, then two timed windows of each: images/s, peak memory,
+    launches a step (those of the bf16 instantiations alone in the bf16
+    windows, none of them in the f32 ones), finite metrics; where the
+    window is gated, the falling-loss_sr gate over the bf16 run's steps
+    (with ``repeats`` > 1, that many bf16 runs from other seeds for the
+    gate's margin); with ``profile`` a profiled bf16 window.  Returns the
+    bf16 windows' launches."""
+    argv, data, warm, steps, want_step, gated = BF16_WINDOWS[name]
+    train_ds = (chinese_dataset(8 * BATCH, 1) if data == "chinese"
+                else SyntheticTextDataset(n=8 * BATCH, seed=1))
     for i in range(len(train_ds)):
         train_ds[i]
-
-    def trainer_for(dtype: str, seed: int):
-        cfg, _ = cli.parse_config(RECIPE + ["--dtype", dtype, "--batch_size", str(BATCH)])
-        cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
-        cfg.TRAIN.displayInterval = 10**9
-        tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True)
-        return Trainer(cfg, [init_parameters(tatt, seed).to(DEV)],
-                       [init_parameters(CRNN(), seed + 1).to(DEV)],
-                       init_parameters(CRNN(), seed + 2).to(DEV), train_ds, DEV)
-
     torch.manual_seed(0)
-    trainers = {"bf16": trainer_for("bfloat16", 1234), "f32": trainer_for("float32", 1234)}
-    loss_sr = {k: t.train(max_iters=BF16_WARM)["metrics"]["loss_sr"] for k, t in trainers.items()}
+    trainers = {dt: cli_trainer(argv + ["--dtype", dt], 1234, train_ds)
+                for dt in ("bfloat16", "float32")}
+    loss_sr = {k: t.train(max_iters=warm)["metrics"]["loss_sr"] for k, t in trainers.items()}
     torch.cuda.synchronize()
     ips, mem, launches = {k: [] for k in trainers}, {k: [] for k in trainers}, {}
+    want = {k: v * steps for k, v in want_step.items()}
     for _ in range(2):
-        for tag, trainer in trainers.items():
+        for dt, trainer in trainers.items():
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             t0 = time.perf_counter()
-            res = trainer.train(max_iters=trainer.iters + BF16_STEPS)
+            res = trainer.train(max_iters=trainer.iters + steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts, bf16_counts = read_counts(), read_bf16_counts()
-            ips[tag].append(BF16_STEPS * BATCH / wall)
-            mem[tag].append(torch.cuda.max_memory_allocated() / 2**30)
-            loss_sr[tag] += res["metrics"]["loss_sr"]
-            want = {k: v * BF16_STEPS for k, v in STEP_LAUNCHES.items()}
-            if counts != want or bf16_counts != (want if tag == "bf16" else dict.fromkeys(want, 0)):
-                fail(f"{tag} recipe launches {counts}, bf16 {bf16_counts} (want {want})")
-            if tag == "bf16":
+            ips[dt].append(steps * BATCH / wall)
+            mem[dt].append(torch.cuda.max_memory_allocated() / 2**30)
+            loss_sr[dt] += res["metrics"]["loss_sr"]
+            if counts != want or bf16_counts != (want if dt == "bfloat16" else dict.fromkeys(want, 0)):
+                fail(f"{name} {dt} launches {counts}, bf16 {bf16_counts} (want {want})")
+            if dt == "bfloat16":
                 launches = {k: launches.get(k, 0) + v for k, v in bf16_counts.items()}
             if not all(math.isfinite(v) for m in res["metrics"].values() for v in m):
-                fail(f"{tag} recipe: non-finite metrics")
+                fail(f"{name} {dt}: non-finite metrics")
     ratios = []
-    for r in range(repeats):
-        sr = loss_sr["bf16"] if r == 0 else (
-            lambda t: t.train(max_iters=BF16_WARM + 2 * BF16_STEPS)["metrics"]["loss_sr"])(
-                trainer_for("bfloat16", 1234 + 10 * r))
+    for r in range(repeats if gated else 0):
+        sr = loss_sr["bfloat16"] if r == 0 else (
+            lambda t: t.train(max_iters=warm + 2 * steps)["metrics"]["loss_sr"])(
+                cli_trainer(argv + ["--dtype", "bfloat16"], 1234 + 10 * r, train_ds))
         ratios.append(float(np.median(sr[-5:]) / np.median(sr[1:4])))
         if r == 0:
-            print(f"[bf16-train] bf16 loss_sr by step {[round(v, 4) for v in sr]}")
-    print(f"[bf16-train] the recipe at batch {BATCH}, {BF16_STEPS} steps a window, in turns: images/s "
-          f"bf16 {[round(v, 1) for v in ips['bf16']]} f32 {[round(v, 1) for v in ips['f32']]}; peak "
-          f"GiB bf16 {[round(v, 2) for v in mem['bf16']]} f32 {[round(v, 2) for v in mem['f32']]}; "
-          f"bf16 launches a step {json.dumps({k: v / (2 * BF16_STEPS) for k, v in launches.items()})} "
-          f"(all of the bf16 instantiations); loss_sr median of the last 5 / of steps 2-4: "
-          f"{[round(v, 3) for v in ratios]} over {repeats} run(s) ({smi})")
-    if not ratios[0] < 1.0:
-        fail(f"bf16 recipe: loss_sr did not fall (last 5 / steps 2-4 = {ratios[0]})")
-    t16 = trainers["bf16"]
-    profile_window(lambda: t16.train(max_iters=t16.iters + PROFILE_STEPS),
-                   f"{PROFILE_STEPS} bf16 train steps")
+            print(f"[bf16-train] {name}: bf16 loss_sr by step {[round(v, 4) for v in sr]}")
+    print(f"[bf16-train] {name} at batch {BATCH}, {steps} steps a window after {warm}, in turns: "
+          f"images/s bf16 {[round(v, 1) for v in ips['bfloat16']]} f32 "
+          f"{[round(v, 1) for v in ips['float32']]}; ms a step bf16 "
+          f"{[round(BATCH / v * 1e3, 1) for v in ips['bfloat16']]} f32 "
+          f"{[round(BATCH / v * 1e3, 1) for v in ips['float32']]}; peak GiB bf16 "
+          f"{[round(v, 2) for v in mem['bfloat16']]} f32 {[round(v, 2) for v in mem['float32']]}; "
+          f"bf16 launches a step {json.dumps({k: v / (2 * steps) for k, v in launches.items()})} "
+          f"(all of the bf16 instantiations; want {json.dumps(want_step)})"
+          + (f"; loss_sr median of the last 5 / of steps 2-4: {[round(v, 3) for v in ratios]} over "
+             f"{repeats} run(s)" if gated else "; no loss gate") + f" ({smi})")
+    if gated and not ratios[0] < 1.0:
+        fail(f"bf16 {name}: loss_sr did not fall (last 5 / steps 2-4 = {ratios[0]})")
+    if profile:
+        t16 = trainers["bfloat16"]
+        profile_window(lambda: t16.train(max_iters=t16.iters + PROFILE_STEPS),
+                       f"{PROFILE_STEPS} bf16 train steps")
     return launches
+
+
+def bf16_stu_iter2(smi: str) -> None:
+    """``--stu_iter=2`` with separate copies and ``--for_cascading`` under
+    ``--dtype bfloat16`` through ``Trainer`` at full width, batch 64: every
+    launch a step of the bf16 instantiations (20/20/6/4), none of the f32
+    ones, finite metrics."""
+    name = "stu_iter=2, separate copies, for_cascading"
+    flags, want_step = FLAG_SETS[name]
+    args = Flags(**{**TSRN_RECIPE, "batch_size": BATCH, "dtype": "bfloat16", **flags})
+    cfg = Config(args=args)
+    cfg.TRAIN.VAL.valInterval = cfg.TRAIN.saveInterval = 0
+    cfg.TRAIN.displayInterval = 10**9
+    n_sr, n_stu = copies(args)
+    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True)
+    gens = [init_parameters(copy.deepcopy(tatt), 1234 + 3 * i).to(DEV) for i in range(n_sr)]
+    stus = [init_parameters(CRNN(), 1235 + 3 * i).to(DEV) for i in range(n_stu)]
+    train_ds = SyntheticTextDataset(n=4 * BATCH, seed=1)
+    trainer = Trainer(cfg, gens, stus, init_parameters(CRNN(), 1236).to(DEV), train_ds, DEV)
+    trainer.train(max_iters=1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = trainer.train(max_iters=1 + BF16_STU_ITER_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, bf16_counts = read_counts(), read_bf16_counts()
+    want = {k: v * BF16_STU_ITER_STEPS for k, v in want_step.items()}
+    print(f"[bf16-train] --stu_iter=2 --for_cascading, separate copies, bf16: {BF16_STU_ITER_STEPS} "
+          f"steps at batch {BATCH}, images/s {BF16_STU_ITER_STEPS * BATCH / wall:.1f}; bf16 launches "
+          f"a step {json.dumps({k: v / BF16_STU_ITER_STEPS for k, v in bf16_counts.items()})} (want "
+          f"{json.dumps(want_step)}), f32 launches {json.dumps({k: counts[k] - v for k, v in bf16_counts.items()})}"
+          f"; loss_sr {[round(v, 4) for v in res['metrics']['loss_sr']]} ({smi})")
+    if trainer.step_cfg.compute_dtype != "bfloat16" or counts != want or bf16_counts != want:
+        fail(f"bf16 --stu_iter=2: launches {counts}, bf16 {bf16_counts} (want {want} of bf16)")
+    if not all(math.isfinite(v) for m in res["metrics"].values() for v in m):
+        fail("bf16 --stu_iter=2: non-finite metrics")
+
+
+def bf16_refusal_check() -> None:
+    """An InfoGen arch under ``--dtype bfloat16`` through ``cli.main``: exits
+    with the JAX package's reason (its bf16 step fails in InfoGen's
+    ``ConvTranspose2d``), before any model is built."""
+    argv = ["--arch=tsrn_tl_cascade"] + RECIPE[1:] + ["--dtype", "bfloat16", "--synthetic",
+                                                      str(BATCH)]
+    try:
+        cli.main(argv)
+    except SystemExit as exc:
+        msg = str(exc)
+    else:
+        msg = ""
+    print(f"[bf16] cli.main --arch=tsrn_tl_cascade --dtype bfloat16: {msg}")
+    if "tatt_tpu/models/common.py:300" not in msg or "--arch=tsrn_tl_cascade" not in msg:
+        fail(f"bf16 training of tsrn_tl_cascade not refused with the JAX package's reason: {msg!r}")
 
 
 def bf16_eval_check() -> None:
@@ -3067,9 +3264,15 @@ def bf16_phase(smi: str, repeats: int = 1):
                   f"{json.dumps(row['f32_plan'])}) ({smi})")
             if not row["ok"]:
                 fail(f"bf16 {tag} kernel {row['shape']}: {row}")
-    bf16_card_vs_cpu()
-    launches = bf16_train(smi, repeats)
+    for name in BF16_STEP_CASES:
+        bf16_card_vs_cpu(name)
+    bf16_stu_iter2(smi)
+    launches = bf16_windows(smi, "recipe", repeats, profile=True)
+    for name in BF16_WINDOWS:
+        if name != "recipe":
+            bf16_windows(smi, name, repeats)
     bf16_eval_check()
+    bf16_refusal_check()
     print(f"[bf16] phase 18 in {time.perf_counter() - t_phase:.1f} s")
     return [f for f, _ in rows], [b for _, b in rows], launches
 
@@ -3326,6 +3529,10 @@ def main(argv=None) -> int:
         backward_kernels(gen)
         return 0
 
+    def mark(phase: int) -> None:
+        print(f"[smoke] phases 1-{phase} took {time.perf_counter() - t_run:.1f} s")
+
+    mark(2)
     # ---- 3. the eval path at full width
     generator = init_parameters(TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True), 1234)
     student = init_parameters(CRNN(), 1235)
@@ -3454,14 +3661,18 @@ def main(argv=None) -> int:
                    f"{PROFILE_STEPS} train steps")
     del trainer, generator, student, teacher
 
+    mark(9)
     # ---- 10. the real-data path through the CLI
     data_phase(synthetic_ips)
+    mark(10)
 
     # ---- 11. CTC pretraining of the CRNN
     pretrain_phase(smi)
+    mark(11)
 
     # ---- 12. the TATT step's flags
     flags_phase(smi, synthetic_ips)
+    mark(12)
 
     # ---- 13. the evaluation protocol: ASTER and MORAN judges, LPIPS, --vis, --demo, --test
     judge_lstm_rows = judges_phase(smi)

@@ -12,6 +12,10 @@ the median of steps 2-4 and of the 5 steps ending at each of ``--ends``.
   python3 scripts/loss_gate_margins.py --archs --flag-sets "training_stablize + ssim_loss" \\
       --steps 47 --ends 32 47
   python3 scripts/loss_gate_margins.py --archs --chinese --steps 45 --ends 25 35 45
+  python3 scripts/loss_gate_margins.py --archs --bf16-windows chinese recipe --steps 45
+
+``--bf16-windows`` runs phase 18's gated bf16 windows (``chip_smoke.BF16_WINDOWS``)
+as that phase sets them up (``chip_smoke.cli_trainer``, ``--dtype bfloat16``).
 
 The trajectory of one seed differs run to run from about the fifth step
 (cuDNN's weight-gradient sums), and loss_sr varies about 2x from batch to
@@ -66,6 +70,9 @@ def main(argv=None) -> int:
     ap.add_argument("--flag-sets", nargs="*", default=[], choices=list(cs.FLAG_SETS),
                     help="phase 12's flag sets, by name")
     ap.add_argument("--chinese", action="store_true", help="phase 16's --CHNSR --tpg OPT trainer")
+    ap.add_argument("--bf16-windows", nargs="*", default=[],
+                    choices=[k for k, v in cs.BF16_WINDOWS.items() if v[5]],
+                    help="phase 18's gated bf16 windows, by name")
     ap.add_argument("--steps", type=int, default=45, help="steps a run, warm-up included")
     ap.add_argument("--reps", type=int, default=3, help="runs at the phases' init seed 1234")
     ap.add_argument("--seeds", type=int, nargs="*", default=[77, 5150],
@@ -84,10 +91,16 @@ def main(argv=None) -> int:
     # warm-up steps: phase 15's gated archs, phase 14 and phase 16 take 5, phase 12 2
     runs = ([(a, arch_trainer, cs.TSRN_WARM) for a in args.archs]
             + [(f, flags_trainer, cs.FLAG_WARM) for f in args.flag_sets])
+    chinese_ds = (cs.chinese_dataset(8 * cs.BATCH, 1)
+                  if args.chinese or "chinese" in args.bf16_windows else None)
     if args.chinese:
-        chinese_ds = cs.chinese_dataset(8 * cs.BATCH, 1)
         runs.append(("chinese", lambda _, seed, __: cs.chinese_trainer(seed, chinese_ds),
                      cs.CHINESE_WARM))
+    for name in args.bf16_windows:
+        argv, data, warm = cs.BF16_WINDOWS[name][:3]
+        ds = chinese_ds if data == "chinese" else train_ds
+        runs.append((f"{name} bf16", lambda _, seed, __, argv=argv, ds=ds: cs.cli_trainer(
+            argv + ["--dtype", "bfloat16"], seed, ds), warm))
     for name, build, warm in runs:
         for rep, seed in enumerate([1234] * args.reps + list(args.seeds)):
             trainer = build(name, seed, train_ds)

@@ -100,11 +100,17 @@ needed: ``data/imgproc.py`` computes its image operations.
 
 ``--dtype bfloat16`` trains the TATT step in bf16 (``train/steps.py``;
 the four recurrence kernels' bf16 instantiations on the card), as the JAX
-CLI does for ``--arch=tatt`` with the CRNN recognizer; the other archs
-of the TATT step and ``--tpg OPT`` are refused under it, as not ported
-yet.  As in the JAX package the flag acts in that step alone: the plain
-step's archs train, and ``--go_test`` / ``--test`` / ``--demo`` evaluate,
-in float32 (with a warning).
+CLI does: ``--arch=tatt`` and ``--arch=srresnet_tl``, with every step
+flag, with the CRNN or with the TPG of ``--tpg OPT`` (``--CHNSR`` too).
+The other nine archs of the TATT step (``tsrn_tl_cascade``,
+``tsrn_tl_cascade_sft``, ``srcnn_tl``, ``vdsr_tl``, ``scgan_tl``,
+``rdn_tl``, ``esrgan_tl``, ``pcan_tl``, ``tbsrn_tl``) are refused under it
+with the JAX package's reason: their prior runs through a
+``ConvTranspose2d`` whose float32 kernel the JAX package never casts, and
+its bf16 step fails there (``INFOGEN_BF16_REFUSAL``).  As in the JAX
+package the flag acts in that step alone: the plain step's archs train,
+and ``--go_test`` / ``--test`` / ``--demo`` evaluate, in float32 (with a
+warning).
 
 The YAML's ``TRAIN.width``, ``TRAIN.height`` and ``TRAIN.down_sample_scale``
 set the crops, the generators and the evaluation, as in JAX.  Two of their
@@ -189,6 +195,15 @@ HOTA_LR_REFUSAL = (
     "out of bounds for axis 1 with size 0')")
 
 
+# bf16 training of the text-prior archs outside factory.BF16_ARCHS
+INFOGEN_BF16_REFUSAL = (
+    "--dtype bfloat16 with --arch={arch}: its text prior runs through a ConvTranspose2d whose "
+    "float32 kernel meets the bf16 input, and the JAX package's bf16 step fails on it "
+    "(tatt_tpu/models/common.py:300: 'TypeError: lax.conv_general_dilated requires arguments "
+    "to have the same dtypes, got bfloat16, float32'); it trains in bf16 only --arch=tatt and "
+    "--arch=srresnet_tl")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="tatt_tpu_torch — TATT on CUDA", allow_abbrev=False)
     p.add_argument("--arch", default="tatt", choices=ARCHS)
@@ -243,24 +258,19 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     """(the config tree, the parsed namespace with the extras that are
     not ``Flags``: ``synthetic``, ``max_iters``, the ``*_pretrained``
     paths, ``device``).  Raises SystemExit("not ported yet: ..."),
-    SystemExit(BICUBIC_REFUSAL), SystemExit(CHNSR_CRNN_REFUSAL), and for a
-    geometry the JAX package cannot run SystemExit(HOTA_LR_REFUSAL) or
-    SystemExit(STN_LR_REFUSAL)."""
+    SystemExit(BICUBIC_REFUSAL), SystemExit(CHNSR_CRNN_REFUSAL),
+    SystemExit(INFOGEN_BF16_REFUSAL), and for a geometry the JAX package
+    cannot run SystemExit(HOTA_LR_REFUSAL) or SystemExit(STN_LR_REFUSAL)."""
     args, unknown = build_parser().parse_known_args(argv)
     if args.arch == "bicubic":
         raise SystemExit(BICUBIC_REFUSAL)
     if args.CHNSR and args.tpg != "OPT":
         raise SystemExit(CHNSR_CRNN_REFUSAL)
+    if unknown:
+        raise SystemExit(f"not ported yet: {' '.join(unknown)}")
     bf16_train = args.dtype == "bfloat16" and not (args.go_test or args.test or args.demo)
-    refused = [
-        (bool(unknown), " ".join(unknown)),
-        (bf16_train and args.arch in ABLATION_SET and args.arch not in BF16_ARCHS,
-         f"--dtype bfloat16 with --arch={args.arch}"),
-        (bf16_train and args.tpg == "OPT", "--dtype bfloat16 with --tpg OPT"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise SystemExit(f"not ported yet: {what}")
+    if bf16_train and args.arch in ABLATION_SET and args.arch not in BF16_ARCHS:
+        raise SystemExit(INFOGEN_BF16_REFUSAL.format(arch=args.arch))
     names = {f.name for f in dataclasses.fields(Flags)}
     flags = Flags(**{k: v for k, v in vars(args).items() if k in names})
     cfg = load_config(args.config, flags)

@@ -74,9 +74,13 @@ FUSED_TSSIM_ARCHS = ("tatt", "tsrn_tl_cascade", "tsrn_tl_cascade_sft")
 # trunk of models/tsrn.py); the zoo's ignore the flag, as in JAX
 STN_ARCHS = ("tatt", "tsrn", "sem_tsrn", "tsrn_c2f", "tsrn_tl_cascade", "tsrn_tl_cascade_sft")
 # the archs of ABLATION_SET whose bf16 TATT step (``--dtype bfloat16``) is
-# held against the JAX package's (tests/test_torch_bf16_step.py); the CLI
-# refuses the others under the flag, as not ported yet (ROADMAP A.7b)
-BF16_ARCHS = ("tatt",)
+# held against the JAX package's (tests/test_torch_bf16_step.py,
+# test_torch_bf16_flags.py, test_torch_bf16_opt.py), with the CRNN or the
+# TPG.  The other nine (tranSR_v4 is no CLI choice) reach InfoGen's or
+# TBSRN's ConvTranspose2d, whose float32 kernel the JAX package never casts
+# to the bf16 input: its bf16 step fails there (tatt_tpu/models/common.py:300),
+# so the CLI refuses them under the flag with that reason
+BF16_ARCHS = ("tatt", "srresnet_tl")
 
 _REGISTRY: dict[str, Callable[[Config], nn.Module]] = {}
 

@@ -20,7 +20,11 @@ casts (``steps.py:155-171, 207, 221, 245, 254, 330``): the recognizers'
 luma, the prior and the generator's input go in as bf16, so the models
 run in bf16 (their layers follow the input's dtype, the parameters stay
 float32 masters), and the logits and SR come back to float32 before
-every loss; clipping, the gradient norms and Adam stay float32.
+every loss; clipping, the gradient norms and Adam stay float32.  The CLI
+serves it for ``tatt`` and ``srresnet_tl`` (``factory.BF16_ARCHS``), with
+the CRNN or the TPG of ``--tpg OPT`` (``parse_opt_input``'s luma cast as
+the CRNN's is) and every flag of the step; the other text-prior archs
+fail in the JAX package's bf16 step and are refused.
 
 :func:`eval_step` is ``make_eval_step`` (``steps.py:553-610``) including
 the ``stu_iter`` cascade of ``model_inference`` and ``for_cascading``.
