@@ -1,6 +1,9 @@
 """Smoke run of tatt_tpu_torch on one CUDA card: the port's eval and
 training paths at full width, with all four hand-written kernels held
-against their plain PyTorch versions.
+against their plain PyTorch versions.  On a host with several cards it
+takes the first visible one (``CUDA_VISIBLE_DEVICES`` is narrowed to it
+before CUDA starts), so that the CLI's default ``--dp_devices 0`` is one
+process in phases 3-19 and phase 20's ranks share that card.
 
   python3 chip_smoke.py
   python3 chip_smoke.py --forward-kernels-only   # phases 1-2 alone
@@ -17,6 +20,7 @@ against their plain PyTorch versions.
   python3 chip_smoke.py --data-tail-only         # phases 1 and 17 alone
   python3 chip_smoke.py --bf16-only              # phases 1 and 18 alone
   python3 chip_smoke.py --geometry-only          # phases 1 and 19 alone
+  python3 chip_smoke.py --ddp-only               # phases 1 and 20 alone
 
 Phases (any failure exits non-zero; no phase carries on after its own):
   1. card name and power limit; build the CUDA kernels from csrc/
@@ -190,6 +194,25 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      and a batch-8 ``tsrn`` step at scale 4 (as the CLI run trains it)
      card against CPU, leaf by leaf; #1 and #2 also at that run's own
      lengths (two forwards of B: gru1 L=8 R=2048, gru2 L=32 R=512)
+ 20. data parallelism: (a) the recipe through ``cli.run`` at batch 64 for
+     4 steps without the flags, with ``--dp_devices 1`` and with
+     ``--dp_devices 0 --steps_per_dispatch 1`` (one card here): models,
+     BatchNorm statistics and Adam state bit for bit the same, and
+     ``--steps_per_dispatch 2`` refused as TPU dispatch; (b) the same
+     through the launcher at world size 1 on an NCCL process group, bit
+     for bit (the only NCCL check one card allows); (c) two ``gloo`` ranks
+     sharing the card through the launcher, the recipe at the global
+     batch 64 (32 a rank): both ranks bit for bit equal, launches a step a
+     rank 10/10/4/2, Adam's first moments (a weighted sum of the 4 steps'
+     gradients) against the one-process run with phase 8's two-tier leaf
+     gate, which the planted fault (per-replica statistics, where sync is
+     asked) must exceed, and images/s of the two ranks sharing one card
+     (not a DDP speed, ungated); (d) a batch-8 step on two ranks (4 a
+     rank), sync-BN and ``--bn_per_replica``, card against two ranks on
+     the CPU, each gradient leaf by leaf (replayed by (c)'s ranks after
+     their runs: one spawn for both); (e) kernels #3 and #4 at a
+     rank's L=26 R=32 H=256 (In 512 / 256), forward and backward, against
+     their plain twins, timed beside the bound and ``nn.LSTM``
 The last line is the JSON object the chip check reads; the line before
 it the kernels (each kernel's f32 and bf16 instantiation), and before
 that the whole run's seconds.  Imports no JAX.
@@ -218,11 +241,16 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+# one card, the first visible one, before CUDA starts: the CLI's default
+# --dp_devices 0 takes every visible card, and phases 3-19 drive the
+# one-process path (phase 20's ranks share this card)
+os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
 if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     sys.exit(1)
 
 from tatt_tpu_torch.cli import main as cli  # noqa: E402
+from tatt_tpu_torch.cli.launch import launch, run_in_turn, state_of, train_worker  # noqa: E402
 from tatt_tpu_torch.core.charset import (  # noqa: E402
     AsterInfo, ctc_collapse, ctc_greedy_decode, str_filt, voc_table,
 )
@@ -586,6 +614,26 @@ GEOMETRY_SHAPES = (
     ("scale 4 tsrn gru1 (height scan), B", 8, BATCH * 32, 128, 64, 32),
     ("scale 4 tsrn gru2 (width scan), B", 32, BATCH * 8, 64, 64, 32),
 )
+# phase 20, data parallelism: the recipe through cli.run at batch 64,
+# DDP_STEPS steps from one seed, without the flags, with --dp_devices 1 and
+# 0 (one card here); the same through the launcher at world size 1 on
+# NCCL; two gloo ranks sharing the card (NCCL refuses two ranks on one
+# device) at the global batch 64, sync-BN and, the planted fault,
+# per-replica statistics; a batch-8 step on two ranks card vs CPU; and
+# kernels #3 / #4 at a rank's R=32 rows
+DDP_STEPS = 4
+DDP_ARGV = RECIPE + ["--batch_size", str(BATCH), "--max_iters", str(DDP_STEPS),
+                     "--synthetic", str(DDP_STEPS * BATCH)]
+DDP_TIMEOUT_S, DDP_DEADLINE_S = 300.0, 600.0
+# (a) and (b) compare bits, so they run where the card repeats itself: under
+# torch's deterministic algorithms (cuDNN's deterministic ones, chosen by
+# its heuristic, not by timings, so both processes choose alike) and without
+# the rotation, whose backward (F.grid_sample's input gradient, atomic adds)
+# differs run to run on CUDA.  Two runs of the recipe's 4 steps in one
+# process differed in 855 of its 1126 state entries autotuned (854 without
+# the rotation), 729 under deterministic algorithms, 0 there without the
+# rotation (scripts/cuda_repeatability.py; H100 80GB HBM3, 700 W)
+DDP_BITWISE_ARGV = DDP_ARGV + ["--rotate_train=0"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -3376,6 +3424,218 @@ def geometry_phase(smi: str) -> tuple:
     return fwd, bwd, bf_fwd, bf_bwd
 
 
+def trainer_state(trainer) -> dict:
+    return state_of(trainer.generators + trainer.students, trainer.optimizer)
+
+
+def bitwise_gap(got: dict, want: dict) -> tuple:
+    """(the entries that are not bit for bit ``want``'s, the largest
+    absolute difference)."""
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    gap = max((float((got[k].double() - want[k].double()).abs().max()) for k in bad), default=0.0)
+    return bad, gap
+
+
+def ddp_first_moments(state: dict, names: list) -> dict:
+    """Adam's first moments by parameter name (for the leaf gate: after a
+    few steps, a weighted sum of the gradients)."""
+    return {name: state[f"adam{i}.exp_avg"].double() for i, name in enumerate(names)}
+
+
+def ddp_leaf_gate(tag: str, want: dict, got: dict, rnn: set) -> dict:
+    """Phase 8's two-tier gate on ``got`` against ``want`` (name ->
+    tensor), model by model (the part of the name before the first dot):
+    the leaves over their tolerance."""
+    over = {}
+    for model in sorted({k.split(".")[0] for k in want}):
+        keys = [k for k in want if k.split(".")[0] == model]
+        err = leaf_errors({k: want[k] for k in keys}, {k: got[k] for k in keys})
+        worst = sorted(keys, key=lambda k: -err[k])
+        print(f"[ddp] {tag}: {model}, worst of {len(keys)} leaves ||got - want|| / ||want||: "
+              + ", ".join(f"{err[k]:.3e} {k}" for k in worst[:3]))
+        over.update({k: err[k] for k in keys if not err[k] <= (RNN_LEAF_TOL if k in rnn else LEAF_TOL)})
+    return over
+
+
+def ddp_phase(smi: str) -> tuple:
+    """Phase 20: data parallelism (module docstring); returns the LSTM
+    kernel rows at a rank's R=32 (forward, backward)."""
+    from tatt_tpu_torch.train.replay import run_cases
+
+    t_phase = time.perf_counter()
+    print(f"[ddp] {smi}; visible cards {torch.cuda.device_count()}")
+    # (a) without the flags (twice: the control), with --dp_devices 1 and 0:
+    # one process; (b) the launcher at world size 1 on NCCL, whose rank takes
+    # the deterministic setting (and cuDNN's heuristic in place of autotuning,
+    # set_cuda_flags).  cuBLAS keeps its default workspace in both processes:
+    # this one made its handles phases ago, and a workspace of another size
+    # may pick another GEMM algorithm
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for name, extra in (("no flags", []), ("no flags again", []),
+                            ("--dp_devices 1", ["--dp_devices", "1"]),
+                            ("--dp_devices 0 --steps_per_dispatch 1",
+                             ["--dp_devices", "0", "--steps_per_dispatch", "1"])):
+            t0 = time.perf_counter()
+            code, trainer = cli.run(DDP_BITWISE_ARGV + extra)
+            if code != 0 or trainer is None:
+                fail(f"cli.run {name}: exit {code}, trainer {trainer}")
+            runs[name] = trainer_state(trainer)
+            print(f"[ddp] (a) cli.run {name}: {DDP_STEPS} steps in {time.perf_counter() - t0:.1f} s")
+            del trainer
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            launch(train_worker, 1, ([DDP_BITWISE_ARGV], tmp), devices=[DEV],
+                   timeout_s=DDP_TIMEOUT_S, deadline_s=DDP_DEADLINE_S)
+            nccl = torch.load(os.path.join(tmp, "rank0.0.pt"), map_location="cpu",
+                              weights_only=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref = runs["no flags"]
+    gaps = {name: bitwise_gap(state, ref) for name, state in list(runs.items())[1:]}
+    for name, (bad, gap) in gaps.items():
+        print(f"[ddp] (a) {name} against no flags: {len(bad)} of {len(ref)} entries differ, "
+              f"max abs {gap:.3e}")
+    try:
+        cli.parse_config(DDP_ARGV + ["--steps_per_dispatch", "2"])
+        refusal = "accepted"
+    except SystemExit as err:
+        refusal = str(err)
+    print(f"[ddp] (a) --steps_per_dispatch 2: {refusal}")
+    nccl_bad, nccl_gap = bitwise_gap(nccl["state"], ref)
+    print(f"[ddp] (b) world size 1 on {nccl['backend']} ({time.perf_counter() - t0:.1f} s with the "
+          f"spawn): {len(nccl_bad)} entries differ from no flags, max abs {nccl_gap:.3e}")
+    # (c) two gloo ranks sharing the card: the recipe's DDP_STEPS steps (the
+    # ranks' bits, launches, images/s), and its first step, sync-BN and the
+    # planted fault, against the first step in one process: Adam's first
+    # moment after one step is half the step's gradient, which the leaf gate
+    # reads (later moments also carry the rounding that Adam's sign-like
+    # first update spreads)
+    t0 = time.perf_counter()
+    code, trainer = cli.run(DDP_ARGV + ["--max_iters", "1"])
+    if code != 0 or trainer is None:
+        fail(f"cli.run of the recipe's first step: exit {code}")
+    first = trainer_state(trainer)
+    print(f"[ddp] (c) cli.run of the recipe's first step in one process: "
+          f"{time.perf_counter() - t0:.1f} s")
+    del trainer
+    cfg, _ = cli.parse_config(DDP_ARGV)
+    gens, stus, _ = cli.build_models(cfg, "")
+    names = ([f"generator.{n}" for n, _ in gens[0].named_parameters()]
+             + [f"student.{n}" for n, _ in stus[0].named_parameters()])
+    rnn = ({f"generator.{k}" for k in rnn_leaves(gens[0])}
+           | {f"student.{k}" for k in rnn_leaves(stus[0])})
+    two_argv = DDP_ARGV + ["--dp_devices", "2"]
+    runs_c = {"window": two_argv, "sync": two_argv + ["--max_iters", "1"],
+              "fault": two_argv + ["--max_iters", "1", "--bn_per_replica"]}
+    # (d) a batch-8 step on two ranks, sync and per-replica, card vs CPU:
+    # each case replayed on the card and on the CPU, by the ranks of (c)
+    # after its runs (one spawn for both)
+    tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True, stn=True, dropout=0.0)
+    sds = SyntheticTextDataset(n=STEP_BATCH, seed=5)
+    hr, lr = to_device(collate([sds[i] for i in range(STEP_BATCH)]), torch.device("cpu"), True)
+    batch = {"images_hr": hr, "images_lr": lr, "rot_arc": torch.linspace(-0.08, 0.08, STEP_BATCH),
+             "rot_offs": torch.linspace(0.1, 0.9, STEP_BATCH)}
+    modes = {"sync": 1, "per-replica": 2}
+    step_rank_gaps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for where in ("card", "cpu"):
+            for mode, replicas in modes.items():
+                path = os.path.join(tmp, f"{where}-{mode}.case")
+                torch.save({"kind": "step", "cfg": Config(args=Flags(arch="tatt")),
+                            "step_cfg": StepConfig(), "generators": [init_parameters(tatt, 7)],
+                            "students": [init_parameters(CRNN(), 8)],
+                            "teacher": init_parameters(CRNN(), 9), "batch": batch, "steps": 1,
+                            "seed": 0, "optimizer": ("sgd", 1.0), "bn_replicas": replicas,
+                            "device": str(DEV) if where == "card" else "cpu"}, path)
+                paths.setdefault(where, []).append(path)
+        t0 = time.perf_counter()
+        launch(run_in_turn, 2, ([(train_worker, (list(runs_c.values()), tmp)),
+                                 (run_cases, (paths["card"] + paths["cpu"],))],),
+               devices=[DEV, DEV], backend="gloo", timeout_s=DDP_TIMEOUT_S, deadline_s=DDP_DEADLINE_S)
+        two = {name: [torch.load(os.path.join(tmp, f"rank{r}.{i}.pt"), map_location="cpu",
+                                 weights_only=False) for r in range(2)]
+               for i, name in enumerate(runs_c)}
+        results = {where: {mode: [torch.load(f"{p}.rank{r}.pt", weights_only=False)[0]
+                                  for r in range(2)] for mode, p in zip(modes, ps)}
+                   for where, ps in paths.items()}
+    print(f"[ddp] (c) + (d) two gloo ranks on one card: the three runs and the four batch-8 "
+          f"steps in {time.perf_counter() - t0:.1f} s with the spawn")
+    rank_gaps = {name: bitwise_gap(r[1]["state"], r[0]["state"]) for name, r in two.items()}
+    launches = [{k: v / DDP_STEPS for k, v in p["launches"].items()} for p in two["window"]]
+    ips = DDP_STEPS * BATCH / max(p["seconds"] for p in two["window"])
+    differ = {name: len(bad) for name, (bad, _) in rank_gaps.items()}
+    print(f"[ddp] (c) rank 1 against rank 0: {differ} entries differ; launches a step a rank "
+          f"{json.dumps(launches)}; backend {two['window'][0]['backend']}")
+    print(f"[ddp] (c) images/s of two ranks sharing one card (not a DDP speed): {ips:.1f} "
+          f"({DDP_STEPS} steps at the global batch {BATCH}, the first included)")
+    print(f"[ddp] (c) loss_total by step, two ranks: "
+          f"{json.dumps([round(v, 6) for v in two['window'][0]['metrics']['loss_total']])}; first "
+          f"step sync {two['sync'][0]['metrics']['loss_total'][0]:.6f}, per-replica "
+          f"{two['fault'][0]['metrics']['loss_total'][0]:.6f}")
+    want = ddp_first_moments(first, names)
+    over_sync = ddp_leaf_gate("(c) two ranks sync-BN vs one process, the first step's gradient", want,
+                              ddp_first_moments(two["sync"][0]["state"], names), rnn)
+    over_fault = ddp_leaf_gate("(c) planted fault: per-replica statistics where sync is asked", want,
+                               ddp_first_moments(two["fault"][0]["state"], names), rnn)
+    step_rnn = {f"generator.{k}" for k in rnn_leaves(tatt)} | {f"student.{k}" for k in rnn_leaves(CRNN())}
+    over_step = {}
+    for mode in modes:
+        card, cpu = results["card"][mode], results["cpu"][mode]
+        grads = [{f"{part}.{k}": v.double() for part, g in zip(("generator", "student"), r["grads"])
+                  for k, v in g.items()} for r in (cpu[0], card[0])]
+        step_rank_gaps[mode] = bitwise_gap(*(state_of(r["state"], r["optimizer"])
+                                             for r in (card[1], card[0])))[0]
+        print(f"[ddp] (d) {mode}: card rank 1 against rank 0: {len(step_rank_gaps[mode])} entries "
+              f"differ; loss_total card {card[0]['metrics']['loss_total']:.6f} CPU "
+              f"{cpu[0]['metrics']['loss_total']:.6f}")
+        over_step.update({f"{mode} {k}": v for k, v in ddp_leaf_gate(
+            f"(d) {mode} card vs CPU gradients", grads[0], grads[1], step_rnn).items()})
+    # (e) kernels #3 and #4 at a rank's R=32 rows of the student's BiLSTMs
+    gen = torch.Generator().manual_seed(20)
+    rows = BATCH // 2
+    with torch.no_grad():
+        fwd = [check_lstm(f"student/teacher rnn0 at a rank's R={rows}", 26, rows, 512, 256, gen),
+               check_lstm(f"student/teacher rnn1 at a rank's R={rows}", 26, rows, 256, 256, gen)]
+    bwd = [check_lstm_bwd(f"student rnn0 at a rank's R={rows}", 26, rows, 512, 256, gen),
+           check_lstm_bwd(f"student rnn1 at a rank's R={rows}", 26, rows, 256, 256, gen)]
+    for row in fwd:
+        print("[kernel] " + json.dumps(row))
+        print_lstm(row, smi)
+    for row in bwd:
+        print("[kernel-bwd] " + json.dumps(row))
+        print_bwd_split("lstm-bwd", row, LSTM_BWD_ENTRIES)
+    print(f"[ddp] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    # the gates, after every reading is printed
+    for name, (bad, gap) in gaps.items():
+        if bad:
+            fail(f"(a) {name}: {len(bad)} entries differ from the run without the flags ({bad[:3]})")
+    if "TPU dispatch" not in refusal or "not ported yet" in refusal:
+        fail(f"--steps_per_dispatch 2 not refused as TPU dispatch: {refusal}")
+    if nccl["backend"] != "nccl" or nccl_bad:
+        fail(f"(b) world size 1 on {nccl['backend']}: {len(nccl_bad)} entries differ ({nccl_bad[:3]})")
+    if any(bad for bad, _ in rank_gaps.values()):
+        fail(f"(c) the two ranks differ: { {k: b[:3] for k, (b, _) in rank_gaps.items()} }")
+    if any(launches[r] != {k: float(v) for k, v in STEP_LAUNCHES.items()} for r in range(2)):
+        fail(f"(c) launches a step a rank {launches} (want {STEP_LAUNCHES})")
+    if over_sync:
+        fail(f"(c) two ranks against one process above the leaf gate: {over_sync}")
+    if not over_fault:
+        fail("(c) the planted per-replica fault passed the leaf gate")
+    if any(step_rank_gaps.values()) or over_step:
+        fail(f"(d) ranks differ {step_rank_gaps} or card vs CPU above the leaf gate: {over_step}")
+    for row in fwd:
+        if not row["max_abs_err"] <= KERNEL_ATOL:
+            fail(f"kernel {row['shape']}: err {row['max_abs_err']} > {KERNEL_ATOL}")
+    for row in bwd:
+        if not row["ok"]:
+            fail(f"backward kernel {row['shape']}: {row}")
+    return fwd, bwd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forward-kernels-only", action="store_true",
@@ -3420,6 +3680,9 @@ def main(argv=None) -> int:
     ap.add_argument("--geometry-only", action="store_true",
                     help="run phases 1 and 19 alone (the YAML's geometry: 256x64, scale 4); "
                          "prints no result line")
+    ap.add_argument("--ddp-only", action="store_true",
+                    help="run phases 1 and 20 alone (data parallelism: --dp_devices, NCCL at "
+                         "world size 1, two gloo ranks on the card); prints no result line")
     ap.add_argument("--judges-only", action="store_true",
                     help="run phases 1 and 13 alone (the ASTER and MORAN judges, LPIPS, --vis, "
                          "--demo, --test); prints no result line")
@@ -3492,6 +3755,10 @@ def main(argv=None) -> int:
         return 0
     if args.geometry_only:
         geometry_phase(smi)
+        print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.ddp_only:
+        ddp_phase(smi)
         print(f"[smoke] the whole run took {time.perf_counter() - t_run:.1f} s")
         return 0
 
@@ -3694,6 +3961,10 @@ def main(argv=None) -> int:
 
     # ---- 19. the YAML's geometry: 256x64, scale 4; kernels #1 and #2 at their new lengths
     geo_fwd, geo_bwd, geo_bf_fwd, geo_bf_bwd = geometry_phase(smi)
+    mark(19)
+
+    # ---- 20. data parallelism: --dp_devices, NCCL at world size 1, two ranks on the card
+    ddp_fwd, ddp_bwd = ddp_phase(smi)
 
     # ---- the kernels line: per launch, weighted by the training path's mix
     # (per step gru1 and gru2 five times each, forward and backward; the
@@ -3712,9 +3983,9 @@ def main(argv=None) -> int:
         ("bigru_bwd", "tatt_tpu_torch/csrc/bigru_bwd.cu", "tatt_tpu/kernels/pallas_gru.py:132",
          gru_bwd_rows[:2], gru_bwd_rows + degrade_bwd_rows + geo_bwd),
         ("bilstm_fwd", "tatt_tpu_torch/csrc/bilstm_fwd.cu", "tatt_tpu/kernels/pallas_lstm.py:22",
-         lstm_rows[:2], lstm_rows + judge_lstm_rows + chinese_lstm_rows),
+         lstm_rows[:2], lstm_rows + judge_lstm_rows + chinese_lstm_rows + ddp_fwd),
         ("bilstm_bwd", "tatt_tpu_torch/csrc/bilstm_bwd.cu", "tatt_tpu/kernels/pallas_lstm.py:53",
-         lstm_bwd_rows[:2], lstm_bwd_rows),
+         lstm_bwd_rows[:2], lstm_bwd_rows + ddp_bwd),
     ):
         m = mix(rows)
         kernels.append({

@@ -119,8 +119,10 @@ def main(argv=None) -> int:
                        "ms_a_batch": (time.perf_counter() - t0) * 1e3 / n}
                 rows.append(row)
                 print(json.dumps(row), flush=True)
+            # one process (--dp_devices 0, the default, takes every visible card)
             code, trainer = cli.run(RECIPE + MODES[mode] + args.extra.split()
-                                    + ["--config", yaml, "--max_iters", str(args.warm)])
+                                    + ["--config", yaml, "--max_iters", str(args.warm),
+                                       "--dp_devices", "1"])
             sync()
             if code != 0:
                 print(f"[threads] cli.run {mode}: exit {code}")

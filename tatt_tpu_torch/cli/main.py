@@ -120,8 +120,22 @@ nothing, and JAX fails), and training with ``--STN`` at an LR crop below
 16 rows or 32 columns (the STN head pools it to nothing, and JAX trains it
 to NaN), as the recipe at ``down_sample_scale: 4`` of a 32-row crop.
 
-Refused with "not ported yet": any other flag (``--dp_devices``,
-``--bn_per_replica``, ...); nothing is silently ignored.  Without weights the generators
+Data parallelism, as the JAX CLI's mesh: ``--dp_devices N`` trains on N
+ranks, one process each (``cli/launch.py``): on CUDA the first N visible
+cards (0, the default, all of them; a larger N takes them all, as JAX's
+``devices[:n]``), on the CPU N processes (0 is 1).  ``--batch_size`` is
+the global batch, which N must divide; each rank steps on its rows,
+BatchNorm takes sync statistics over the global batch, or per rank with
+``--bn_per_replica`` (DataParallel's, ``interfaces/base.py:390``), and
+rank 0 alone validates, saves and prints.  ``--go_test``, ``--test`` and
+``--demo`` run in one process, as JAX's eval does.  With
+``COORDINATOR_ADDRESS`` set, this is host ``PROCESS_ID`` of
+``NUM_PROCESSES``, whose N ranks take their global ranks in a world of
+``NUM_PROCESSES`` x N (``cli/launch.py``).  ``--steps_per_dispatch 1`` is
+the default; K > 1 is refused (``STEPS_PER_DISPATCH_REFUSAL``).
+
+Refused with "not ported yet": any flag the JAX CLI does not have
+(abbreviations included); nothing is silently ignored.  Without weights the generators
 and the students / teacher start from initial weights seeded by
 ``TRAIN.manualSeed``.
 """
@@ -137,14 +151,18 @@ from typing import Optional
 
 import torch
 
+from tatt_tpu_torch.cli.launch import launch, train_worker
+from tatt_tpu_torch.core import distributed
 from tatt_tpu_torch.core.charset import AsterInfo
 from tatt_tpu_torch.core.checkpoint import resume_models
 from tatt_tpu_torch.core.config import Config, Flags, load_config
 from tatt_tpu_torch.core.convert import load_reference_pth, load_weights
 from tatt_tpu_torch.core.device import resolve_device, set_cuda_flags
+from tatt_tpu_torch.core.mesh import resolve_dp
 from tatt_tpu_torch.data.lmdb_dataset import ConcatDataset, LmdbTextDataset, MixDataset
 from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
 from tatt_tpu_torch.data.variants import BadSetFolderDataset, IC15TextSRDataset
+from tatt_tpu_torch.kernels import _build
 from tatt_tpu_torch.losses.perceptual import import_lpips, lpips_vgg
 from tatt_tpu_torch.models.common import init_parameters
 from tatt_tpu_torch.models.factory import (
@@ -193,7 +211,11 @@ HOTA_LR_REFUSAL = (
     "HOTA's 8x8 pool takes no window of the halved crop (it needs 15 rows and columns), so "
     "there is nothing to resize back (the JAX package fails on it too: 'IndexError: index -1 is "
     "out of bounds for axis 1 with size 0')")
-
+# the JAX CLI's K steps a dispatch (tatt_tpu/cli/main.py:111-116)
+STEPS_PER_DISPATCH_REFUSAL = (
+    "--steps_per_dispatch {k}: K optimizer steps in one dispatch is the JAX package's TPU "
+    "dispatch (one jitted lax.scan of K steps, tatt_tpu/train/loop.py:289-296); its CUDA "
+    "counterpart is CUDA graphs, a speed item that is not served: pass 1, the default")
 
 # bf16 training of the text-prior archs outside factory.BF16_ARCHS
 INFOGEN_BF16_REFUSAL = (
@@ -250,6 +272,11 @@ def build_parser() -> argparse.ArgumentParser:
                        ("vgg16", "torchvision VGG16 (LPIPS, with --lpips_pretrained)"),
                        ("lpips", "the lpips package's vgg heads (with --vgg16_pretrained)")):
         p.add_argument(f"--{name}_pretrained", type=str, default=None, help=f".pth weights of {what}")
+    p.add_argument("--dp_devices", type=int, default=0)
+    p.add_argument("--steps_per_dispatch", type=int, default=1)
+    p.add_argument("--bn_per_replica", action="store_true",
+                   help="BatchNorm statistics per data-parallel rank (DataParallel's) in place "
+                        "of sync-BN")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -259,6 +286,7 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
     not ``Flags``: ``synthetic``, ``max_iters``, the ``*_pretrained``
     paths, ``device``).  Raises SystemExit("not ported yet: ..."),
     SystemExit(BICUBIC_REFUSAL), SystemExit(CHNSR_CRNN_REFUSAL),
+    SystemExit(STEPS_PER_DISPATCH_REFUSAL),
     SystemExit(INFOGEN_BF16_REFUSAL), and for a geometry the JAX package
     cannot run SystemExit(HOTA_LR_REFUSAL) or SystemExit(STN_LR_REFUSAL)."""
     args, unknown = build_parser().parse_known_args(argv)
@@ -268,6 +296,8 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
         raise SystemExit(CHNSR_CRNN_REFUSAL)
     if unknown:
         raise SystemExit(f"not ported yet: {' '.join(unknown)}")
+    if args.steps_per_dispatch != 1:
+        raise SystemExit(STEPS_PER_DISPATCH_REFUSAL.format(k=args.steps_per_dispatch))
     bf16_train = args.dtype == "bfloat16" and not (args.go_test or args.test or args.demo)
     if bf16_train and args.arch in ABLATION_SET and args.arch not in BF16_ARCHS:
         raise SystemExit(INFOGEN_BF16_REFUSAL.format(arch=args.arch))
@@ -389,23 +419,42 @@ def rec_judge(cfg: Config, cli: argparse.Namespace, teacher, device):
 
 
 def run(argv=None) -> tuple[int, Optional[Trainer]]:
-    """:func:`main`, also returning the trainer of a training run."""
+    """:func:`main`, also returning the trainer of a training run in this
+    process (None when ``--dp_devices`` spread it over ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg, cli = parse_config(argv)
     warn_dead_flags(cfg)
     warn_synthetic_ignores(cfg, cli.synthetic)
     device = resolve_device(cli.device)
+    a = cfg.args
+    if not (a.go_test or a.test or a.demo):
+        world = resolve_dp(a.dp_devices, device)
+        if world * distributed.host_layout()[0] > 1:
+            if device.type == "cuda":
+                _build.build()  # once, before the ranks load it
+            devices = [f"cuda:{r}" for r in range(world)] if device.type == "cuda" else ["cpu"] * world
+            launch(train_worker, world, ([argv],), devices)
+            return 0, None
+    code, trainer, _ = train(cfg, cli, device)
+    return code, trainer
+
+
+def train(cfg: Config, cli: argparse.Namespace, device: torch.device):
+    """The run of the parsed flags on ``device`` in this process: the
+    evaluation modes, or training as this process's rank ->
+    (exit code, the trainer or None, its ``train`` result or None)."""
     set_cuda_flags()  # full f32 (no TF32) and cuDNN autotuning
 
     data = datasets(cfg, cli.synthetic)
     if data is None:
         print("no data: pass --synthetic N or a --config with train_data_dir", file=sys.stderr)
-        return 2, None
+        return 2, None, None
     train_ds, val_sets = data
     # the teacher: the flag, else the YAML's path (cli/main.py:236-262)
     crnn_path = cli.crnn_pretrained or cfg.TRAIN.VAL.crnn_pretrained
     if crnn_path and not os.path.exists(crnn_path):
         print(f"teacher CRNN weights not found: {crnn_path}", file=sys.stderr)
-        return 2, None
+        return 2, None, None
     if crnn_path and cfg.args.tpg == "OPT":
         raise SystemExit(OPT_TEACHER_REFUSAL.format(path=crnn_path))
     if not crnn_path and cfg.args.use_distill and not cli.synthetic:
@@ -434,7 +483,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
                 "--moran_pretrained")
         if not os.path.exists(path):
             print(f"{a.test_model} judge weights not found: {path}", file=sys.stderr)
-            return 2, None
+            return 2, None, None
         judge = load_judge(a.test_model, path, cfg.TRAIN.voc_type, device)
     # LPIPS when both checkpoints are given (super_resolution.py:41-43, 1409-1420)
     lpips = None
@@ -444,7 +493,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
         missing = [pth for pth in lpips_paths if not os.path.exists(pth)]
         if missing:
             print(f"LPIPS weights not found: {missing[0]}", file=sys.stderr)
-            return 2, None
+            return 2, None, None
         vgg, lin = import_lpips(*lpips_paths)
         vgg, lin = vgg.to(device), [w.to(device) for w in lin]
         lpips = lambda x, y: lpips_vgg(vgg, lin, x, y)  # noqa: E731
@@ -461,7 +510,7 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
                 run_demo(a.demo_dir, lambda lr: sr_fn(generators, students, lr)[0], judge,
                          os.path.join("demo_out", cfg.vis_dir), device, cfg.TRAIN.width,
                          cfg.TRAIN.height, cfg.scale_factor, a.mask)
-            return 0, None
+            return 0, None, None
         evaluator = Evaluator(
             generators, students, judge or teacher.eval(), device,
             batch_size=a.val_batch_size or cfg.batch_size, mask=a.mask,
@@ -472,15 +521,16 @@ def run(argv=None) -> tuple[int, Optional[Trainer]]:
         )
         for name, ds in val_sets.items():
             print(f"[{name}] {evaluator.evaluate(ds)}")
-        return 0, None
+        return 0, None, None
 
     trainer = Trainer(cfg, generators, students, teacher, train_ds, device, val_sets, judge, lpips)
     if cfg.resume:
         trainer.resume(cfg.resume)
     result = trainer.train(max_iters=cli.max_iters)
     last = {k: v[-1] for k, v in result["metrics"].items()}
-    print(f"[train] iters {result['iters']} " + " ".join(f"{k} {v:.6g}" for k, v in last.items()))
-    return (0 if all(math.isfinite(v) for v in last.values()) else 1), trainer
+    if distributed.rank() == 0:
+        print(f"[train] iters {result['iters']} " + " ".join(f"{k} {v:.6g}" for k, v in last.items()))
+    return (0 if all(math.isfinite(v) for v in last.values()) else 1), trainer, result
 
 
 def main(argv=None) -> int:

@@ -118,6 +118,12 @@ class Flags:
     test_data_dir: Optional[str] = None
     # the JAX package's uint8 collate; the port always ships uint8
     device_collate: bool = False
+    # data parallelism (``tatt_tpu/core/config.py:137-145``): ranks (0 = all
+    # visible cards), per-rank BatchNorm statistics in place of sync-BN, and
+    # the JAX package's TPU dispatch of K steps, of which only 1 is served
+    dp_devices: int = 0
+    bn_per_replica: bool = False
+    steps_per_dispatch: int = 1
     # eval extras (``tatt_tpu/core/config.py``'s defaults)
     rec: str = "crnn"  # --test's recognizer: crnn | aster | moran
     test: bool = False

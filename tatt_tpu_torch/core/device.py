@@ -30,8 +30,12 @@ def set_cuda_flags() -> None:
     lets cuBLAS add split-K partial sums in bf16 by default.  cuDNN
     autotunes its convolution algorithms (all of them f32 here): the eval
     path runs fixed shapes, and without TF32 the heuristic picks slow FFT
-    algorithms for the 9x9 convolutions."""
+    algorithms for the 9x9 convolutions.  Under
+    ``torch.use_deterministic_algorithms`` it does not: autotuning picks
+    among the deterministic algorithms by their timings, which another
+    process (a data-parallel rank) may read otherwise, and two processes
+    would then round differently; the heuristic picks the same."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = not torch.are_deterministic_algorithms_enabled()

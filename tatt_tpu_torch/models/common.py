@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tatt_tpu_torch.core import distributed
+
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     """x * tanh(softplus(x)) — ``tatt_tpu/models/common.py:31``."""
@@ -119,6 +121,30 @@ class ConvTranspose2d(nn.Module):
         return F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
 
 
+_BN_REPLICAS = 1
+
+
+def set_bn_replicas(n: int) -> None:
+    """The BatchNorm mode of the process (``--bn_per_replica``; JAX's
+    ``set_bn_replicas``, ``common.py:317-330``).  1, the default: sync-BN,
+    the statistics of each copy over the global batch, reduced across the
+    ranks of the process group.  ``n`` > 1: DataParallel's per-replica
+    statistics (``interfaces/base.py:390``), each copy of the global batch
+    split into ``n`` contiguous groups normalized by their own statistics;
+    a rank of D holds ``n / D`` of them (the trainer sets ``n`` = D, one
+    group a rank), and the running averages fold each copy's group 0 only,
+    which the step then broadcasts from rank 0 (DataParallel keeps the
+    master replica's buffers)."""
+    global _BN_REPLICAS
+    if n < 1:
+        raise ValueError(f"set_bn_replicas needs n >= 1, not {n}")
+    _BN_REPLICAS = int(n)
+
+
+def bn_replicas() -> int:
+    return _BN_REPLICAS
+
+
 class _BatchNorm(nn.Module):
     """BatchNorm over every axis but 1, torch eps/momentum defaults
     (``common.py:336-536``).  Eval mode normalizes with the running
@@ -128,7 +154,15 @@ class _BatchNorm(nn.Module):
     are then per copy, each copy normalized as its own forward would be,
     and the running statistics folded copy by copy in concat order with the
     unbiased variance.  Chosen per call, over one set of parameters.
-    Per-replica statistics (``set_bn_replicas``) wait for multi-GPU."""
+
+    Under a process group (``core/distributed.py``) the batch is a rank's
+    shard of each copy.  In sync mode each copy's mean and then its
+    variance about that mean are averaged over the ranks through the
+    differentiable all-reduce, so the gradient flows through the global
+    statistics as JAX differentiates through them, and every rank folds
+    the same global statistics into its running averages.  Per-replica
+    mode (:func:`set_bn_replicas`) takes the statistics of the rank's own
+    groups."""
 
     momentum = 0.1  # torch's; the JAX package's 0.9 is 1 - this
 
@@ -153,21 +187,37 @@ class _BatchNorm(nn.Module):
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (x.float() - self.running_mean.view(shape)) * inv.view(shape)
             return (y + self.bias.view(shape)).to(x.dtype)
-        parts = x.float().chunk(copies)
-        if len(parts) != copies or parts[-1].shape[0] != parts[0].shape[0]:
-            raise ValueError(f"batch {x.shape[0]} does not split into {copies} equal copies")
+        ranks, sync = distributed.world(), _BN_REPLICAS == 1
+        groups = 1 if sync else _BN_REPLICAS // ranks  # per copy on this rank
+        if not sync and groups * ranks != _BN_REPLICAS:
+            raise ValueError(f"{_BN_REPLICAS} BatchNorm replicas do not split over {ranks} ranks")
+        k = copies * groups
+        parts = x.float().chunk(k)
+        if len(parts) != k or parts[-1].shape[0] != parts[0].shape[0]:
+            raise ValueError(f"batch {x.shape[0]} does not split into {k} equal groups")
+        means = torch.stack([p.mean(red) for p in parts])
+        if sync:
+            means = distributed.mean_over_ranks(means)
+        var = torch.stack([(p - m.view(shape)).square().mean(red) for p, m in zip(parts, means)])
+        if sync:
+            var = distributed.mean_over_ranks(var)
+        n = parts[0].numel() // parts[0].shape[1] * (ranks if sync else 1)
         ys = []
-        for p in parts:
-            mean = p.mean(red)
-            var = (p - mean.view(shape)).square().mean(red)
-            n = p.numel() // p.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * var * (n / max(n - 1, 1)))
-            inv = torch.rsqrt(var + self.eps) * self.weight
+        for i, (p, mean, v) in enumerate(zip(parts, means, var)):
+            if i % groups == 0:  # per replica: each copy's group 0 alone
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var + m * v * (n / max(n - 1, 1)))
+            inv = torch.rsqrt(v + self.eps) * self.weight
             ys.append((p - mean.view(shape)) * inv.view(shape) + self.bias.view(shape))
         return torch.cat(ys).to(x.dtype)
+
+
+def bn_buffers(modules) -> list[torch.Tensor]:
+    """The running statistics of every BatchNorm in ``modules``."""
+    return [b for model in modules for m in model.modules() if isinstance(m, _BatchNorm)
+            for b in (m.running_mean, m.running_var)]
 
 
 class BatchNorm2d(_BatchNorm):
@@ -178,13 +228,19 @@ class BatchNorm1d(_BatchNorm):
     """BatchNorm over [N, C] (the STN head's fc, ``model/stn_head.py:51``)."""
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            batched: bool = True) -> torch.Tensor:
     """Inverted dropout drawn from ``gen`` (a generator on ``x``'s device),
     as flax ``nn.Dropout``: keep with probability 1 - rate, scale by
-    1 / (1 - rate).  Identity when ``gen`` is None or ``rate`` is 0 (eval)."""
+    1 / (1 - rate).  Identity when ``gen`` is None or ``rate`` is 0 (eval).
+    ``batched``: ``x``'s axis 0 is the batch, whose mask a rank draws as
+    its rows of the global batch's (:func:`~tatt_tpu_torch.core.
+    distributed.rand_rows`); else one mask for every rank."""
     if gen is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    u = (distributed.rand_rows(x.shape, gen, x.device) if batched
+         else torch.rand(x.shape, generator=gen, device=x.device))
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -122,7 +122,7 @@ class TPInterpreter(nn.Module):
         pos = torch.as_tensor(
             positional_encoding_table(t, self.d_model), device=x.device
         ).to(x.dtype)[None]
-        pos = dropout(pos, rate, gen)
+        pos = dropout(pos, rate, gen, batched=False)  # one [1, T, C] mask for the batch
         memory = x
         for layer in self.transformer.encoder.layers:
             memory = layer(memory, pos, rate, gen)

@@ -51,13 +51,16 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
+from tatt_tpu_torch.core import distributed
 from tatt_tpu_torch.core.checkpoint import resume_models, save_checkpoint
 from tatt_tpu_torch.core.config import Config, Flags
+from tatt_tpu_torch.core.mesh import shard_batch
 from tatt_tpu_torch.data.collate import Batch
 from tatt_tpu_torch.data.device_pipeline import device_normalize
 from tatt_tpu_torch.data.loader import DataLoader
 from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.ssim import psnr, ssim
+from tatt_tpu_torch.models.common import set_bn_replicas
 from tatt_tpu_torch.models.factory import CRNN_SPEC, RecognizerSpec, arch_steps, recognizer_spec
 from tatt_tpu_torch.train.demo import attention_grid, triptych
 from tatt_tpu_torch.train.judge import make_judge
@@ -98,16 +101,20 @@ def to_device(batch, device: torch.device, mask: bool) -> tuple[torch.Tensor, to
     )
 
 
-def step_batch(batch: Batch, device: torch.device, cfg: StepConfig) -> dict:
+def step_batch(batch: Batch, device: torch.device, cfg: StepConfig, rank: int = 0,
+               world: int = 1) -> dict:
     """The leaves of a batch that :func:`train_step` reads under ``cfg``,
     on the device: the uint8 crops (the step normalizes them), and the
-    ``YCbCr`` crops and CTC labels where ``y_domain`` / ``use_label`` ask."""
+    ``YCbCr`` crops and CTC labels where ``y_domain`` / ``use_label`` ask;
+    of a global batch, rank ``rank``'s rows of ``world``
+    (:func:`~tatt_tpu_torch.core.mesh.shard_batch`)."""
     names = ["images_hr", "images_lr"]
     if cfg.y_domain:
         names += ["images_hr_y", "images_lr_y"]
     if cfg.use_label:
         names += ["ctc_targets", "ctc_lengths", "weighted_tics"]
-    out = {k: torch.from_numpy(getattr(batch, k)).to(device) for k in names}
+    rows = shard_batch({k: getattr(batch, k) for k in names}, rank, world)
+    out = {k: torch.from_numpy(v).to(device) for k, v in rows.items()}
     if cfg.use_label:
         out["weighted_tics"] = out["weighted_tics"].float()
     return out
@@ -244,6 +251,11 @@ class Evaluator:
                                feat_hw=tuple(lr.shape[-2:]))
 
 
+BATCH_REFUSAL = ("batch_size {batch} does not split over {world} data-parallel ranks (the JAX "
+                 "package's shard_batch refuses it too: device_put needs the global size of "
+                 "dimension 0 divisible by {world})")
+
+
 class Trainer:
     """Trains ``generators`` and ``students`` (the :func:`copies` of each,
     as lists; one Adam over all) against the frozen ``teacher``.  The
@@ -254,7 +266,16 @@ class Trainer:
     which also gives the alphabet the train batches' label fields are
     encoded over; ``lpips``
     adds LPIPS to each validation.  The models must already sit on
-    ``device``.  A generator without parameters (``bicubic``) is refused."""
+    ``device``.  A generator without parameters (``bicubic``) is refused.
+
+    In a process group of D ranks (``core/distributed.py``; the JAX
+    trainer's mesh, ``loop.py:91-101, 548-606``) ``cfg.batch_size`` is the
+    global batch, which D must divide: every rank builds the same global
+    batches and steps on its rows (:func:`step_batch`), the state starts
+    as rank 0's (also after :meth:`resume`), the BatchNorms are sync-BN or,
+    with ``--bn_per_replica``, per rank (``models/common.set_bn_replicas``),
+    and rank 0 alone validates, saves, prints and writes scalars while the
+    others wait."""
 
     def __init__(
         self,
@@ -279,6 +300,11 @@ class Trainer:
             raise ValueError(f"--arch={cfg.args.arch}: the generator has no parameters to train")
         self.teacher = teacher
         self.device = torch.device(device)
+        self.rank, self.world = distributed.rank(), distributed.world()
+        if cfg.batch_size % self.world:
+            raise ValueError(BATCH_REFUSAL.format(batch=cfg.batch_size, world=self.world))
+        # process-wide, as JAX's set_bn_replicas (loop.py:95-101)
+        set_bn_replicas(self.world if cfg.args.bn_per_replica else 1)
         self.step_cfg = step_config(cfg.args)
         self.train_fn, sr_fn = arch_steps(cfg)
         self.optimizer = make_optimizer(
@@ -302,7 +328,12 @@ class Trainer:
         self.converge_list: list = []
         self.best_history: dict = {}
         self.best_sum_acc = -1.0
-        self.writer = make_summary_writer(cfg.args.log_dir, cfg.vis_dir) if cfg.args.log_dir else None
+        self.writer = (make_summary_writer(cfg.args.log_dir, cfg.vis_dir)
+                       if cfg.args.log_dir and self.rank == 0 else None)
+        self._broadcast()
+
+    def _broadcast(self) -> None:
+        distributed.broadcast_state(self.generators + self.students, self.optimizer, self.device)
 
     def resume(self, path: str) -> None:
         """``--resume`` of a port checkpoint, a run directory or a
@@ -320,7 +351,9 @@ class Trainer:
         self.best_history = dict(payload["best_history_res"])
         if self.best_history:
             self.best_sum_acc = sum(r.get("accuracy", 0.0) for r in self.best_history.values())
-        print(f"resumed from {path} at step {self.iters}: {payload['info']}")
+        self._broadcast()
+        if self.rank == 0:
+            print(f"resumed from {path} at step {self.iters}: {payload['info']}")
 
     def evaluate(self, dataset) -> dict:
         for m in self.generators + self.students:
@@ -376,8 +409,9 @@ class Trainer:
 
     def train(self, max_iters: Optional[int] = None) -> dict:
         """Steps until ``max_iters`` (counted over every call) or the last
-        epoch.  Returns ``iters`` and the per-step metrics of this call,
-        as lists of floats (read from the device once, at the end)."""
+        epoch.  Returns ``iters``, the per-step metrics of this call, as
+        lists of floats (read from the device once, at the end), and the
+        call's wall ``seconds``."""
         cfg = self.cfg.TRAIN
         history = []
         self.teacher.eval()
@@ -396,29 +430,33 @@ class Trainer:
                 )
                 metrics = self.train_fn(self.generators, self.students, self.teacher,
                                         self.optimizer,
-                                        step_batch(batch, self.device, self.step_cfg),
+                                        step_batch(batch, self.device, self.step_cfg, self.rank,
+                                                   self.world),
                                         self.step_cfg, gen)
                 history.append(metrics)
                 self.iters += 1
                 if self.writer is not None and self.iters % 5 == 0:
                     self._scalars(metrics)
-                if self.iters % cfg.displayInterval == 0:
+                if self.iters % cfg.displayInterval == 0 and self.rank == 0:
                     ips = len(history) * self.cfg.batch_size / (time.perf_counter() - t0)
                     print(
                         f"[epoch {epoch}] iter {self.iters} "
                         + " ".join(f"{k} {v.item():.3f}" for k, v in metrics.items())
                         + f" ({ips:.1f} img/s)"
                     )
-                # validation, then the rolling save (_boundary, loop.py:575-591)
-                if cfg.VAL.valInterval > 0 and self.iters % cfg.VAL.valInterval == 0:
+                # validation, then the rolling save (_boundary, loop.py:575-591),
+                # on rank 0 while the other ranks wait
+                validate = cfg.VAL.valInterval > 0 and self.iters % cfg.VAL.valInterval == 0
+                save = cfg.saveInterval > 0 and self.iters % cfg.saveInterval == 0
+                if self.rank == 0 and validate:
                     self._validate_and_checkpoint(epoch)
-                if cfg.saveInterval > 0 and self.iters % cfg.saveInterval == 0:
+                if self.rank == 0 and save:
                     self._save("checkpoint.ckpt", epoch)
+                if validate or save:
+                    distributed.barrier()
                 if max_iters is not None and self.iters >= max_iters:
                     done = True
                     break
         keys = history[0].keys() if history else ()
-        return {
-            "iters": self.iters,
-            "metrics": {k: torch.stack([m[k] for m in history]).tolist() for k in keys},
-        }
+        metrics = {k: torch.stack([m[k] for m in history]).tolist() for k in keys}
+        return {"iters": self.iters, "metrics": metrics, "seconds": time.perf_counter() - t0}

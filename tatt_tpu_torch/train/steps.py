@@ -43,6 +43,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from tatt_tpu_torch.core import distributed
 from tatt_tpu_torch.data.device_pipeline import prep_image_batch
 from tatt_tpu_torch.kernels.ctc import ctc_loss
 from tatt_tpu_torch.kernels.grid_sample import rotate_batch
@@ -50,6 +51,7 @@ from tatt_tpu_torch.kernels.resize import resize_bicubic
 from tatt_tpu_torch.losses.distill import semantic_loss
 from tatt_tpu_torch.losses.image import image_loss
 from tatt_tpu_torch.losses.ssim import distorted_ssim, ssim, tri_ssim
+from tatt_tpu_torch.models.common import bn_buffers, bn_replicas
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
 from tatt_tpu_torch.train.state import clip_grads_per_model
 
@@ -101,36 +103,50 @@ def _widen(t: torch.Tensor) -> torch.Tensor:
 
 def loss_stablize(loss_set: torch.Tensor, keep: float = 0.7) -> torch.Tensor:
     """Zero the per-sample losses above the ``int(keep * B)``-th smallest
-    (the intended top-k mask of ``super_resolution.py:84-93``, as
-    ``steps.py:82-90``)."""
-    k = int(keep * loss_set.shape[0])
+    of the global batch (the intended top-k mask of
+    ``super_resolution.py:84-93``, as ``steps.py:82-90``, where jit sees
+    the whole batch): a rank gathers every rank's losses to find it."""
+    every = distributed.gather_rows(loss_set.detach())
+    k = int(keep * every.shape[0])
     if k == 0:
         return loss_set
-    threshold = torch.sort(loss_set).values[k - 1]
+    threshold = torch.sort(every).values[k - 1]
     return torch.where(loss_set <= threshold, loss_set, torch.zeros_like(loss_set))
 
 
 def _rotation(batch: dict, n: int, degrees: float, gen: torch.Generator):
     """(arc, rand_offs) [N]: the batch's ``rot_arc`` / ``rot_offs`` when it
-    pins them (``steps.py:137-140``), else drawn uniformly from ``gen``."""
+    pins them (``steps.py:137-140``), else drawn uniformly from ``gen``
+    (a rank's rows of the global batch's draws)."""
     if "rot_arc" in batch:
         return batch["rot_arc"], batch["rot_offs"]
     dev = batch["images_lr"].device
-    angle = (torch.rand(n, generator=gen, device=dev) * 2.0 - 1.0) * degrees
-    return angle / 180.0 * math.pi, torch.rand(n, generator=gen, device=dev)
+    angle = (distributed.rand_rows((n,), gen, dev) * 2.0 - 1.0) * degrees
+    return angle / 180.0 * math.pi, distributed.rand_rows((n,), gen, dev)
 
 
 def _backward(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
     """The gradients of ``loss`` for every parameter of ``optimizer``: a
     parameter no loss reaches (the students without distillation, or in
     the plain step) gets a zero gradient and steps, as optax updates every
-    leaf."""
+    leaf.  Across ranks each gradient is then the mean over the ranks: the
+    global batch's, which the gradient norms and the clipping read."""
     optimizer.zero_grad(set_to_none=False)
     loss.backward()
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    distributed.average_grads(params)
+
+
+def _finish(models: Sequence[nn.Module], optimizer: torch.optim.Optimizer, metrics: dict) -> dict:
+    """The optimizer's step, then per-replica BatchNorm's running
+    statistics of rank 0 to every rank; the metrics of the global batch."""
+    optimizer.step()
+    if bn_replicas() > 1:
+        distributed.broadcast_tensors(bn_buffers(models), optimizer.param_groups[0]["params"][0].device)
+    return {k: v.detach() for k, v in distributed.reduce_metrics(metrics).items()}
 
 
 @torch.no_grad()
@@ -209,8 +225,9 @@ def train_step(
         prior = cast(label_vecs.permute(1, 2, 0)[:, :, None, :].detach())  # [B, C, 1, T]
         main_input = cascade if cfg.for_cascading else images_lr
         if fused:
-            sr_all, aux = generator(cast(torch.cat([main_input, images_lr_ret])),
-                                    torch.cat([prior, prior]), copies=2, gen=gen)
+            with distributed.packed_copies(2):
+                sr_all, aux = generator(cast(torch.cat([main_input, images_lr_ret])),
+                                        torch.cat([prior, prior]), copies=2, gen=gen)
             sr_all = _widen(sr_all)
             sr, sr_ret = sr_all[:nb], sr_all[nb:]
             # keep the main copy of the packed aux features (steps.py:263-270)
@@ -265,8 +282,7 @@ def train_step(
     _backward(optimizer, total)
     metrics.update(_grad_metrics(generators[0]))
     clip_grads_per_model(generators, cfg.grad_clip)
-    optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return _finish(list(generators) + list(students), optimizer, metrics)
 
 
 def plain_train_step(
@@ -346,8 +362,7 @@ def plain_train_step(
 
     _backward(optimizer, loss)
     clip_grads_per_model(generators, cfg.grad_clip)
-    optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return _finish(generators, optimizer, metrics)
 
 
 @torch.no_grad()

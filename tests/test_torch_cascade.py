@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ddp import dp_plan_matches_jax
 from test_torch_flags import (
     SMALL, TINY_CRNN, check_step, make_batch, make_variables,
 )
@@ -169,16 +170,20 @@ def test_cli_accepts_the_step_flags(argv, copies, capsys):
 
 
 # --color_loss and --mse_fuse are served now (the plain step; no-ops in the
-# TATT step, as in JAX), the zoo, --tpg OPT and --dtype bfloat16: their
-# cases hold other refusals (--dp_devices for --tpg OPT, --bn_per_replica
-# for --badset, which is served now, --steps_per_dispatch for bf16)
+# TATT step, as in JAX), the zoo, --tpg OPT and --dtype bfloat16; so are
+# --dp_devices and --bn_per_replica (test_torch_ddp.py), whose cases now
+# hold the plan, and --steps_per_dispatch 1, whose K > 1 is refused as TPU
+# dispatch
 @pytest.mark.parametrize("flag", [["--arch=srcnn", "--bn_per_replica"], ["--dp_devices", "2"],
                                   ["--steps_per_dispatch", "2"]])
-def test_cli_still_refuses_what_waits(flag):
+def test_cli_still_refuses_what_waits(flag, monkeypatch):
     from tatt_tpu_torch.cli import main as cli
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(flag + CLI_BASE)
+    if "--steps_per_dispatch" in flag:
+        with pytest.raises(SystemExit, match="TPU dispatch"):
+            cli.main(flag + CLI_BASE)
+    else:
+        dp_plan_matches_jax(flag + CLI_BASE, monkeypatch)
 
 
 def test_a_checkpoint_of_the_one_copy_format_still_loads(tmp_path):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ddp import dp_plan_matches_jax
 from test_torch_models import random_variables
 from tatt_tpu.core.charset import ctc_greedy_decode
 from tatt_tpu.core.checkpoint import load_variables_npz
@@ -165,8 +166,14 @@ def test_cli_go_test_on_cpu(capsys):
      ["--STN", "--mask", "--use_distill", "--gradient", "--sr_share", "--tssim_loss",
       "--rotate_train=3.0", "--dp_devices", "2", "--synthetic", "8"]],
 )
-def test_cli_refuses_what_is_not_ported(argv):
+def test_cli_refuses_what_is_not_ported(argv, monkeypatch):
+    """DDP's flags are served now (``test_torch_ddp.py``): their cases hold
+    the plan, which spawns nothing here; ``--steps_per_dispatch`` K > 1 is
+    refused as TPU dispatch."""
     from tatt_tpu_torch.cli import main as cli
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(argv + ["--device", "cpu"])
+    if "--steps_per_dispatch" in argv:
+        with pytest.raises(SystemExit, match="TPU dispatch"):
+            cli.main(argv + ["--device", "cpu"])
+    else:
+        dp_plan_matches_jax(argv + ["--device", "cpu"], monkeypatch)

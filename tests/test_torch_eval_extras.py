@@ -21,6 +21,7 @@ import pytest
 import torch
 from PIL import Image
 
+from test_torch_ddp import dp_plan_matches_jax
 from test_torch_lpips import weights  # noqa: F401  (a fixture)
 from test_torch_models import random_variables
 from tatt_tpu.core.charset import AsterInfo as JAsterInfo
@@ -339,8 +340,12 @@ def test_cli_judges_need_weights(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--rec=moran requires MORAN weights"):
         cli.main(["--test", "--rec=moran"] + base[1:])
     assert cli.main(base + ["--test_model=MORAN", "--moran_pretrained", "missing.pth"]) == 2
-    # --tpg OPT, --badset, --syn, --test_data_dir and --dtype bfloat16 are
-    # served now: the flags that still wait hold their places
+    # --tpg OPT, --badset, --syn, --test_data_dir, --dtype bfloat16 and DDP's
+    # flags are served now: DDP's cases hold the plan (no spawn), and
+    # --steps_per_dispatch K > 1 is refused as TPU dispatch
     for argv in (["--bn_per_replica"], ["--dp_devices", "2"], ["--steps_per_dispatch", "2"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(base + argv)
+        if "--steps_per_dispatch" in argv:
+            with pytest.raises(SystemExit, match="TPU dispatch"):
+                cli.main(base + argv)
+        else:
+            dp_plan_matches_jax(base + argv, monkeypatch)

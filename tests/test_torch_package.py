@@ -38,6 +38,9 @@ def test_import_pulls_in_no_jax_or_jax_package():
     assert len(SUBMODULES) >= 20
     zoo = ("esrgan", "han", "pcan", "resnets", "simple", "tbsrn", "transformer_sr")
     assert {f"tatt_tpu_torch.models.zoo.{m}" for m in zoo} <= set(SUBMODULES)
+    # data parallelism: the process group, the layout, the launcher, the replays
+    ddp = ("core.distributed", "core.mesh", "cli.launch", "train.replay")
+    assert {f"tatt_tpu_torch.{m}" for m in ddp} <= set(SUBMODULES)
 
 
 def test_sources_use_no_jax_library_rnn_compile_or_sdpa():
@@ -72,6 +75,16 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--go_test", "--synthetic", "8", "--mask"])
+    # the data-parallel launcher: asked for CUDA ranks, it raises before it
+    # starts any process, and never carries on on the CPU
+    from tatt_tpu_torch.cli import launch
+
+    for argv in (["--dp_devices", "2"], ["--dp_devices", "2", "--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv + ["--synthetic", "8"])
+    for devices in (None, ["cuda:0", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch.launch(launch.train_worker, 2, ([[]],), devices=devices, deadline_s=5)
 
 
 def _roundtrip_check(original, imported):
