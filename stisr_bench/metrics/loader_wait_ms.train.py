@@ -1,0 +1,6 @@
+"""Mean host ms a training step blocks in the loader's next()."""
+from stisr_bench.readers import loader_wait_ms
+
+
+def read(ctx):
+    return loader_wait_ms(ctx, "train")
