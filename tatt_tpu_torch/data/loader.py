@@ -17,6 +17,10 @@ resize per sample, so whole batches are built ahead on a thread pool of
 ``max(num_workers, 1)`` threads (PIL decode and resize and the LMDB reads
 release the interpreter lock), at most ``num_workers + prefetch`` in
 flight, and yielded in order: any worker count gives the same batches.
+The consumer's wait is spanned ``tatt.loader.first`` for an epoch's first
+batch (the pool starts with nothing built) and ``tatt.loader.wait`` for
+the rest; a worker's dataset reads ``tatt.loader.read`` and its collate
+``tatt.loader.collate`` (:mod:`~tatt_tpu_torch.train.observe`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 from tatt_tpu_torch.core.charset import CRNN_ALPHABET
 from tatt_tpu_torch.data.collate import Batch, collate
 from tatt_tpu_torch.data.lmdb_dataset import sample_key
+from tatt_tpu_torch.train.observe import span, tracing
 
 
 class DataLoader:
@@ -56,10 +61,15 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _build(self, sel: np.ndarray, batch_idx: int, epoch: int) -> Batch:
-        return collate([self.dataset[int(i)] for i in sel], self.y_domain, self.alphabet,
-                       syn=self.syn, seed=sample_key(self.seed, epoch, batch_idx),
-                       pseudo_lr=False, **self.geometry)
+    def _build(self, sel: np.ndarray, batch_idx: int, epoch: int, traced: bool) -> Batch:
+        """A batch, on a worker thread; ``traced``: whether the consumer's
+        thread ran a profiler when it asked for the batch."""
+        with span("tatt.loader.read", traced):
+            samples = [self.dataset[int(i)] for i in sel]
+        with span("tatt.loader.collate", traced):
+            return collate(samples, self.y_domain, self.alphabet, syn=self.syn,
+                           seed=sample_key(self.seed, epoch, batch_idx), pseudo_lr=False,
+                           **self.geometry)
 
     def __iter__(self) -> Iterator[Batch]:
         idx = np.arange(len(self.dataset))
@@ -73,13 +83,17 @@ class DataLoader:
         workers = max(self.num_workers, 1)
         pool = ThreadPoolExecutor(workers)
         try:
-            inflight = deque(pool.submit(self._build, *s)
+            inflight = deque(pool.submit(self._build, *s, tracing())
                              for s in itertools.islice(sels, workers + self.prefetch))
+            wait = "tatt.loader.first"
             while inflight:
                 fut = inflight.popleft()
                 nxt = next(sels, None)
                 if nxt is not None:
-                    inflight.append(pool.submit(self._build, *nxt))
-                yield fut.result()
+                    inflight.append(pool.submit(self._build, *nxt, tracing()))
+                with span(wait):
+                    batch = fut.result()
+                wait = "tatt.loader.wait"
+                yield batch
         finally:  # also when the consumer stops early (max_iters)
             pool.shutdown(wait=True, cancel_futures=True)

@@ -34,6 +34,7 @@ from tatt_tpu_torch.models.transformer import (
     TPDecoderLayer,
     positional_encoding_table,
 )
+from tatt_tpu_torch.train.observe import span
 
 
 class _Embedding(nn.Module):
@@ -98,41 +99,43 @@ class TPInterpreter(nn.Module):
     def query_pos(self, n: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """[N, H*W, C] query positions from the BiGRU-smoothed table, in
         ``dtype``."""
-        fh, fw = self.output_size
-        c = self.d_model
-        table = self.init_factor.weight.to(dtype).reshape(fh, fw, c)
-        cols = table.permute(1, 0, 2).reshape(fw, 1, fh * c)
-        gru = self.transformer.gru_encoding
-        if self.query_gru_mode == "reference":
-            # torch batch_first quirk: rows = W positions, sequence = batch
-            cols = gru(cols.expand(fw, n, fh * c))  # [W, N, H*C]
-            return cols.reshape(fw, n, fh, c).permute(1, 2, 0, 3).reshape(n, fh * fw, c)
-        cols = gru(cols.reshape(1, fw, fh * c))  # [1, W, H*C]
-        q = cols.reshape(fw, fh, c).permute(1, 0, 2).reshape(1, fh * fw, c)
-        return q.expand(n, fh * fw, c)
+        with span("tatt.query_gru"):
+            fh, fw = self.output_size
+            c = self.d_model
+            table = self.init_factor.weight.to(dtype).reshape(fh, fw, c)
+            cols = table.permute(1, 0, 2).reshape(fw, 1, fh * c)
+            gru = self.transformer.gru_encoding
+            if self.query_gru_mode == "reference":
+                # torch batch_first quirk: rows = W positions, sequence = batch
+                cols = gru(cols.expand(fw, n, fh * c))  # [W, N, H*C]
+                return cols.reshape(fw, n, fh, c).permute(1, 2, 0, 3).reshape(n, fh * fw, c)
+            cols = gru(cols.reshape(1, fw, fh * c))  # [1, W, H*C]
+            q = cols.reshape(fw, fh, c).permute(1, 0, 2).reshape(1, fh * fw, c)
+            return q.expand(n, fh * fw, c)
 
     def forward(self, image_feature: torch.Tensor, tp_input: torch.Tensor, rate: float = 0.0, gen=None):
         """``image_feature`` [N, C, H, W], ``tp_input`` [N, text_emb, 1, T]
         -> (prior map [N, C, H, W], attention weights [N, H*W, T]).
         ``rate`` / ``gen``: dropout, identity without a generator."""
-        n, c_i, h, w = image_feature.shape
-        x = tp_input[:, :, 0, :].transpose(1, 2).to(image_feature.dtype)
-        x = self.activation(self.fc_in(x))
-        t = x.shape[1]
-        pos = torch.as_tensor(
-            positional_encoding_table(t, self.d_model), device=x.device
-        ).to(x.dtype)[None]
-        pos = dropout(pos, rate, gen, batched=False)  # one [1, T, C] mask for the batch
-        memory = x
-        for layer in self.transformer.encoder.layers:
-            memory = layer(memory, pos, rate, gen)
-        query_pos = self.query_pos(n, x.dtype)
-        tgt = image_feature.reshape(n, c_i, h * w).transpose(1, 2)
-        norm = self.transformer.decoder.norm
-        out, weights, total = tgt, None, 0.0
-        layers = self.transformer.decoder.layers
-        for layer in layers:
-            out, weights = layer(out, memory, pos, query_pos, rate, gen)
-            total = total + norm(out)
-        prior = total / len(layers)  # [N, HW, C]
-        return prior.transpose(1, 2).reshape(n, self.d_model, h, w), weights
+        with span("tatt.tp_interpreter"):
+            n, c_i, h, w = image_feature.shape
+            x = tp_input[:, :, 0, :].transpose(1, 2).to(image_feature.dtype)
+            x = self.activation(self.fc_in(x))
+            t = x.shape[1]
+            pos = torch.as_tensor(
+                positional_encoding_table(t, self.d_model), device=x.device
+            ).to(x.dtype)[None]
+            pos = dropout(pos, rate, gen, batched=False)  # one [1, T, C] mask for the batch
+            memory = x
+            for layer in self.transformer.encoder.layers:
+                memory = layer(memory, pos, rate, gen)
+            query_pos = self.query_pos(n, x.dtype)
+            tgt = image_feature.reshape(n, c_i, h * w).transpose(1, 2)
+            norm = self.transformer.decoder.norm
+            out, weights, total = tgt, None, 0.0
+            layers = self.transformer.decoder.layers
+            for layer in layers:
+                out, weights = layer(out, memory, pos, query_pos, rate, gen)
+                total = total + norm(out)
+            prior = total / len(layers)  # [N, HW, C]
+            return prior.transpose(1, 2).reshape(n, self.d_model, h, w), weights

@@ -65,6 +65,7 @@ from tatt_tpu_torch.models.factory import CRNN_SPEC, RecognizerSpec, arch_steps,
 from tatt_tpu_torch.train.demo import attention_grid, triptych
 from tatt_tpu_torch.train.judge import make_judge
 from tatt_tpu_torch.train.metrics import EvalAccumulator
+from tatt_tpu_torch.train.observe import span
 from tatt_tpu_torch.train.state import make_optimizer
 from tatt_tpu_torch.train.steps import StepConfig, eval_step
 
@@ -113,10 +114,11 @@ def step_batch(batch: Batch, device: torch.device, cfg: StepConfig, rank: int = 
         names += ["images_hr_y", "images_lr_y"]
     if cfg.use_label:
         names += ["ctc_targets", "ctc_lengths", "weighted_tics"]
-    rows = shard_batch({k: getattr(batch, k) for k in names}, rank, world)
-    out = {k: torch.from_numpy(v).to(device) for k, v in rows.items()}
-    if cfg.use_label:
-        out["weighted_tics"] = out["weighted_tics"].float()
+    with span("tatt.step.batch"):
+        rows = shard_batch({k: getattr(batch, k) for k in names}, rank, world)
+        out = {k: torch.from_numpy(v).to(device) for k, v in rows.items()}
+        if cfg.use_label:
+            out["weighted_tics"] = out["weighted_tics"].float()
     return out
 
 
@@ -211,30 +213,26 @@ class Evaluator:
         t0 = time.perf_counter()
         n_vis_left = self.n_vis
         for hr, lr, labels in self.batches(dataset):
-            sr, aux = self.sr_fn(self.generators, self.students, lr)
-            lr_up = resize_bicubic(lr, hr.shape[-2], hr.shape[-1])
-            lpips_sr = lpips_lr = None
-            if self.lpips is not None:
-                lpips_sr = self.lpips(sr, hr).mean().item()
-                lpips_lr = self.lpips(lr_up, hr).mean().item()
-            preds = [self.decode(im) for im in (sr, lr, hr)]
-            acc.add_batch(
-                psnr(sr, hr).item(),
-                ssim(sr, hr).item(),
-                *preds,
-                labels,
-                filter_mode=self.spec.filter_mode,
-                psnr_lr=psnr(lr_up, hr).item(),
-                ssim_lr=ssim(lr_up, hr).item(),
-                lpips_sr=lpips_sr,
-                lpips_lr=lpips_lr,
-                n_real=len(labels),
-            )
-            if n_vis_left > 0:
-                n = min(n_vis_left, len(labels))
-                self.visualize(lr[:n], sr[:n], hr[:n], preds[1][:n], preds[0][:n], labels[:n],
-                               aux.get("pr_weights") if isinstance(aux, dict) else None)
-                n_vis_left -= n
+            with span("tatt.eval.batch"):
+                with span("tatt.eval.sr"):
+                    sr, aux = self.sr_fn(self.generators, self.students, lr)
+                with span("tatt.eval.score"):
+                    lr_up = resize_bicubic(lr, hr.shape[-2], hr.shape[-1])
+                    lpips_sr = lpips_lr = None
+                    if self.lpips is not None:
+                        lpips_sr = self.lpips(sr, hr).mean().item()
+                        lpips_lr = self.lpips(lr_up, hr).mean().item()
+                    psnr_sr, ssim_sr = psnr(sr, hr).item(), ssim(sr, hr).item()
+                    psnr_lr, ssim_lr = psnr(lr_up, hr).item(), ssim(lr_up, hr).item()
+                preds = [self.decode(im) for im in (sr, lr, hr)]
+                acc.add_batch(psnr_sr, ssim_sr, *preds, labels, filter_mode=self.spec.filter_mode,
+                              psnr_lr=psnr_lr, ssim_lr=ssim_lr, lpips_sr=lpips_sr,
+                              lpips_lr=lpips_lr, n_real=len(labels))
+                if n_vis_left > 0:
+                    n = min(n_vis_left, len(labels))
+                    self.visualize(lr[:n], sr[:n], hr[:n], preds[1][:n], preds[0][:n], labels[:n],
+                                   aux.get("pr_weights") if isinstance(aux, dict) else None)
+                    n_vis_left -= n
         acc.infer_time = time.perf_counter() - t0
         return acc.summary()
 
@@ -421,29 +419,30 @@ class Trainer:
             if done:
                 break
             for batch in self.loader:
-                for m in self.generators + self.students:
-                    m.train()
-                # seeded from the run's seed and the step number, as the JAX
-                # loop keys each step with PRNGKey(iters) (loop.py:599)
-                gen = torch.Generator(device=self.device).manual_seed(
-                    cfg.manualSeed * 1_000_003 + self.iters
-                )
-                metrics = self.train_fn(self.generators, self.students, self.teacher,
-                                        self.optimizer,
-                                        step_batch(batch, self.device, self.step_cfg, self.rank,
-                                                   self.world),
-                                        self.step_cfg, gen)
-                history.append(metrics)
-                self.iters += 1
-                if self.writer is not None and self.iters % 5 == 0:
-                    self._scalars(metrics)
-                if self.iters % cfg.displayInterval == 0 and self.rank == 0:
-                    ips = len(history) * self.cfg.batch_size / (time.perf_counter() - t0)
-                    print(
-                        f"[epoch {epoch}] iter {self.iters} "
-                        + " ".join(f"{k} {v.item():.3f}" for k, v in metrics.items())
-                        + f" ({ips:.1f} img/s)"
+                with span("tatt.step"):
+                    for m in self.generators + self.students:
+                        m.train()
+                    # seeded from the run's seed and the step number, as the JAX
+                    # loop keys each step with PRNGKey(iters) (loop.py:599)
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        cfg.manualSeed * 1_000_003 + self.iters
                     )
+                    metrics = self.train_fn(self.generators, self.students, self.teacher,
+                                            self.optimizer,
+                                            step_batch(batch, self.device, self.step_cfg, self.rank,
+                                                       self.world),
+                                            self.step_cfg, gen)
+                    history.append(metrics)
+                    self.iters += 1
+                    if self.writer is not None and self.iters % 5 == 0:
+                        self._scalars(metrics)
+                    if self.iters % cfg.displayInterval == 0 and self.rank == 0:
+                        ips = len(history) * self.cfg.batch_size / (time.perf_counter() - t0)
+                        print(
+                            f"[epoch {epoch}] iter {self.iters} "
+                            + " ".join(f"{k} {v.item():.3f}" for k, v in metrics.items())
+                            + f" ({ips:.1f} img/s)"
+                        )
                 # validation, then the rolling save (_boundary, loop.py:575-591),
                 # on rank 0 while the other ranks wait
                 validate = cfg.VAL.valInterval > 0 and self.iters % cfg.VAL.valInterval == 0

@@ -53,6 +53,7 @@ from tatt_tpu_torch.losses.image import image_loss
 from tatt_tpu_torch.losses.ssim import distorted_ssim, ssim, tri_ssim
 from tatt_tpu_torch.models.common import bn_buffers, bn_replicas
 from tatt_tpu_torch.models.recognizers.crnn import parse_crnn_input
+from tatt_tpu_torch.train.observe import span
 from tatt_tpu_torch.train.state import clip_grads_per_model
 
 @dataclass(frozen=True)
@@ -131,13 +132,14 @@ def _backward(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
     the plain step) gets a zero gradient and steps, as optax updates every
     leaf.  Across ranks each gradient is then the mean over the ranks: the
     global batch's, which the gradient norms and the clipping read."""
-    optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    distributed.average_grads(params)
+    with span("tatt.step.backward"):
+        optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        distributed.average_grads(params)
 
 
 def _finish(models: Sequence[nn.Module], optimizer: torch.optim.Optimizer, metrics: dict) -> dict:
@@ -186,6 +188,18 @@ def train_step(
     (``parse_crnn_input``, or ``parse_opt_input`` for the TPG of ``--tpg
     OPT``, whose [129, B, C] logits make a [B, C, 1, 129] prior).  Returns
     the JAX metric names as device scalars."""
+    with span("tatt.step.forward"):
+        total, metrics = _tatt_losses(generators, students, teacher, batch, cfg, gen, parse_fn)
+    _backward(optimizer, total)
+    with span("tatt.step.optimizer"):
+        metrics.update(_grad_metrics(generators[0]))
+        clip_grads_per_model(generators, cfg.grad_clip)
+        return _finish(list(generators) + list(students), optimizer, metrics)
+
+
+def _tatt_losses(generators, students, teacher, batch: dict, cfg: StepConfig,
+                 gen: torch.Generator, parse_fn: Callable) -> tuple[torch.Tensor, dict]:
+    """The forward of :func:`train_step`: (total loss, metrics)."""
     batch = prep_image_batch(batch, cfg.mask)
     images_hr, images_lr = batch["images_hr"], batch["images_lr"]
     hr_raw, lr_raw = images_hr, images_lr
@@ -204,7 +218,7 @@ def train_step(
         hr_raw, lr_raw = images_hr, images_lr
     cast = _caster(cfg.compute_dtype)
 
-    with torch.no_grad():  # the frozen teacher's prior from HR
+    with torch.no_grad(), span("tatt.teacher"):  # the frozen teacher's prior from HR
         teacher_logits = teacher(cast(parse_fn(hr_raw[:, :3]))).float()
         label_vecs_hr = torch.softmax(teacher_logits, dim=-1)
     lr_luma = cast(parse_fn(lr_raw[:, :3]))
@@ -221,11 +235,13 @@ def train_step(
             prev = resize_bicubic(cascade, images_lr.shape[2], images_lr.shape[3])
             cascade = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
         stage_luma = lr_luma if i == 0 or cfg.y_domain else cast(parse_fn(cascade[:, :3]))
-        label_vecs = torch.softmax(student(stage_luma).float(), dim=-1)  # [T, B, C]
+        with span("tatt.student"):
+            logits = student(stage_luma)
+        label_vecs = torch.softmax(logits.float(), dim=-1)  # [T, B, C]
         prior = cast(label_vecs.permute(1, 2, 0)[:, :, None, :].detach())  # [B, C, 1, T]
         main_input = cascade if cfg.for_cascading else images_lr
         if fused:
-            with distributed.packed_copies(2):
+            with distributed.packed_copies(2), span("tatt.generator"):
                 sr_all, aux = generator(cast(torch.cat([main_input, images_lr_ret])),
                                         torch.cat([prior, prior]), copies=2, gen=gen)
             sr_all = _widen(sr_all)
@@ -234,7 +250,8 @@ def train_step(
             aux = {k: v[:nb] if torch.is_tensor(v) and v.dim() and v.shape[0] == 2 * nb else v
                    for k, v in aux.items()}
         else:
-            sr, aux = generator(cast(main_input), prior, gen=gen)
+            with span("tatt.generator"):
+                sr, aux = generator(cast(main_input), prior, gen=gen)
             sr = _widen(sr)
         cascade = sr
 
@@ -265,7 +282,8 @@ def train_step(
             metrics["loss_ssim"] = s
         if cfg.tssim_loss:
             if not fused:
-                sr_ret = _widen(generator(cast(images_lr_ret), prior, gen=gen)[0])
+                with span("tatt.generator"):
+                    sr_ret = _widen(generator(cast(images_lr_ret), prior, gen=gen)[0])
             if cfg.rotate_train:
                 sr_ret = rotate_batch(sr_ret, arc, offs)
             ts = (1.0 - tri_ssim(sr_ret, sr, images_hr)) * 10.0
@@ -278,11 +296,7 @@ def train_step(
     metrics["loss_total"] = total
     metrics["sr_mean"], metrics["sr_min"], metrics["sr_max"] = (
         sr[:, :3].mean(), sr[:, :3].min(), sr[:, :3].max())
-
-    _backward(optimizer, total)
-    metrics.update(_grad_metrics(generators[0]))
-    clip_grads_per_model(generators, cfg.grad_clip)
-    return _finish(list(generators) + list(students), optimizer, metrics)
+    return total, metrics
 
 
 def plain_train_step(
@@ -316,10 +330,21 @@ def plain_train_step(
     with this rotated-back copy, where the reference reads the unrotated
     one).  Then per-copy clipping and one Adam step.  Returns the JAX
     metric names as device scalars."""
+    with span("tatt.step.forward"):
+        loss, metrics = _plain_losses(generators[0], batch, cfg, gen, criterion, channels,
+                                      distorted)
+    _backward(optimizer, loss)
+    with span("tatt.step.optimizer"):
+        clip_grads_per_model(generators, cfg.grad_clip)
+        return _finish(generators, optimizer, metrics)
+
+
+def _plain_losses(generator: nn.Module, batch: dict, cfg: StepConfig, gen: torch.Generator,
+                  criterion: Callable, channels: int, distorted: bool) -> tuple[torch.Tensor, dict]:
+    """The forward of :func:`plain_train_step`: (total loss, metrics)."""
     batch = prep_image_batch(batch, cfg.mask)
     images_hr = batch["images_hr"][:, :channels]
     images_lr = batch["images_lr"][:, :channels]
-    generator = generators[0]
     if cfg.rotate_train:
         arc, offs = _rotation(batch, images_lr.shape[0], cfg.rotate_train, gen)
         images_lr = rotate_batch(images_lr, arc, offs)
@@ -329,7 +354,8 @@ def plain_train_step(
         images_lr_ret = images_lr
 
     def forward(x):
-        out = generator(x, gen=gen)
+        with span("tatt.generator"):
+            out = generator(x, gen=gen)
         return out[0] if isinstance(out, tuple) else out
 
     def rotated_back(x):
@@ -359,10 +385,7 @@ def plain_train_step(
         loss = loss + mf
         metrics["loss_mse_fuse"] = mf
     metrics["loss_total"] = loss
-
-    _backward(optimizer, loss)
-    clip_grads_per_model(generators, cfg.grad_clip)
-    return _finish(generators, optimizer, metrics)
+    return loss, metrics
 
 
 @torch.no_grad()
@@ -370,7 +393,8 @@ def plain_eval_step(generator: nn.Module, images_lr: torch.Tensor, channels: int
     """``images_lr`` [N, 4, H/s, W/s] -> (SR of ``images_lr[:, :channels]``,
     {}): the plain archs' evaluation (``loop.py:318-329``), no prior, the
     first output of a model that returns several."""
-    out = generator(images_lr[:, :channels])
+    with span("tatt.generator"):
+        out = generator(images_lr[:, :channels])
     return (out[0] if isinstance(out, tuple) else out), {}
 
 
@@ -401,8 +425,10 @@ def eval_step(
             sr_input = (prev.clamp(0.0, 1.0) + images_lr) / 2.0
         student = students[i if len(students) > 1 else 0]
         generator = generators[i if len(generators) > 1 else 0]
-        logits = student(lr_luma)  # [T, N, C]
+        with span("tatt.student"):
+            logits = student(lr_luma)  # [T, N, C]
         prior = torch.softmax(logits, dim=-1).permute(1, 2, 0)[:, :, None, :]
-        sr, aux = generator(sr_input, prior)
+        with span("tatt.generator"):
+            sr, aux = generator(sr_input, prior)
         cascade = sr
     return sr, aux

@@ -11,6 +11,7 @@ relative paths (``demo/``, ``demo_out/``) runs in its own ``tmp_path``.
 
 import argparse
 import ast
+import json
 import os
 import struct
 
@@ -239,18 +240,16 @@ def test_summary_writer_without_tensorboardx(monkeypatch, capsys, tmp_path):
 
 
 def test_observe(tmp_path):
+    """``observe.trace`` writes the block's trace, the port's spans in it."""
     conv = torch.nn.Conv2d(3, 8, 3, padding=1)
     x = torch.zeros(2, 3, 16, 16)
-    lines = []
-    out = observe.audit_model("conv", conv, conv, x, log=lines.append)
-    assert out["params"] == observe.param_count(conv) == 8 * 3 * 9 + 8
-    assert out["flops"] == 2 * 2 * 8 * 16 * 16 * 3 * 9 and "GFLOPs" in lines[0]
     with observe.trace(str(tmp_path)):
-        conv(x)
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
-    timer = observe.StepTimer()
-    timer.update(64)
-    assert timer.images == 64 and timer.rate() > 0
+        with observe.span("tatt.generator"):
+            conv(x)
+    files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert len(files) == 1
+    events = json.load(open(tmp_path / files[0]))["traceEvents"]
+    assert any(e.get("name") == "tatt.generator" for e in events)
 
 
 @pytest.fixture
