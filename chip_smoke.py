@@ -1,5 +1,5 @@
 """Smoke run of tatt_tpu_torch on one CUDA card: the port's eval and
-training paths at full width, with all four hand-written kernels held
+training paths at full width, with every hand-written kernel held
 against their plain PyTorch versions.  On a host with several cards it
 takes the first visible one (``CUDA_VISIBLE_DEVICES`` is narrowed to it
 before CUDA starts), so that the CLI's default ``--dp_devices 0`` is one
@@ -44,7 +44,12 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      H=113 and 250, which its kernels refuse: the H it runs them at
      (decided from the kernels' plan queries, the layer counted, one
      forward and one backward launch), forward and backward against the
-     plain twin on the CPU, timed beside the plain twin and cuDNN
+     plain twin on the CPU, timed beside the plain twin and cuDNN; and the
+     TP Interpreter's query GRU (``kernels/query_gru.py``, L=64 R=1
+     H=512): its chains against their plain twins forward and backward,
+     timed (forward, forward + backward, a launch at L=1) beside the bound,
+     the twins, the plain loop the module ran before and ``nn.GRU(1024,
+     512, bidirectional=True)``, with the plan
   7. the full-width training path: Trainer.train with the canonical recipe
      at batch 64, images/s, launches per step, finite and falling losses
   8. one full-width train step at batch 8 on the card (kernels) against
@@ -185,8 +190,9 @@ Phases (any failure exits non-zero; no phase carries on after its own):
      lengths of a fused 2B batch of 64 (256x64: gru1 L=32 R=16384, gru2
      L=128 R=4096; scale 4: gru1 L=8 R=4096, gru2 L=32 R=1024) against
      their plain twins, timed beside the bound, the twin and ``nn.GRU``,
-     with their launch plans; the TP Interpreter's query GRU (a plain
-     loop, hidden 512 over 64 steps at 128x32, 1024 over 128 at 256x64)
+     with their launch plans; the TP Interpreter's query GRU (its chains
+     at hidden 512 over 64 steps at 128x32; the plain loop at 1024 over
+     128 at 256x64, which the chains' plan refuses)
      forward and forward + backward; the recipe through ``cli.run`` at
      256x64 and ``tsrn`` at scale 4 (no ``--STN``: refused there), batch
      64 (images/s, peak memory, launches a step 10/10/4/2 and 20/20/0/0,
@@ -277,7 +283,10 @@ from tatt_tpu_torch.kernels.lstm import (  # noqa: E402
     bilstm_recurrence_bwd_ref, bilstm_recurrence_ref, kernels_serve, served_hidden,
 )
 from tatt_tpu_torch.kernels.ctc import ctc_loss  # noqa: E402
-from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, compose_input_projection  # noqa: E402
+from tatt_tpu_torch.kernels.query_gru import (  # noqa: E402
+    query_gru_plan, query_gru_recurrence, query_gru_recurrence_bwd,
+)
+from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM, bigru_apply, compose_input_projection  # noqa: E402
 from tatt_tpu_torch.losses.perceptual import VGG16Features, lpips_vgg  # noqa: E402
 from tatt_tpu_torch.models.common import init_parameters  # noqa: E402
 from tatt_tpu_torch.models.recognizers.aster import AsterRecognizer, parse_aster_input  # noqa: E402
@@ -893,6 +902,96 @@ def check_gru_bwd(name, length, rows, cin, cmid, hid, gen):
     return row
 
 
+def check_query_gru(gen) -> dict:
+    """The TP Interpreter's query GRU at full width (L=64 R=1 H=512, In
+    1024): the chains of ``kernels/query_gru.py`` against their plain twins
+    forward and backward (h, d(gates), dW_hh, db_hh, the input-bias
+    gradient), their device time (forward; backward chain; at L=1, so the
+    time of a step) and the wrapper's time with the torch ops around the
+    backward chain, beside the bound, the twins, the plain loop the module
+    ran before (``bigru_apply`` under autograd) and ``nn.GRU(1024, 512,
+    bidirectional=True)`` on the same input, projection included."""
+    length, hid, cin = 64, 512, 1024
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=gen).mul_(sc).to(DEV)  # noqa: E731
+    b = hid**-0.5
+    x = rnd(1, length, cin)
+    w_ih, w_hh = rnd(2, 3 * hid, cin, sc=b), rnd(2, 3 * hid, hid, sc=b)
+    b_ih, b_hh = rnd(2, 3 * hid, sc=b), rnd(2, 3 * hid, sc=b)
+    gates = (torch.einsum("rli,dgi->dlgr", x, w_ih) + b_ih[:, None, :, None]).contiguous()
+    out = query_gru_recurrence(gates, w_hh, b_hh)
+    ref = bigru_recurrence_ref(gates, w_hh, b_hh)
+    dout = rnd(*ref.shape)
+    got = query_gru_recurrence_bwd(gates, w_hh, b_hh, ref, dout)
+    want = bigru_recurrence_bwd_ref(gates, w_hh, b_hh, ref, dout)
+    torch.cuda.synchronize()
+    errs = {"h": scaled_err(out, ref), **{k: scaled_err(g, w) for k, g, w in zip(
+        ("dgates", "dw_hh", "db_hh", "dbx"), got, want)}}
+    lib = _library_rnn(torch.nn.GRU, cin, hid, w_ih, w_hh, b_ih, b_hh)
+    dy = dout.permute(2, 0, 1).contiguous()
+    module = BiGRU(cin, hid).to(DEV)
+    with torch.no_grad():
+        for d, sfx in enumerate(("l0", "l0_reverse")):
+            for name, t in (("weight_ih", w_ih), ("weight_hh", w_hh), ("bias_ih", b_ih),
+                            ("bias_hh", b_hh)):
+                getattr(module, f"{name}_{sfx}").copy_(t[d])
+
+    def fwd_bwd(fn):
+        xg = x.detach().requires_grad_()
+        torch.autograd.grad(fn(xg), [xg, *module.parameters()], dy)
+
+    def chains():
+        query_gru_recurrence(gates, w_hh, b_hh)
+        query_gru_recurrence_bwd(gates, w_hh, b_hh, ref, dout)
+
+    def twins():
+        bigru_recurrence_ref(gates, w_hh, b_hh)
+        bigru_recurrence_bwd_ref(gates, w_hh, b_hh, ref, dout)
+
+    g1, o1, d1 = gates[:, :1].contiguous(), ref[:1].contiguous(), dout[:1].contiguous()
+    row = dict(
+        shape="query GRU", L=length, R=1, H=hid, In=cin, scaled_err=errs,
+        ok=max(errs.values()) <= KERNEL_ATOL,
+        fwd=kernel_time(lambda: query_gru_recurrence(gates, w_hh, b_hh), "query_gru_fwd_chain"),
+        fwd_one_step=kernel_time(lambda: query_gru_recurrence(g1, w_hh, b_hh), "query_gru_fwd_chain"),
+        bwd_chain_ms=kernel_self_ms(lambda: query_gru_recurrence_bwd(gates, w_hh, b_hh, ref, dout),
+                                    "query_gru_bwd_chain", 20),
+        bwd_chain_one_step_ms=kernel_self_ms(lambda: query_gru_recurrence_bwd(g1, w_hh, b_hh, o1, d1),
+                                             "query_gru_bwd_chain", 20),
+        fwd_bwd_ms=timed_ms(chains, 20),
+        module_fwd_ms=timed_ms(lambda: module(x), 20),
+        module_fwd_bwd_ms=timed_ms(lambda: fwd_bwd(module), 20),
+        plain_fwd_ms=timed_ms(lambda: bigru_recurrence_ref(gates, w_hh, b_hh), 3),
+        plain_fwd_bwd_ms=timed_ms(twins, 2),
+        loop_fwd_ms=timed_ms(lambda: bigru_apply(x, *module.stacked()), 3),
+        loop_fwd_bwd_ms=timed_ms(lambda: fwd_bwd(lambda xg: bigru_apply(xg, *module.stacked())), 3),
+        library_fwd_ms=timed_ms(lambda: lib(x), 20),
+        library_fwd_bwd_ms=timed_ms(lambda: _library_fwd_bwd(lib, x, dy), 20),
+        plan=query_gru_plan(hid, 1),
+    )
+    row["bound_fwd_ms"], row["bound_fwd_by"] = bound("gru", length, 1, hid)
+    row["bound_bwd_ms"], row["bound_bwd_by"] = bound("gru", length, 1, hid, backward=True)
+    return row
+
+
+def print_query_gru(row) -> None:
+    """The query GRU's chains: device time a launch and a step ((launch -
+    launch at L=1) / (L - 1)) beside the bound, then what the wrapper, the
+    module, the twins, the loop before and cuDNN take on the same input."""
+    fwd_step = (row["fwd"]["ms"] - row["fwd_one_step"]["ms"]) / (row["L"] - 1) * 1e3
+    bwd, bwd1 = row["bwd_chain_ms"], row["bwd_chain_one_step_ms"]
+    bwd_step = "n/a" if None in (bwd, bwd1) else f"{(bwd - bwd1) / (row['L'] - 1) * 1e3:.2f}"
+    print(f"[query-gru] L={row['L']} R=1 H={row['H']}: forward chain {row['fwd']['ms']:.4f} ms "
+          f"(events {row['fwd']['event_ms']:.4f}, profiler {row['fwd']['profiler_ms']}), "
+          f"{fwd_step:.2f} us a step, bound {row['bound_fwd_ms']:.4f} ms; backward chain "
+          f"{bwd} ms (profiler), {bwd_step} us a step, bound {row['bound_bwd_ms']:.4f} ms; "
+          f"forward + backward with the ops around {row['fwd_bwd_ms']:.4f} ms; module "
+          f"{row['module_fwd_ms']:.4f} / {row['module_fwd_bwd_ms']:.4f} ms; plain twins "
+          f"{row['plain_fwd_ms']:.3f} / {row['plain_fwd_bwd_ms']:.3f} ms; the loop before "
+          f"{row['loop_fwd_ms']:.3f} / {row['loop_fwd_bwd_ms']:.3f} ms; nn.GRU "
+          f"{row['library_fwd_ms']:.4f} / {row['library_fwd_bwd_ms']:.4f} ms; plan "
+          f"{json.dumps(row['plan'])}")
+
+
 def print_bwd_split(tag: str, row, entries: dict) -> None:
     """A backward kernel's launch by entry, and its time a step: (device
     time of the recurrence - the same at L=1) / (L - 1)."""
@@ -1091,6 +1190,12 @@ def backward_kernels(gen, lstm_only: bool = False):
               f"{fb['library_ms']:.4f})")
         if not row["ok"]:
             fail(f"BiLSTM module at H={hid}: {row}")
+    if not lstm_only:
+        row = check_query_gru(gen)
+        print("[query-gru] " + json.dumps(row))
+        print_query_gru(row)
+        if not row["ok"]:
+            fail(f"query GRU chains: {row['scaled_err']} > {KERNEL_ATOL}")
     return gru_bwd_rows, lstm_bwd_rows
 
 
@@ -3327,7 +3432,9 @@ def bf16_phase(smi: str, repeats: int = 1):
 
 def query_gru_ms(geometry: dict) -> tuple:
     """The TP Interpreter's query GRU (``query_pos``: the BiGRU over the
-    query table's columns, hidden lr_h * 32, a plain loop) of the
+    query table's columns, hidden lr_h * 32; the chains of
+    ``kernels/query_gru.py`` at 128x32, the plain loop at 256x64, whose
+    hidden 1024 their plan refuses) of the
     full-width TATT at ``geometry``, batch 64 on the card: (forward ms,
     forward + backward ms, hidden, steps)."""
     tatt = TATT(srb_nums=5, hidden_units=32, out_text_channels=64, mask=True,
@@ -3716,7 +3823,8 @@ def main(argv=None) -> int:
     for hid, rows in ((32, 2 * BATCH * 64), (32, 2 * BATCH * 16), (32, BATCH * 64),
                       (32, BATCH * 16), (128, BATCH * 16)):
         print(f"[build] bigru_fwd plan at H={hid} R={rows}: {json.dumps(bigru_fwd_plan(hid, rows))}")
-
+    for hid, rows in ((512, 1), (333, 1), (1024, 1), (512, BATCH)):
+        print(f"[build] query_gru plan at H={hid} R={rows}: {json.dumps(query_gru_plan(hid, rows))}")
     if args.lstm_bwd_only:
         backward_kernels(torch.Generator().manual_seed(0), lstm_only=True)
         return 0

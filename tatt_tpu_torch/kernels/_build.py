@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("bigru_fwd", "bigru_bwd", "bilstm_fwd", "bilstm_bwd")
+KERNELS = ("bigru_fwd", "bigru_bwd", "bilstm_fwd", "bilstm_bwd", "query_gru")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

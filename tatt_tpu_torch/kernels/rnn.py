@@ -15,9 +15,12 @@ nothing back, so outputs and gradients are those of the true size
 gradient is wanted, the recurrence runs through the kernels'
 ``autograd.Function`` (forward and backward kernels), and the projection
 stays ordinary differentiable torch ops outside it, as the JAX VJP keeps
-its projection GEMMs (``pallas_gru.py:360-375``).  Wider recurrences — the
-TP-Interpreter's query GRU, hidden 512 — run :func:`bigru_apply`, a plain
-loop under autograd, as JAX keeps it on ``lax.scan`` (``rnn.py:211-218``).
+its projection GEMMs (``pallas_gru.py:360-375``).  Wider BiGRUs — the
+TP-Interpreter's query GRU, hidden 512 over one row — run the chains of
+:mod:`.query_gru` on the card where their plan serves the float32 row
+(JAX keeps this GRU on ``lax.scan``, ``rnn.py:211-218``), and
+:func:`bigru_apply`, a plain loop under autograd, everywhere else: on the
+CPU, in bf16, over several rows, at a hidden size the plan refuses.
 :func:`gru_cell` is one plain GRU step, as in JAX.
 
 Every layer follows its input's dtype, as JAX's do under ``--dtype
@@ -38,6 +41,7 @@ from torch.nn import functional as F
 
 from tatt_tpu_torch.kernels import gru as gru_kernel
 from tatt_tpu_torch.kernels import lstm as lstm_kernel
+from tatt_tpu_torch.kernels import query_gru
 
 
 def _stack_bidir(x: torch.Tensor) -> torch.Tensor:
@@ -200,18 +204,22 @@ class BiGRU(_BiRNN):
     ) -> torch.Tensor:
         w_ih, w_hh, b_ih, b_hh = self.stacked()
         w_eff, b_eff = compose_input_projection(w_ih, b_ih, pre_kernel, pre_bias)
-        if self.hidden > gru_kernel.MAX_HIDDEN:
+        if self.hidden <= gru_kernel.MAX_HIDDEN:
+            function, recurrence = gru_kernel.BiGRURecurrence, gru_kernel.bigru_recurrence
+        elif query_gru.serves(x, self.hidden):
+            function, recurrence = query_gru.QueryGRURecurrence, query_gru.query_gru_recurrence
+        else:
             return bigru_apply(x, w_eff, w_hh, b_eff, b_hh)
         # one matmul for all timesteps of both directions, emitted in the
         # kernel's [2, L, 3H, R] layout (rows minor), in x's dtype; the
         # recurrence casts the biases and W_hh to it
         xw = torch.einsum("rli,dgi->dlgr", x, w_eff.to(x.dtype))
         if _wants_grad(xw, b_eff, w_hh, b_hh):
-            y = gru_kernel.BiGRURecurrence.apply(xw, b_eff, w_hh, b_hh)
+            y = function.apply(xw, b_eff, w_hh, b_hh)
         else:
             dt = x.dtype
             gates = (xw + b_eff.to(dt)[:, None, :, None]).contiguous()
-            y = gru_kernel.bigru_recurrence(gates, w_hh.to(dt), b_hh.to(dt))
+            y = recurrence(gates, w_hh.to(dt), b_hh.to(dt))
         return y.permute(2, 0, 1)  # [L, 2H, R] -> [R, L, 2H]
 
 

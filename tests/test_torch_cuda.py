@@ -678,3 +678,106 @@ def test_bf16_modules_train_through_the_bf16_kernels(cuda):
             before[0] + 1, before[1] + 1, before[2] + 1)
         assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
                    for p in layer.parameters())
+
+
+# (L, H) of the query GRU's chains (kernels/query_gru.py, one row): the TP
+# Interpreter's full width (64 steps, hidden 512), an odd hidden size the
+# plan serves (a last block with fewer units, W_hh's rows padded to a
+# float4 multiple), and one step
+@pytest.mark.parametrize("length,hid", [(64, 512), (64, 333), (1, 512)])
+def test_query_gru_kernels_match_plain(cuda, length, hid):
+    """Forward and backward chains against the plain twins on the same
+    card: h, d(gates), dW_hh, db_hh and the input-bias gradient each within
+    ATOL of their largest entry (at least 1); one launch each."""
+    from tatt_tpu_torch.kernels.gru import bigru_recurrence_bwd_ref, bigru_recurrence_ref
+    from tatt_tpu_torch.kernels.query_gru import query_gru_recurrence, query_gru_recurrence_bwd
+
+    ins = _recurrence_inputs((2, length, 3 * hid, 1), 3 * hid, hid, cuda, seed=hid)
+    before = query_gru_recurrence.launches, query_gru_recurrence_bwd.launches
+    out, ref = query_gru_recurrence(*ins), bigru_recurrence_ref(*ins)
+    dout = torch.tensor(np.random.default_rng(length).standard_normal((length, 2 * hid, 1)),
+                        dtype=torch.float32, device=cuda)
+    got = query_gru_recurrence_bwd(*ins, ref, dout)
+    want = bigru_recurrence_bwd_ref(*ins, ref, dout)
+    torch.cuda.synchronize()
+    assert (query_gru_recurrence.launches, query_gru_recurrence_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _scaled_err(out, ref) <= ATOL
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert all(_scaled_err(g, w) <= ATOL for g, w in zip(got, want))
+
+
+def test_query_gru_kernels_are_deterministic(cuda):
+    """Two launches of each chain at the query GRU's shape are bitwise
+    equal (every sum in a fixed order, no atomics)."""
+    from tatt_tpu_torch.kernels.query_gru import query_gru_recurrence, query_gru_recurrence_bwd
+
+    ins = _recurrence_inputs((2, 64, 1536, 1), 1536, 512, cuda, seed=9)
+    first, second = query_gru_recurrence(*ins), query_gru_recurrence(*ins)
+    dout = torch.randn_like(first)
+    bwd = [query_gru_recurrence_bwd(*ins, first, dout) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+
+
+def test_query_gru_refusals_take_the_plain_loop(cuda):
+    """A BiGRU of hidden 512 over several rows (reference mode's R = N) or
+    on a bf16 input runs bigru_apply: the module's output is bigru_apply's
+    and no launch counter moves, the chains' or the narrow kernels'.  The
+    plan gives its reason for those rows and for hidden 1024 (the query GRU
+    at 256x64), and serves hidden 512 over one row."""
+    from tatt_tpu_torch.kernels import gru, query_gru
+    from tatt_tpu_torch.kernels.rnn import BiGRU, bigru_apply
+    from tatt_tpu_torch.models.common import init_parameters
+
+    module = init_parameters(BiGRU(1024, 512), 2).to(cuda)
+    counters = (gru.bigru_recurrence, gru.bigru_recurrence_bwd,
+                query_gru.query_gru_recurrence, query_gru.query_gru_recurrence_bwd)
+    for x in (torch.randn(3, 8, 1024, device=cuda),
+              torch.randn(1, 8, 1024, device=cuda, dtype=torch.bfloat16)):
+        before = [c.launches for c in counters]
+        with torch.no_grad():
+            got, want = module(x), bigru_apply(x, *module.stacked())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert [c.launches for c in counters] == before
+    assert isinstance(query_gru.query_gru_plan(512, 3), str)
+    assert isinstance(query_gru.query_gru_plan(1024, 1), str)
+    plan = query_gru.query_gru_plan(512, 1)
+    assert plan["cluster"] * plan["units"] >= 512 and plan["fwd_clusters"] >= 1
+
+
+def test_tatt_step_launches_the_query_gru_chains_once(cuda):
+    """One recipe train step of the full-width TATT (five SRBs; the query
+    GRU at hidden 512) with full-width CRNNs on the card launches the
+    query GRU's chains once forward and once backward, and the narrow
+    kernels 10/10/4/2 as before (gru1 + gru2 of five blocks forward and
+    backward; the student's forward with c and backward, the teacher's
+    forward)."""
+    from tatt_tpu_torch.data.collate import collate
+    from tatt_tpu_torch.data.synthetic import SyntheticTextDataset
+    from tatt_tpu_torch.kernels import gru, lstm, query_gru
+    from tatt_tpu_torch.models.common import init_parameters
+    from tatt_tpu_torch.models.recognizers.crnn import CRNN
+    from tatt_tpu_torch.models.tsrn import TATT
+    from tatt_tpu_torch.train.loop import to_device
+    from tatt_tpu_torch.train.steps import StepConfig, train_step
+
+    models = [init_parameters(TATT(stn=True), 7).to(cuda)] + [
+        init_parameters(CRNN(), s).to(cuda) for s in (8, 9)]
+    ds = SyntheticTextDataset(n=4, seed=5)
+    hr, lr = to_device(collate([ds[i] for i in range(4)]), cuda, True)
+    batch = {"images_hr": hr, "images_lr": lr,
+             "rot_arc": torch.linspace(-0.08, 0.08, 4, device=cuda),
+             "rot_offs": torch.linspace(0.1, 0.9, 4, device=cuda)}
+    opt = torch.optim.SGD([p for m in models[:2] for p in m.parameters()], lr=1e-3)
+    counters = (gru.bigru_recurrence, gru.bigru_recurrence_bwd, lstm.bilstm_recurrence,
+                lstm.bilstm_recurrence_bwd, query_gru.query_gru_recurrence,
+                query_gru.query_gru_recurrence_bwd)
+    before = [c.launches for c in counters]
+    metrics = train_step([models[0].train()], [models[1].train()], models[2].eval(), opt, batch,
+                         StepConfig(), torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [10, 10, 4, 2, 1, 1]
+    assert all(math.isfinite(v.item()) for v in metrics.values())

@@ -94,18 +94,73 @@ def test_bilstm_matches_pallas_interpret_and_scan(length):
 
 
 def test_wide_bigru_takes_the_plain_path():
-    """Hidden above the kernel's 128 (the query GRU's 512 at full width)
-    runs bigru_apply on every device, as JAX keeps it off its kernel."""
-    from tatt_tpu_torch.kernels import gru
+    """Hidden above the narrow kernels' 128 (the query GRU's 512 at full
+    width): on the card a float32 row now runs the chains of
+    ``kernels/query_gru.py``; on the CPU it runs bigru_apply, as JAX keeps
+    it on lax.scan.  At hidden 130 on the CPU the module's forward and
+    gradients match JAX's bigru_apply and no launch counter moves, narrow
+    or wide; the chains' autograd.Function over their plain twins matches
+    too."""
+    import jax
+
+    from tatt_tpu_torch.kernels import gru, query_gru
 
     rng = np.random.default_rng(7)
     x = rng.standard_normal((1, 3, 4)).astype(np.float32)
     params = _params(rng, 4, 130, 3)
-    gru_mod = _load(trnn.BiGRU(4, 130), *params)
-    before = gru.bigru_recurrence.launches
-    with torch.no_grad():
-        got = gru_mod(torch.from_numpy(x)).numpy()
-    want = np.asarray(jrnn.bigru_apply(*(jnp.asarray(a) for a in (x, *params))))
-    np.testing.assert_allclose(got, want, **TOL)
-    assert gru.bigru_recurrence.launches == before
+    dy = rng.standard_normal((1, 3, 260)).astype(np.float32)
 
+    def loss(*args):  # one jitted forward and backward: eager JAX dispatches op by op
+        y = jrnn.bigru_apply(*args, unroll=1)
+        return (y * dy).sum(), y
+
+    (_, want), want_grads = jax.jit(jax.value_and_grad(loss, argnums=tuple(range(5)), has_aux=True))(
+        *(jnp.asarray(a) for a in (x, *params)))
+    want, want_grads = np.asarray(want), [np.asarray(g) for g in want_grads]
+
+    counters = (gru.bigru_recurrence, gru.bigru_recurrence_bwd,
+                query_gru.query_gru_recurrence, query_gru.query_gru_recurrence_bwd)
+    before = [c.launches for c in counters]
+    gru_mod = _load(trnn.BiGRU(4, 130), *params)
+    xt = torch.from_numpy(x).requires_grad_()
+    assert not query_gru.serves(xt, 130)
+    got = gru_mod(xt)
+    got.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), want_grads[0], **TOL)
+    for name, g in zip(("weight_ih", "weight_hh", "bias_ih", "bias_hh"), want_grads[1:]):
+        for d, sfx in enumerate(("_l0", "_l0_reverse")):
+            np.testing.assert_allclose(getattr(gru_mod, name + sfx).grad.numpy(), g[d], **TOL)
+    assert [c.launches for c in counters] == before
+
+    xt2 = torch.from_numpy(x).requires_grad_()
+    w_ih, w_hh, b_ih, b_hh = (torch.from_numpy(a).requires_grad_() for a in params)
+    xw = torch.einsum("rli,dgi->dlgr", xt2, w_ih)
+    y = query_gru.QueryGRURecurrence.apply(xw, b_ih, w_hh, b_hh).permute(2, 0, 1)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(y.detach().numpy(), want, **TOL)
+    for t, g in zip((xt2, w_ih, w_hh, b_ih, b_hh), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), g, **TOL)
+    assert [c.launches for c in counters] == before
+
+
+def test_query_gru_kernel_names_stay_out_of_the_rooflines():
+    """The benchmark's roofline readers sum the device time of every kernel
+    whose name contains one listed in ``stisr_bench/metrics/*_roofline.json``
+    and hold it against the narrow kernels' launches; no ``__global__`` of
+    ``csrc/query_gru.cu`` may contain such a name."""
+    import glob
+    import json
+    import os
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    listed = set()
+    for path in glob.glob(os.path.join(root, "stisr_bench", "metrics", "*_roofline.json")):
+        with open(path) as f:
+            listed.update(json.load(f)["kernels"])
+    with open(os.path.join(root, "tatt_tpu_torch", "csrc", "query_gru.cu")) as f:
+        src = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert len(names) == 2 and listed
+    assert not [(n, k) for n in names for k in listed if k in n]
