@@ -4,7 +4,9 @@
 --trace <0|1>`` runs one cell of ``BENCHMARK.json`` on the card.  Each
 configuration (``configs/``), cell (``workloads/``), traffic mix
 (``mixes/``, with its driver in ``drivers/``) and per-layer metric
-(``metrics/``) is a file of its own, found by its name in the manifest.
-``reference/`` is the plain PyTorch reference that decides ``correct``;
-``calibrate.py`` takes the readings that the limits were set from.
+(``metrics/``, with a kernel roofline's spec beside it and its bound in
+``bounds/``) is a file of its own, found by its name in the manifest.
+``reference/`` is the plain PyTorch reference that decides ``correct``,
+one file an arch in ``reference/archs/``; ``calibrate.py`` takes the
+readings that the limits were set from.
 """

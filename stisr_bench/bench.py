@@ -1,13 +1,17 @@
 """The manifest and the files it names, and the run's result line.
 
 A cell (``--workload``) is found by its name in ``BENCHMARK.json`` at the
-checkout's root; its entry names a configuration (``configs/<config>.json``)
+checkout's root; its entry names a configuration (``configs/<config>.json``,
+whose ``arch`` names its plain reference, ``reference/archs/<arch>.py``)
 and a traffic mix (``mixes/<traffic>.json``, whose ``driver`` is
 ``drivers/<driver>.py``); the cell's own parameters are in
 ``workloads/<name>.json``; each per-layer metric that the manifest lists
 for the cell (each lists its cells under ``workloads``) is read by
-``metrics/<metric>.py``.  Nothing here names a cell, a configuration or a
-metric: a new one is new files and entries.
+``metrics/<metric>.py``, and a kernel's roofline metrics
+``<kernel>_roofline.<mode>`` by the spec ``metrics/<kernel>_roofline.json``
+and its bound file ``bounds/<bound>.py`` (:mod:`stisr_bench.bounds`).
+Nothing here names a cell, a configuration, an arch, a metric or a
+kernel: a new one is new files and entries.
 """
 
 from __future__ import annotations
@@ -65,6 +69,22 @@ def load_module(path: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def rooflines(cell: Cell) -> dict:
+    """{name: spec} of the kernel roofline specs, ``metrics/<name>.json``,
+    that the cell's per-layer metrics ``<name>.<mode>`` read."""
+    out = {}
+    for m in cell.per_layer:
+        name = m["name"].split(".", 1)[0]
+        if os.path.exists(os.path.join(HERE, "metrics", f"{name}.json")):
+            out[name] = _json(HERE, "metrics", f"{name}.json")
+    return out
+
+
+def bounds(spec: dict):
+    """The bound file of a roofline spec, ``bounds/<bound>.py``."""
+    return load_module(os.path.join(HERE, "bounds", f"{spec['bound']}.py"))
 
 
 def read_per_layer(cell: Cell, ctx: dict) -> dict:

@@ -11,7 +11,7 @@ pass ends on the host's reads, which wait for the card).  The first pass of the 
 check: every set's summary, and in ``sample_batches`` batches a set,
 drawn from the seed, the SR images, the judge's logits and its strings.
 With ``--trace 1`` the window gives the whole step's FLOP rate, and one
-profiled pass the device's idle share and the recurrences' rooflines.
+profiled pass the device's idle share and the kernels' rooflines.
 After the window the program is freed and the reference evaluates the
 same sets from the same weights.  :func:`calibrate_seed` takes the
 readings that the cell's limits are set from.
@@ -166,8 +166,8 @@ def run(cell, seed: int, seconds: float, traced: bool, t0: float) -> None:
         if traced:
             ctx = harness.context("eval", cell.config, window)
             ctx["trace"] = traced_window = trace.profile(
-                one_pass, [*models[0], *models[1], models[2]], program.recurrent_modules(),
-                program.launch_counters, harness.sync)
+                one_pass, [*models[0], *models[1], models[2]], bench.rooflines(cell),
+                harness.sync)
             ctx["flops"] = flops.eval_batch(cell.config, batch) / batch
             metrics = bench.read_per_layer(cell, ctx)
             breakdown = {"device_ops": traced_window["device_ops"],

@@ -11,7 +11,7 @@ each call ends on the host's read of its metrics, which waits for the
 card.  The mix's rate metric is the window's images over its wall time.
 With ``--trace 1`` the same window gives the loader's wait, the peak
 memory and the whole step's FLOP rate, and a further profiled call of
-``trace_steps`` steps the device's idle share and the recurrences'
+``trace_steps`` steps the device's idle share and the kernels'
 rooflines.  After the window the program is freed and the reference
 takes its first steps from the same weights, on the same rows with the
 same draws.  :func:`calibrate_seed` takes the readings that the cell's
@@ -118,8 +118,7 @@ def run(cell, seed: int, seconds: float, traced: bool, t0: float) -> None:
             ctx = harness.context("train", cell.config, window)
             ctx["trace"] = traced_window = trace.profile(
                 lambda: trainer.train(max_iters=trainer.iters + mix["trace_steps"]),
-                [*models[0], *models[1], models[2]], program.recurrent_modules(),
-                program.launch_counters, harness.sync)
+                [*models[0], *models[1], models[2]], bench.rooflines(cell), harness.sync)
             ctx["flops"] = flops.train_step(cell.config, batch)
             metrics = bench.read_per_layer(cell, ctx)
             breakdown = {"device_ops": traced_window["device_ops"],

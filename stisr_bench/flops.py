@@ -2,11 +2,12 @@
 
 ``torch.utils.flop_counter.FlopCounterMode`` counts the matrix products
 and convolutions (forward, and for a train step the backward too) of the
-reference's step on meta tensors at the cell's shapes: nothing is
-computed, and the port's model is never counted, whose recurrences run
-in kernels that the counter cannot see.  The reference's recurrences are
-loops of matrix products, so theirs are counted.  Dropout and the
-rotation draw nothing here; they add no products.
+reference's step (its arch's ``loss`` and ``sr``, ``reference/archs/``)
+on meta tensors at the cell's shapes: nothing is computed, and the port's
+model is never counted, whose recurrences run in kernels that the counter
+cannot see.  The reference's recurrences are loops of matrix products, so
+theirs are counted.  Dropout and the rotation draw nothing here; they add
+no products.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from stisr_bench.reference import nets, ops, steps
+from stisr_bench.reference import archs, nets, ops, steps
 
 
 def _images(batch: int, geometry: dict) -> dict:
@@ -32,7 +33,7 @@ def train_step(config: dict, batch: int) -> float:
     models["teacher"].eval()
     counter = FlopCounterMode(display=False)
     with counter:
-        steps.LOSSES[config["arch"]](models, _images(batch, config["geometry"]), None).backward()
+        archs.load(config["arch"]).loss(models, _images(batch, config["geometry"]), None).backward()
     return float(counter.get_total_flops())
 
 

@@ -125,19 +125,3 @@ def prepare_device(build: bool = True) -> float:
     set_cuda_flags()
     return _build.build() if build else 0.0
 
-
-def launch_counters() -> dict:
-    """The port's recurrence launch counters, by kernel."""
-    from tatt_tpu_torch.kernels import gru, lstm
-
-    return {"bigru_fwd": gru.bigru_recurrence.launches,
-            "bigru_bwd": gru.bigru_recurrence_bwd.launches,
-            "bilstm_fwd": lstm.bilstm_recurrence.launches,
-            "bilstm_bwd": lstm.bilstm_recurrence_bwd.launches}
-
-
-def recurrent_modules() -> dict:
-    """The port's recurrent layer classes, by kind."""
-    from tatt_tpu_torch.kernels.rnn import BiGRU, BiLSTM
-
-    return {"gru": BiGRU, "lstm": BiLSTM}

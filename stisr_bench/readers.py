@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 
-from stisr_bench.roofline import bound
+from stisr_bench import bench
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -41,8 +41,8 @@ def mfu(ctx: dict, mode: str):
 
 def roofline(ctx: dict, mode: str, spec_file: str):
     """Percent: the least time of the profiled window's launches of one
-    recurrence (:func:`stisr_bench.roofline.bound` at each launch's
-    shape) over the device seconds of the kernels that ``spec_file``
+    kernel (the bound file of the spec ``metrics/<spec_file>`` at each
+    launch's shape) over the device seconds of the kernels that the spec
     names.  None when the recorded launches disagree with the program's
     own launch counters, or no such kernel ran."""
     t, peak = ctx.get("trace"), ctx.get("peak")
@@ -50,14 +50,14 @@ def roofline(ctx: dict, mode: str, spec_file: str):
         return None
     with open(os.path.join(HERE, "metrics", spec_file)) as f:
         spec = json.load(f)
-    kind = spec["recurrence"]
-    calls = [c for c in t["launches"] if c[0] == kind and c[3] <= spec["max_hidden"]]
+    calls = t["launches"].get(spec_file[: -len(".json")], [])
     fwd = len(calls)
-    bwd = sum(1 for c in calls if c[4])
-    if (fwd, bwd) != tuple(t["counted"][k] for k in spec["counters"]) or fwd == 0:
+    bwd = sum(1 for _, b in calls if b)
+    if fwd == 0 or (fwd, bwd) != tuple(t["counted"].get(c) for c in spec["counters"]):
         return None
-    least = sum(bound(kind, L, R, H, False, peak)[0] + (bound(kind, L, R, H, True, peak)[0] if b else 0.0)
-                for _, L, R, H, b in calls)
+    bounds = bench.bounds(spec)
+    least = sum(bounds.bound(s, False, peak)[0] + (bounds.bound(s, True, peak)[0] if b else 0.0)
+                for s, b in calls)
     spent = sum(s for name, s in t["device_s"].items() if any(k in name for k in spec["kernels"]))
     return 100.0 * least / spent if spent > 0 else None
 

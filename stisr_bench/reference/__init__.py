@@ -1,4 +1,6 @@
-"""The benchmark's plain reference of TATT and TSRN, frozen.
+"""The benchmark's plain reference of each configuration, frozen: its
+arch's file ``archs/<arch>.py`` (generator, loss, SR) on the layers of
+``nets`` and the steps of ``steps``.
 
 Plain PyTorch and NumPy only: no kernel of the port, no cache, no
 batching tricks.  The recurrences are Python loops over time steps under

@@ -1,5 +1,8 @@
-"""The reference's networks: TATT (arXiv:2203.09388), TSRN (TextZoom,
-arXiv:2005.03341) and the CRNN that is the text prior and the judge.
+"""The reference's layers that more than one arch uses: convolutions,
+BatchNorm, the BiGRU and BiLSTM loops, the STN head, the TP Interpreter,
+the trunk of SRBs (``_Trunk``) and the CRNN that is the text prior and
+the judge.  Each arch's generator, loss and SR are in ``archs/<arch>.py``
+(:func:`build`).
 
 Layouts and names are those of the published PyTorch code
 (``model/tsrn.py``, ``model/stn_head.py``, ``model/transformer_v2.py``,
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import ops
+from . import archs, ops
 
 
 class Conv2d(nn.Module):
@@ -411,39 +414,6 @@ class _Trunk(nn.Module):
         return torch.tanh(x)
 
 
-class TATT(_Trunk):
-    """The TATT generator: [N, 4, H/s, W/s] and a prior [N, C, 1, T] ->
-    ([N, 4, H, W], the TP Interpreter's attention weights)."""
-
-    def __init__(self, width: int, height: int, scale: int, srb: int, hidden: int,
-                 text_emb: int, stn: bool, mask: bool = True, dropout: float = 0.1):
-        super().__init__()
-        ch, lr = 2 * hidden, (height // scale, width // scale)
-        self.rate = dropout
-        self._build(4 if mask else 3, ch, srb, stn, ch, scale, lr)
-        self.infoGen = TPInterpreter(text_emb, ch, lr)
-
-    def forward(self, x, prior, copies: int = 1, gen=None):
-        x = self.rectify(x, copies)
-        b1 = self.stem(x)
-        rate, gen = (self.rate, gen) if self.training else (0.0, None)
-        tp_map, weights = self.infoGen(b1, prior, rate, gen)
-        return self.trunk(b1, tp_map, copies), weights
-
-
-class TSRN(_Trunk):
-    """The TextZoom baseline: [N, 4, H/s, W/s] -> [N, 4, H, W]."""
-
-    def __init__(self, width: int, height: int, scale: int, srb: int, hidden: int,
-                 stn: bool, mask: bool = True):
-        super().__init__()
-        self._build(4 if mask else 3, 2 * hidden, srb, stn, 0, scale,
-                    (height // scale, width // scale))
-
-    def forward(self, x):
-        return self.trunk(self.stem(self.rectify(x)))
-
-
 # --- the CRNN -----------------------------------------------------------------
 
 class _CNN(nn.Module):
@@ -493,23 +463,21 @@ class CRNN(nn.Module):
         return seq.transpose(0, 1)
 
 
+def trunk_args(config: dict) -> dict:
+    """The keyword arguments of a ``_Trunk`` generator from a
+    configuration file: geometry, SRBs, hidden units, ``--STN`` and
+    ``--mask``."""
+    g, flags = config["geometry"], config["flags"]
+    return dict(width=g["width"], height=g["height"], scale=g["down_sample_scale"],
+                srb=config["srb"], hidden=config["hd_u"], stn="--STN" in flags,
+                mask="--mask" in flags)
+
+
 def build(config: dict) -> dict:
-    """The reference's models of a configuration file: the ``generator``,
-    the ``student`` CRNN (the TATT prior's; an arch without a prior trains
-    it with zero gradients, as the program's one Adam does) and the frozen
-    ``teacher`` CRNN, which is also the judge."""
-    g, arch, flags = config["geometry"], config["arch"], config["flags"]
-    common = dict(width=g["width"], height=g["height"], scale=g["down_sample_scale"],
-                  srb=config["srb"], hidden=config["hd_u"], stn="--STN" in flags,
-                  mask="--mask" in flags)
-    crnn = config["recognizer"]
-    if arch == "tatt":
-        generator = TATT(text_emb=crnn["nclass"], **common)
-    elif arch == "tsrn":
-        generator = TSRN(**common)
-    else:
-        raise ValueError(f"the reference has no arch {arch!r}")
-    return {"generator": generator, "student": CRNN(**crnn), "teacher": CRNN(**crnn)}
+    """The reference's models of a configuration file, as its arch's file
+    (``archs/<arch>.py``) builds them: the ``generator``, the ``student``
+    and the frozen ``teacher``, which is also the judge."""
+    return archs.load(config["arch"]).build(config)
 
 
 def control_points(num_ctrl: int = 20) -> np.ndarray:

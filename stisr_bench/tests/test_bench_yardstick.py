@@ -14,6 +14,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from stisr_bench import bench, guard, harness, program, roofline, weights
+from stisr_bench.bounds import recurrence
 from stisr_bench.reference import nets, ops
 
 H100 = roofline.peaks("NVIDIA H100 80GB HBM3")
@@ -25,7 +26,7 @@ H100 = roofline.peaks("NVIDIA H100 80GB HBM3")
     ("lstm", 26, 64, 256, True, 0.0784, "operations"),
 ])
 def test_bound_reproduces_the_kernel_table(kind, length, rows, hid, backward, ms, by):
-    t, what = roofline.bound(kind, length, rows, hid, backward, H100)
+    t, what = recurrence.bound(kind, length, rows, hid, backward, H100)
     assert round(t * 1e3, 4) == ms and what == by
 
 
@@ -99,7 +100,7 @@ def test_nothing_imports_jax_and_the_reference_nothing_of_the_program():
             path = os.path.join(folder, f)
             tops = {m.split(".")[0] for m in _imports(path)}
             assert not tops & set(guard.FORBIDDEN), path
-            if os.path.basename(folder) == "reference":
+            if os.path.relpath(folder, bench.HERE).split(os.sep)[0] == "reference":
                 assert "tatt_tpu_torch" not in tops and "stisr_bench" not in tops, path
 
 

@@ -6,18 +6,23 @@ over a call that ends in a synchronize.  From the device events: the busy
 seconds (the union of their intervals), device seconds by name, and the
 idle gaps between busy intervals, each named by what the host's main
 thread was doing at the gap's middle (the innermost operation or
-benchmark span open there, or ``host: python``).  Forward pre-hooks on
-the program's recurrent layers record each call's rows, length and hidden
-size over the same window, the shapes the roofline metrics bound.
+benchmark span open there, or ``host: python``).  For each kernel
+roofline that the cell reads (``metrics/<name>.json``, see
+:mod:`stisr_bench.bounds`), forward pre-hooks on the program's layers of
+the spec's class record the shape of each launch over the same window,
+and the spec's launch counters are read before and after it.
 """
 
 from __future__ import annotations
 
 import bisect
+import pkgutil
 import time
 from collections import Counter, defaultdict
 
 import torch
+
+from stisr_bench import bench
 
 SPAN = "stisr_bench."  # prefix of the benchmark's own record_function spans
 IDLE = "host: python"  # no operation open on the host
@@ -34,30 +39,32 @@ def _merge(intervals):
 
 
 class _ShapeHooks:
-    """(kind, length, rows, hidden, backward) of each call of the
-    program's recurrent layers while installed."""
+    """{roofline: [(shape, backward), ...]}: each launch of each spec's
+    kernel (its bound file's ``shapes``) in the calls of the spec's layer
+    class while installed; ``backward`` when autograd records the call
+    and the layer has a parameter that wants a gradient."""
 
-    def __init__(self, models, classes: dict):
-        self.models, self.classes, self.calls, self.handles = models, classes, [], []
+    def __init__(self, models, rooflines: dict):
+        self.models, self.rooflines, self.handles = models, rooflines, []
+        self.calls = {name: [] for name in rooflines}
 
     def __enter__(self):
-        def hook_for(kind):
+        def hook_for(name, shapes):
             def hook(module, args):
-                x = args[0]
                 grad = torch.is_grad_enabled() and any(
                     p.requires_grad for p in module.parameters(recurse=False))
-                for _ in range(getattr(module, "num_layers", 1)):
-                    self.calls.append((kind, int(x.shape[1]), int(x.shape[0]), int(module.hidden),
-                                       bool(grad)))
+                self.calls[name].extend((s, bool(grad)) for s in shapes(module, args))
             return hook
 
-        for kind, cls in self.classes.items():
+        for name, spec in self.rooflines.items():
+            cls = pkgutil.resolve_name(spec["module"])
+            hook = hook_for(name, bench.bounds(spec).shapes)
             seen = set()
             for model in self.models:
                 for module in model.modules():
                     if isinstance(module, cls) and id(module) not in seen:
                         seen.add(id(module))
-                        self.handles.append(module.register_forward_pre_hook(hook_for(kind)))
+                        self.handles.append(module.register_forward_pre_hook(hook))
         return self
 
     def __exit__(self, *exc):
@@ -65,25 +72,31 @@ class _ShapeHooks:
             h.remove()
 
 
-def profile(fn, models, classes: dict, counters, sync=torch.cuda.synchronize) -> dict:
-    """Run ``fn()`` under the profiler, with the shape hooks on the layers
-    of ``classes`` ({kind: class}) inside ``models``; returns ``busy_s``, ``window_s``,
+def _counters(rooflines: dict) -> dict:
+    """{path: value} of every launch counter that the specs name."""
+    return {c: pkgutil.resolve_name(c) for spec in rooflines.values() for c in spec["counters"]}
+
+
+def profile(fn, models, rooflines: dict, sync=torch.cuda.synchronize) -> dict:
+    """Run ``fn()`` under the profiler, with the shape hooks of
+    ``rooflines`` ({name: spec}, :func:`stisr_bench.bench.rooflines`) on
+    the layers inside ``models``; returns ``busy_s``, ``window_s``,
     ``device_s`` {name: seconds}, ``device_ops`` and ``idle_gaps`` (the
     ten largest, [name, seconds]), ``launches`` (the shape hooks' calls)
-    and ``counted`` (the program's launch counters over the window)."""
+    and ``counted`` (each spec counter's launches over the window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     sync()
-    before = counters()
-    with _ShapeHooks(models, classes) as hooks, torch_profile(
+    before = _counters(rooflines)
+    with _ShapeHooks(models, rooflines) as hooks, torch_profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
         window_s = time.perf_counter() - t0
-    after = counters()
+    after = _counters(rooflines)
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA and _on_device(e)]
     busy = _merge((e.time_range.start, e.time_range.end) for e in device)
